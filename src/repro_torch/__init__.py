@@ -1,0 +1,12 @@
+"""I/O efficient core decomposition on PyTorch and CUDA.
+
+The port of the ``repro`` JAX package to an NVIDIA H100: the paper's
+SemiCore / SemiCore+ / SemiCore* decomposition with its I/O accounting,
+the warm settle and the masked settle, run device-resident through one
+hand-written CUDA superstep kernel pair (``kernels/csrc``).  It imports
+torch and numpy only.
+
+    from repro_torch.core import decompose
+    from repro_torch.graph import chung_lu
+    r = decompose(chung_lu(10_000, 50_000), "semicore*")   # on cuda:0
+"""

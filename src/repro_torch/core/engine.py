@@ -1,0 +1,722 @@
+"""Schedule-agnostic superstep engine: one pass-planner, pluggable compute.
+
+The port's counterpart of ``repro/core/engine.py``:
+
+* :class:`PassPlanner` owns everything about a pass that is not arithmetic:
+  frontier selection and all :class:`BlockReader` I/O accounting.  Its
+  accounting does not depend on the backend, so every backend reports the
+  same ``edge_block_reads`` / ``node_table_reads`` for the same run.
+* :class:`ComputeBackend` is the arithmetic: ``h_index`` (LocalCore, Eq. 1,
+  capped at the old value), ``compute_cnt`` (Eq. 2) and ``push_decrements``
+  (the UpdateNbrCnt push rule), all exact over integers.
+* Backends: :class:`NumpyBackend` (the vectorized host reference) and
+  :class:`CudaBackend` (the hand-written superstep kernels of
+  ``kernels/fused_superstep.py``, counterpart of the reference's
+  ``PallasBackend``).  Device backends run the whole fixpoint
+  device-resident (``resident.run_resident``) unless
+  ``REPRO_TORCH_DEVICE_RESIDENT=0`` selects the per-pass loop below.
+
+Device backends run on ``cuda:0`` unless given another device; asking for
+the default device without a GPU raises (``device="cpu"`` runs the kernels'
+plain versions on the host, as the CPU tests do).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .. import runtime as _runtime
+from ..obs import metrics as _metrics, trace as _trace
+from .localcore import h_index_batch, compute_cnt_batch
+
+__all__ = [
+    "DecompResult",
+    "PassPlanner",
+    "ComputeBackend",
+    "NumpyBackend",
+    "DeviceBackend",
+    "CudaBackend",
+    "resolve_backend",
+    "resolve_device",
+    "run_batch",
+    "warm_settle",
+]
+
+# Registry mirrors of the kernel-block tallies, incremented at the same
+# sites as the backend's own counters (begin_pass here, the frontier replay
+# in resident.py) so deltas reconcile with DecompResult.kernel_blocks_*.
+_KB_ACTIVE = _metrics.counter(
+    "repro_kernel_blocks_active_total",
+    "Kernel blocks holding a frontier row's edges, summed over passes",
+).labels()
+_KB_SKIPPED = _metrics.counter(
+    "repro_kernel_blocks_skipped_total",
+    "Kernel blocks skipped by the frontier activity mask",
+).labels()
+
+_MAINT_PROLOGUE = _metrics.histogram(
+    "repro_maintenance_cnt_prologue_seconds",
+    "Exact-cnt full-scan prologue cost of warm settles (Eq. 2 over all nodes)",
+)
+
+
+def _pass_obs(algorithm: str, backend_name: str, schedule: str = "batch"):
+    """The per-pass counter series (passes, frontier nodes, core updates)
+    for one (algorithm, backend, schedule)."""
+    lab = dict(algorithm=algorithm, backend=backend_name, schedule=schedule)
+    return (
+        _metrics.counter(
+            "repro_engine_passes_total",
+            "Supersteps executed (== DecompResult.iterations per run)",
+        ).labels(**lab),
+        _metrics.counter(
+            "repro_engine_frontier_nodes_total",
+            "Nodes recomputed, summed over passes (== node_computations)",
+        ).labels(**lab),
+        _metrics.counter(
+            "repro_engine_updates_total",
+            "Core-value updates, summed over passes",
+        ).labels(**lab),
+    )
+
+
+def _kernel_counts(backend) -> tuple:
+    return (getattr(backend, "kernel_blocks_active", 0),
+            getattr(backend, "kernel_blocks_skipped", 0))
+
+
+def _finish_pass_span(sp, backend, c_old_f, changed, ka0, ks0) -> None:
+    """Attach pass args: updates, binary-search probe depth and kernel
+    block activity."""
+    cmax = int(c_old_f.max()) if len(c_old_f) else 0
+    sp.set(updates=int(changed),
+           hindex_probes=int(np.ceil(np.log2(cmax + 2))) if cmax else 0)
+    ka1, ks1 = _kernel_counts(backend)
+    if (ka1 - ka0) or (ks1 - ks0):
+        sp.set(kernel_blocks_active=ka1 - ka0,
+               kernel_blocks_skipped=ks1 - ks0)
+
+
+@dataclass
+class DecompResult:
+    core: np.ndarray
+    cnt: np.ndarray | None
+    iterations: int
+    node_computations: int
+    edge_block_reads: int
+    node_table_reads: int
+    algorithm: str
+    schedule: str
+    updates_per_iter: list = field(default_factory=list)
+    computations_per_iter: list = field(default_factory=list)
+    backend: str = "numpy"
+    # device backends: per-pass kernel-block activity at the accounting
+    # block size; active + skipped = kernel blocks summed over passes
+    kernel_blocks_active: int = 0
+    kernel_blocks_skipped: int = 0
+
+    @property
+    def kmax(self) -> int:
+        return int(self.core.max()) if len(self.core) else 0
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the first GPU, and raises without one: the port never
+    falls back to the CPU unasked.  Any explicit device passes through."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on the GPU (cuda:0) by default and CUDA is "
+                "not available here; pass device='cpu' to run the kernels' "
+                "plain versions on the host")
+        return torch.device("cuda", 0)
+    return torch.device(device)
+
+
+# ===========================================================================
+# Compute backends
+# ===========================================================================
+class ComputeBackend:
+    """Arithmetic of one superstep over flattened CSR segments.
+
+    ``vals``/``seg_ptr`` follow the ``PassPlanner.gather`` layout: ``vals``
+    holds the neighbour core values of the P frontier nodes segment by
+    segment, ``seg_ptr`` the (P+1,) offsets.
+    """
+
+    name = "abstract"
+    # whether the backend reads the gathered (vals, seg_ptr) arrays; a
+    # full-table backend skips the host gather where only the charge counts
+    consumes_gather = True
+    # device backends run the whole fixpoint device-resident (resident.py)
+    device_resident = False
+
+    def bind(self, planner: "PassPlanner") -> None:
+        """Called once per run, before the first pass."""
+
+    def unbind(self) -> None:
+        """Called when a run's result is built; drop any bound working set."""
+
+    def begin_pass(self, frontier: np.ndarray, core: np.ndarray) -> None:
+        """Called at the start of every pass with the frontier node ids and
+        the pass-start core array."""
+
+    def io_report(self) -> dict:
+        """Backend-side I/O effects (kernel blocks)."""
+        return {}
+
+    def h_index(self, vals, seg_ptr, c_old) -> np.ndarray:
+        """min(h-index of each segment, c_old) — LocalCore (Eq. 1)."""
+        raise NotImplementedError
+
+    def compute_cnt(self, vals, seg_ptr, thresholds) -> np.ndarray:
+        """#{u in segment : vals(u) >= threshold(segment)} — Eq. 2."""
+        raise NotImplementedError
+
+    def push_decrements(self, nbr_flat: np.ndarray, seg_ptr: np.ndarray,
+                        h: np.ndarray, c_old: np.ndarray, core: np.ndarray,
+                        n: int) -> np.ndarray:
+        """UpdateNbrCnt push rule: dec[u] = #{edges (v -> u) in the frontier
+        adjacency : core_now(u) in (h(v), c_old(v)]}, on the host (cnt is
+        in-memory node state; no edge I/O is involved)."""
+        lens = np.diff(seg_ptr)
+        h_rep = np.repeat(h, lens)
+        c_old_rep = np.repeat(c_old, lens)
+        core_now_u = core[nbr_flat]
+        mask = (core_now_u > h_rep) & (core_now_u <= c_old_rep)
+        if mask.any():
+            return np.bincount(nbr_flat[mask].astype(np.int64), minlength=n)
+        return np.zeros(n, dtype=np.int64)
+
+
+class NumpyBackend(ComputeBackend):
+    """The vectorized host reference (localcore.py)."""
+
+    name = "numpy"
+
+    def h_index(self, vals, seg_ptr, c_old):
+        return np.minimum(h_index_batch(vals, seg_ptr), c_old)
+
+    def compute_cnt(self, vals, seg_ptr, thresholds):
+        return compute_cnt_batch(vals, seg_ptr, thresholds)
+
+
+class DeviceBackend(ComputeBackend):
+    """Device residency shared by the device backends.
+
+    The flat merged edge table is built and uploaded once per *graph
+    version* — a :class:`~repro_torch.core.resident.ResidentStructure` keyed
+    by base-CSR identity plus ``BufferedGraph.version`` — and reused across
+    runs and supersteps.  ``retain_structure=False`` (the default) drops it
+    when a result is built, so a one-shot ``decompose`` keeps no O(m) copy.
+    """
+
+    device_resident = True
+    retain_structure = False
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self._resident = None
+        self.structure_builds = 0  # cache-miss counter
+
+    def bind_resident(self, planner: "PassPlanner"):
+        """The resident working set for the planner's current graph
+        version; cached, rebuilt only on structural change."""
+        from .resident import build_structure
+
+        planner.eng._sync()
+        rs = self._resident
+        if rs is not None and rs.matches(planner):
+            return rs
+        with _trace.span("resident.structure", cat="engine",
+                         backend=self.name, nodes=planner.n):
+            rs = build_structure(planner, self.device)
+        self.structure_builds += 1
+        self._resident = rs
+        return rs
+
+    def release_resident(self) -> None:
+        if not self.retain_structure:
+            self._resident = None
+
+    def unbind(self):
+        self.release_resident()
+
+
+class CudaBackend(DeviceBackend):
+    """The hand-written superstep kernels (counterpart of the reference's
+    ``PallasBackend``).
+
+    The default path runs the whole fixpoint device-resident
+    (``resident.run_resident``): one ``fused_pass`` (row pass + push pass)
+    per superstep.  The per-pass methods below serve the
+    ``REPRO_TORCH_DEVICE_RESIDENT=0`` loop: one ``fused_hindex`` launch per
+    pass returns ``(h, cnt_at_h)``, so the SemiCore* pass's
+    ``compute_cnt(thresholds == h)`` is served from a per-pass cache.
+
+    Kernel-block accounting replays the frontier's edge spans at
+    ``min(reader.block_edges, 512)`` edges per block, as the reference's
+    pallas backend does, so ``kernel_blocks_active``/``skipped`` match it.
+
+    ``plain=True`` runs the kernels' plain torch versions on the backend's
+    device instead: the yardstick the card's parity checks compare with.
+    """
+
+    name = "cuda"
+    consumes_gather = False  # scans its own resident full table
+
+    def __init__(self, *, device=None, block_edges: int | None = None,
+                 plain: bool = False):
+        super().__init__(device)
+        from ..kernels import fused_superstep as fsk
+
+        self.block_edges = block_edges
+        self.plain = bool(plain)
+        if self.plain:
+            self.name = "cuda-plain"
+            self.fused_pass = fsk.fused_pass_plain
+            self.fused_hindex = fsk.fused_hindex_plain
+            self.fused_counts = fsk.fused_counts_plain
+        else:
+            self.fused_pass = fsk.fused_pass
+            self.fused_hindex = fsk.fused_hindex
+            self.fused_counts = fsk.fused_counts
+        self.kernel_blocks_active = 0
+        self.kernel_blocks_skipped = 0
+
+    def accounting_block_edges(self, planner) -> int:
+        be = self.block_edges or min(planner.reader.block_edges, 512)
+        return max(1, int(be))
+
+    # -- lifecycle ----------------------------------------------------------
+    def bind(self, planner):
+        self.kernel_blocks_active = 0
+        self.kernel_blocks_skipped = 0
+        rs = self.bind_resident(planner)
+        self.n = planner.n
+        self.E = rs.E
+        self.seg_ptr = rs.seg_ptr  # flat-table offsets, for block coverage
+        self.be = self.accounting_block_edges(planner)
+        self.nb = -(-max(rs.E, 1) // self.be)
+
+    def unbind(self):
+        for attr in ("seg_ptr", "_core0", "_active", "_frontier",
+                     "_cnt_cache"):
+            if hasattr(self, attr):
+                delattr(self, attr)
+        self.release_resident()
+
+    def begin_pass(self, frontier, core):
+        self._cnt_cache = None  # (thresholds, cnt) from the h_index launch
+        self._core0 = torch.as_tensor(
+            np.asarray(core, dtype=np.int32), device=self.device)
+        self._frontier = np.asarray(frontier, dtype=np.int64)
+        active = np.zeros(self.n, dtype=bool)
+        active[self._frontier] = True
+        self._active = torch.as_tensor(active, device=self.device)
+        if self.E:
+            # a kernel block is active iff some frontier node's edge span
+            # covers it
+            lo = self.seg_ptr[self._frontier]
+            hi = self.seg_ptr[self._frontier + 1]
+            nz = lo < hi
+            cov = np.zeros(self.nb + 1, dtype=np.int64)
+            if nz.any():
+                np.add.at(cov, lo[nz] // self.be, 1)
+                np.add.at(cov, (hi[nz] - 1) // self.be + 1, -1)
+            na = int((np.cumsum(cov[:-1]) > 0).sum())
+            self.kernel_blocks_active += na
+            self.kernel_blocks_skipped += self.nb - na
+            _KB_ACTIVE.inc(na)
+            _KB_SKIPPED.inc(self.nb - na)
+
+    def io_report(self):
+        return {
+            "kernel_blocks_active": self.kernel_blocks_active,
+            "kernel_blocks_skipped": self.kernel_blocks_skipped,
+        }
+
+    # -- per-pass ops over the resident table ---------------------------------
+    def h_index(self, vals, seg_ptr, c_old):
+        F = len(self._frontier)
+        c_old = np.asarray(c_old, dtype=np.int64)
+        cmax = int(c_old.max()) if F else 0
+        if F == 0 or cmax == 0 or self.E == 0:
+            return np.zeros(F, dtype=np.int64)
+        h_t, cnth_t = self.fused_hindex(self._core0, self._active,
+                                        *self._resident.edge_table())
+        h = h_t.cpu().numpy().astype(np.int64)[self._frontier]
+        self._cnt_cache = (
+            h, cnth_t.cpu().numpy().astype(np.int64)[self._frontier])
+        return h
+
+    def compute_cnt(self, vals, seg_ptr, thresholds):
+        F = len(self._frontier)
+        if F == 0 or self.E == 0:
+            return np.zeros(F, dtype=np.int64)
+        cache = self._cnt_cache
+        if cache is not None and np.array_equal(
+                cache[0], np.asarray(thresholds, dtype=np.int64)):
+            return cache[1]
+        thr = np.zeros(self.n, dtype=np.int32)
+        thr[self._frontier] = thresholds
+        cnt = self.fused_counts(
+            self._core0, torch.as_tensor(thr, device=self.device),
+            self._active, *self._resident.edge_table())
+        return cnt.cpu().numpy().astype(np.int64)[self._frontier]
+
+
+def resolve_backend(backend=None, device=None) -> ComputeBackend:
+    """Backend instance passthrough, or by name (``"cuda"`` | ``"numpy"``);
+    ``None`` resolves ``REPRO_TORCH_BACKEND`` (default ``"cuda"``), as the
+    reference's ``resolve_backend`` does.  ``device`` places a named device
+    backend."""
+    if isinstance(backend, ComputeBackend):
+        return backend
+    name = str(backend if backend is not None
+               else _runtime.setting("backend"))
+    if name == "numpy":
+        return NumpyBackend()
+    if name == "cuda":
+        return CudaBackend(device=device)
+    raise ValueError(f"unknown compute backend {name!r}")
+
+
+# ===========================================================================
+# Pass planner: frontier / I/O accounting
+# ===========================================================================
+class PassPlanner:
+    """Owns the I/O side of a pass over blocked storage: gather a frontier's
+    flattened adjacency (charging exact block I/O) and account a node-table
+    scan over the frontier's id range.  Compute never touches the reader."""
+
+    def __init__(self, engine):
+        self.eng = engine
+
+    @property
+    def reader(self):
+        return self.eng.reader
+
+    @property
+    def n(self) -> int:
+        return self.eng.n
+
+    def _segments(self, nodes: np.ndarray):
+        """Flattened raw-CSR adjacency of ``nodes`` (no I/O charge, no
+        buffered-delta merge): (nbr_flat, seg_ptr, lo, hi)."""
+        g = self.eng.graph
+        lo = g.indptr[nodes]
+        hi = g.indptr[nodes + 1]
+        lens = (hi - lo).astype(np.int64)
+        total = int(lens.sum())
+        seg_ptr = np.zeros(len(nodes) + 1, dtype=np.int64)
+        np.cumsum(lens, out=seg_ptr[1:])
+        if total:
+            flat = np.repeat(lo - seg_ptr[:-1], lens) + np.arange(
+                total, dtype=np.int64)
+            nbr_flat = np.asarray(g.adj)[flat]
+        else:
+            nbr_flat = np.empty(0, dtype=np.int32)
+        return nbr_flat, seg_ptr, lo, hi
+
+    def _merge_buffered(self, nodes, nbr_flat, seg_ptr):
+        """Splice buffered edge deltas into the flattened segments (no extra
+        block I/O), rebuilding only the dirty nodes' segments."""
+        buffered = self.eng.buffered
+        if buffered is None or not buffered._size:
+            return nbr_flat, seg_ptr
+        dirty = np.fromiter(
+            buffered._ins.keys() | buffered._del.keys(), dtype=np.int64)
+        hit = np.flatnonzero(np.isin(nodes, dirty))
+        if not len(hit):
+            return nbr_flat, seg_ptr
+        merged = [
+            np.asarray(buffered.merged_neighbors(
+                int(nodes[i]), nbr_flat[seg_ptr[i]: seg_ptr[i + 1]]),
+                dtype=np.int32)
+            for i in hit
+        ]
+        new_lens = np.diff(seg_ptr)
+        new_lens[hit] = [len(s) for s in merged]
+        new_ptr = np.zeros(len(nodes) + 1, dtype=np.int64)
+        np.cumsum(new_lens, out=new_ptr[1:])
+        out = np.empty(int(new_ptr[-1]), dtype=np.int32)
+        prev_old = 0
+        prev_new = 0
+        for seg, i in zip(merged, hit):
+            span = int(seg_ptr[i]) - prev_old  # untouched run before i
+            out[prev_new: prev_new + span] = nbr_flat[prev_old: prev_old + span]
+            prev_new += span
+            out[prev_new: prev_new + len(seg)] = seg
+            prev_new += len(seg)
+            prev_old = int(seg_ptr[i + 1])
+        out[prev_new:] = nbr_flat[prev_old:]
+        return out, new_ptr
+
+    def full_structure(self):
+        """Merged flat adjacency of *all* nodes, charge-free: the device
+        backend's resident working set (disk I/O stays per pass)."""
+        self.eng._sync()
+        nodes = np.arange(self.n, dtype=np.int64)
+        nbr_flat, seg_ptr, _, _ = self._segments(nodes)
+        return self._merge_buffered(nodes, nbr_flat, seg_ptr)[:2]
+
+    def charge_blocks(self, lo: np.ndarray, hi: np.ndarray) -> None:
+        """Charge one pass over the union of [lo//B, (hi-1)//B] block
+        intervals, streamed through the reader's buffer pool in order."""
+        reader = self.reader
+        B = reader.block_edges
+        nz = (hi - lo) > 0
+        if nz.any():
+            first = (lo[nz] // B).astype(np.int64)
+            last = ((hi[nz] - 1) // B).astype(np.int64)
+            diff = np.zeros(reader.num_blocks + 1, dtype=np.int64)
+            np.add.at(diff, first, 1)
+            np.add.at(diff, last + 1, -1)
+            covered = np.cumsum(diff[:-1]) > 0
+            reader.charge_pass(np.flatnonzero(covered))
+
+    def gather(self, nodes: np.ndarray, core: np.ndarray):
+        """Flattened adjacency of ``nodes`` + exact block-I/O accounting:
+        (neighbour core values, segment offsets, flat neighbour ids)."""
+        self.eng._sync()
+        nbr_flat, seg_ptr, lo, hi = self._segments(nodes)
+        self.charge_blocks(lo, hi)
+        nbr_flat, seg_ptr = self._merge_buffered(nodes, nbr_flat, seg_ptr)
+        return core[nbr_flat], seg_ptr, nbr_flat
+
+    def charge_only(self, nodes: np.ndarray) -> None:
+        """The I/O charge of :meth:`gather` without materializing the
+        adjacency."""
+        self.eng._sync()
+        g = self.eng.graph
+        self.charge_blocks(g.indptr[nodes], g.indptr[nodes + 1])
+
+    def gather_structure(self, nodes: np.ndarray):
+        """Like :meth:`gather` without the neighbour values:
+        (seg_ptr, nbr_flat)."""
+        self.eng._sync()
+        nbr_flat, seg_ptr, lo, hi = self._segments(nodes)
+        self.charge_blocks(lo, hi)
+        nbr_flat, seg_ptr = self._merge_buffered(nodes, nbr_flat, seg_ptr)
+        return seg_ptr, nbr_flat
+
+    def account_node_scan(self, v_lo: int, v_hi: int) -> None:
+        self.reader.account_node_table_scan(v_lo, v_hi)
+
+
+# ===========================================================================
+# The generic batch superstep loop (Jacobi; one superstep == one pass)
+# ===========================================================================
+def run_batch(engine, algorithm: str, backend=None, *,
+              core: np.ndarray | None = None,
+              cnt: np.ndarray | None = None,
+              rebind: bool = True,
+              superstep_chunk: int | None = None,
+              device=None) -> DecompResult:
+    """Run a batch-schedule decomposition on ``engine`` with ``backend``.
+
+    * ``semicore``   — every node, every pass (Alg. 3);
+    * ``semicore+``  — neighbours of changed nodes (Alg. 4 / Lemma 4.1);
+    * ``semicore*``  — cnt-gated: recompute v only while cnt(v) < core(v)
+      (Alg. 5 / Lemma 4.2), with exact cnt under simultaneous updates.
+
+    With (core, cnt) given for ``semicore*``, runs the warm-started settle.
+    ``rebind=False`` continues on a backend the caller already bound.
+    Device backends run the device-resident fixpoint (resident.py) unless
+    ``REPRO_TORCH_DEVICE_RESIDENT=0``.
+    """
+    backend = resolve_backend(backend, device)
+    if backend.device_resident and rebind and \
+            _runtime.setting("device_resident"):
+        from .resident import run_resident
+
+        return run_resident(engine, algorithm, backend, core=core, cnt=cnt,
+                            superstep_chunk=superstep_chunk)
+    planner = engine.planner
+    n = engine.n
+    if rebind:
+        backend.bind(planner)
+    comp, iters = 0, 0
+    upd_hist: list = []
+    comp_hist: list = []
+
+    if algorithm == "semicore":
+        core = engine.degrees().astype(np.int64)
+        all_nodes = np.arange(n, dtype=np.int64)
+        om_p, om_f, om_u = _pass_obs("semicore", backend.name)
+        while True:
+            iters += 1
+            with _trace.span("superstep", cat="engine", algorithm="semicore",
+                             backend=backend.name, index=iters,
+                             frontier=n) as sp:
+                ka0, ks0 = _kernel_counts(backend)
+                backend.begin_pass(all_nodes, core)
+                if backend.consumes_gather:
+                    vals, seg_ptr, _ = planner.gather(all_nodes, core)
+                else:  # full-table backend; this loop only needs the charge
+                    planner.charge_only(all_nodes)
+                    vals = seg_ptr = None
+                planner.account_node_scan(0, n - 1)
+                h = backend.h_index(vals, seg_ptr, core)
+                changed = int((h != core).sum())
+                if sp.active:
+                    _finish_pass_span(sp, backend, core, changed, ka0, ks0)
+            om_p.inc()
+            om_f.inc(n)
+            om_u.inc(changed)
+            upd_hist.append(changed)
+            comp_hist.append(n)
+            comp += n
+            core = h
+            if changed == 0:
+                break
+        return _result(planner, backend, core, None, iters, comp,
+                       "semicore", upd_hist, comp_hist)
+
+    if algorithm == "semicore+":
+        core = engine.degrees().astype(np.int64)
+        frontier = np.arange(n, dtype=np.int64)
+        om_p, om_f, om_u = _pass_obs("semicore+", backend.name)
+        while len(frontier):
+            iters += 1
+            with _trace.span("superstep", cat="engine", algorithm="semicore+",
+                             backend=backend.name, index=iters,
+                             frontier=len(frontier)) as sp:
+                ka0, ks0 = _kernel_counts(backend)
+                backend.begin_pass(frontier, core)
+                if backend.consumes_gather:
+                    vals, seg_ptr, nbr_flat = planner.gather(frontier, core)
+                else:  # structure only: propagation needs nbr_flat
+                    seg_ptr, nbr_flat = planner.gather_structure(frontier)
+                    vals = None
+                planner.account_node_scan(int(frontier[0]), int(frontier[-1]))
+                h = backend.h_index(vals, seg_ptr, core[frontier])
+                changed_mask = h != core[frontier]
+                if sp.active:
+                    _finish_pass_span(sp, backend, core[frontier],
+                                      changed_mask.sum(), ka0, ks0)
+            om_p.inc()
+            om_f.inc(len(frontier))
+            om_u.inc(int(changed_mask.sum()))
+            comp += len(frontier)
+            comp_hist.append(len(frontier))
+            upd_hist.append(int(changed_mask.sum()))
+            core[frontier] = h
+            # Lemma 4.1: only neighbours of changed nodes can change next pass
+            seg_changed = np.repeat(changed_mask, np.diff(seg_ptr))
+            frontier = np.unique(nbr_flat[seg_changed].astype(np.int64))
+            frontier = frontier[core[frontier] > 0]
+        return _result(planner, backend, core, None, iters, comp,
+                       "semicore+", upd_hist, comp_hist)
+
+    if algorithm == "semicore*":
+        if core is None:
+            core = engine.degrees().astype(np.int64)
+            cnt = np.zeros(n, dtype=np.int64)
+        else:
+            core = np.asarray(core, dtype=np.int64).copy()
+            cnt = np.asarray(cnt, dtype=np.int64).copy()
+        frontier = np.flatnonzero((cnt < core) & (core > 0))
+        om_p, om_f, om_u = _pass_obs("semicore*", backend.name)
+        while len(frontier):
+            iters += 1
+            with _trace.span("superstep", cat="engine", algorithm="semicore*",
+                             backend=backend.name, index=iters,
+                             frontier=len(frontier)) as sp:
+                ka0, ks0 = _kernel_counts(backend)
+                backend.begin_pass(frontier, core)
+                if backend.consumes_gather:
+                    vals_old, seg_ptr, nbr_flat = planner.gather(frontier, core)
+                else:  # structure only: push rule needs nbr_flat
+                    seg_ptr, nbr_flat = planner.gather_structure(frontier)
+                    vals_old = None
+                planner.account_node_scan(int(frontier[0]), int(frontier[-1]))
+                c_old_f = core[frontier].copy()
+                h = backend.h_index(vals_old, seg_ptr, c_old_f)
+                if sp.active:
+                    _finish_pass_span(sp, backend, c_old_f,
+                                      (h != c_old_f).sum(), ka0, ks0)
+            om_p.inc()
+            om_f.inc(len(frontier))
+            om_u.inc(int((h != c_old_f).sum()))
+            comp += len(frontier)
+            comp_hist.append(len(frontier))
+            upd_hist.append(int((h != c_old_f).sum()))
+            core[frontier] = h
+            # exact cnt under simultaneous updates: (1) recompute the
+            # frontier's cnt against pass-start neighbour values, (2) push
+            # decrements along edges (v in F -> u) with core(u) in (h, c_old]
+            cnt[frontier] = backend.compute_cnt(vals_old, seg_ptr, h)
+            cnt -= backend.push_decrements(nbr_flat, seg_ptr, h, c_old_f,
+                                           core, n)
+            frontier = np.flatnonzero((cnt < core) & (core > 0))
+        return _result(planner, backend, core, cnt, iters, comp,
+                       "semicore*", upd_hist, comp_hist)
+
+    raise ValueError(f"unknown algorithm {algorithm!r}")
+
+
+def warm_settle(engine, core0: np.ndarray, applied_inserts: int,
+                backend=None, *, superstep_chunk: int | None = None,
+                device=None) -> DecompResult:
+    """Settle to the exact decomposition from a stale ``core0`` after
+    structural updates.
+
+    ``min(core0 + I, deg)`` — I the number of applied insertions — bounds
+    the new decomposition from above.  One full scan recomputes cnt exactly
+    against it (Eq. 2), then SemiCore* batch passes converge from above
+    (Thm 4.1) to the exact fixpoint.
+    """
+    backend = resolve_backend(backend, device)
+    n = engine.n
+    warm = np.minimum(
+        np.asarray(core0, dtype=np.int64) + int(applied_inserts),
+        engine.degrees(),
+    ).astype(np.int64)
+    if backend.device_resident and _runtime.setting("device_resident"):
+        from .resident import run_resident
+
+        return run_resident(engine, "semicore*", backend, core=warm,
+                            initial_cnt_scan=True,
+                            superstep_chunk=superstep_chunk)
+    backend.bind(engine.planner)
+    all_nodes = np.arange(n, dtype=np.int64)
+    t0 = time.perf_counter()
+    with _trace.span("cnt_prologue", cat="maintenance",
+                     backend=backend.name, nodes=n):
+        backend.begin_pass(all_nodes, warm)
+        if backend.consumes_gather:
+            vals, seg_ptr, _ = engine.planner.gather(all_nodes, warm)
+        else:  # full-table backend scans its own resident copy
+            engine.planner.charge_only(all_nodes)
+            vals = seg_ptr = None
+        engine.planner.account_node_scan(0, n - 1)
+        cnt = backend.compute_cnt(vals, seg_ptr, warm)
+    _MAINT_PROLOGUE.observe(time.perf_counter() - t0)
+    return run_batch(engine, "semicore*", backend, core=warm, cnt=cnt,
+                     rebind=False)
+
+
+def _result(planner, backend, core, cnt, iters, comp, algo, upd, cph
+            ) -> DecompResult:
+    rep = backend.io_report()
+    backend.unbind()
+    return DecompResult(
+        core=core,
+        cnt=cnt,
+        iterations=iters,
+        node_computations=comp,
+        edge_block_reads=planner.reader.reads,
+        node_table_reads=planner.reader.node_table_reads,
+        algorithm=algo,
+        schedule="batch",
+        updates_per_iter=upd,
+        computations_per_iter=cph,
+        backend=backend.name,
+        kernel_blocks_active=rep.get("kernel_blocks_active", 0),
+        kernel_blocks_skipped=rep.get("kernel_blocks_skipped", 0),
+    )

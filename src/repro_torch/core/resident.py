@@ -1,0 +1,435 @@
+"""Device-resident fixpoint: the whole batch superstep loop on the device.
+
+The port's counterpart of ``repro/core/resident.py`` (its flat path):
+
+* **Residency** — ``core``, ``cnt``, the frontier mask and the flat edge
+  table (``segptr``, ``nbr``) are uploaded once per run; the edge table is
+  cached in a :class:`ResidentStructure` keyed by base-CSR identity plus
+  ``BufferedGraph.version``.
+* **One superstep per ``fused_pass``** — the row pass and push pass of
+  ``kernels/fused_superstep.py``.  The reference's ``lax.scan`` of
+  ``lax.cond``-gated passes becomes a Python loop of ``chunk`` passes whose
+  ``ran``/``done`` flags and stacked frontier masks stay on the device; the
+  host reads them once per chunk.  A pass whose frontier is empty (or, for
+  SemiCore, that runs after convergence) sees every row inactive: the rows
+  pass their state through and no edge is read, so it changes nothing, as
+  the reference's skipped ``cond`` branch.
+* **Accounting parity** — the host replays each executed pass's frontier
+  through the planner charges the per-pass path makes (edge-block
+  coverage, node-table scans, kernel-block activity), so
+  ``edge_block_reads`` / ``node_table_reads`` / ``kernel_blocks_*`` equal
+  the reference's bit for bit.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import runtime as _runtime
+from ..obs import metrics as _metrics, trace as _trace
+from .engine import (DecompResult, _KB_ACTIVE, _KB_SKIPPED, _MAINT_PROLOGUE,
+                     _pass_obs)
+
+__all__ = [
+    "ResidentStructure",
+    "build_structure",
+    "run_resident",
+    "chunk_len",
+]
+
+_HOST_SYNCS = _metrics.counter(
+    "repro_resident_host_syncs_total",
+    "Device-to-host reads of a chunk's pass summaries (one per chunk)",
+).labels()
+
+
+def chunk_len(explicit: int | None = None) -> int:
+    """Passes per host round-trip: explicit argument > env > default."""
+    if explicit is not None:
+        return max(1, int(explicit))
+    return _runtime.setting("resident_chunk")
+
+
+# ===========================================================================
+# Resident structure: the flat merged edge table, uploaded once per version
+# ===========================================================================
+@dataclass
+class ResidentStructure:
+    """The device-resident working set of one graph version.
+
+    The host ``seg_ptr`` stays for the accounting replay; ``graph`` and
+    ``version`` form the validity token.  ``nbr`` is padded with node id 0
+    up to ``E_pad``; every reduction is bounded by ``segptr``, and the
+    kernels get the exact-length view, so a pad never reaches node 0.
+    """
+
+    graph: object            # base CSRGraph this structure was built from
+    version: int             # BufferedGraph.version at build time (0 if none)
+    n: int
+    E: int                   # merged flat edge count (buffered deltas applied)
+    E_pad: int               # padded device length (>= E)
+    seg_ptr: np.ndarray      # (n+1,) int64 flat-table offsets, host
+    segptr: torch.Tensor     # (n+1,) int32 device flat-table offsets
+    nbr: torch.Tensor        # (E_pad,) int32 device edge targets (pad: 0)
+    device: torch.device
+
+    def matches(self, planner) -> bool:
+        buffered = planner.eng.buffered
+        ver = buffered.version if buffered is not None else 0
+        return self.graph is planner.eng.graph and self.version == ver
+
+    def edge_table(self) -> tuple:
+        """(segptr, nbr) device operands of the superstep kernels, ``nbr``
+        as the exact-length view."""
+        return self.segptr, self.nbr[:self.E]
+
+
+_EDGE_BUCKET = 8192
+
+
+def _edge_pad(E: int) -> int:
+    """Device-table length for ``E`` edge slots: next power of two below one
+    bucket, then bucket multiples, so the allocation only changes size when
+    maintenance moves E across a bucket boundary."""
+    if E <= 0:
+        return 0
+    if E < _EDGE_BUCKET:
+        return 1 << (E - 1).bit_length()
+    return -(-E // _EDGE_BUCKET) * _EDGE_BUCKET
+
+
+def build_structure(planner, device) -> ResidentStructure:
+    """Merged flat adjacency of all nodes, uploaded once (charge-free: disk
+    I/O stays per pass, replayed planner-side)."""
+    planner.eng._sync()
+    nbr_flat, seg_ptr = planner.full_structure()
+    n = planner.n
+    E = int(len(nbr_flat))
+    if E >= (1 << 31) or n >= (1 << 31):
+        # the device table is int32 end to end (ids, offsets): fail loudly
+        # instead of wrapping offsets negative
+        raise ValueError(
+            f"device-resident table needs int32 offsets: 2m={E} n={n} "
+            "exceeds 2**31; use the numpy backend for this graph")
+    if E and (int(nbr_flat.min()) < 0 or int(nbr_flat.max()) >= n):
+        # torch (and the kernels) do not clip indices as jnp does
+        raise ValueError(f"neighbour ids must lie in [0, {n})")
+    E_pad = _edge_pad(E)
+    nbr = torch.zeros(E_pad, dtype=torch.int32, device=device)
+    nbr[:E] = torch.from_numpy(np.asarray(nbr_flat, dtype=np.int32))
+    buffered = planner.eng.buffered
+    return ResidentStructure(
+        graph=planner.eng.graph,
+        version=buffered.version if buffered is not None else 0,
+        n=n,
+        E=E,
+        E_pad=E_pad,
+        seg_ptr=np.asarray(seg_ptr, dtype=np.int64),
+        segptr=torch.as_tensor(np.asarray(seg_ptr, dtype=np.int32),
+                               device=device),
+        nbr=nbr,
+        device=torch.device(device),
+    )
+
+
+# ===========================================================================
+# Host-side accounting replay
+# ===========================================================================
+def _replay_kernel_blocks(tally: dict, rs: ResidentStructure,
+                          be: int, nb: int, frontier: np.ndarray) -> None:
+    """Kernel-block activity of one pass over ``frontier``: the per-pass
+    ``begin_pass`` coverage formula over the flat table, verbatim (an
+    edgeless table has no kernel blocks to charge)."""
+    if not len(frontier) or rs.E == 0:
+        return
+    lo = rs.seg_ptr[frontier]
+    hi = rs.seg_ptr[frontier + 1]
+    nz = lo < hi
+    cov = np.zeros(nb + 1, dtype=np.int64)
+    if nz.any():
+        np.add.at(cov, lo[nz] // be, 1)
+        np.add.at(cov, (hi[nz] - 1) // be + 1, -1)
+    na = int((np.cumsum(cov[:-1]) > 0).sum())
+    tally["kernel_blocks_active"] += na
+    tally["kernel_blocks_skipped"] += nb - na
+    _KB_ACTIVE.inc(na)
+    _KB_SKIPPED.inc(nb - na)
+
+
+def _replay_pass(planner, frontier: np.ndarray, tally: dict,
+                 rs: ResidentStructure, be: int, nb: int) -> None:
+    """Re-issue the planner charges one per-pass iteration makes for
+    ``frontier`` (sorted node ids)."""
+    if not len(frontier):
+        return
+    planner.charge_only(frontier)
+    planner.account_node_scan(int(frontier[0]), int(frontier[-1]))
+    _replay_kernel_blocks(tally, rs, be, nb, frontier)
+
+
+def _replay_chunk(planner, rs, be, nb, tally, fronts, upds, ran,
+                  upd_hist, comp_hist, iters, comp, om=None, algorithm=""):
+    """Replay the planner charges for the executed passes of one chunk;
+    trace instants come from the same frontier masks."""
+    for k in range(len(ran)):
+        if not ran[k]:
+            break
+        frontier = np.flatnonzero(fronts[k]).astype(np.int64)
+        iters += 1
+        comp += len(frontier)
+        upd_hist.append(int(upds[k]))
+        comp_hist.append(int(len(frontier)))
+        _replay_pass(planner, frontier, tally, rs, be, nb)
+        if om is not None:
+            om[0].inc()
+            om[1].inc(len(frontier))
+            om[2].inc(int(upds[k]))
+        _trace.instant("superstep.replay", cat="engine", algorithm=algorithm,
+                       index=iters, frontier=int(len(frontier)),
+                       updates=int(upds[k]))
+    return iters, comp
+
+
+def _pull(fronts, upds, ran, done):
+    """One chunk's summaries to the host: (frontier masks or None, updates,
+    ran flags, done)."""
+    _HOST_SYNCS.inc()
+    summary = torch.stack(
+        [*upds, *(r.to(torch.int32) for r in ran), done.to(torch.int32)]
+    ).cpu().numpy()
+    k = len(upds)
+    masks = torch.stack(fronts).cpu().numpy() if fronts else None
+    return masks, summary[:k], summary[k:2 * k].astype(bool), bool(summary[-1])
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x, dtype=np.int64)
+
+
+# ===========================================================================
+# The runner
+# ===========================================================================
+def run_resident(engine, algorithm: str, backend, *,
+                 core: np.ndarray | None = None,
+                 cnt: np.ndarray | None = None,
+                 initial_cnt_scan: bool = False,
+                 superstep_chunk: int | None = None,
+                 settle_mask: np.ndarray | None = None) -> DecompResult:
+    """Run a batch-schedule decomposition with the fixpoint device-resident.
+
+    Mirrors :func:`engine.run_batch` pass for pass (same frontiers, same
+    histories, same planner accounting).  With ``initial_cnt_scan`` (the
+    warm-settle discipline) ``cnt`` is recomputed exactly on the device from
+    the warm ``core`` upper bound — one accounted full scan — before the
+    SemiCore* passes.
+
+    ``settle_mask`` (semicore* only) freezes every node outside the mask:
+    the frontier starts at ``(cnt < core) & (core > 0) & mask`` and stays
+    inside it.  Frozen nodes keep their core; their cnt still takes exact
+    push decrements from falling masked neighbours.
+    """
+    if settle_mask is not None and algorithm != "semicore*":
+        raise ValueError("settle_mask is a semicore* (cnt-gated) discipline")
+
+    planner = engine.planner
+    n = engine.n
+    rs = backend.bind_resident(planner)
+    dev = rs.device
+    # kernel-block accounting at the planner-derived block size, whatever
+    # the kernels do
+    be = backend.accounting_block_edges(planner)
+    nb = -(-max(rs.E, 1) // be)
+    tally = {"kernel_blocks_active": 0, "kernel_blocks_skipped": 0}
+    chunk = chunk_len(superstep_chunk)
+    om = _pass_obs(algorithm, backend.name)
+    segptr, nbr = rs.edge_table()
+    step = backend.fused_pass
+
+    warm = core is not None
+    if warm:
+        core = np.asarray(core, dtype=np.int64).copy()
+    else:
+        core = engine.degrees().astype(np.int64)
+    core_t = torch.as_tensor(core.astype(np.int32), device=dev)
+
+    upd_hist: list = []
+    comp_hist: list = []
+    iters = 0
+    comp = 0
+    all_nodes = np.arange(n, dtype=np.int64)
+
+    def result(core_f, cnt_f):
+        backend.unbind()
+        return DecompResult(
+            core=_host(core_f),
+            cnt=None if cnt_f is None else _host(cnt_f),
+            iterations=iters,
+            node_computations=comp,
+            edge_block_reads=planner.reader.reads,
+            node_table_reads=planner.reader.node_table_reads,
+            algorithm=algorithm,
+            schedule="batch",
+            updates_per_iter=upd_hist,
+            computations_per_iter=comp_hist,
+            backend=backend.name,
+            kernel_blocks_active=tally["kernel_blocks_active"],
+            kernel_blocks_skipped=tally["kernel_blocks_skipped"],
+        )
+
+    def replay_all_nodes(upd: int) -> None:
+        nonlocal iters, comp
+        iters += 1
+        comp += n
+        upd_hist.append(upd)
+        comp_hist.append(n)
+        planner.charge_only(all_nodes)
+        planner.account_node_scan(0, n - 1)
+        _replay_kernel_blocks(tally, rs, be, nb, all_nodes)
+        om[0].inc()
+        om[1].inc(n)
+        om[2].inc(upd)
+
+    # ------------------------------------------------------------ semicore*
+    if algorithm == "semicore*":
+        if initial_cnt_scan:
+            # warm_settle prologue: one accounted full scan recomputes cnt
+            # exactly (Eq. 2) w.r.t. the warm upper bound, on the device
+            t0 = time.perf_counter()
+            with _trace.span("cnt_prologue", cat="maintenance",
+                             backend=backend.name, nodes=n):
+                planner.charge_only(all_nodes)
+                planner.account_node_scan(0, n - 1)
+                _replay_kernel_blocks(tally, rs, be, nb, all_nodes)
+                if rs.E:
+                    all_active = torch.ones(n, dtype=torch.bool, device=dev)
+                    cnt_t = backend.fused_counts(core_t, core_t, all_active,
+                                                 segptr, nbr)
+                else:
+                    cnt_t = torch.zeros(n, dtype=torch.int32, device=dev)
+                cnt = _host(cnt_t)
+            _MAINT_PROLOGUE.observe(time.perf_counter() - t0)
+        elif warm:
+            cnt = np.asarray(cnt, dtype=np.int64).copy()
+            cnt_t = torch.as_tensor(cnt.astype(np.int32), device=dev)
+        else:
+            cnt = np.zeros(n, dtype=np.int64)
+            cnt_t = torch.zeros(n, dtype=torch.int32, device=dev)
+        active0 = (cnt < core) & (core > 0)
+        if settle_mask is not None:
+            active0 &= np.asarray(settle_mask, dtype=bool)
+        if rs.E == 0:
+            # edgeless table: any deficient node drops straight to h = 0 in
+            # one pass, and nothing can re-activate — numpy's loop verbatim
+            if active0.any():
+                f = np.flatnonzero(active0)
+                iters, comp = 1, len(f)
+                upd = int((core[f] != 0).sum())
+                upd_hist.append(upd)
+                comp_hist.append(len(f))
+                _replay_pass(planner, f, tally, rs, be, nb)
+                om[0].inc()
+                om[1].inc(len(f))
+                om[2].inc(upd)
+                core[f] = 0
+                cnt[f] = 0
+            return result(core, cnt)
+        if not active0.any():
+            # settled warm state: zero passes, like numpy's while-loop
+            return result(core, cnt)
+        cand_t = None if settle_mask is None else torch.as_tensor(
+            np.asarray(settle_mask, dtype=bool), device=dev)
+        active_t = torch.as_tensor(active0, device=dev)
+        while True:
+            with _trace.span("resident.chunk", cat="engine",
+                             algorithm="semicore*", backend=backend.name,
+                             chunk=chunk) as sp:
+                fronts, upds, ran = [], [], []
+                for _ in range(chunk):
+                    fronts.append(active_t)
+                    ran.append(active_t.any())
+                    core_t, cnt_t, active_t, upd = step(
+                        core_t, cnt_t, active_t, segptr, nbr,
+                        algorithm="semicore*")
+                    if cand_t is not None:
+                        active_t = active_t & cand_t
+                    upds.append(upd)
+                masks, upds_h, ran_h, done = _pull(fronts, upds, ran,
+                                                   ~active_t.any())
+                iters, comp = _replay_chunk(
+                    planner, rs, be, nb, tally, masks, upds_h, ran_h,
+                    upd_hist, comp_hist, iters, comp, om, "semicore*")
+                if sp.active:
+                    sp.set(passes_run=int(ran_h.sum()))
+            if done:
+                break
+        return result(core_t, cnt_t)
+
+    # ------------------------------------------------- semicore / semicore+
+    if algorithm not in ("semicore", "semicore+"):
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    if rs.E == 0:
+        # h == core == degrees == 0 everywhere: one all-node pass converges
+        # (semicore runs it even on an empty graph, as numpy's loop does)
+        if algorithm == "semicore" or n:
+            replay_all_nodes(0)
+        return result(core, None)
+
+    if algorithm == "semicore":
+        # every node, every pass — the final no-update pass included; once
+        # done, the pass sees no row active and changes nothing
+        done_t = torch.zeros((), dtype=torch.bool, device=dev)
+        while True:
+            with _trace.span("resident.chunk", cat="engine",
+                             algorithm="semicore", backend=backend.name,
+                             chunk=chunk) as sp:
+                upds, ran = [], []
+                for _ in range(chunk):
+                    running = ~done_t
+                    ran.append(running)
+                    core_t, _, _, upd = step(
+                        core_t, core_t, running.expand(n).contiguous(),
+                        segptr, nbr, algorithm="semicore")
+                    done_t = upd == 0
+                    upds.append(upd)
+                _, upds_h, ran_h, done = _pull([], upds, ran, done_t)
+                for k in range(len(ran_h)):
+                    if not ran_h[k]:
+                        break
+                    replay_all_nodes(int(upds_h[k]))
+                    _trace.instant("superstep.replay", cat="engine",
+                                   algorithm="semicore", index=iters,
+                                   frontier=n, updates=int(upds_h[k]))
+                if sp.active:
+                    sp.set(passes_run=int(ran_h.sum()))
+            if done:
+                break
+        return result(core_t, None)
+
+    active_t = torch.ones(n, dtype=torch.bool, device=dev)
+    while True:
+        with _trace.span("resident.chunk", cat="engine",
+                         algorithm="semicore+", backend=backend.name,
+                         chunk=chunk) as sp:
+            fronts, upds, ran = [], [], []
+            for _ in range(chunk):
+                fronts.append(active_t)
+                ran.append(active_t.any())
+                core_t, _, active_t, upd = step(
+                    core_t, None, active_t, segptr, nbr,
+                    algorithm="semicore+")
+                upds.append(upd)
+            masks, upds_h, ran_h, done = _pull(fronts, upds, ran,
+                                               ~active_t.any())
+            iters, comp = _replay_chunk(
+                planner, rs, be, nb, tally, masks, upds_h, ran_h, upd_hist,
+                comp_hist, iters, comp, om, "semicore+")
+            if sp.active:
+                sp.set(passes_run=int(ran_h.sum()))
+        if done:
+            break
+    return result(core_t, None)

@@ -1,0 +1,12 @@
+from .storage import CSRGraph, BlockReader, paper_example_graph, DEFAULT_BLOCK_EDGES
+from .generators import (
+    chung_lu, rmat, erdos_renyi, ba, make_dataset, DATASET_SUITE,
+    rmat_chunks, powerlaw_chunks,
+)
+from .updates import BufferedGraph
+
+__all__ = [
+    "CSRGraph", "BlockReader", "paper_example_graph", "DEFAULT_BLOCK_EDGES",
+    "chung_lu", "rmat", "erdos_renyi", "ba", "make_dataset", "DATASET_SUITE",
+    "rmat_chunks", "powerlaw_chunks", "BufferedGraph",
+]

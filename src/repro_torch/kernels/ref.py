@@ -1,0 +1,59 @@
+"""Plain-torch oracle of one batch superstep.
+
+The port's copy of ``repro/kernels/ref.py::fused_superstep_ref``, formula
+for formula: h-index by an eager binary search over per-row counts, the
+refreshed cnt by a >=-threshold row sum, the semicore* push rule and the
+semicore+ touched rule, both summed over each row's own edges (the
+row-summed form, which needs no symmetry of the edge table).  Rows need not
+be sorted.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["fused_superstep_ref"]
+
+
+def fused_superstep_ref(core, cnt, active, nbr, rows, num_segments: int,
+                        algorithm: str):
+    """Returns ``(core2, cnt2, active2, upd)`` as int32/bool tensors."""
+    core = torch.as_tensor(core, dtype=torch.int32)
+    cnt = torch.as_tensor(cnt, dtype=torch.int32) if cnt is not None else None
+    active = torch.as_tensor(active, dtype=torch.bool)
+    nbr = torch.as_tensor(nbr, dtype=torch.int64)
+    rows = torch.as_tensor(rows, dtype=torch.int64)
+    n = int(num_segments)
+
+    def row_sum(x):
+        return torch.zeros(n, dtype=torch.int32).index_add_(
+            0, rows, x.to(torch.int32))
+
+    nbr_vals = core[nbr]
+    c_old = torch.where(active, core, 0)
+
+    def count_ge(thresholds):
+        return row_sum(nbr_vals >= thresholds[rows])
+
+    cmax = int(c_old.max()) if n else 0
+    h = torch.zeros(n, dtype=torch.int32)
+    step = 1
+    while step <= cmax:
+        step <<= 1
+    step >>= 1
+    while step >= 1:
+        cand = torch.minimum(h + step, c_old)
+        h = torch.where(count_ge(cand) >= cand, cand, h)
+        step >>= 1
+
+    core2 = torch.where(active, h, core)
+    upd = (active & (h != core)).sum(dtype=torch.int32)
+    if algorithm == "semicore":
+        return core2, cnt, active, upd
+    if algorithm == "semicore+":
+        touched = row_sum((active & (h != core))[nbr])
+        return core2, cnt, (touched > 0) & (core2 > 0), upd
+    refreshed = count_ge(torch.where(active, h, 0))
+    c2_row = core2[rows]
+    push = active[nbr] & (c2_row > h[nbr]) & (c2_row <= core[nbr])
+    cnt2 = torch.where(active, refreshed, cnt) - row_sum(push)
+    return core2, cnt2, (cnt2 < core2) & (core2 > 0), upd
