@@ -9,6 +9,9 @@ from .engine import (
     DeviceBackend,
     NumpyBackend,
     PassPlanner,
+    TorchBackend,
+    edge_ge_counts,
+    hindex_bsearch,
     resolve_backend,
     resolve_device,
     run_batch,
@@ -20,7 +23,8 @@ from .semicore import HostEngine, decompose
 __all__ = [
     "imcore_bz", "imcore_peel", "local_core", "h_index_batch",
     "compute_cnt_batch", "ComputeBackend", "CudaBackend", "DecompResult",
-    "DeviceBackend", "NumpyBackend", "PassPlanner", "resolve_backend",
+    "DeviceBackend", "NumpyBackend", "PassPlanner", "TorchBackend",
+    "edge_ge_counts", "hindex_bsearch", "resolve_backend",
     "resolve_device", "run_batch", "warm_settle", "run_resident",
     "HostEngine", "decompose",
 ]

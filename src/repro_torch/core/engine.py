@@ -9,12 +9,18 @@ The port's counterpart of ``repro/core/engine.py``:
 * :class:`ComputeBackend` is the arithmetic: ``h_index`` (LocalCore, Eq. 1,
   capped at the old value), ``compute_cnt`` (Eq. 2) and ``push_decrements``
   (the UpdateNbrCnt push rule), all exact over integers.
-* Backends: :class:`NumpyBackend` (the vectorized host reference) and
-  :class:`CudaBackend` (the hand-written superstep kernels of
-  ``kernels/fused_superstep.py``, counterpart of the reference's
-  ``PallasBackend``).  Device backends run the whole fixpoint
-  device-resident (``resident.run_resident``) unless
-  ``REPRO_TORCH_DEVICE_RESIDENT=0`` selects the per-pass loop below.
+* Shared ops: :func:`edge_ge_counts` and :func:`hindex_bsearch` over a
+  pluggable ``segment_sum_fn`` — the per-probe superstep both the
+  ``torch`` backend and the per-probe mode of the ``cuda`` backend run.
+* Backends: :class:`NumpyBackend` (the vectorized host reference),
+  :class:`CudaBackend` (the hand-written kernels, counterpart of the
+  reference's ``PallasBackend``: the fused superstep of
+  ``kernels/fused_superstep.py``, or with ``fused=False`` one block-skipping
+  ``kernels/segsum_active`` launch per probe) and
+  :class:`TorchBackend` (plain torch prefix sums, counterpart of
+  ``XLABackend``).  Device backends run the whole fixpoint device-resident
+  (``resident.run_resident``) unless ``REPRO_TORCH_DEVICE_RESIDENT=0``
+  selects the per-pass loop below.
 
 Device backends run on ``cuda:0`` unless given another device; asking for
 the default device without a GPU raises (``device="cpu"`` runs the kernels'
@@ -39,6 +45,9 @@ __all__ = [
     "NumpyBackend",
     "DeviceBackend",
     "CudaBackend",
+    "TorchBackend",
+    "edge_ge_counts",
+    "hindex_bsearch",
     "resolve_backend",
     "resolve_device",
     "run_batch",
@@ -137,6 +146,50 @@ def resolve_device(device=None) -> torch.device:
 
 
 # ===========================================================================
+# Shared ops (the per-probe superstep of the torch and per-probe cuda paths)
+# ===========================================================================
+def edge_ge_counts(nbr_vals, rows, edge_mask, thresholds, num_segments,
+                   *, segment_sum_fn):
+    """#{edges e : nbr_vals[e] >= thresholds[rows[e]]} per segment (Eq. 2).
+
+    ``segment_sum_fn(vals, rows, num_segments)`` selects the reduction
+    substrate; ``edge_mask`` (None: every edge) drops edges from the count.
+    """
+    ok = nbr_vals >= thresholds[rows]
+    if edge_mask is not None:
+        ok &= edge_mask
+    return segment_sum_fn(ok.to(torch.int32), rows, num_segments)
+
+
+def hindex_bsearch(nbr_vals, rows, edge_mask, c_old, num_probes,
+                   *, segment_sum_fn):
+    """Vectorized binary search for h = max k <= c_old with count_ge(k) >= k.
+
+    Exactly LocalCore (Eq. 1) capped at ``c_old``: count_ge is
+    non-increasing in k, so the predicate is monotone and ``num_probes``
+    segment sums (>= bit length of max c_old) converge to
+    ``min(h_index, c_old)``.  Every probe runs, converged or not, as the
+    reference's ``fori_loop`` does.
+    """
+    num_rows = c_old.shape[0]
+    lo = torch.zeros_like(c_old)
+    hi = c_old
+    for _ in range(num_probes):
+        mid = (lo + hi + 1) // 2
+        cnt = edge_ge_counts(nbr_vals, rows, edge_mask, mid, num_rows,
+                             segment_sum_fn=segment_sum_fn)
+        ok = (cnt >= mid) & (mid > 0)
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid - 1)
+    return lo
+
+
+def _num_probes(cmax: int) -> int:
+    """Binary-search probes that resolve any h in [0, cmax]."""
+    return int(np.ceil(np.log2(cmax + 2)))
+
+
+# ===========================================================================
 # Compute backends
 # ===========================================================================
 class ComputeBackend:
@@ -212,15 +265,27 @@ class DeviceBackend(ComputeBackend):
     by base-CSR identity plus ``BufferedGraph.version`` — and reused across
     runs and supersteps.  ``retain_structure=False`` (the default) drops it
     when a result is built, so a one-shot ``decompose`` keeps no O(m) copy.
+
+    :meth:`resident_ops` gives ``run_resident`` the backend's superstep and
+    its Eq. 2 count; ``reports_kernel_blocks`` says whether runs account
+    kernel-block activity (``kernel_blocks_*``; 0 otherwise).
     """
 
     device_resident = True
     retain_structure = False
+    reports_kernel_blocks = False
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self._resident = None
         self.structure_builds = 0  # cache-miss counter
+
+    def resident_ops(self, rs, block_edges: int, num_probes: int) -> tuple:
+        """``(step, counts)`` of a resident run over ``rs``:
+        ``step(core, cnt, active, segptr, nbr, *, algorithm)`` returns
+        ``(core2, cnt2, active2, upd)`` and ``counts(core, thresholds,
+        active, segptr, nbr)`` the Eq. 2 counts of the active rows."""
+        raise NotImplementedError
 
     def bind_resident(self, planner: "PassPlanner"):
         """The resident working set for the planner's current graph
@@ -247,40 +312,54 @@ class DeviceBackend(ComputeBackend):
 
 
 class CudaBackend(DeviceBackend):
-    """The hand-written superstep kernels (counterpart of the reference's
+    """The hand-written kernels (counterpart of the reference's
     ``PallasBackend``).
 
+    ``fused=True`` (the default) runs one ``fused_pass`` (row pass + push
+    pass) per superstep.  ``fused=False`` runs the per-probe superstep
+    (``resident.probe_ops``): ``num_probes`` h-index probes plus one count,
+    each one block-skipping ``segment_sum_active`` launch
+    over the pass's block flags — the parity oracle of the fused kernels.
+
     The default path runs the whole fixpoint device-resident
-    (``resident.run_resident``): one ``fused_pass`` (row pass + push pass)
-    per superstep.  The per-pass methods below serve the
-    ``REPRO_TORCH_DEVICE_RESIDENT=0`` loop: one ``fused_hindex`` launch per
-    pass returns ``(h, cnt_at_h)``, so the SemiCore* pass's
-    ``compute_cnt(thresholds == h)`` is served from a per-pass cache.
+    (``resident.run_resident``).  The per-pass methods below serve the
+    ``REPRO_TORCH_DEVICE_RESIDENT=0`` loop: fused, one ``fused_hindex``
+    launch per pass returns ``(h, cnt_at_h)`` and the SemiCore* pass's
+    ``compute_cnt(thresholds == h)`` is served from a per-pass cache; per
+    probe, ``h_index`` and ``compute_cnt`` each run their segment sums.
 
     Kernel-block accounting replays the frontier's edge spans at
     ``min(reader.block_edges, 512)`` edges per block, as the reference's
-    pallas backend does, so ``kernel_blocks_active``/``skipped`` match it.
+    pallas backend does, so ``kernel_blocks_active``/``skipped`` match it;
+    the per-probe kernels decide block activity at that same size.
 
-    ``plain=True`` runs the kernels' plain torch versions on the backend's
-    device instead: the yardstick the card's parity checks compare with.
+    ``plain=True`` runs the fused kernels' plain torch versions on the
+    backend's device instead: the yardstick the card's parity checks
+    compare with (it has no per-probe mode).
     """
 
     name = "cuda"
     consumes_gather = False  # scans its own resident full table
+    reports_kernel_blocks = True
 
     def __init__(self, *, device=None, block_edges: int | None = None,
-                 plain: bool = False):
+                 plain: bool = False, fused: bool = True):
         super().__init__(device)
         from ..kernels import fused_superstep as fsk
 
         self.block_edges = block_edges
         self.plain = bool(plain)
         if self.plain:
+            if fused is False:
+                raise ValueError("plain=True runs the fused kernels' plain "
+                                 "versions; there is no plain per-probe mode")
+            self.fused = True
             self.name = "cuda-plain"
             self.fused_pass = fsk.fused_pass_plain
             self.fused_hindex = fsk.fused_hindex_plain
             self.fused_counts = fsk.fused_counts_plain
         else:
+            self.fused = bool(fused)
             self.fused_pass = fsk.fused_pass
             self.fused_hindex = fsk.fused_hindex
             self.fused_counts = fsk.fused_counts
@@ -290,6 +369,13 @@ class CudaBackend(DeviceBackend):
     def accounting_block_edges(self, planner) -> int:
         be = self.block_edges or min(planner.reader.block_edges, 512)
         return max(1, int(be))
+
+    def resident_ops(self, rs, block_edges, num_probes):
+        if self.fused:
+            return self.fused_pass, self.fused_counts
+        from .resident import probe_ops
+
+        return probe_ops("cuda", rs, block_edges, num_probes)
 
     # -- lifecycle ----------------------------------------------------------
     def bind(self, planner):
@@ -304,13 +390,14 @@ class CudaBackend(DeviceBackend):
 
     def unbind(self):
         for attr in ("seg_ptr", "_core0", "_active", "_frontier",
-                     "_cnt_cache"):
+                     "_cnt_cache", "_segsum"):
             if hasattr(self, attr):
                 delattr(self, attr)
         self.release_resident()
 
     def begin_pass(self, frontier, core):
         self._cnt_cache = None  # (thresholds, cnt) from the h_index launch
+        self._segsum = None  # the pass's per-probe segment sum, built once
         self._core0 = torch.as_tensor(
             np.asarray(core, dtype=np.int32), device=self.device)
         self._frontier = np.asarray(frontier, dtype=np.int64)
@@ -340,12 +427,37 @@ class CudaBackend(DeviceBackend):
         }
 
     # -- per-pass ops over the resident table ---------------------------------
+    def _frontier_table(self, x) -> torch.Tensor:
+        """(n,) int32 device array: ``x`` on the frontier, 0 elsewhere."""
+        full = np.zeros(self.n, dtype=np.int32)
+        full[self._frontier] = x
+        return torch.as_tensor(full, device=self.device)
+
+    def _probe_segsum(self):
+        """The pass's block-skipping segment sum (flags from the frontier,
+        at the accounting block size), built at its first use in a pass and
+        shared by the pass's ``h_index`` and ``compute_cnt``."""
+        if self._segsum is None:
+            from .resident import _substrate
+
+            self._segsum = _substrate("cuda", self.be)(
+                self._resident.rows(), self._resident.segptr, self._active,
+                self.n)
+        return self._segsum
+
     def h_index(self, vals, seg_ptr, c_old):
         F = len(self._frontier)
         c_old = np.asarray(c_old, dtype=np.int64)
         cmax = int(c_old.max()) if F else 0
         if F == 0 or cmax == 0 or self.E == 0:
             return np.zeros(F, dtype=np.int64)
+        if not self.fused:
+            nbr = self._resident.edge_table()[1]
+            h = hindex_bsearch(
+                self._core0[nbr], self._resident.rows(), None,
+                self._frontier_table(c_old), _num_probes(cmax),
+                segment_sum_fn=self._probe_segsum())
+            return h.cpu().numpy().astype(np.int64)[self._frontier]
         h_t, cnth_t = self.fused_hindex(self._core0, self._active,
                                         *self._resident.edge_table())
         h = h_t.cpu().numpy().astype(np.int64)[self._frontier]
@@ -357,23 +469,104 @@ class CudaBackend(DeviceBackend):
         F = len(self._frontier)
         if F == 0 or self.E == 0:
             return np.zeros(F, dtype=np.int64)
+        if not self.fused:
+            nbr = self._resident.edge_table()[1]
+            cnt = edge_ge_counts(self._core0[nbr], self._resident.rows(),
+                                 None, self._frontier_table(thresholds),
+                                 self.n, segment_sum_fn=self._probe_segsum())
+            return cnt.cpu().numpy().astype(np.int64)[self._frontier]
         cache = self._cnt_cache
         if cache is not None and np.array_equal(
                 cache[0], np.asarray(thresholds, dtype=np.int64)):
             return cache[1]
-        thr = np.zeros(self.n, dtype=np.int32)
-        thr[self._frontier] = thresholds
-        cnt = self.fused_counts(
-            self._core0, torch.as_tensor(thr, device=self.device),
-            self._active, *self._resident.edge_table())
+        cnt = self.fused_counts(self._core0, self._frontier_table(thresholds),
+                                self._active, *self._resident.edge_table())
         return cnt.cpu().numpy().astype(np.int64)[self._frontier]
 
 
+class TorchBackend(DeviceBackend):
+    """The per-probe superstep in plain torch ops over sorted prefix sums
+    (counterpart of the reference's ``XLABackend``): the shared
+    :func:`edge_ge_counts` / :func:`hindex_bsearch` with
+    ``resident._sorted_segsum`` as the reduction, no kernel of the port.
+
+    The default path is device-resident (``resident.run_resident``).  The
+    per-pass methods below serve ``REPRO_TORCH_DEVICE_RESIDENT=0``: they
+    upload the host-gathered frontier segments (exact length; the
+    reference's power-of-two padding only bounds jit recompiles) and reduce
+    them on the device.  A SemiCore* pass's ``h_index`` and ``compute_cnt``
+    get the same arrays, packed once.  It reports no kernel blocks.
+    """
+
+    name = "torch"
+
+    def __init__(self, *, device=None):
+        super().__init__(device)
+        # one-slot memo: (vals, seg_ptr, packed device arrays)
+        self._pack_memo: tuple | None = None
+
+    def resident_ops(self, rs, block_edges, num_probes):
+        from .resident import probe_ops
+
+        return probe_ops("torch", rs, block_edges, num_probes)
+
+    def _pack(self, vals, seg_ptr):
+        """(vals, rows, segment sum) of the gathered segments on the
+        device."""
+        from .resident import _sorted_segsum
+
+        memo = self._pack_memo
+        if memo is not None and memo[0] is vals and memo[1] is seg_ptr:
+            return memo[2]
+        if len(vals) >= (1 << 31):
+            raise ValueError(f"{len(vals)} gathered edges exceed the int32 "
+                             "range of the torch backend")
+        dev = self.device
+        lens = torch.as_tensor(np.diff(seg_ptr), device=dev)
+        rows = torch.repeat_interleave(
+            torch.arange(len(lens), dtype=torch.int32, device=dev), lens,
+            output_size=len(vals))
+        apply_ = _sorted_segsum(torch.as_tensor(
+            np.asarray(seg_ptr, dtype=np.int32), device=dev))
+        packed = (torch.as_tensor(np.asarray(vals, dtype=np.int32),
+                                  device=dev), rows,
+                  lambda v, _rows, _ns: apply_(v))
+        self._pack_memo = (vals, seg_ptr, packed)
+        return packed
+
+    def unbind(self):
+        self._pack_memo = None
+        self.release_resident()
+
+    def h_index(self, vals, seg_ptr, c_old):
+        P = len(seg_ptr) - 1
+        c_old = np.asarray(c_old, dtype=np.int64)
+        cmax = int(c_old.max()) if P else 0
+        if P == 0 or len(vals) == 0 or cmax == 0:
+            return np.zeros(P, dtype=np.int64)
+        v, rows, segsum = self._pack(vals, seg_ptr)
+        h = hindex_bsearch(
+            v, rows, None,
+            torch.as_tensor(c_old.astype(np.int32), device=self.device),
+            _num_probes(cmax), segment_sum_fn=segsum)
+        return h.cpu().numpy().astype(np.int64)
+
+    def compute_cnt(self, vals, seg_ptr, thresholds):
+        P = len(seg_ptr) - 1
+        if P == 0 or len(vals) == 0:
+            return np.zeros(P, dtype=np.int64)
+        v, rows, segsum = self._pack(vals, seg_ptr)
+        thr = torch.as_tensor(np.asarray(thresholds, dtype=np.int32),
+                              device=self.device)
+        cnt = edge_ge_counts(v, rows, None, thr, P, segment_sum_fn=segsum)
+        return cnt.cpu().numpy().astype(np.int64)
+
+
 def resolve_backend(backend=None, device=None) -> ComputeBackend:
-    """Backend instance passthrough, or by name (``"cuda"`` | ``"numpy"``);
-    ``None`` resolves ``REPRO_TORCH_BACKEND`` (default ``"cuda"``), as the
-    reference's ``resolve_backend`` does.  ``device`` places a named device
-    backend."""
+    """Backend instance passthrough, or by name (``"cuda"`` | ``"torch"`` |
+    ``"numpy"``); ``None`` resolves ``REPRO_TORCH_BACKEND`` (default
+    ``"cuda"``), as the reference's ``resolve_backend`` does.  ``device``
+    places a named device backend."""
     if isinstance(backend, ComputeBackend):
         return backend
     name = str(backend if backend is not None
@@ -382,6 +575,8 @@ def resolve_backend(backend=None, device=None) -> ComputeBackend:
         return NumpyBackend()
     if name == "cuda":
         return CudaBackend(device=device)
+    if name == "torch":
+        return TorchBackend(device=device)
     raise ValueError(f"unknown compute backend {name!r}")
 
 

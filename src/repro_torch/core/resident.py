@@ -6,14 +6,19 @@ The port's counterpart of ``repro/core/resident.py`` (its flat path):
   table (``segptr``, ``nbr``) are uploaded once per run; the edge table is
   cached in a :class:`ResidentStructure` keyed by base-CSR identity plus
   ``BufferedGraph.version``.
-* **One superstep per ``fused_pass``** — the row pass and push pass of
-  ``kernels/fused_superstep.py``.  The reference's ``lax.scan`` of
-  ``lax.cond``-gated passes becomes a Python loop of ``chunk`` passes whose
-  ``ran``/``done`` flags and stacked frontier masks stay on the device; the
-  host reads them once per chunk.  A pass whose frontier is empty (or, for
-  SemiCore, that runs after convergence) sees every row inactive: the rows
-  pass their state through and no edge is read, so it changes nothing, as
-  the reference's skipped ``cond`` branch.
+* **One superstep per step** — the backend's ``resident_ops``: the row
+  pass and push pass of ``kernels/fused_superstep.py`` (``cuda``), or the
+  per-probe superstep of :func:`probe_ops` — ``num_probes`` h-index probes
+  and the cnt refresh, each one segment sum over the pass's substrate
+  (:func:`_substrate`: the block-skipping kernels for ``cuda`` with
+  ``fused=False``, sorted prefix sums for ``torch``).  The reference's
+  ``lax.scan`` of ``lax.cond``-gated passes becomes a Python loop of
+  ``chunk`` passes whose ``ran``/``done`` flags and stacked frontier masks
+  stay on the device; the host reads them once per chunk.  A pass whose
+  frontier is empty (or, for SemiCore, that runs after convergence) sees
+  every row inactive: the rows pass their state through (the per-probe
+  kernels read no block), so it changes nothing, as the reference's
+  skipped ``cond`` branch.
 * **Accounting parity** — the host replays each executed pass's frontier
   through the planner charges the per-pass path makes (edge-block
   coverage, node-table scans, kernel-block activity), so
@@ -31,11 +36,12 @@ import torch
 from .. import runtime as _runtime
 from ..obs import metrics as _metrics, trace as _trace
 from .engine import (DecompResult, _KB_ACTIVE, _KB_SKIPPED, _MAINT_PROLOGUE,
-                     _pass_obs)
+                     _num_probes, _pass_obs)
 
 __all__ = [
     "ResidentStructure",
     "build_structure",
+    "probe_ops",
     "run_resident",
     "chunk_len",
 ]
@@ -75,6 +81,7 @@ class ResidentStructure:
     segptr: torch.Tensor     # (n+1,) int32 device flat-table offsets
     nbr: torch.Tensor        # (E_pad,) int32 device edge targets (pad: 0)
     device: torch.device
+    _rows: torch.Tensor | None = None  # (E,) int32 edge sources, on demand
 
     def matches(self, planner) -> bool:
         buffered = planner.eng.buffered
@@ -85,6 +92,17 @@ class ResidentStructure:
         """(segptr, nbr) device operands of the superstep kernels, ``nbr``
         as the exact-length view."""
         return self.segptr, self.nbr[:self.E]
+
+    def rows(self) -> torch.Tensor:
+        """(E,) int32 device row (source node) of every edge slot, sorted;
+        built on first use and kept for this graph version (the per-probe
+        superstep's segment ids)."""
+        if self._rows is None:
+            deg = self.segptr[1:] - self.segptr[:-1]
+            self._rows = torch.repeat_interleave(
+                torch.arange(self.n, dtype=torch.int32, device=self.device),
+                deg, output_size=self.E)
+        return self._rows
 
 
 _EDGE_BUCKET = 8192
@@ -136,14 +154,107 @@ def build_structure(planner, device) -> ResidentStructure:
 
 
 # ===========================================================================
+# The per-probe superstep (cuda with fused=False, torch)
+# ===========================================================================
+def _sorted_segsum(segptr):
+    """Segment sum over the table's *sorted* rows: prefix sum + boundary
+    gathers, bounded by ``segptr`` (exact: integer cumsum, E < 2**31)."""
+    def segsum(vals):
+        cs = torch.zeros(vals.shape[0] + 1, dtype=vals.dtype,
+                         device=vals.device)
+        torch.cumsum(vals, 0, out=cs[1:])
+        return cs[segptr[1:]] - cs[segptr[:-1]]
+
+    return segsum
+
+
+def _substrate(kind: str, block_edges: int):
+    """``for_pass(rows, segptr, node_active, num_segments)`` -> the
+    ``segment_sum_fn`` of one pass: the block-skipping kernels for
+    ``"cuda"`` (block flags computed once per pass at ``block_edges``), the
+    sorted prefix sums for ``"torch"``."""
+    if kind == "cuda":
+        from ..kernels.segsum_active import make_superstep_segsum
+
+        def for_pass(rows, segptr, node_active, num_segments):
+            apply_ = make_superstep_segsum(rows, node_active, num_segments,
+                                           block_edges=block_edges)
+            return lambda vals, _rows, _ns: apply_(vals)
+    elif kind == "torch":
+        def for_pass(rows, segptr, node_active, num_segments):
+            apply_ = _sorted_segsum(segptr)
+            return lambda vals, _rows, _ns: apply_(vals)
+    else:
+        raise ValueError(f"unknown segment-sum substrate {kind!r}")
+    return for_pass
+
+
+def probe_ops(kind: str, rs: ResidentStructure, block_edges: int,
+              num_probes: int) -> tuple:
+    """``(step, counts)`` of the per-probe superstep over ``rs``, with the
+    signatures of ``fused_pass`` / ``fused_counts``.
+
+    A pass gathers the pass-start neighbour cores once, binary-searches h
+    in ``num_probes`` segment sums, refreshes cnt in one more (semicore*),
+    and applies the push and touched rules as row sums over the sorted
+    table: by the undirected symmetry, edge (v -> u) exists iff (u -> v)
+    does, so no scatter along ``nbr`` is needed.
+    """
+    from .engine import edge_ge_counts, hindex_bsearch
+
+    for_pass = _substrate(kind, block_edges)
+    row_sum = _sorted_segsum(rs.segptr)
+    rows = rs.rows()
+    n = rs.n
+
+    def step(core, cnt, active, segptr, nbr, *, algorithm):
+        segsum = for_pass(rows, segptr, active, n)
+        nbr_vals = core[nbr]  # pass-start
+        c_old = torch.where(active, core, 0)
+        h = hindex_bsearch(nbr_vals, rows, None, c_old, num_probes,
+                           segment_sum_fn=segsum)
+        changed = active & (h != core)
+        upd = changed.sum(dtype=torch.int32)
+        core2 = torch.where(active, h, core)
+        if algorithm == "semicore":
+            return core2, cnt, active, upd
+        if algorithm == "semicore+":
+            # u is next-frontier iff some neighbour changed: a row sum over
+            # u's own segment
+            touched = row_sum(changed[nbr].to(torch.int32))
+            return core2, cnt, (touched > 0) & (core2 > 0), upd
+        if algorithm != "semicore*":
+            raise ValueError(f"unknown algorithm {algorithm!r}")
+        # (1) recompute cnt of the frontier against pass-start values
+        refreshed = edge_ge_counts(nbr_vals, rows, None,
+                                   torch.where(active, h, 0), n,
+                                   segment_sum_fn=segsum)
+        # (2) push decrements: dec[u] = #{edges (v in F -> u) : core_now(u)
+        #     in (h(v), c_old(v)]}, summed over u's own segment, v = nbr[e]
+        c2_row = core2[rows]
+        push = active[nbr] & (c2_row > h[nbr]) & (c2_row <= nbr_vals)
+        cnt2 = torch.where(active, refreshed, cnt) - row_sum(
+            push.to(torch.int32))
+        return core2, cnt2, (cnt2 < core2) & (core2 > 0), upd
+
+    def counts(core, thresholds, active, segptr, nbr):
+        return edge_ge_counts(core[nbr], rows, None, thresholds, n,
+                              segment_sum_fn=for_pass(rows, segptr, active,
+                                                      n))
+
+    return step, counts
+
+
+# ===========================================================================
 # Host-side accounting replay
 # ===========================================================================
-def _replay_kernel_blocks(tally: dict, rs: ResidentStructure,
+def _replay_kernel_blocks(tally: dict | None, rs: ResidentStructure,
                           be: int, nb: int, frontier: np.ndarray) -> None:
     """Kernel-block activity of one pass over ``frontier``: the per-pass
     ``begin_pass`` coverage formula over the flat table, verbatim (an
-    edgeless table has no kernel blocks to charge)."""
-    if not len(frontier) or rs.E == 0:
+    edgeless table has no kernel blocks to charge; a backend that reports
+    none passes no tally)."""
+    if tally is None or not len(frontier) or rs.E == 0:
         return
     lo = rs.seg_ptr[frontier]
     hi = rs.seg_ptr[frontier + 1]
@@ -159,7 +270,7 @@ def _replay_kernel_blocks(tally: dict, rs: ResidentStructure,
     _KB_SKIPPED.inc(nb - na)
 
 
-def _replay_pass(planner, frontier: np.ndarray, tally: dict,
+def _replay_pass(planner, frontier: np.ndarray, tally: dict | None,
                  rs: ResidentStructure, be: int, nb: int) -> None:
     """Re-issue the planner charges one per-pass iteration makes for
     ``frontier`` (sorted node ids)."""
@@ -240,15 +351,18 @@ def run_resident(engine, algorithm: str, backend, *,
     n = engine.n
     rs = backend.bind_resident(planner)
     dev = rs.device
-    # kernel-block accounting at the planner-derived block size, whatever
-    # the kernels do
-    be = backend.accounting_block_edges(planner)
-    nb = -(-max(rs.E, 1) // be)
-    tally = {"kernel_blocks_active": 0, "kernel_blocks_skipped": 0}
+    # kernel-block accounting at the planner-derived block size (the
+    # per-probe kernels decide block activity at the same size)
+    if backend.reports_kernel_blocks:
+        be = backend.accounting_block_edges(planner)
+        nb = -(-max(rs.E, 1) // be)
+        tally = {"kernel_blocks_active": 0, "kernel_blocks_skipped": 0}
+    else:
+        be = nb = 0
+        tally = None
     chunk = chunk_len(superstep_chunk)
     om = _pass_obs(algorithm, backend.name)
     segptr, nbr = rs.edge_table()
-    step = backend.fused_pass
 
     warm = core is not None
     if warm:
@@ -256,6 +370,10 @@ def run_resident(engine, algorithm: str, backend, *,
     else:
         core = engine.degrees().astype(np.int64)
     core_t = torch.as_tensor(core.astype(np.int32), device=dev)
+    # probes of the per-probe superstep: enough for the largest core bound
+    # of the run (cores only fall), as the reference fixes them per run
+    step, counts = backend.resident_ops(
+        rs, be, max(1, _num_probes(int(core.max()) if n else 0)))
 
     upd_hist: list = []
     comp_hist: list = []
@@ -277,8 +395,9 @@ def run_resident(engine, algorithm: str, backend, *,
             updates_per_iter=upd_hist,
             computations_per_iter=comp_hist,
             backend=backend.name,
-            kernel_blocks_active=tally["kernel_blocks_active"],
-            kernel_blocks_skipped=tally["kernel_blocks_skipped"],
+            kernel_blocks_active=(tally or {}).get("kernel_blocks_active", 0),
+            kernel_blocks_skipped=(tally or {}).get("kernel_blocks_skipped",
+                                                    0),
         )
 
     def replay_all_nodes(upd: int) -> None:
@@ -307,8 +426,7 @@ def run_resident(engine, algorithm: str, backend, *,
                 _replay_kernel_blocks(tally, rs, be, nb, all_nodes)
                 if rs.E:
                     all_active = torch.ones(n, dtype=torch.bool, device=dev)
-                    cnt_t = backend.fused_counts(core_t, core_t, all_active,
-                                                 segptr, nbr)
+                    cnt_t = counts(core_t, core_t, all_active, segptr, nbr)
                 else:
                     cnt_t = torch.zeros(n, dtype=torch.int32, device=dev)
                 cnt = _host(cnt_t)

@@ -9,7 +9,9 @@ The port's counterpart of ``repro/core/semicore.py``.  Two schedules:
 * ``schedule="batch"`` — all due nodes of a pass recomputed at once from
   the pass-start state (Jacobi), through :mod:`repro_torch.core.engine`;
   ``backend="cuda"`` (the default) runs the fixpoint device-resident on the
-  hand-written superstep kernels.
+  hand-written kernels (the fused superstep, or with
+  ``CudaBackend(fused=False)`` the per-probe segment sums),
+  ``backend="torch"`` on plain torch ops.
 
 Both schedules account I/O identically: one read I/O per distinct
 edge-table block touched per pass, plus node-table blocks for the scanned
@@ -49,8 +51,9 @@ class HostEngine:
 
     ``pool_blocks`` sizes the :class:`BlockReader` LRU pool (1 is the
     paper's single buffer).  Batch-schedule compute goes to
-    :mod:`repro_torch.core.engine`: ``backend=`` ("cuda" | "numpy" | a
-    ComputeBackend instance) and ``device=`` pick the substrate.
+    :mod:`repro_torch.core.engine`: ``backend=`` ("cuda" | "torch" |
+    "numpy" | a ComputeBackend instance) and ``device=`` pick the
+    substrate.
     """
 
     def __init__(self, graph, block_edges: int = DEFAULT_BLOCK_EDGES,
@@ -302,11 +305,12 @@ def decompose(
 ) -> DecompResult:
     """One-call core decomposition with the chosen paper algorithm.
 
-    ``backend`` picks the batch-schedule substrate ("cuda" | "numpy" | a
-    ComputeBackend instance); ``None`` defers to ``REPRO_TORCH_BACKEND``
-    (default "cuda").  ``device`` places the cuda backend: ``None`` is the
-    first GPU and raises without one; ``device="cpu"`` runs the kernels'
-    plain versions on the host.  ``superstep_chunk`` sizes the resident
+    ``backend`` picks the batch-schedule substrate ("cuda" | "torch" |
+    "numpy" | a ComputeBackend instance); ``None`` defers to
+    ``REPRO_TORCH_BACKEND`` (default "cuda").  ``device`` places a device
+    backend: ``None`` is the first GPU and raises without one;
+    ``device="cpu"`` runs on the host (the cuda backend through its
+    kernels' plain versions).  ``superstep_chunk`` sizes the resident
     passes per host round-trip (``REPRO_TORCH_RESIDENT_CHUNK``).
     """
     eng = HostEngine(graph, block_edges, pool_blocks=pool_blocks)
