@@ -26,6 +26,20 @@ Phases, each printing one JSON line:
              equal to (num_probes + 1) x kernel_blocks_active
   segment_sum  segment_sum((core[nbr] >= core[rows]), rows, n) at full
              width equal to the result's cnt (Eq. 2)
+  mind       full-width MIND (configs/mind.py, seeded weights, item table
+             256 MB) serving the three recsys cells of configs/shapes.py
+             (serve_p99: 512 users, 100 requests; serve_bulk: 262,144 users;
+             retrieval_cand: 1 user against 1,000,000 items, top 100) with
+             the profile bags on the embedding-bag kernel, each held to the
+             same serving with the plain bag on the card
+  lm_serve   full-width Qwen3-0.6B (751,632,384 seeded parameters, bf16)
+             behind ServeEngine(batch_slots=8, max_len=32768): 8 prompts of
+             512 tokens, then 32 greedy tokens, on the flash-decode kernels;
+             replayed teacher-forced beside the plain attention, every
+             step's logits and greedy tokens compared
+
+The parity phase also holds the embedding-bag and flash-decode kernels to
+their plain versions over the reference's sweeps (kernels/cases.py).
 
 then the kernels line (launches on each kernel's path, error against the
 plain version, times and bounds), the card's name and power limit, and the
@@ -34,6 +48,7 @@ the repository's ``src/``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -58,6 +73,40 @@ SEGSUM_REPLACES = {
     "block_flags": "src/repro/kernels/ops.py:111",
 }
 FLAGS_THREADS = 256  # kThreads of csrc/segsum.cu: block_flags' stride
+F32_OPS_PER_S = 67e12       # float32 outside the tensor cores (same sheet)
+BF16_OPS_PER_S = 989e12     # bf16 dense on the tensor cores (same sheet)
+BAG_SOURCE = "src/repro_torch/kernels/csrc/embedding_bag.cu"
+BAG_REPLACES = "src/repro/kernels/embedding_bag.py:19"  # _bag_kernel
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
+DECODE_REPLACES = "src/repro/kernels/flash_decode.py:21"  # _flash_decode_kernel
+#: (rtol, atol) of MIND with the kernel bag against the plain bag, float32
+#: (float32 matmuls, TF32 off).  Interest vectors and retrieval scores are
+#: ~1e-3 at these seeded weights; the bags differ only in summation order
+#: (~1e-7 relative), ~1e-10 after the profile projection and the MLP.  The
+#: same tolerance decides which top-100 neighbours are apart.
+MIND_TOL = (1e-5, 1e-8)
+#: absolute tolerance on Qwen3-0.6B's logits (std ~0.6), kernel attention
+#: against plain attention: both round the attention output to bf16 once,
+#: and a one-step difference there (2**-8 relative) can flip the bf16
+#: rounding of the residual stream (|x| ~ 1, steps of 2**-7) in any of 28
+#: layers
+LM_LOGITS_ATOL = 0.25
+LM_SLOTS, LM_MAX_LEN, LM_PROMPT, LM_GENERATE = 8, 32768, 512, 32
+#: flash decode timed on full bf16 caches of Qwen3-0.6B's attention
+#: (H, Hkv, d) = (16, 8, 128): one layer at decode_32k (batch cut to the
+#: served 8 slots) and at long_500k
+DECODE_TIMED = (("decode_32k", 8, 32768), ("long_500k", 1, 524288))
+#: cache lengths the served decode reaches (1 .. 512 + 32): one position,
+#: one chunk, one past a chunk, the last step; held on the decode_32k cache
+DECODE_HELD_LENS = (1, 256, 257, 544)
+#: a bf16 result against its plain version: both round one float32 result
+#: to bf16 once, so an element may differ by one bf16 step of itself, which
+#: is at most 2**-7 of the largest |want|.  The limit scales with what is
+#: compared (decode outputs are ~N(0, 1/sqrt(cache_len)) on these inputs).
+BF16_STEP = 2.0 ** -7
+#: SDPA rounds its scores or weights to bf16 before the product with V, so
+#: the library yardstick is held to 16 such steps
+LIBRARY_STEPS = 16
 
 
 def emit(record: dict) -> None:
@@ -86,19 +135,39 @@ def same_result(a, b, what: str) -> None:
         check(getattr(a, f) == getattr(b, f), f"{what}: {f}")
 
 
-def reset_launch_counts() -> None:
+def _kernel_modules() -> tuple:
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.kernels import flash_decode as fdk
     from repro_torch.kernels import fused_superstep as fsk
     from repro_torch.kernels import segsum as ssk, segsum_active as ssa
 
-    for mod in (fsk, ssk, ssa):
+    return fsk, ssk, ssa, ebk, fdk
+
+
+def reset_launch_counts() -> None:
+    for mod in _kernel_modules():
         mod.reset_launch_counts()
 
 
-def launch_counts() -> dict:
-    from repro_torch.kernels import fused_superstep as fsk
-    from repro_torch.kernels import segsum as ssk, segsum_active as ssa
+@contextlib.contextmanager
+def plain_serving():
+    """The serving paths with each kernel's plain version in its place: the
+    reference runs of the mind and lm_serve phases."""
+    _, _, _, ebk, fdk = _kernel_modules()
+    saved = ebk.embedding_bag, fdk.decode_attention
+    ebk.embedding_bag = ebk.embedding_bag_plain
+    fdk.decode_attention = fdk.decode_attention_plain
+    try:
+        yield
+    finally:
+        ebk.embedding_bag, fdk.decode_attention = saved
 
-    return {**fsk.LAUNCHES, **ssk.LAUNCHES, **ssa.LAUNCHES}
+
+def launch_counts() -> dict:
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def powerlaw_graph(n: int, m: int):
@@ -108,11 +177,12 @@ def powerlaw_graph(n: int, m: int):
     return CSRGraph.from_edges(n, edges)
 
 
-def bound(nbytes: int, ops: int) -> tuple:
+def bound(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S) -> tuple:
     """Least time on the card (ms) and what sets it: the bytes over the
-    memory rate or the int32 operations over the 32-bit rate."""
+    memory rate or the operations over the rate of their type (int32 by
+    default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / INT32_OPS_PER_S
+    t_ops = ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -180,7 +250,9 @@ def phase_parity(device) -> None:
     emit({"phase": "parity", "cases": len(CASES), "checks": checked,
           "modes": ["semicore", "semicore+", "semicore*", "hindex",
                     "counts"], "tolerance": 0,
-          "segment_sums": parity_segsum(device)})
+          "segment_sums": parity_segsum(device),
+          "embedding_bag": parity_bag(device),
+          "flash_decode": parity_decode(device)})
 
 
 def parity_segsum(device) -> dict:
@@ -196,12 +268,7 @@ def parity_segsum(device) -> dict:
                                            segsum_rows, segsum_values)
 
     def close(got, want, dtype, what):
-        rtol, atol = SEGSUM_TOL[dtype]
-        check(got.dtype == want.dtype and got.shape == want.shape,
-              f"{what}: dtype/shape")
-        err = (got.float() - want.float()).abs()
-        check(bool((err <= atol + rtol * want.float().abs()).all()), what)
-        return float(err.max()) if err.numel() else 0.0
+        return _close(got, want, SEGSUM_TOL[dtype], what)
 
     rng = np.random.default_rng(2)
     n, checked, worst = 300, 0, {}
@@ -236,6 +303,151 @@ def parity_segsum(device) -> dict:
             "widths": list(SEGSUM_WIDTHS), "block_edges": list(SEGSUM_BLOCKS),
             "frontiers": list(SEGSUM_FRONTIERS), "max_abs_err": worst,
             "tolerance": {k: list(v) for k, v in SEGSUM_TOL.items()}}
+
+
+def _close(got, want, tol, what) -> float:
+    """Max |got - want|, checked against ``atol + rtol * |want|``."""
+    rtol, atol = tol
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: dtype/shape")
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= atol + rtol * want.float().abs()).all()), what)
+    return float(err.max()) if err.numel() else 0.0
+
+
+def bf16_hold(got, want, steps: float = 1.0) -> tuple:
+    """(max |got - want|, limit) with the limit ``steps`` bf16 steps of
+    the largest |want| (:data:`BF16_STEP`)."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          "bf16 hold: dtype/shape")
+    err = float((got.float() - want.float()).abs().max())
+    return err, steps * BF16_STEP * float(want.float().abs().max())
+
+
+def hold_decode(q, k, v, n: int, what: str) -> dict:
+    """bf16 ``decode_attention`` against its plain version at cache_len
+    ``n``, to :func:`bf16_hold`'s limit, and that limit tried on three
+    planted faults it must reject: the last chunk below ``n`` dropped (the
+    plain split's partials with its l and acc zeroed, then the plain
+    combine), the score scale doubled (q * 2), and an all-zero output.  At
+    n = 1 the scale changes nothing (one weight of 1), so there it is only
+    reported."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fdk
+
+    T = k.shape[1]
+    lens = torch.tensor(n, dtype=torch.int32, device=q.device)
+    want = fdk.decode_attention_plain(q, k, v, lens)
+    err, lim = bf16_hold(fdk.decode_attention(q, k, v, lens), want)
+    check(err <= lim, f"{what} cache_len={n}: error {err} > limit {lim}")
+    ml, acc = fdk.split_plain(q, k, v, lens)
+    last = -(-n // fdk.CHUNK) - 1
+    ml[:, :, last, :, 1] = 0
+    acc[:, :, last] = 0
+    planted = {"last_chunk_dropped": fdk.combine_plain(ml, acc, lens, T,
+                                                       q.dtype),
+               "scale_doubled": fdk.decode_attention_plain(q * 2, k, v, lens),
+               "zeros": torch.zeros_like(want)}
+    planted_err = {}
+    for name, bad in planted.items():
+        planted_err[name] = bf16_hold(bad, want)[0]
+        if not (name == "scale_doubled" and n == 1):
+            check(planted_err[name] > lim, f"{what} cache_len={n}: the limit "
+                  f"{lim} does not reject the planted fault {name}")
+    return {"cache_len": n, "max_abs_err": err, "limit": lim,
+            "planted_err": planted_err}
+
+
+def parity_bag(device) -> dict:
+    """The embedding-bag kernel against its plain version over the
+    reference's sweep, sum and mean, float32 and bfloat16, with and
+    without weights, a quarter of the slots masked."""
+    import torch
+
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.kernels.cases import (BAG_CASES, BAG_DTYPES, BAG_MODES,
+                                           BAG_TOL, bag_case)
+
+    rng = np.random.default_rng(3)
+    checked, worst = 0, {}
+    for (N, D, B, L) in BAG_CASES:
+        table, idx, w = (torch.as_tensor(a, device=device)
+                         for a in bag_case(rng, N, D, B, L))
+        for dtype in BAG_DTYPES:
+            t = table.to(getattr(torch, dtype))
+            for mode in BAG_MODES:
+                for weights in (w, None):
+                    what = f"parity embedding_bag {dtype} {mode} N={N} D={D}" \
+                        f" B={B} L={L} weights={weights is not None}"
+                    err = _close(ebk.embedding_bag(t, idx, weights, mode=mode),
+                                 ebk.embedding_bag_plain(t, idx, weights,
+                                                         mode=mode),
+                                 BAG_TOL[dtype], what)
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+                    checked += 1
+    torch.cuda.synchronize(device)
+    return {"checks": checked, "max_abs_err": worst,
+            "tolerance": {k: list(v) for k, v in BAG_TOL.items()}}
+
+
+def parity_decode(device) -> dict:
+    """The flash-decode kernels against their plain versions over the
+    reference's sweep at the model layout (and one case at the TPU
+    layout): the whole function, and the split and combine kernels each
+    on the same inputs."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.kernels.ref import flash_decode_ref
+    from repro_torch.kernels.cases import (DECODE_BATCH, DECODE_CASES,
+                                           DECODE_DTYPES, DECODE_TOL,
+                                           decode_case, decode_lens)
+
+    rng = np.random.default_rng(4)
+    checked, worst = 0, {}
+    for (Hkv, G, S, d) in DECODE_CASES:
+        q, k, v = (torch.as_tensor(a, device=device) for a in
+                   decode_case(rng, DECODE_BATCH, Hkv, G, S, d))
+        for dtype in DECODE_DTYPES:
+            dt = getattr(torch, dtype)
+            qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+            tol = DECODE_TOL[dtype]
+            for n in decode_lens(S, fdk.CHUNK):
+                what = f"parity flash_decode {dtype} Hkv={Hkv} G={G} S={S} " \
+                    f"d={d} len={n}"
+                lens = torch.tensor(n, dtype=torch.int32, device=device)
+                got = fdk.decode_attention(qd, kd, vd, lens)
+                want = fdk.decode_attention_plain(qd, kd, vd, lens)
+                err = _close(got, want, tol, what)
+                if dt == torch.bfloat16:  # and to the scaled bf16 limit
+                    e, lim = bf16_hold(got, want)
+                    check(e <= lim, f"{what}: error {e} > limit {lim}")
+                # each kernel alone: the split on the chunks below len, the
+                # combine on the kernel's own partials
+                ml, acc = fdk.launch_split(qd, kd, vd, lens)
+                ml_p, acc_p = fdk.split_plain(qd, kd, vd, lens)
+                nc = -(-n // fdk.CHUNK)
+                _close(ml[:, :, :nc], ml_p[:, :, :nc], (2e-4, 2e-4),
+                       f"{what}: split m, l")
+                _close(acc[:, :, :nc], acc_p[:, :, :nc], (2e-4, 2e-4),
+                       f"{what}: split acc")
+                _close(fdk.launch_combine(ml, acc, lens, S, dt),
+                       fdk.combine_plain(ml, acc, lens, S, dt), tol,
+                       f"{what}: combine")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                checked += 3
+        # the TPU kernel's layout, (H, d) and (Hkv, S, d), on strided views
+        kt, vt = k[0].permute(1, 0, 2), v[0].permute(1, 0, 2)
+        _close(fdk.flash_decode(q[0], kt, vt, S - 17),
+               flash_decode_ref(q[0], kt, vt, S - 17),
+               DECODE_TOL["float32"], f"parity flash_decode (H, d) S={S}")
+        checked += 1
+    torch.cuda.synchronize(device)
+    return {"checks": checked, "max_abs_err": worst,
+            "tolerance": {k: list(v) for k, v in DECODE_TOL.items()},
+            "bfloat16_limit": "also 2**-7 * max|want|",
+            "split_tolerance": [2e-4, 2e-4]}
 
 
 def other_substrates(device, run, ref, what: str) -> dict:
@@ -669,6 +881,412 @@ def kernel_entries(g, device, tables, launches) -> list:
     return entries
 
 
+def device_profile(fn, top: int = 6) -> dict:
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activity): wall, the
+    device time the kernels took, the device's busy share of the wall, and
+    the ``top`` kernels by device time.  Device times are None when the
+    profiler records none (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+               and getattr(e, "self_device_time_total", 0) > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    by_time = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return {"wall_ms": wall * 1e3,
+            "device_ms": busy_us / 1e3 if kernels else None,
+            "device_busy_share": busy_us / 1e6 / wall if kernels else None,
+            "kernels_launched": sum(e.count for e in kernels),
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                               for e in by_time}}
+
+
+# ------------------------------------------------------------ serving
+def _retrieval_agrees(vals, idx, vals_p, idx_p, tol) -> int:
+    """Top-k values within ``tol`` of the plain run's, and indices equal
+    wherever the plain scores on both sides differ by more than the
+    tolerance (``vals_p``/``idx_p`` hold one more entry than ``vals``);
+    returns the positions held to equal indices."""
+    import torch
+
+    rtol, atol = tol
+    k = vals.shape[-1]
+    _close(vals, vals_p[..., :k], tol, "retrieval: top-k values")
+    v = vals_p.float()
+    gap = (v[..., :-1] - v[..., 1:]).abs()
+    lim = atol + rtol * v[..., 1:].abs()
+    sep = gap > lim                          # (B, k): i apart from i + 1
+    left = torch.cat([torch.ones_like(sep[..., :1]), sep[..., :k - 1]], -1)
+    firm = left & sep
+    check(bool((idx[firm] == idx_p[..., :k][firm]).all()),
+          "retrieval: top-k indices differ where the scores are apart")
+    return int(firm.sum())
+
+
+def phase_mind(device) -> tuple:
+    """Full-width MIND serving on the embedding-bag kernel, each cell held
+    to the plain bag on the card.  Returns the main path's launches, the
+    profile table and serve_bulk's profile bags (for the kernels line)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.data import RecsysSource
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.models import recsys as rec
+    from repro_torch.models.params import tree_num_params
+
+    cfg = get_config("mind")
+    t = time.perf_counter()
+    params = rec.mind_init(cfg, torch.Generator(device).manual_seed(0))
+    torch.cuda.synchronize(device)
+    out = {"phase": "mind", "params": tree_num_params(
+        rec.mind_param_specs(cfg)), "init_s": time.perf_counter() - t,
+        "tolerance": list(MIND_TOL), "cells": {}}
+    launches = 0
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()
+                if k in ("hist_ids", "profile_ids", "candidate_ids")}
+
+    with torch.inference_mode():
+        # serve_p99: 100 requests of 512 users, one at a time
+        B = RECSYS_SHAPES["serve_p99"]["batch"]
+        reqs = [on_card(RecsysSource(cfg, B, seed=1)(i)) for i in range(100)]
+        rec.mind_serve(params, cfg, reqs[0])  # warm
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        walls = []
+        for b in reqs:
+            t = time.perf_counter()
+            got = rec.mind_serve(params, cfg, b)
+            torch.cuda.synchronize(device)
+            walls.append(time.perf_counter() - t)
+        n = launch_counts()["embedding_bag"]
+        check(n > 0, "serve_p99: embedding_bag never launched")
+        launches += n
+        ebk.raise_bad_index(device)
+        with plain_serving():
+            want = rec.mind_serve(params, cfg, reqs[-1])
+        prof = device_profile(lambda: [rec.mind_serve(params, cfg, b)
+                                       for b in reqs[:10]])
+        ms = np.sort(np.array(walls) * 1e3)
+        out["cells"]["serve_p99"] = {
+            "batch": B, "requests": len(reqs), "launches": n,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "max_ms": float(ms[-1]),
+            "users_per_s": B * len(reqs) / sum(walls),
+            "max_abs_err": _close(got, want, MIND_TOL, "mind serve_p99"),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+            "profile_10_requests": prof}
+        del reqs
+
+        # serve_bulk: 262,144 users in one call
+        B = RECSYS_SHAPES["serve_bulk"]["batch"]
+        t = time.perf_counter()
+        b = on_card(RecsysSource(cfg, B, seed=1)(0))
+        host_s = time.perf_counter() - t
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        t = time.perf_counter()
+        got = rec.mind_serve(params, cfg, b)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t
+        n = launch_counts()["embedding_bag"]
+        check(n > 0, "serve_bulk: embedding_bag never launched")
+        launches += n
+        peak = torch.cuda.max_memory_allocated(device)
+        t = time.perf_counter()
+        again = rec.mind_serve(params, cfg, b)
+        torch.cuda.synchronize(device)
+        warm = time.perf_counter() - t
+        check(bool(torch.isfinite(got).all()) and got.shape == (
+            B, cfg.n_interests, cfg.embed_dim), "serve_bulk: shape or finite")
+        check(torch.equal(got, again), "serve_bulk: a rerun differs")
+        err, step = 0.0, 32768  # the plain bag's gathered rows, sliced
+        ebk.raise_bad_index(device)
+        for i in range(0, B, step):
+            part = {k: v[i:i + step] for k, v in b.items()}
+            with plain_serving():
+                want = rec.mind_serve(params, cfg, part)
+            err = max(err, _close(got[i:i + step], want, MIND_TOL,
+                                  "mind serve_bulk"))
+        out["cells"]["serve_bulk"] = {
+            "batch": B, "bags": B * cfg.n_profile_fields, "launches": n,
+            "wall_s": wall, "rerun_wall_s": warm, "host_batch_s": host_s,
+            "users_per_s": B / min(wall, warm), "max_abs_err": err,
+            "max_memory_allocated": peak,
+            "profile": device_profile(lambda: rec.mind_serve(params, cfg, b))}
+        profile_ids = b["profile_ids"]
+        del b, got, again
+
+        # retrieval_cand: one user against every item, top 100
+        sh = RECSYS_SHAPES["retrieval_cand"]
+        b = on_card(RecsysSource(cfg, sh["batch"], seed=1)(0))
+        b["candidate_ids"] = torch.arange(sh["n_candidates"],
+                                          dtype=torch.int32, device=device)
+        rec.mind_retrieval(params, cfg, b)  # warm
+        torch.cuda.synchronize(device)
+        reset_launch_counts()
+        t = time.perf_counter()
+        vals, idx = rec.mind_retrieval(params, cfg, b, top_k=100)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t
+        n = launch_counts()["embedding_bag"]
+        check(n > 0, "retrieval_cand: embedding_bag never launched")
+        launches += n
+        ebk.raise_bad_index(device)
+        with plain_serving():
+            vals_p, idx_p = rec.mind_retrieval(params, cfg, b, top_k=101)
+        firm = _retrieval_agrees(vals, idx, vals_p, idx_p, MIND_TOL)
+        out["cells"]["retrieval_cand"] = {
+            "candidates": sh["n_candidates"], "top_k": 100, "launches": n,
+            "wall_ms": wall * 1e3, "indices_held_equal": firm,
+            "max_abs_err": float((vals - vals_p[..., :100]).abs().max()),
+            "profile": device_profile(lambda: rec.mind_retrieval(params, cfg,
+                                                                 b))}
+    emit(out)
+    return {"embedding_bag": launches}, params["profile_embed"], profile_ids
+
+
+def phase_lm(device) -> dict:
+    """Full-width Qwen3-0.6B behind ServeEngine on the flash-decode kernels,
+    replayed teacher-forced beside the plain attention.  Returns the main
+    path's launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenSource
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import tree_num_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("qwen3-0.6b")
+    t = time.perf_counter()
+    params = tfm.lm_init(cfg, torch.Generator(device).manual_seed(0))
+    torch.cuda.synchronize(device)
+    out = {"phase": "lm_serve", "arch": cfg.name,
+           "params": tree_num_params(tfm.lm_param_specs(cfg)),
+           "init_s": time.perf_counter() - t, "slots": LM_SLOTS,
+           "max_len": LM_MAX_LEN, "prompt": LM_PROMPT,
+           "generate": LM_GENERATE, "logits_atol": LM_LOGITS_ATOL}
+    prompts = TokenSource(LM_SLOTS, LM_PROMPT, cfg.vocab, seed=0)(0)["tokens"]
+    steps = LM_PROMPT + LM_GENERATE
+
+    # warm the kernels and the allocator on a short engine
+    ServeEngine(params, cfg, LM_SLOTS, 64, device=device).generate(
+        prompts[:, :8], 2)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    eng = ServeEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=device)
+    events = []
+    decode = eng.decode
+
+    def timed_decode(tokens):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        logits = decode(tokens)
+        e.record()
+        events.append((s, e))
+        return logits
+
+    eng.decode = timed_decode
+    # the main path: launch counts set to 0 just before, read just after
+    reset_launch_counts()
+    t = time.perf_counter()
+    toks = eng.generate(prompts, LM_GENERATE)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t
+    launches = {k: v for k, v in launch_counts().items() if v}
+    for name in ("flash_decode", "flash_decode_combine"):
+        check(launches.get(name, 0) == steps * cfg.n_layers,
+              f"lm_serve: {name} launched {launches.get(name, 0)} times, "
+              f"not {steps} steps x {cfg.n_layers} layers")
+    check(toks.shape == (LM_SLOTS, LM_GENERATE)
+          and ((toks >= 0) & (toks < cfg.vocab)).all(), "lm_serve: tokens")
+    # stream time between events around each step (host gaps included)
+    ev_ms = [s_.elapsed_time(e_) for s_, e_ in events]
+    out.update(
+        wall_s=wall, decode_steps=steps, ms_per_step=wall * 1e3 / steps,
+        event_ms_per_step=float(np.mean(ev_ms)),
+        event_ms_per_step_generate=float(np.mean(ev_ms[LM_PROMPT:])),
+        tokens_per_s=LM_SLOTS * steps / wall,
+        launches=launches, cache_bytes=2 * eng.caches["k"].numel() * 2,
+        max_memory_allocated=torch.cuda.max_memory_allocated(device))
+    # where a step's time goes: 8 more decode steps under the profiler
+    tok = torch.as_tensor(toks[:, -1:], device=device)
+    out["profile_8_steps"] = device_profile(
+        lambda: [decode(tok) for _ in range(8)])
+    del eng
+
+    # teacher-forced replay: the kernel engine and a plain-attention engine
+    # on the kernel run's token stream (a flipped near-tie cannot fork them);
+    # the plain engine's cache ends at the stream's length, which changes no
+    # result (positions past len weigh exactly 0)
+    with torch.inference_mode():
+        stream = torch.as_tensor(np.concatenate([prompts, toks], axis=1),
+                                 device=device)
+        ek = ServeEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=device)
+        ep = ServeEngine(params, cfg, LM_SLOTS, steps, device=device)
+        worst = torch.zeros((), device=device)
+        firm = torch.zeros((), dtype=torch.int64, device=device)
+        flips = torch.zeros((), dtype=torch.int64, device=device)
+        same_tok = torch.zeros((), dtype=torch.int64, device=device)
+        for i in range(steps):
+            lk = ek.decode(stream[:, i:i + 1])[:, -1].float()
+            with plain_serving():
+                lp = ep.decode(stream[:, i:i + 1])[:, -1].float()
+            worst = torch.maximum(worst, (lk - lp).abs().max())
+            top = lp.topk(2, dim=-1)
+            sure = (top.values[:, 0] - top.values[:, 1]) > LM_LOGITS_ATOL
+            agree = lk.argmax(dim=-1) == top.indices[:, 0]
+            firm += sure.sum()
+            flips += (sure & ~agree).sum()
+            if i >= LM_PROMPT - 1 and i < steps - 1:  # replays the tokens
+                same_tok += (lk.argmax(dim=-1) == stream[:, i + 1]).sum()
+        worst, firm, flips, same_tok = (float(worst), int(firm), int(flips),
+                                        int(same_tok))
+    check(worst <= LM_LOGITS_ATOL, f"lm_serve: logits differ by {worst} > "
+          f"{LM_LOGITS_ATOL}")
+    check(flips == 0, f"lm_serve: {flips} greedy tokens differ where the "
+          "plain top-2 gap exceeds the tolerance")
+    out.update(max_abs_logit_err=worst, greedy_held_equal=firm,
+               replay_tokens_equal=same_tok,
+               replay_tokens=LM_SLOTS * LM_GENERATE)
+    emit(out)
+    return launches
+
+
+def serving_entries(device, launches, profile_embed, profile_ids) -> list:
+    """The embedding bag at MIND's serve_bulk bags, and the flash decode
+    on full bf16 caches: one layer of the decode_32k cache (8 x 32768 x 8 x
+    128), held at the served cache lengths and timed at cache_len = T, and
+    the long_500k cache (1 x 524288 x 8 x 128), cache_len = T."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.kernels import flash_decode as fdk
+
+    entries = []
+    # ---- embedding bag: 2,097,152 bags of 16 slots, D = 64, mean, no weights
+    table = profile_embed
+    idx = profile_ids.reshape(-1, profile_ids.shape[-1]).contiguous()
+    N, D = table.shape
+    B, L = idx.shape
+    check(bool((idx >= 0).all()), "MIND profile bags hold no masked slot")
+    got = ebk.embedding_bag(table, idx, mode="mean")
+    want = ebk.embedding_bag_plain(table, idx, mode="mean")
+    err = _close(got, want, (1e-5, 1e-5), "embedding_bag at serve_bulk")
+
+    def library():  # one PyTorch call computing the same function here
+        return F.embedding_bag(idx, table, mode="mean")
+
+    _close(library(), want, (1e-5, 1e-5), "F.embedding_bag at serve_bulk")
+    nbytes = 4 * B * L + 4 * B * D + 4 * N * D
+    bms, by = bound(nbytes, 2 * B * L * D, F32_OPS_PER_S)
+    entries.append({
+        "name": "embedding_bag", "route": "cuda", "source": BAG_SOURCE,
+        "replaces": BAG_REPLACES, "launches": launches["embedding_bag"],
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: ebk.embedding_bag(table, idx, mode="mean"), 20,
+                      device),
+        "plain_ms": cuda_ms(lambda: ebk.embedding_bag_plain(table, idx,
+                                                            mode="mean"),
+                            3, device),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(library, 20, device),
+        "tolerance": [1e-5, 1e-5],
+        "shape": {"bags": B, "slots": L, "D": D, "rows": N, "dtype":
+                  "float32", "mode": "mean", "bytes": nbytes,
+                  "gathered_bytes": 4 * B * L * D}})
+    del got, want
+
+    # ---- flash decode on full caches
+    gen = torch.Generator(device).manual_seed(5)
+    timed = {}
+    for label, Bq, T in DECODE_TIMED:
+        H, Hkv, d = 16, 8, 128
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16) for shape in ((Bq, H, d), (Bq, T, Hkv, d),
+                                          (Bq, T, Hkv, d)))
+        lens = torch.tensor(T, dtype=torch.int32, device=device)
+        held = [hold_decode(q, k, v, n, f"flash_decode at {label}")
+                for n in (DECODE_HELD_LENS if label == "decode_32k" else ())
+                + (T,)]
+        want = fdk.decode_attention_plain(q, k, v, lens)
+        err, lim = held[-1]["max_abs_err"], held[-1]["limit"]
+        mask = torch.ones((1, 1, 1, T), dtype=torch.bool, device=device)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+        def library():  # SDPA with the length mask, GQA, on cache views
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
+
+        lib_err, lib_lim = bf16_hold(library()[:, :, 0], want, LIBRARY_STEPS)
+        check(lib_err <= lib_lim, f"SDPA at {label}: error {lib_err} > "
+              f"limit {lib_lim}")
+        ml, acc = fdk.launch_split(q, k, v, lens)
+        nbytes = 2 * 2 * Bq * T * Hkv * d + 2 * 2 * Bq * H * d
+        bms, by = bound(nbytes, 4 * Bq * H * T * d, BF16_OPS_PER_S)
+        timed[label] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: fdk.decode_attention(q, k, v, lens), 20,
+                          device),
+            "split_ms": cuda_ms(lambda: fdk.launch_split(q, k, v, lens), 20,
+                                device),
+            "plain_ms": cuda_ms(lambda: fdk.decode_attention_plain(
+                q, k, v, lens), 3, device),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": cuda_ms(library, 20, device),
+            "tolerance": "2**-7 * max|want|", "held": held,
+            "library_err": lib_err, "library_limit": lib_lim,
+            "shape": {"B": Bq, "T": T, "cache_len": T, "H": H, "Hkv": Hkv,
+                      "d": d, "dtype": "bfloat16", "bytes": nbytes}}
+        # the combine alone, on this split's partials
+        cgot = fdk.launch_combine(ml, acc, lens, T, q.dtype)
+        cwant = fdk.combine_plain(ml, acc, lens, T, q.dtype)
+        cbytes = ml.numel() * 4 + acc.numel() * 4 + 4 + 2 * Bq * H * d
+        cbms, cby = bound(cbytes, 3 * acc.numel(), F32_OPS_PER_S)
+        cerr, clim = bf16_hold(cgot, cwant)
+        check(cerr <= clim, f"combine at {label}: error {cerr} > {clim}")
+        timed[label]["combine"] = {
+            "max_abs_err": cerr, "limit": clim,
+            "ms": cuda_ms(lambda: fdk.launch_combine(ml, acc, lens, T,
+                                                     q.dtype), 20, device),
+            "plain_ms": cuda_ms(lambda: fdk.combine_plain(ml, acc, lens, T,
+                                                          q.dtype), 3, device),
+            "bound_ms": cbms, "bound_by": cby, "bytes": cbytes}
+        del q, k, v, kt, vt, ml, acc, want
+    main, long_ = timed["decode_32k"], timed["long_500k"]
+    comb = main.pop("combine")
+    long_comb = long_.pop("combine")
+    entries.append({
+        "name": "flash_decode", "route": "cuda", "source": DECODE_SOURCE,
+        "replaces": DECODE_REPLACES, "launches": launches["flash_decode"],
+        **main, "long_500k": long_,
+        "note": "ms, plain_ms, library_ms: the whole function (split + "
+                "combine); split_ms: fd_split alone"})
+    entries.append({
+        "name": "flash_decode_combine", "route": "cuda",
+        "source": DECODE_SOURCE, "replaces": DECODE_REPLACES,
+        "launches": launches["flash_decode_combine"], **comb,
+        "library_ms": None, "long_500k": long_comb,
+        "shape": {"partials_of": "flash_decode at decode_32k"}})
+    return entries
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -686,6 +1304,8 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside the repository)
 
     device = torch.device("cuda", 0)
+    # float32 matmuls in full float32 (the MIND checks' tolerance assumes it)
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -700,7 +1320,13 @@ def main() -> int:
     launches.update(phase_per_probe(device, g, r))
     tables = device_tables(g, device)
     launches.update(phase_segment_sum(device, g, r, tables))
-    emit({"kernels": kernel_entries(g, device, tables, launches)})
+    entries = kernel_entries(g, device, tables, launches)
+    del g, r, tables
+    bag_launches, profile_embed, profile_ids = phase_mind(device)
+    launches.update(bag_launches)
+    launches.update(phase_lm(device))
+    entries += serving_entries(device, launches, profile_embed, profile_ids)
+    emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

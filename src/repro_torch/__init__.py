@@ -2,9 +2,11 @@
 
 The port of the ``repro`` JAX package to an NVIDIA H100: the paper's
 SemiCore / SemiCore+ / SemiCore* decomposition with its I/O accounting,
-the warm settle and the masked settle, run device-resident through one
-hand-written CUDA superstep kernel pair (``kernels/csrc``).  It imports
-torch and numpy only.
+the warm settle and the masked settle, run device-resident through
+hand-written CUDA kernels (``kernels/csrc``); and two serving paths of the
+model zoo, MIND (``models.recsys``) and dense GQA decode serving
+(``serve.ServeEngine``), on hand-written EmbeddingBag and flash-decode
+kernels.  It imports torch and numpy only.
 
     from repro_torch.core import decompose
     from repro_torch.graph import chung_lu

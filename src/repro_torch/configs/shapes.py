@@ -1,0 +1,46 @@
+"""Shape cells of the ported families and the inputs of each cell.
+
+The port's copy of ``repro/configs/shapes.py`` for the LM and recsys
+families: the cell tables, and :func:`recsys_specs`, the counterpart of
+``_recsys_specs``, as plain ``(shape, dtype)`` tuples.
+"""
+from __future__ import annotations
+
+import torch
+
+from .base import RecsysConfig
+
+__all__ = ["LM_SHAPES", "RECSYS_SHAPES", "recsys_specs"]
+
+LM_SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, step="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, step="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, step="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, step="decode"),
+}
+
+RECSYS_SHAPES = {
+    "train_batch": dict(batch=65536, step="train"),
+    "serve_p99": dict(batch=512, step="serve"),
+    "serve_bulk": dict(batch=262_144, step="serve"),
+    "retrieval_cand": dict(batch=1, n_candidates=1_000_000, step="retrieval"),
+}
+
+
+def recsys_specs(cfg: RecsysConfig, shape_name: str,
+                 reduced: bool = False) -> dict:
+    """Input name -> ``(shape, dtype)`` of one recsys cell."""
+    sh = RECSYS_SHAPES[shape_name]
+    B = sh["batch"] if not reduced else 4
+    i32 = torch.int32
+    base = {
+        "hist_ids": ((B, cfg.hist_len), i32),
+        "profile_ids": ((B, cfg.n_profile_fields, cfg.profile_bag), i32),
+    }
+    if sh["step"] == "train":
+        base |= {"target_id": ((B,), i32),
+                 "negative_ids": ((B, cfg.num_sampled_negatives), i32)}
+    if sh["step"] == "retrieval":
+        C = sh["n_candidates"] if not reduced else 64
+        base |= {"candidate_ids": ((C,), i32)}
+    return base

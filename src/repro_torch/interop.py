@@ -1,4 +1,5 @@
-"""Carry graphs and decomposition state into the port from plain fields.
+"""Carry graphs, decomposition state and model parameters into the port
+from plain fields.
 
 Objects of another implementation (the JAX package's ``CSRGraph``,
 ``BufferedGraph`` and ``DecompResult`` among them) are read only through
@@ -9,7 +10,9 @@ their numpy fields, by attribute, never by importing that implementation:
   edge deltas (``_ins``/``_del`` endpoint sets, ``_deg_delta``, ``version``,
   ``capacity``);
 * :func:`warm_state` — a ``(core, cnt)`` pair, or any object with ``core``
-  and ``cnt`` arrays.
+  and ``cnt`` arrays;
+* :func:`params_from` (:func:`mind_params_from`, :func:`lm_params_from`)
+  — a parameter tree as nested dicts of numpy arrays, leaf for leaf.
 
 Each returns the port's own objects (or int64 numpy arrays), so both
 implementations compute on the same inputs.
@@ -21,7 +24,8 @@ import numpy as np
 from .graph.storage import CSRGraph
 from .graph.updates import BufferedGraph
 
-__all__ = ["csr_from", "buffered_from", "warm_state"]
+__all__ = ["csr_from", "buffered_from", "warm_state", "params_from",
+           "mind_params_from", "lm_params_from"]
 
 
 def csr_from(graph) -> CSRGraph:
@@ -50,3 +54,58 @@ def warm_state(core, cnt=None) -> tuple:
         core, cnt = core.core, core.cnt
     return (np.array(core, dtype=np.int64),
             None if cnt is None else np.array(cnt, dtype=np.int64))
+
+
+def params_from(arrays, spec_tree, device="cpu"):
+    """The port's :class:`~repro_torch.models.params.ParamTree` holding
+    ``arrays``, a parameter tree of the JAX package given as nested dicts
+    of numpy arrays (``jax.tree.map(np.asarray, params)``), leaf for leaf
+    under the reference's names.  Each leaf must have its spec's shape and
+    is stored in its spec's dtype; a missing or extra leaf raises."""
+    import torch
+
+    from .models.params import ParamTree
+
+    def carry(arr_tree, specs, path):
+        if not isinstance(arr_tree, dict):
+            raise ValueError(f"{path or 'params'}: expected a dict of leaves")
+        missing = sorted(set(specs) - set(arr_tree))
+        extra = sorted(set(arr_tree) - set(specs))
+        if missing or extra:
+            raise ValueError(f"{path or 'params'}: missing leaves {missing}, "
+                             f"extra leaves {extra}")
+        out = {}
+        for name, spec in specs.items():
+            where = f"{path}.{name}" if path else name
+            if isinstance(spec, dict):
+                out[name] = carry(arr_tree[name], spec, where)
+                continue
+            a = np.asarray(arr_tree[name])
+            if tuple(a.shape) != tuple(spec.shape):
+                raise ValueError(f"{where}: shape {a.shape} != "
+                                 f"{tuple(spec.shape)}")
+            if a.dtype.kind not in "fiub":  # bfloat16 and other extensions
+                a = a.astype(np.float32)
+            out[name] = torch.tensor(a).to(
+                device=device, dtype=spec.dtype)
+        return out
+
+    with torch.no_grad():
+        return ParamTree(carry(arrays, spec_tree, ""))
+
+
+def mind_params_from(arrays, cfg, device="cpu"):
+    """MIND's parameters (:func:`repro_torch.models.recsys.mind_param_specs`)
+    from the reference's tree."""
+    from .models.recsys import mind_param_specs
+
+    return params_from(arrays, mind_param_specs(cfg), device)
+
+
+def lm_params_from(arrays, cfg, device="cpu"):
+    """The dense LM's parameters
+    (:func:`repro_torch.models.transformer.lm_param_specs`) from the
+    reference's tree."""
+    from .models.transformer import lm_param_specs
+
+    return params_from(arrays, lm_param_specs(cfg), device)

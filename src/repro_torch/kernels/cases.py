@@ -15,6 +15,14 @@ rows with rows longer than a block, empty rows and an edge count that
 leaves a partial last block, :func:`segsum_values` the values and
 :func:`segsum_frontier` the active rows; ``SEGSUM_TOL`` holds the
 tolerances (rtol, atol) of the reference's kernel tests.
+
+The embedding bag is checked over ``BAG_CASES`` (the reference's sweep,
+``(N, D, B, L)``) x ``BAG_MODES`` x ``BAG_DTYPES``, with and without
+weights (:func:`bag_case`: a quarter of the slots masked); the flash decode
+over ``DECODE_CASES`` (the reference's sweep, ``(Hkv, G, S, d)``, batched
+over ``DECODE_BATCH`` rows at the model layout) x ``DECODE_DTYPES`` x
+:func:`decode_lens` (:func:`decode_case`).  ``BAG_TOL`` and ``DECODE_TOL``
+hold (rtol, atol) of kernel against plain version.
 """
 from __future__ import annotations
 
@@ -22,7 +30,10 @@ import numpy as np
 
 __all__ = ["CASES", "superstep_case", "SEGSUM_DTYPES", "SEGSUM_WIDTHS",
            "SEGSUM_BLOCKS", "SEGSUM_FRONTIERS", "SEGSUM_TOL", "segsum_rows",
-           "segsum_values", "segsum_frontier"]
+           "segsum_values", "segsum_frontier", "BAG_CASES", "BAG_MODES",
+           "BAG_DTYPES", "BAG_TOL", "bag_case", "DECODE_CASES",
+           "DECODE_BATCH", "DECODE_DTYPES", "DECODE_TOL", "decode_lens",
+           "decode_case"]
 
 SEGSUM_DTYPES = ("float32", "bfloat16", "int32")
 SEGSUM_WIDTHS = (1, 8, 128)
@@ -32,6 +43,22 @@ SEGSUM_FRONTIERS = ("all", "none", "sparse", "prefix")
 #: order (atomics on the card)
 SEGSUM_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-1),
               "int32": (0, 0)}
+
+BAG_CASES = ((100, 16, 4, 3), (1000, 64, 8, 10), (37, 128, 16, 5),
+             (10, 8, 1, 1))
+BAG_MODES = ("sum", "mean")
+BAG_DTYPES = ("float32", "bfloat16")
+#: (rtol, atol): both sides sum in float32 in another order and round once;
+#: a bfloat16 result may land one bfloat16 step (2**-8 relative) apart
+BAG_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+
+DECODE_CASES = ((2, 4, 1024, 64), (8, 1, 512, 128), (1, 8, 2048, 64),
+                (4, 7, 512, 32))
+DECODE_BATCH = 2
+DECODE_DTYPES = ("float32", "bfloat16")
+#: (rtol, atol): float32 at the reference's kernel tolerance; a bfloat16
+#: output may land one bfloat16 step apart after the same float32 softmax
+DECODE_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-2)}
 
 CASES = [
     (50, 200, 16, 0.0, "all"),
@@ -112,3 +139,28 @@ def segsum_frontier(kind: str, rng: np.random.Generator,
     if kind == "prefix":
         return np.arange(n) < n // 4
     raise ValueError(f"unknown frontier {kind!r}")
+
+
+def bag_case(rng: np.random.Generator, N: int, D: int, B: int, L: int):
+    """(table (N, D) float32, idx (B, L) int32 with a quarter of the slots
+    -1, weights (B, L) float32 in [0.5, 2))."""
+    table = rng.normal(size=(N, D)).astype(np.float32)
+    idx = rng.integers(0, N, size=(B, L)).astype(np.int32)
+    idx[rng.random((B, L)) < 0.25] = -1
+    w = rng.uniform(0.5, 2.0, size=(B, L)).astype(np.float32)
+    return table, idx, w
+
+
+def decode_lens(S: int, chunk: int) -> tuple:
+    """The cache lengths of the reference's sweep, with the kernel's chunk
+    in place of its KV block: full, a ragged tail, one past a chunk, one."""
+    return (S, S - 17, chunk + 1, 1)
+
+
+def decode_case(rng: np.random.Generator, B: int, Hkv: int, G: int, S: int,
+                d: int):
+    """(q (B, H, d), k (B, S, Hkv, d), v (B, S, Hkv, d)) float32 normals."""
+    q = rng.normal(size=(B, Hkv * G, d)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, d)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, d)).astype(np.float32)
+    return q, k, v

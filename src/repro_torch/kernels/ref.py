@@ -1,17 +1,25 @@
-"""Plain-torch oracle of one batch superstep.
+"""Plain-torch oracles, formula for formula the port's copies of
+``repro/kernels/ref.py``.
 
-The port's copy of ``repro/kernels/ref.py::fused_superstep_ref``, formula
-for formula: h-index by an eager binary search over per-row counts, the
-refreshed cnt by a >=-threshold row sum, the semicore* push rule and the
-semicore+ touched rule, both summed over each row's own edges (the
-row-summed form, which needs no symmetry of the edge table).  Rows need not
-be sorted.
+``fused_superstep_ref``: h-index by an eager binary search over per-row
+counts, the refreshed cnt by a >=-threshold row sum, the semicore* push
+rule and the semicore+ touched rule, both summed over each row's own edges
+(the row-summed form, which needs no symmetry of the edge table).  Rows
+need not be sorted.
+
+``embedding_bag_ref``: gather + masked weighted sum or mean; a masked slot
+reads row 0 and multiplies it by 0, as the reference does.
+
+``flash_decode_ref``: full masked softmax attention of one query token in
+float32, the TPU kernel's ``(H, d)`` / ``(Hkv, S, d)`` layout.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["fused_superstep_ref"]
+__all__ = ["fused_superstep_ref", "embedding_bag_ref", "flash_decode_ref"]
+
+NEG_INF = -1e30
 
 
 def fused_superstep_ref(core, cnt, active, nbr, rows, num_segments: int,
@@ -57,3 +65,29 @@ def fused_superstep_ref(core, cnt, active, nbr, rows, num_segments: int,
     push = active[nbr] & (c2_row > h[nbr]) & (c2_row <= core[nbr])
     cnt2 = torch.where(active, refreshed, cnt) - row_sum(push)
     return core2, cnt2, (cnt2 < core2) & (core2 > 0), upd
+
+
+def embedding_bag_ref(table, indices, weights, mode: str = "sum"):
+    """``out[b] = Σ_l w[b,l]·table[idx[b,l]]`` with ``idx < 0`` masked;
+    ``mode="mean"`` divides by ``max(Σ_l w, 1e-9)``."""
+    mask = (indices >= 0).to(table.dtype)
+    w = weights.to(table.dtype) * mask
+    rows = table[indices.clamp(min=0).long()]  # (B, L, D)
+    out = torch.einsum("bld,bl->bd", rows, w)
+    if mode == "mean":
+        out = out / w.sum(dim=1, keepdim=True).clamp(min=1e-9)
+    return out
+
+
+def flash_decode_ref(q, k, v, cache_len):
+    """q (H, d), k/v (Hkv, S, d), the first ``cache_len`` positions valid;
+    returns (H, d) in q's dtype."""
+    H, d = q.shape
+    Hkv, S, _ = k.shape
+    qg = q.reshape(Hkv, H // Hkv, d).float()
+    scores = torch.einsum("hgd,hsd->hgs", qg, k.float()) / (d ** 0.5)
+    mask = torch.arange(S, device=q.device)[None, None, :] < cache_len
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("hgs,hsd->hgd", p, v.float())
+    return out.reshape(H, d).to(q.dtype)

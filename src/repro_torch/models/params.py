@@ -1,0 +1,92 @@
+"""Parameter spec trees and the module that holds them.
+
+The port's copy of ``repro/models/params.py`` for what serving needs: a
+model's parameters are declared once as a nested dict of :class:`Spec`
+leaves (shape, torch dtype, logical axes, init), and :func:`tree_init`
+materializes them as a :class:`ParamTree`, an ``nn.Module`` whose nesting
+and leaf names are the reference's, so ``params["mlp"]["w1"]`` reads the
+same in both packages.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from math import prod
+from typing import Any
+
+import torch
+from torch import nn
+
+__all__ = ["Spec", "ParamTree", "tree_init", "tree_num_params",
+           "tree_leaves"]
+
+
+@dataclass(frozen=True)
+class Spec:
+    shape: tuple
+    dtype: Any = torch.float32
+    axes: tuple = ()          # logical axis names (len == ndim; None = unsharded)
+    init: str = "normal"      # normal | zeros | ones
+    scale: float = 0.02
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} vs shape {self.shape}")
+
+
+class ParamTree(nn.Module):
+    """Nested parameters under the reference's names: a leaf is an
+    ``nn.Parameter`` (no gradient: the port serves), a branch another
+    ``ParamTree``.  ``tree[name]`` reads a child."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name in sorted(tree):
+            value = tree[name]
+            if isinstance(value, dict):
+                self.add_module(name, ParamTree(value))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def keys(self) -> list:
+        return sorted([*self._parameters, *self._modules])
+
+
+def tree_leaves(spec_tree, prefix: str = ""):
+    """``(dotted name, Spec)`` of every leaf, in sorted key order."""
+    for name in sorted(spec_tree):
+        value = spec_tree[name]
+        if isinstance(value, dict):
+            yield from tree_leaves(value, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", value
+
+
+def _init_leaf(s: Spec, generator: torch.Generator) -> torch.Tensor:
+    dev = generator.device
+    if s.init == "zeros":
+        return torch.zeros(s.shape, dtype=s.dtype, device=dev)
+    if s.init == "ones":
+        return torch.ones(s.shape, dtype=s.dtype, device=dev)
+    x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                    device=dev)
+    return x.mul_(s.scale).to(s.dtype)
+
+
+def tree_init(spec_tree, generator: torch.Generator) -> ParamTree:
+    """Materialize the parameters on ``generator.device``: normal leaves
+    are ``N(0, 1) * scale`` drawn in float32 and cast to the leaf's dtype,
+    leaf after leaf in sorted key order from ``generator``."""
+    def build(tree):
+        return {k: build(v) if isinstance(v, dict) else _init_leaf(v, generator)
+                for k, v in sorted(tree.items())}
+
+    with torch.no_grad():
+        return ParamTree(build(spec_tree))
+
+
+def tree_num_params(spec_tree) -> int:
+    return int(sum(prod(s.shape) for _, s in tree_leaves(spec_tree)))

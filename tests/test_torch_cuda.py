@@ -17,11 +17,18 @@ from repro_torch.core.imcore import imcore_peel  # noqa: E402
 from repro_torch.graph import BufferedGraph, chung_lu  # noqa: E402
 from repro_torch.kernels import fused_superstep as fsk  # noqa: E402
 from repro_torch.kernels import segsum as ssk, segsum_active as ssa  # noqa: E402
-from repro_torch.kernels.cases import (CASES, SEGSUM_BLOCKS,  # noqa: E402
-                                       SEGSUM_DTYPES, SEGSUM_FRONTIERS,
-                                       SEGSUM_TOL, SEGSUM_WIDTHS,
-                                       segsum_frontier, segsum_rows,
-                                       segsum_values, superstep_case)
+from repro_torch.kernels import embedding_bag as ebk  # noqa: E402
+from repro_torch.kernels import flash_decode as fdk  # noqa: E402
+from repro_torch.kernels.cases import (BAG_CASES, BAG_DTYPES,  # noqa: E402
+                                       BAG_MODES, BAG_TOL, CASES,
+                                       DECODE_BATCH, DECODE_CASES,
+                                       DECODE_DTYPES, DECODE_TOL,
+                                       SEGSUM_BLOCKS, SEGSUM_DTYPES,
+                                       SEGSUM_FRONTIERS, SEGSUM_TOL,
+                                       SEGSUM_WIDTHS, bag_case, decode_case,
+                                       decode_lens, segsum_frontier,
+                                       segsum_rows, segsum_values,
+                                       superstep_case)
 
 ALGORITHMS = ("semicore", "semicore+", "semicore*")
 FIELDS = ("iterations", "node_computations", "updates_per_iter",
@@ -257,3 +264,192 @@ def test_per_probe_warm_settle_on_the_card(dev):
     plain_torch = warm_settle(HostEngine(bg, block_edges=64), core0, ni,
                               TorchBackend(device=dev))
     _same(plain_torch, fused, "torch warm_settle", FIELDS[:-2])
+
+
+# ---------------------------------------------------------- embedding bag
+def _close(got, want, tol, what):
+    rtol, atol = tol
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol, msg=what)
+
+
+@pytest.mark.parametrize("dtype", BAG_DTYPES)
+def test_embedding_bag_kernel_matches_plain(dev, dtype):
+    rng = np.random.default_rng(5)
+    ebk.reset_launch_counts()
+    checks = 0
+    for (N, D, B, L) in BAG_CASES:
+        table, idx, w = (torch.as_tensor(a, device=dev)
+                         for a in bag_case(rng, N, D, B, L))
+        table = table.to(getattr(torch, dtype))
+        for mode in BAG_MODES:
+            for weights in (w, None):
+                _close(ebk.embedding_bag(table, idx, weights, mode=mode),
+                       ebk.embedding_bag_plain(table, idx, weights, mode=mode),
+                       BAG_TOL[dtype], f"{dtype} {mode} N={N} D={D}")
+                checks += 1
+    torch.cuda.synchronize(dev)
+    assert ebk.LAUNCHES["embedding_bag"] == checks
+
+
+def test_embedding_bag_kernel_reads_no_masked_row(dev):
+    rng = np.random.default_rng(6)
+    table, idx, w = (torch.as_tensor(a, device=dev)
+                     for a in bag_case(rng, 64, 32, 40, 7))
+    idx[idx == 0] = 1
+    idx[:, 3] = -1
+    base = ebk.embedding_bag(table, idx, w, mode="mean")
+    table[0] = float("nan")
+    got = ebk.embedding_bag(table, idx, w, mode="mean")
+    assert torch.equal(got, base) and bool(torch.isfinite(got).all())
+    empty = torch.full((2, 5), -1, dtype=torch.int32, device=dev)
+    assert bool((ebk.embedding_bag(table, empty, mode="mean") == 0).all())
+
+
+def test_embedding_bag_wrapper_refuses_what_the_kernel_cannot_take(dev):
+    table = torch.arange(40, dtype=torch.float32, device=dev).reshape(10, 4)
+    idx = torch.zeros(2, 3, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        ebk.embedding_bag(table, idx.long())
+    ebk.raise_bad_index(dev)  # nothing recorded yet
+    # an index past the table: no row read, the slot adds nothing, and the
+    # device word raises when read (not at the launch: no host sync there)
+    far = idx.clone()
+    far[0, 1] = 10
+    got = ebk.embedding_bag(table, far)
+    with pytest.raises(IndexError, match="rows"):
+        ebk.raise_bad_index(dev)
+    ebk.raise_bad_index(dev)  # the read cleared it
+    masked = far.clone()
+    masked[0, 1] = -1
+    assert torch.equal(got, ebk.embedding_bag(table, masked))
+    ebk.raise_bad_index(dev)
+    with pytest.raises(ValueError, match="is on"):
+        ebk.embedding_bag(table, idx.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        ebk.embedding_bag(torch.zeros(4, 10, device=dev).t(), idx)
+
+
+# ------------------------------------------------------------ flash decode
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
+def test_flash_decode_kernels_match_plain(dev, dtype):
+    rng = np.random.default_rng(7)
+    dt = getattr(torch, dtype)
+    fdk.reset_launch_counts()
+    calls = 0
+    for (Hkv, G, S, d) in DECODE_CASES:
+        q, k, v = (torch.as_tensor(a, device=dev).to(dt) for a in
+                   decode_case(rng, DECODE_BATCH, Hkv, G, S, d))
+        for n in decode_lens(S, fdk.CHUNK):
+            lens = torch.tensor(n, dtype=torch.int32, device=dev)
+            _close(fdk.decode_attention(q, k, v, lens),
+                   fdk.decode_attention_plain(q, k, v, lens),
+                   DECODE_TOL[dtype], f"{dtype} Hkv={Hkv} G={G} S={S} {n}")
+            ml, acc = fdk.launch_split(q, k, v, lens)
+            ml_p, acc_p = fdk.split_plain(q, k, v, lens)
+            nc = -(-n // fdk.CHUNK)
+            _close(ml[:, :, :nc], ml_p[:, :, :nc], (2e-4, 2e-4), "split m, l")
+            _close(acc[:, :, :nc], acc_p[:, :, :nc], (2e-4, 2e-4), "split acc")
+            _close(fdk.launch_combine(ml, acc, lens, S, dt),
+                   fdk.combine_plain(ml, acc, lens, S, dt), DECODE_TOL[dtype],
+                   "combine")
+            calls += 1
+    torch.cuda.synchronize(dev)
+    assert fdk.LAUNCHES["flash_decode"] == 2 * calls
+    assert fdk.LAUNCHES["flash_decode_combine"] == 2 * calls
+
+
+def test_flash_decode_reads_no_position_past_cache_len(dev):
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.as_tensor(a, device=dev) for a in
+               decode_case(rng, 3, 2, 4, 1000, 64))
+    lens = torch.tensor([1000, 300, 1], dtype=torch.int32, device=dev)
+    want = fdk.decode_attention_plain(q, k, v, lens)
+    for b, n in enumerate((1000, 300, 1)):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    got = fdk.decode_attention(q, k, v, lens)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want, DECODE_TOL["float32"], "per-row lengths")
+
+
+def test_flash_decode_tpu_layout_on_the_card(dev):
+    from repro_torch.kernels.ref import flash_decode_ref
+
+    rng = np.random.default_rng(9)
+    q = torch.as_tensor(rng.normal(size=(8, 64)).astype(np.float32),
+                        device=dev)
+    k, v = (torch.as_tensor(rng.normal(size=(2, 700, 64)).astype(np.float32),
+                            device=dev) for _ in range(2))
+    _close(fdk.flash_decode(q, k, v, 511), flash_decode_ref(q, k, v, 511),
+           DECODE_TOL["float32"], "(H, d) layout")
+
+
+def test_flash_decode_wrapper_refuses_what_the_kernel_cannot_take(dev):
+    q = torch.zeros(2, 4, 8, device=dev)
+    k = torch.zeros(2, 16, 2, 8, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        fdk.decode_attention(q, k.bfloat16(), k.bfloat16(), 3)
+    with pytest.raises(ValueError, match="unit stride"):
+        fdk.decode_attention(q, torch.zeros(2, 16, 2, 16, device=dev)[..., ::2],
+                             k, 3)
+    with pytest.raises(ValueError, match="is on"):
+        fdk.decode_attention(q, k, k, torch.tensor(3, dtype=torch.int32))
+
+
+# ----------------------------------------------------------------- serving
+def test_mind_serving_on_the_card_matches_plain(dev, monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.data import RecsysSource
+    from repro_torch.models import recsys as rec
+
+    cfg = get_config("mind").reduced()
+    params = rec.mind_init(cfg, torch.Generator(dev).manual_seed(0))
+    batch = RecsysSource(cfg, 64, seed=1)(0)
+    batch["candidate_ids"] = np.arange(cfg.n_items, dtype=np.int32)
+    ebk.reset_launch_counts()
+    got = rec.serve_step(params, cfg, batch)
+    assert ebk.LAUNCHES["embedding_bag"] == 1
+    vals, idx = rec.retrieval_step(params, cfg, batch, top_k=10)
+    ebk.raise_bad_index(dev)
+    monkeypatch.setattr(ebk, "embedding_bag", ebk.embedding_bag_plain)
+    want = rec.serve_step(params, cfg, batch)
+    _close(got, want, (1e-5, 1e-7), "mind_serve")
+    vals_p, idx_p = rec.retrieval_step(params, cfg, batch, top_k=10)
+    _close(vals, vals_p, (1e-5, 1e-7), "mind_retrieval values")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_serving_on_the_card_matches_plain(dev, dtype, monkeypatch):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenSource
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import ServeEngine
+
+    cfg = replace(get_config("qwen3-0.6b").reduced(),
+                  dtype=getattr(torch, dtype))
+    params = tfm.lm_init(cfg, torch.Generator(dev).manual_seed(0))
+    prompts = TokenSource(4, 12, cfg.vocab, seed=0)(0)["tokens"]
+    fdk.reset_launch_counts()
+    kernel = ServeEngine(params, cfg, 4, 600, device=dev)
+    plain = ServeEngine(params, cfg, 4, 600, device=dev)
+
+    def on_plain(fn, *args):  # the engine with the plain attention in place
+        with monkeypatch.context() as m:
+            m.setattr(fdk, "decode_attention", fdk.decode_attention_plain)
+            return fn(*args)
+
+    lk, lp = kernel.prefill(prompts), on_plain(plain.prefill, prompts)
+    assert fdk.LAUNCHES["flash_decode"] == 12 * cfg.n_layers
+    tol = (2e-4, 2e-4) if dtype == "float32" else (5e-2, 5e-2)
+    _close(lk, lp, tol, "prefill logits")
+    tok = lk[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    for _ in range(6):  # teacher-forced on the kernel's tokens
+        lk, lp = kernel.decode(tok), on_plain(plain.decode, tok)
+        _close(lk, lp, tol, "decode logits")
+        tok = lk[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    if dtype == "float32":
+        _close(kernel.caches["k"], plain.caches["k"], tol, "k caches")

@@ -34,6 +34,21 @@ from repro_torch.obs import metrics, trace  # noqa: E402
 PKG = Path(repro_torch.__file__).resolve().parent
 ROOT = PKG.parents[1]
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+WALKED = ["repro_torch.configs.registry", "repro_torch.configs.shapes",
+          "repro_torch.configs.mind", "repro_torch.configs.qwen3_0_6b",
+          "repro_torch.data.pipeline", "repro_torch.models.params",
+          "repro_torch.models.recsys", "repro_torch.models.transformer",
+          "repro_torch.models.layers", "repro_torch.serve.engine",
+          "repro_torch.kernels.embedding_bag",
+          "repro_torch.kernels.flash_decode", "repro_torch.core.engine",
+          "repro_torch.graph.storage", "repro_torch.obs.trace"]
+
+
+def test_ast_walk_covers_every_subpackage():
+    """The import check below parses every module of every subpackage."""
+    subpackages = {p.parent.name for p in SOURCES if p.name == "__init__.py"}
+    assert {"configs", "core", "data", "graph", "kernels", "models", "obs",
+            "serve"} <= subpackages
 
 
 # ------------------------------------------------------------- isolation
@@ -49,12 +64,17 @@ def test_package_imports_with_jax_blocked():
         "bad = sorted(k for k in sys.modules\n"
         "             if k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "print(' '.join(sorted(k for k in sys.modules\n"
+        "                      if k.startswith('repro_torch.'))))\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    walked, ok = out.stdout.strip().splitlines()
+    assert ok == "ok"
+    # the walk reaches every subpackage, the serving ones included
+    assert set(WALKED) <= set(walked.split()), set(WALKED) - set(walked.split())
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
