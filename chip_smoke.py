@@ -39,7 +39,8 @@ Phases, each printing one JSON line:
              step's logits and greedy tokens compared
 
 The parity phase also holds the embedding-bag and flash-decode kernels to
-their plain versions over the reference's sweeps (kernels/cases.py).
+their plain versions over the reference's sweeps (kernels/cases.py), flash
+decode also at every boundary of its split rule and at cache_len <= 0.
 
 then the kernels line (launches on each kernel's path, error against the
 plain version, times and bounds), the card's name and power limit, and the
@@ -92,12 +93,17 @@ MIND_TOL = (1e-5, 1e-8)
 #: layers
 LM_LOGITS_ATOL = 0.25
 LM_SLOTS, LM_MAX_LEN, LM_PROMPT, LM_GENERATE = 8, 32768, 512, 32
-#: flash decode timed on full bf16 caches of Qwen3-0.6B's attention
-#: (H, Hkv, d) = (16, 8, 128): one layer at decode_32k (batch cut to the
-#: served 8 slots) and at long_500k
-DECODE_TIMED = (("decode_32k", 8, 32768), ("long_500k", 1, 524288))
+#: flash decode timed on bf16 caches of Qwen3-0.6B's attention, (H, Hkv, d)
+#: = (16, 8, 128), as (label, B, T, cache_len): one layer of decode_32k
+#: (batch cut to the served 8 slots) at the last served step, where every
+#: main-path launch runs, and full; long_500k full
+DECODE_HEADS = (16, 8, 128)
+DECODE_SHAPES = (("served", 8, 32768, LM_PROMPT + LM_GENERATE),
+                 ("decode_32k", 8, 32768, 32768),
+                 ("long_500k", 1, 524288, 524288))
 #: cache lengths the served decode reaches (1 .. 512 + 32): one position,
-#: one chunk, one past a chunk, the last step; held on the decode_32k cache
+#: 256 and 257, the last step; held on the decode_32k cache with one below
+#: and at each boundary of the kernel's split rule up to the last step
 DECODE_HELD_LENS = (1, 256, 257, 544)
 #: a bf16 result against its plain version: both round one float32 result
 #: to bf16 once, so an element may differ by one bf16 step of itself, which
@@ -210,7 +216,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     libs = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": [p.name for p in libs], "nvcc": _build.find_nvcc()})
+          "libraries": [p.name for p in libs], "nvcc": _build.find_nvcc(),
+          "ptxas": {p.name: _build.resource_usage(p) for p in libs}})
 
 
 def phase_parity(device) -> None:
@@ -326,9 +333,10 @@ def bf16_hold(got, want, steps: float = 1.0) -> tuple:
 
 def hold_decode(q, k, v, n: int, what: str) -> dict:
     """bf16 ``decode_attention`` against its plain version at cache_len
-    ``n``, to :func:`bf16_hold`'s limit, and that limit tried on three
-    planted faults it must reject: the last chunk below ``n`` dropped (the
-    plain split's partials with its l and acc zeroed, then the plain
+    ``n``, to :func:`bf16_hold`'s limit, and that limit tried on the
+    planted faults it must reject: the last split below ``n`` dropped and,
+    where there are at least three splits, a middle one dropped (the plain
+    split's partials with that split's l and acc zeroed, then the plain
     combine), the score scale doubled (q * 2), and an all-zero output.  At
     n = 1 the scale changes nothing (one weight of 1), so there it is only
     reported."""
@@ -336,26 +344,33 @@ def hold_decode(q, k, v, n: int, what: str) -> dict:
 
     from repro_torch.kernels import flash_decode as fdk
 
-    T = k.shape[1]
+    B, T, Hkv = k.shape[:3]
+    G = q.shape[1] // Hkv
     lens = torch.tensor(n, dtype=torch.int32, device=q.device)
     want = fdk.decode_attention_plain(q, k, v, lens)
     err, lim = bf16_hold(fdk.decode_attention(q, k, v, lens), want)
     check(err <= lim, f"{what} cache_len={n}: error {err} > limit {lim}")
+    ns = fdk.split_plan(n, T, B, Hkv, G)[2]
     ml, acc = fdk.split_plain(q, k, v, lens)
-    last = -(-n // fdk.CHUNK) - 1
-    ml[:, :, last, :, 1] = 0
-    acc[:, :, last] = 0
-    planted = {"last_chunk_dropped": fdk.combine_plain(ml, acc, lens, T,
-                                                       q.dtype),
+
+    def dropped(s):
+        ml_, acc_ = ml.clone(), acc.clone()
+        ml_[:, :, s, :, 1] = 0
+        acc_[:, :, s] = 0
+        return fdk.combine_plain(ml_, acc_, lens, T, q.dtype)
+
+    planted = {"last_split_dropped": dropped(ns - 1),
                "scale_doubled": fdk.decode_attention_plain(q * 2, k, v, lens),
                "zeros": torch.zeros_like(want)}
+    if ns >= 3:
+        planted["middle_split_dropped"] = dropped(ns // 2)
     planted_err = {}
     for name, bad in planted.items():
         planted_err[name] = bf16_hold(bad, want)[0]
         if not (name == "scale_doubled" and n == 1):
             check(planted_err[name] > lim, f"{what} cache_len={n}: the limit "
                   f"{lim} does not reject the planted fault {name}")
-    return {"cache_len": n, "max_abs_err": err, "limit": lim,
+    return {"cache_len": n, "splits": ns, "max_abs_err": err, "limit": lim,
             "planted_err": planted_err}
 
 
@@ -393,9 +408,10 @@ def parity_bag(device) -> dict:
 
 def parity_decode(device) -> dict:
     """The flash-decode kernels against their plain versions over the
-    reference's sweep at the model layout (and one case at the TPU
-    layout): the whole function, and the split and combine kernels each
-    on the same inputs."""
+    reference's sweep at the model layout, at every boundary of the split
+    rule, at cache_len <= 0 and past T (and one case at the TPU layout):
+    the whole function, and the split and combine kernels each on the same
+    inputs."""
     import torch
 
     from repro_torch.kernels import flash_decode as fdk
@@ -413,7 +429,8 @@ def parity_decode(device) -> dict:
             dt = getattr(torch, dtype)
             qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
             tol = DECODE_TOL[dtype]
-            for n in decode_lens(S, fdk.CHUNK):
+            for n in decode_lens(S, fdk.split_boundaries(
+                    S, DECODE_BATCH, Hkv, G)) + (0, -3, S + 5):
                 what = f"parity flash_decode {dtype} Hkv={Hkv} G={G} S={S} " \
                     f"d={d} len={n}"
                 lens = torch.tensor(n, dtype=torch.int32, device=device)
@@ -423,14 +440,14 @@ def parity_decode(device) -> dict:
                 if dt == torch.bfloat16:  # and to the scaled bf16 limit
                     e, lim = bf16_hold(got, want)
                     check(e <= lim, f"{what}: error {e} > limit {lim}")
-                # each kernel alone: the split on the chunks below len, the
-                # combine on the kernel's own partials
+                # each kernel alone: the split on the splits the rule gives
+                # len, the combine on the kernel's own partials
                 ml, acc = fdk.launch_split(qd, kd, vd, lens)
                 ml_p, acc_p = fdk.split_plain(qd, kd, vd, lens)
-                nc = -(-n // fdk.CHUNK)
-                _close(ml[:, :, :nc], ml_p[:, :, :nc], (2e-4, 2e-4),
+                ns = fdk.split_plan(n, S, DECODE_BATCH, Hkv, G)[2]
+                _close(ml[:, :, :ns], ml_p[:, :, :ns], (2e-4, 2e-4),
                        f"{what}: split m, l")
-                _close(acc[:, :, :nc], acc_p[:, :, :nc], (2e-4, 2e-4),
+                _close(acc[:, :, :ns], acc_p[:, :, :ns], (2e-4, 2e-4),
                        f"{what}: split acc")
                 _close(fdk.launch_combine(ml, acc, lens, S, dt),
                        fdk.combine_plain(ml, acc, lens, S, dt), tol,
@@ -548,7 +565,7 @@ def phase_small(device, n: int, m: int) -> None:
 
 def phase_full(device, g, gen_s: float) -> tuple:
     """The main path at full width: returns (the fused kernels' launches on
-    it, its result)."""
+    it, its result, the device ms of all its supersteps)."""
     import torch
 
     from repro_torch.core import CudaBackend, decompose
@@ -614,7 +631,7 @@ def phase_full(device, g, gen_s: float) -> tuple:
     out["plain_wall_s"] = time.perf_counter() - t
     same_result(r, rp, "full semicore*")
     emit(out)
-    return launches, r
+    return launches, r, out["superstep_ms_total"]
 
 
 def time_supersteps(backend) -> list:
@@ -757,10 +774,12 @@ def flags_reads(rows, active, block_edges: int) -> tuple:
     return int(read.sum()), int(torch.unique(rows[read]).numel())
 
 
-def kernel_entries(g, device, tables, launches) -> list:
+def kernel_entries(g, device, tables, launches, superstep_ms) -> list:
     """Time each kernel and its plain version at the first semicore* pass
     of the main path (every node with an edge active, cnt = 0); the segment
-    sums at that pass's first h-index probe (D = 1, int32)."""
+    sums at that pass's first h-index probe (D = 1, int32).  The superstep
+    pair also carries ``superstep_ms``, the device time of every superstep
+    of the main path (both kernels and the frontier ops, CUDA events)."""
     import torch
 
     from repro_torch.kernels import fused_superstep as fsk
@@ -816,6 +835,7 @@ def kernel_entries(g, device, tables, launches) -> list:
             "replaces": FUSED_REPLACES, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
             "bound_by": by, "library_ms": None, "parity": "bit-identical",
+            "main_path_superstep_ms": superstep_ms,
             "shape": {"n": n, "directed_edges": g.num_directed,
                       "active_edges": ops, "bytes": nbytes}})
 
@@ -1168,16 +1188,11 @@ def phase_lm(device) -> dict:
     return launches
 
 
-def serving_entries(device, launches, profile_embed, profile_ids) -> list:
-    """The embedding bag at MIND's serve_bulk bags, and the flash decode
-    on full bf16 caches: one layer of the decode_32k cache (8 x 32768 x 8 x
-    128), held at the served cache lengths and timed at cache_len = T, and
-    the long_500k cache (1 x 524288 x 8 x 128), cache_len = T."""
-    import torch
+def bag_entries(device, launches, profile_embed, profile_ids) -> list:
+    """The embedding bag at MIND's serve_bulk bags."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import embedding_bag as ebk
-    from repro_torch.kernels import flash_decode as fdk
 
     entries = []
     # ---- embedding bag: 2,097,152 bags of 16 slots, D = 64, mean, no weights
@@ -1213,78 +1228,121 @@ def serving_entries(device, launches, profile_embed, profile_ids) -> list:
                   "gathered_bytes": 4 * B * L * D}})
     del got, want
 
-    # ---- flash decode on full caches
+    return entries
+
+
+def device_ms(fn, reps: int, device) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events), with the calls queued behind a busy wait on the device first:
+    a launch of a few microseconds takes longer to send from the host,
+    and :func:`cuda_ms` would time the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~30 ms at 1.7 GHz: the host queues reps
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
+
+
+def decode_entries(device, launches) -> list:
+    """The flash-decode kernels on bf16 caches of Qwen3-0.6B's attention,
+    (H, Hkv, d) = (16, 8, 128): at the served shape (one layer of the
+    decode_32k cache, 8 x 32768, at cache_len 544, the last served step,
+    where every main-path launch runs), held there at the served lengths
+    and the split rule's boundaries; and on the full decode_32k and
+    long_500k (1 x 524288) caches at cache_len = T.  Times are device
+    times (:func:`device_ms`); SDPA is timed on views cut to cache_len,
+    which only a caller that knows the length on the host can make."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fdk
+
+    H, Hkv, d = DECODE_HEADS
+    G = H // Hkv
+    served_len = LM_PROMPT + LM_GENERATE
     gen = torch.Generator(device).manual_seed(5)
-    timed = {}
-    for label, Bq, T in DECODE_TIMED:
-        H, Hkv, d = 16, 8, 128
+    timed, combine = {}, {}
+    for label, Bq, T, n in DECODE_SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device=device).to(
             torch.bfloat16) for shape in ((Bq, H, d), (Bq, T, Hkv, d),
                                           (Bq, T, Hkv, d)))
-        lens = torch.tensor(T, dtype=torch.int32, device=device)
-        held = [hold_decode(q, k, v, n, f"flash_decode at {label}")
-                for n in (DECODE_HELD_LENS if label == "decode_32k" else ())
-                + (T,)]
+        lens = torch.tensor(n, dtype=torch.int32, device=device)
+        if label == "served":
+            bounds = [x for b in fdk.split_boundaries(T, Bq, Hkv, G)
+                      if b <= served_len for x in (b - 1, b)]
+            held = [hold_decode(q, k, v, m, f"flash_decode at {label}")
+                    for m in sorted({*DECODE_HELD_LENS, *bounds})]
+        else:
+            held = [hold_decode(q, k, v, n, f"flash_decode at {label}")]
+        err, lim = [(h["max_abs_err"], h["limit"]) for h in held
+                    if h["cache_len"] == n][0]
         want = fdk.decode_attention_plain(q, k, v, lens)
-        err, lim = held[-1]["max_abs_err"], held[-1]["limit"]
-        mask = torch.ones((1, 1, 1, T), dtype=torch.bool, device=device)
-        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        kt, vt = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
 
-        def library():  # SDPA with the length mask, GQA, on cache views
-            return F.scaled_dot_product_attention(
-                q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
+        def library():  # SDPA, GQA, on the cache views cut to cache_len
+            return F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                                  enable_gqa=True)
 
         lib_err, lib_lim = bf16_hold(library()[:, :, 0], want, LIBRARY_STEPS)
         check(lib_err <= lib_lim, f"SDPA at {label}: error {lib_err} > "
               f"limit {lib_lim}")
         ml, acc = fdk.launch_split(q, k, v, lens)
-        nbytes = 2 * 2 * Bq * T * Hkv * d + 2 * 2 * Bq * H * d
-        bms, by = bound(nbytes, 4 * Bq * H * T * d, BF16_OPS_PER_S)
+        nbytes = 2 * 2 * Bq * n * Hkv * d + 2 * 2 * Bq * H * d
+        bms, by = bound(nbytes, 4 * Bq * H * n * d, BF16_OPS_PER_S)
         timed[label] = {
             "max_abs_err": err,
-            "ms": cuda_ms(lambda: fdk.decode_attention(q, k, v, lens), 20,
-                          device),
-            "split_ms": cuda_ms(lambda: fdk.launch_split(q, k, v, lens), 20,
-                                device),
+            "ms": device_ms(lambda: fdk.decode_attention(q, k, v, lens), 50,
+                            device),
+            "split_ms": device_ms(lambda: fdk.launch_split(q, k, v, lens), 50,
+                                  device),
             "plain_ms": cuda_ms(lambda: fdk.decode_attention_plain(
                 q, k, v, lens), 3, device),
             "bound_ms": bms, "bound_by": by,
-            "library_ms": cuda_ms(library, 20, device),
+            "library_ms": device_ms(library, 50, device),
             "tolerance": "2**-7 * max|want|", "held": held,
             "library_err": lib_err, "library_limit": lib_lim,
-            "shape": {"B": Bq, "T": T, "cache_len": T, "H": H, "Hkv": Hkv,
-                      "d": d, "dtype": "bfloat16", "bytes": nbytes}}
-        # the combine alone, on this split's partials
+            "shape": {"label": label, "B": Bq, "T": T, "cache_len": n,
+                      "H": H, "Hkv": Hkv, "d": d, "dtype": "bfloat16",
+                      "splits": fdk.split_plan(n, T, Bq, Hkv, G)[2],
+                      "bytes": nbytes}}
+        # the combine alone, on this split's partials (the splits below n)
         cgot = fdk.launch_combine(ml, acc, lens, T, q.dtype)
         cwant = fdk.combine_plain(ml, acc, lens, T, q.dtype)
-        cbytes = ml.numel() * 4 + acc.numel() * 4 + 4 + 2 * Bq * H * d
-        cbms, cby = bound(cbytes, 3 * acc.numel(), F32_OPS_PER_S)
+        ns = timed[label]["shape"]["splits"]
+        cbytes = 4 * Bq * Hkv * ns * G * (d + 2) + 4 + 2 * Bq * H * d
+        cbms, cby = bound(cbytes, 3 * Bq * Hkv * ns * G * d, F32_OPS_PER_S)
         cerr, clim = bf16_hold(cgot, cwant)
         check(cerr <= clim, f"combine at {label}: error {cerr} > {clim}")
-        timed[label]["combine"] = {
+        combine[label] = {
             "max_abs_err": cerr, "limit": clim,
-            "ms": cuda_ms(lambda: fdk.launch_combine(ml, acc, lens, T,
-                                                     q.dtype), 20, device),
+            "ms": device_ms(lambda: fdk.launch_combine(ml, acc, lens, T,
+                                                       q.dtype), 50, device),
             "plain_ms": cuda_ms(lambda: fdk.combine_plain(ml, acc, lens, T,
                                                           q.dtype), 3, device),
             "bound_ms": cbms, "bound_by": cby, "bytes": cbytes}
+        timed[label]["combine_ms"] = combine[label]["ms"]
         del q, k, v, kt, vt, ml, acc, want
-    main, long_ = timed["decode_32k"], timed["long_500k"]
-    comb = main.pop("combine")
-    long_comb = long_.pop("combine")
-    entries.append({
+    served = timed.pop("served")
+    return [{
         "name": "flash_decode", "route": "cuda", "source": DECODE_SOURCE,
         "replaces": DECODE_REPLACES, "launches": launches["flash_decode"],
-        **main, "long_500k": long_,
-        "note": "ms, plain_ms, library_ms: the whole function (split + "
-                "combine); split_ms: fd_split alone"})
-    entries.append({
+        **served, **timed,
+        "note": "top level: the served shape, where every launch ran; ms, "
+                "plain_ms, library_ms: the whole function (split + "
+                "combine); split_ms, combine_ms: each kernel alone"}, {
         "name": "flash_decode_combine", "route": "cuda",
         "source": DECODE_SOURCE, "replaces": DECODE_REPLACES,
-        "launches": launches["flash_decode_combine"], **comb,
-        "library_ms": None, "long_500k": long_comb,
-        "shape": {"partials_of": "flash_decode at decode_32k"}})
-    return entries
+        "launches": launches["flash_decode_combine"],
+        **combine.pop("served"), "library_ms": None, **combine,
+        "shape": {"partials_of": "flash_decode at each shape"}}]
 
 
 def card_line() -> str:
@@ -1316,16 +1374,17 @@ def main() -> int:
     t0 = time.perf_counter()
     g = powerlaw_graph(*FULL)
     gen_s = time.perf_counter() - t0
-    launches, r = phase_full(device, g, gen_s)
+    launches, r, superstep_ms = phase_full(device, g, gen_s)
     launches.update(phase_per_probe(device, g, r))
     tables = device_tables(g, device)
     launches.update(phase_segment_sum(device, g, r, tables))
-    entries = kernel_entries(g, device, tables, launches)
+    entries = kernel_entries(g, device, tables, launches, superstep_ms)
     del g, r, tables
     bag_launches, profile_embed, profile_ids = phase_mind(device)
     launches.update(bag_launches)
     launches.update(phase_lm(device))
-    entries += serving_entries(device, launches, profile_embed, profile_ids)
+    entries += bag_entries(device, launches, profile_embed, profile_ids)
+    entries += decode_entries(device, launches)
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface under ``kernels/build/`` (listed in ``.gitignore``), named
-by the hash of its source so an edited source is rebuilt and an unchanged
-one is loaded as it is.  The library is loaded with ``ctypes``; pointers
+by the hash of its source and the flags, so an edited source or a changed
+flag is rebuilt and an unchanged one is loaded as it is.  ptxas' report
+lands beside the library (``.log``); a library without one is rebuilt.  The library is loaded with ``ctypes``; pointers
 and the CUDA stream go in as ``c_void_p``.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -16,18 +17,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "build_all",
-           "load"]
+           "resource_usage", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -48,12 +50,13 @@ def find_nvcc() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
-    exists; returns the library's path."""
+    """Compile ``csrc/<name>.cu`` unless a library of the same source and
+    flags exists with its ptxas report; returns the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha1(src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    if lib.exists():
+    if lib.exists() and lib.with_suffix(".log").exists():
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -67,6 +70,8 @@ def build(name: str) -> Path:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    # ptxas' registers, shared memory and spills per kernel, beside the library
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
 
@@ -78,6 +83,30 @@ def build_all() -> list[Path]:
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         return list(pool.map(build, names))
+
+
+def resource_usage(lib: Path) -> dict:
+    """Per kernel of a built library, ptxas' report: ``{mangled name:
+    {"registers", "spill_stores", "spill_loads", "smem"}}`` (static shared
+    memory in bytes; dynamic shared memory is the launch's)."""
+    out, name = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0,
+                         "smem": 0}
+            continue
+        if name is None:
+            continue
+        for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                out[name][key] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

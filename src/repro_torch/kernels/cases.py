@@ -21,7 +21,8 @@ The embedding bag is checked over ``BAG_CASES`` (the reference's sweep,
 weights (:func:`bag_case`: a quarter of the slots masked); the flash decode
 over ``DECODE_CASES`` (the reference's sweep, ``(Hkv, G, S, d)``, batched
 over ``DECODE_BATCH`` rows at the model layout) x ``DECODE_DTYPES`` x
-:func:`decode_lens` (:func:`decode_case`).  ``BAG_TOL`` and ``DECODE_TOL``
+:func:`decode_lens` (:func:`decode_case`), the lengths at the boundaries
+of the kernel's split rule.  ``BAG_TOL`` and ``DECODE_TOL``
 hold (rtol, atol) of kernel against plain version.
 """
 from __future__ import annotations
@@ -151,10 +152,14 @@ def bag_case(rng: np.random.Generator, N: int, D: int, B: int, L: int):
     return table, idx, w
 
 
-def decode_lens(S: int, chunk: int) -> tuple:
-    """The cache lengths of the reference's sweep, with the kernel's chunk
-    in place of its KV block: full, a ragged tail, one past a chunk, one."""
-    return (S, S - 17, chunk + 1, 1)
+def decode_lens(S: int, boundaries) -> tuple:
+    """The cache lengths of the reference's sweep (full, a ragged tail,
+    one), and one below, at and one above each boundary of the kernel's
+    split rule (``flash_decode.split_boundaries``), within ``[1, S]``."""
+    lens = {S, S - 17, 1}
+    for b in boundaries:
+        lens.update((b - 1, b, b + 1))
+    return tuple(sorted(n for n in lens if 1 <= n <= S))
 
 
 def decode_case(rng: np.random.Generator, B: int, Hkv: int, G: int, S: int,

@@ -4,7 +4,9 @@ The counterpart of ``repro/kernels/flash_decode.py`` (``ops.flash_decode``)
 and, at the model's layout, of ``repro/models/layers.py::decode_attention``:
 one query token of GQA attention over the first ``cache_len`` positions of
 a KV cache, scores and softmax in float32, scale ``1/√d``, the result in
-q's dtype (float32 or bfloat16).
+q's dtype (float32 or bfloat16).  ``cache_len <= 0`` gives the reference's
+answer there, the mean of V over all T positions (its -1e30 fill makes the
+softmax uniform).
 
 * :func:`decode_attention` — the model layout: ``q (B, H, d)``, caches
   ``(B, T, Hkv, d)`` read by their strides (a unit stride on ``d``),
@@ -14,15 +16,17 @@ q's dtype (float32 or bfloat16).
   (Hkv, S, d)``; the same kernels on strided views, no copy.
 
 On CUDA tensors the wrapper launches ``csrc/flash_decode.cu``: ``fd_split``
-writes a float32 partial ``(m, l, acc)`` per chunk of :data:`CHUNK`
-positions and kv head, ``fd_combine`` merges the chunks below
-``cache_len``; ``cache_len`` stays on the device.  On CPU tensors it runs
-the plain version, the reference's einsum form
+writes a float32 partial ``(m, l, acc)`` per split and query head,
+``fd_combine`` merges the splits of each row; ``cache_len`` stays on the
+device, where both kernels derive the splits from it by the rule of
+:func:`split_plan` (the source's ``split_plan``).  The caches must be
+16-byte aligned with 16-byte aligned strides and ``d`` one of
+:data:`KERNEL_DIMS`; the wrapper refuses other operands.  On CPU tensors
+it runs the plain version, the reference's einsum form
 (:func:`decode_attention_plain` runs it on any device).
 :func:`split_plain` and :func:`combine_plain` are the plain versions of
-the two kernels, and compose to the same function.  ``cache_len <= 0``
-gives 0 on the kernel route (the reference averages all of V there;
-decoding never asks for it).  ``LAUNCHES`` counts each kernel's launches.
+the two kernels on the same partition, and compose to the same function.
+``LAUNCHES`` counts each kernel's launches.
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ import ctypes
 import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "KERNEL_SOURCE", "DTYPES",
-           "CHUNK", "decode_attention", "decode_attention_plain",
+           "TILE", "HEAD_GROUP", "TARGET_BLOCKS", "KERNEL_DIMS", "split_cap",
+           "split_plan", "max_splits", "split_boundaries",
+           "partials_shape", "decode_attention", "decode_attention_plain",
            "flash_decode", "split_plain", "combine_plain"]
 
 KERNEL_SOURCE = "flash_decode"  # csrc/flash_decode.cu
@@ -39,8 +45,17 @@ KERNEL_SOURCE = "flash_decode"  # csrc/flash_decode.cu
 #: dtypes the kernels take, with the source's `enum DType` codes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: positions per split block (kChunk of the source)
-CHUNK = 256
+#: positions a staged tile; every split but a row's last is a multiple
+#: (kTile of the source)
+TILE = 64
+#: query heads one thread block takes (the M of the tensor-core product;
+#: kHeads of the source): G > 16 runs as ceil(G / 16) head groups
+HEAD_GROUP = 16
+#: blocks with work the rule aims at: two on each of the H100's 132 SMs
+#: (kTarget of the source)
+TARGET_BLOCKS = 264
+#: head sizes the split kernel is built for
+KERNEL_DIMS = (16, 32, 64, 128)
 
 #: kernel launches, counted where each kernel is launched
 LAUNCHES = {"flash_decode": 0, "flash_decode_combine": 0}
@@ -52,6 +67,50 @@ _GRID_YZ = 65535
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# ------------------------------------------------------------ the rule
+def split_cap(B: int, Hkv: int, G: int) -> int:
+    """Most splits of one (row, kv head): :data:`TARGET_BLOCKS` over the
+    blocks a split count of 1 gives, at least 1."""
+    return max(1, TARGET_BLOCKS // (B * Hkv * -(-G // HEAD_GROUP)))
+
+
+def split_plan(cache_len: int, T: int, B: int, Hkv: int, G: int) -> tuple:
+    """``(covered, span, n)``: a row of length ``cache_len`` covers
+    ``min(cache_len, T)`` positions (all T for ``cache_len <= 0``), cut
+    into ``n`` splits of ``span`` positions, a multiple of TILE, the last
+    one ragged; ``n <= split_cap``.  The source's ``split_plan``."""
+    covered = T if cache_len <= 0 else min(cache_len, T)
+    tiles = -(-covered // TILE)
+    per = max(1, -(-tiles // split_cap(B, Hkv, G)))
+    return covered, per * TILE, -(-tiles // per)
+
+
+def max_splits(T: int, B: int, Hkv: int, G: int) -> int:
+    """The largest split count the rule gives at any length: the partials
+    are sized from T by it."""
+    return min(split_cap(B, Hkv, G), -(-T // TILE))
+
+
+def split_boundaries(T: int, B: int, Hkv: int, G: int) -> list:
+    """The lengths in ``[2, T]`` whose split plan differs from that of the
+    length one below: each first length of a new tile count where the
+    split span or count changes."""
+    out, prev = [], split_plan(1, T, B, Hkv, G)[1:]
+    for tiles in range(2, -(-T // TILE) + 1):
+        n = (tiles - 1) * TILE + 1
+        plan = split_plan(n, T, B, Hkv, G)[1:]
+        if plan != prev:
+            out.append(n)
+        prev = plan
+    return out
+
+
+def partials_shape(B: int, T: int, Hkv: int, G: int, d: int) -> tuple:
+    """Shapes of the float32 partials ``(ml, acc)`` of a split."""
+    ns = max_splits(T, B, Hkv, G)
+    return (B, Hkv, ns, G, 2), (B, Hkv, ns, G, d)
 
 
 # ---------------------------------------------------------------- checks
@@ -95,43 +154,56 @@ def _lib():
     lib = _build.load(KERNEL_SOURCE)
     if not getattr(lib, "_repro_sigs", False):
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fd_chunk.argtypes = []
-        lib.fd_chunk.restype = i
+        for name in ("fd_tile", "fd_head_group", "fd_target"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
         lib.fd_split.argtypes = [vp, ll, ll, vp, ll, ll, ll, vp, ll, ll, ll,
-                                 vp, i, i, i, i, i, i, i, vp, vp, vp]
+                                 vp, i, i, i, i, i, i, i, i, vp, vp, vp]
         lib.fd_split.restype = i
-        lib.fd_combine.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, vp, vp]
+        lib.fd_combine.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i, vp,
+                                   vp]
         lib.fd_combine.restype = i
-        if lib.fd_chunk() != CHUNK:
-            raise RuntimeError(f"csrc/flash_decode.cu splits by "
-                               f"{lib.fd_chunk()} positions, the wrapper by "
-                               f"{CHUNK}")
+        got = (lib.fd_tile(), lib.fd_head_group(), lib.fd_target())
+        if got != (TILE, HEAD_GROUP, TARGET_BLOCKS):
+            raise RuntimeError(f"csrc/flash_decode.cu's (tile, head group, "
+                               f"target) {got} differ from the wrapper's "
+                               f"{(TILE, HEAD_GROUP, TARGET_BLOCKS)}")
         lib._repro_sigs = True
     return lib
 
 
+def _aligned(t) -> bool:
+    """16-byte aligned data and strides: what the kernel's cp.async copies
+    need."""
+    e = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(st * e % 16 == 0
+                                          for st in t.stride()[:3])
+
+
 def _kernel_shape(q, k, v, cache_len) -> tuple:
     """(B, T, Hkv, G, d, len_stride), refusing what the kernels cannot
-    address: a non-unit stride on d, a batch or kv head count past the
+    address: a non-unit stride on d, a head size they are not built for,
+    caches off 16-byte alignment, a batch or kv head count past the
     grid."""
     B, H, d = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     if q.stride(2) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q, k and v need a unit stride on d")
-    if B > _GRID_YZ or Hkv > _GRID_YZ:
-        raise ValueError(f"B={B} and Hkv={Hkv} must be <= {_GRID_YZ}")
-    return B, T, Hkv, H // Hkv, d, int(cache_len.numel() > 1)
-
-
-def partials_shape(B: int, T: int, Hkv: int, G: int, d: int) -> tuple:
-    """Shapes of the float32 partials ``(ml, acc)`` of a split."""
-    nc = -(-T // CHUNK)
-    return (B, Hkv, nc, G, 2), (B, Hkv, nc, G, d)
+    if d not in KERNEL_DIMS:
+        raise ValueError(f"the flash-decode kernel takes d in {KERNEL_DIMS}, "
+                         f"got {d}")
+    if not (_aligned(k) and _aligned(v)):
+        raise ValueError("k and v need 16-byte aligned data and strides "
+                         "(the kernel stages them with 16-byte copies)")
+    G = H // Hkv
+    if B > _GRID_YZ or Hkv * -(-G // HEAD_GROUP) > _GRID_YZ:
+        raise ValueError(f"B={B} and Hkv * head groups must be <= {_GRID_YZ}")
+    return B, T, Hkv, G, d, int(cache_len.numel() > 1)
 
 
 def launch_split(q, k, v, cache_len):
     """One ``fd_split`` launch on checked CUDA operands; returns the
-    partials ``(ml, acc)`` (chunks at or past cache_len left unwritten)."""
+    partials ``(ml, acc)`` (splits past a row's count left unwritten)."""
     B, T, Hkv, G, d, len_stride = _kernel_shape(q, k, v, cache_len)
     ml_shape, acc_shape = partials_shape(B, T, Hkv, G, d)
     ml = torch.empty(ml_shape, dtype=torch.float32, device=q.device)
@@ -145,7 +217,8 @@ def launch_split(q, k, v, cache_len):
                 k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
                 v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
                 cache_len.data_ptr(), len_stride, B, T, Hkv, G, d,
-                DTYPES[q.dtype], ml.data_ptr(), acc.data_ptr(), stream)
+                DTYPES[q.dtype], ml_shape[2], ml.data_ptr(), acc.data_ptr(),
+                stream)
         LAUNCHES["flash_decode"] += 1
         if err:
             raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
@@ -155,7 +228,7 @@ def launch_split(q, k, v, cache_len):
 def launch_combine(ml, acc, cache_len, T: int, dtype):
     """One ``fd_combine`` launch over a split's partials; returns
     ``(B, H, d)`` in ``dtype``."""
-    B, Hkv, _, G, d = acc.shape
+    B, Hkv, ns, G, d = acc.shape
     out = torch.empty((B, Hkv * G, d), dtype=dtype, device=acc.device)
     if out.numel() and T:
         lib = _lib()
@@ -163,7 +236,7 @@ def launch_combine(ml, acc, cache_len, T: int, dtype):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.fd_combine(
                 ml.data_ptr(), acc.data_ptr(), cache_len.data_ptr(),
-                int(cache_len.numel() > 1), B, T, Hkv, G, d, DTYPES[dtype],
+                int(cache_len.numel() > 1), B, T, Hkv, G, d, DTYPES[dtype], ns,
                 out.data_ptr(), stream)
         LAUNCHES["flash_decode_combine"] += 1
         if err:
@@ -187,49 +260,61 @@ def attention_plain(q, k, v, cache_len):
     return out.reshape(B, H, d).to(q.dtype)
 
 
-def _lens(cache_len, B: int, T: int):
-    return cache_len.reshape(-1).expand(B).long().clamp(max=T)
+def _row_lens(cache_len, B: int) -> list:
+    return [int(n) for n in cache_len.reshape(-1).expand(B).tolist()]
 
 
 def split_plain(q, k, v, cache_len):
-    """``fd_split``'s partials in torch ops: per chunk of CHUNK positions
-    and kv head, the max m of the pre-scaled scores below cache_len, l =
-    Σ exp(s - m) and acc = Σ exp(s - m)·v; chunks at or past cache_len hold
-    m = -inf, l = 0, acc = 0 (the kernel leaves them unwritten)."""
+    """``fd_split``'s partials in torch ops, on the partition of
+    :func:`split_plan`: per split and query head, the max m of the scaled
+    scores, l = Σ exp(s - m) and acc = Σ exp(s - m)·v over the split's
+    positions (every score 0 where ``cache_len <= 0``); splits past a
+    row's count hold m = -inf, l = 0, acc = 0 (the kernel leaves them
+    unwritten).  Reads the lengths on the host: a reference, not a decode
+    step."""
     cache_len = check_operands(q, k, v, cache_len)
     B, H, d = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     ml_shape, acc_shape = partials_shape(B, T, Hkv, G, d)
-    nc = ml_shape[2]
-    pad = nc * CHUNK - T
+    m = torch.full(ml_shape[:-1], -torch.inf, device=q.device)
+    l = torch.zeros(ml_shape[:-1], device=q.device)
+    acc = torch.zeros(acc_shape, device=q.device)
     qs = q.reshape(B, Hkv, G, d).float() * (1.0 / (d ** 0.5))
-    kp = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
-    vp = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
-    s = torch.einsum("bhgd,bthd->bhgt", qs, kp).reshape(B, Hkv, G, nc, CHUNK)
-    pos = torch.arange(nc * CHUNK, device=q.device).reshape(nc, CHUNK)
-    valid = pos[None] < _lens(cache_len, B, T)[:, None, None]  # (B, nc, C)
-    s = torch.where(valid[:, None, None], s, -torch.inf)
-    m = s.amax(dim=-1)                                          # (B,Hkv,G,nc)
-    p = torch.where(valid[:, None, None], torch.exp(s - m[..., None]), 0.0)
-    acc = torch.einsum("bhgct,bcthd->bhgcd", p,
-                       vp.reshape(B, nc, CHUNK, Hkv, d))
-    ml = torch.stack([m, p.sum(dim=-1)], dim=-1)                # (B,Hkv,G,nc,2)
-    return ml.permute(0, 1, 3, 2, 4).contiguous(), \
-        acc.permute(0, 1, 3, 2, 4).contiguous()
+    for b, n in enumerate(_row_lens(cache_len, B)):
+        covered, span, ns = split_plan(n, T, B, Hkv, G)
+        kb, vb = k[b, :covered].float(), v[b, :covered].float()
+        s = torch.einsum("hgd,thd->hgt", qs[b], kb)
+        if n <= 0:
+            s = torch.zeros_like(s)
+        pad = ns * span - covered  # the last split's positions past covered
+        s = torch.nn.functional.pad(s, (0, pad), value=-torch.inf)
+        s = s.reshape(Hkv, G, ns, span)
+        mb = s.amax(dim=-1)                                   # (Hkv, G, ns)
+        p = torch.exp(s - mb[..., None])
+        vp = torch.nn.functional.pad(vb, (0, 0, 0, 0, 0, pad))
+        ab = torch.einsum("hgct,cthd->hgcd", p,
+                          vp.reshape(ns, span, Hkv, d))
+        m[b, :, :ns] = mb.transpose(1, 2)
+        l[b, :, :ns] = p.sum(dim=-1).transpose(1, 2)
+        acc[b, :, :ns] = ab.transpose(1, 2)
+    return torch.stack([m, l], dim=-1), acc
 
 
 def combine_plain(ml, acc, cache_len, T: int, dtype):
-    """``fd_combine`` in torch ops: merge the chunks below cache_len."""
-    B, Hkv, nc, G, d = acc.shape
-    pos0 = torch.arange(nc, device=acc.device) * CHUNK
-    below = pos0[None] < _lens(cache_len, B, T)[:, None]       # (B, nc)
-    below = below[:, None, :, None]
+    """``fd_combine`` in torch ops: merge each row's splits (the count
+    from :func:`split_plan`)."""
+    B, Hkv, ns, G, d = acc.shape
+    counts = torch.tensor([split_plan(n, T, B, Hkv, G)[2]
+                           for n in _row_lens(cache_len, B)],
+                          device=acc.device)
+    below = torch.arange(ns, device=acc.device)[None] < counts[:, None]
+    below = below[:, None, :, None]                            # (B,1,ns,1)
     m = torch.where(below, ml[..., 0], -torch.inf)
     M = m.amax(dim=2, keepdim=True)
-    scale = torch.where(below, torch.exp(m - M), 0.0)           # (B,Hkv,nc,G)
-    L = (ml[..., 1] * scale).sum(dim=2)
-    o = (acc * scale[..., None]).sum(dim=2)
+    scale = torch.where(below, torch.exp(m - M), 0.0)           # (B,Hkv,ns,G)
+    L = (torch.where(below, ml[..., 1], 0.0) * scale).sum(dim=2)
+    o = (torch.where(below[..., None], acc, 0.0) * scale[..., None]).sum(dim=2)
     inv = torch.where(L > 0, 1.0 / L, 0.0)
     return (o * inv[..., None]).reshape(B, Hkv * G, d).to(dtype)
 
@@ -247,6 +332,9 @@ def decode_attention(q, k, v, cache_len):
     if q.device.type == "cpu":
         return attention_plain(q, k, v, cache_len)
     if q.device.type == "cuda":
+        if k.shape[1] == 0:  # no positions: the reference's empty sum
+            _kernel_shape(q, k, v, cache_len)
+            return torch.zeros_like(q)
         ml, acc = launch_split(q, k, v, cache_len)
         return launch_combine(ml, acc, cache_len, k.shape[1], q.dtype)
     raise ValueError(f"no flash decode for device {q.device}")

@@ -332,8 +332,30 @@ def test_embedding_bag_wrapper_refuses_what_the_kernel_cannot_take(dev):
 
 
 # ------------------------------------------------------------ flash decode
+def _hold_pair(q, k, v, lens, dtype, what):
+    """The whole function, then each kernel alone, against the plain
+    versions on the same inputs: the split on the splits the rule gives
+    each row, the combine on the kernel's own partials."""
+    B, T, Hkv = k.shape[:3]
+    G = q.shape[1] // Hkv
+    _close(fdk.decode_attention(q, k, v, lens),
+           fdk.decode_attention_plain(q, k, v, lens), DECODE_TOL[dtype], what)
+    ml, acc = fdk.launch_split(q, k, v, lens)
+    ml_p, acc_p = fdk.split_plain(q, k, v, lens)
+    for b, n in enumerate(lens.reshape(-1).expand(B).tolist()):
+        ns = fdk.split_plan(n, T, B, Hkv, G)[2]
+        _close(ml[b, :, :ns], ml_p[b, :, :ns], (2e-4, 2e-4), f"{what} m, l")
+        _close(acc[b, :, :ns], acc_p[b, :, :ns], (2e-4, 2e-4), f"{what} acc")
+    _close(fdk.launch_combine(ml, acc, lens, T, q.dtype),
+           fdk.combine_plain(ml, acc, lens, T, q.dtype), DECODE_TOL[dtype],
+           f"{what} combine")
+
+
 @pytest.mark.parametrize("dtype", DECODE_DTYPES)
 def test_flash_decode_kernels_match_plain(dev, dtype):
+    """Every case of the reference's sweep, at one below, at and one above
+    every boundary of the split rule, the sweep's own lengths, past T and
+    at cache_len <= 0."""
     rng = np.random.default_rng(7)
     dt = getattr(torch, dtype)
     fdk.reset_launch_counts()
@@ -341,23 +363,66 @@ def test_flash_decode_kernels_match_plain(dev, dtype):
     for (Hkv, G, S, d) in DECODE_CASES:
         q, k, v = (torch.as_tensor(a, device=dev).to(dt) for a in
                    decode_case(rng, DECODE_BATCH, Hkv, G, S, d))
-        for n in decode_lens(S, fdk.CHUNK):
+        bounds = fdk.split_boundaries(S, DECODE_BATCH, Hkv, G)
+        for n in decode_lens(S, bounds) + (S + 5, 0, -3):
             lens = torch.tensor(n, dtype=torch.int32, device=dev)
-            _close(fdk.decode_attention(q, k, v, lens),
-                   fdk.decode_attention_plain(q, k, v, lens),
-                   DECODE_TOL[dtype], f"{dtype} Hkv={Hkv} G={G} S={S} {n}")
-            ml, acc = fdk.launch_split(q, k, v, lens)
-            ml_p, acc_p = fdk.split_plain(q, k, v, lens)
-            nc = -(-n // fdk.CHUNK)
-            _close(ml[:, :, :nc], ml_p[:, :, :nc], (2e-4, 2e-4), "split m, l")
-            _close(acc[:, :, :nc], acc_p[:, :, :nc], (2e-4, 2e-4), "split acc")
-            _close(fdk.launch_combine(ml, acc, lens, S, dt),
-                   fdk.combine_plain(ml, acc, lens, S, dt), DECODE_TOL[dtype],
-                   "combine")
+            _hold_pair(q, k, v, lens, dtype,
+                       f"{dtype} Hkv={Hkv} G={G} S={S} {n}")
             calls += 1
     torch.cuda.synchronize(dev)
     assert fdk.LAUNCHES["flash_decode"] == 2 * calls
     assert fdk.LAUNCHES["flash_decode_combine"] == 2 * calls
+
+
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
+@pytest.mark.parametrize("d", [16, 128])
+def test_flash_decode_kernel_at_the_rule_boundaries(dev, dtype, d):
+    """Where the rule's cap is below the tile count (8 rows x 8 kv heads,
+    as served: at most 4 splits of up to 4 tiles), one below, at and one
+    above every boundary, at 1, T and past T, and with per-row lengths
+    drawn from those."""
+    B, Hkv, G, S = 8, 8, 2, 1024
+    q, k, v = (torch.as_tensor(a, device=dev).to(getattr(torch, dtype))
+               for a in decode_case(np.random.default_rng(d), B, Hkv, G, S, d))
+    lens = sorted({1, S, S + 5, *(x for b in fdk.split_boundaries(S, B, Hkv, G)
+                                  for x in (b - 1, b, b + 1))})
+    rng = np.random.default_rng(12)
+    for n in lens:
+        _hold_pair(q, k, v, torch.tensor(n, dtype=torch.int32, device=dev),
+                   dtype, f"{dtype} d={d} {n}")
+    for _ in range(4):
+        per_row = torch.as_tensor(rng.choice(lens, B).astype(np.int32),
+                                  device=dev)
+        _hold_pair(q, k, v, per_row, dtype, f"{dtype} d={d} {per_row}")
+
+
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
+def test_flash_decode_kernel_at_nonpositive_cache_len(dev, dtype):
+    """cache_len <= 0 gives the reference's answer, the mean of V over
+    all T positions, per row too (beside a row of positive length)."""
+    q, k, v = (torch.as_tensor(a, device=dev).to(getattr(torch, dtype))
+               for a in decode_case(np.random.default_rng(15), 2, 2, 3, 700,
+                                    64))
+    for lens in (torch.tensor(0, dtype=torch.int32, device=dev),
+                 torch.tensor(-3, dtype=torch.int32, device=dev),
+                 torch.tensor([-3, 100], dtype=torch.int32, device=dev)):
+        _hold_pair(q, k, v, lens, dtype, f"{dtype} {lens.tolist()}")
+    mean = v.float().mean(dim=1).repeat_interleave(3, dim=1).to(v.dtype)
+    _close(fdk.decode_attention(q, k, v, torch.tensor(0, dtype=torch.int32,
+                                                      device=dev)),
+           mean, DECODE_TOL[dtype], "mean of V")
+
+
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
+def test_flash_decode_kernel_in_head_groups(dev, dtype):
+    """G > 16 query heads a kv head run as two head groups, each block
+    reading its kv head's K and V."""
+    q, k, v = (torch.as_tensor(a, device=dev).to(getattr(torch, dtype))
+               for a in decode_case(np.random.default_rng(16), 2, 2, 20, 300,
+                                    32))
+    for n in (1, 65, 299, 300):
+        _hold_pair(q, k, v, torch.tensor(n, dtype=torch.int32, device=dev),
+                   dtype, f"{dtype} G=20 {n}")
 
 
 def test_flash_decode_reads_no_position_past_cache_len(dev):
@@ -396,6 +461,28 @@ def test_flash_decode_wrapper_refuses_what_the_kernel_cannot_take(dev):
                              k, 3)
     with pytest.raises(ValueError, match="is on"):
         fdk.decode_attention(q, k, k, torch.tensor(3, dtype=torch.int32))
+
+
+def test_flash_decode_refuses_caches_the_copies_cannot_stage(dev):
+    """The split stages K and V by 16-byte copies: a cache off 16-byte
+    alignment, in its base or a stride, and a head size the kernel is not
+    built for, are refused, never run on the plain version."""
+    q = torch.zeros(2, 4, 16, device=dev)
+    k = torch.zeros(2, 64, 2, 16, device=dev)
+    odd = torch.zeros(2, 64, 2, 17, device=dev)[..., 1:]   # strides of 17
+    shifted = torch.zeros(2 * 64 * 2 * 16 + 1, device=dev)[1:].reshape(k.shape)
+    for bad in (odd, shifted):
+        with pytest.raises(ValueError, match="16-byte"):
+            fdk.decode_attention(q, bad, k, 3)
+        with pytest.raises(ValueError, match="16-byte"):
+            fdk.decode_attention(q, k, bad, 3)
+    with pytest.raises(ValueError, match="takes d"):
+        fdk.decode_attention(torch.zeros(2, 4, 48, device=dev),
+                             torch.zeros(2, 64, 2, 48, device=dev),
+                             torch.zeros(2, 64, 2, 48, device=dev), 3)
+    fdk.reset_launch_counts()
+    fdk.decode_attention(q, k, k, 3)
+    assert fdk.LAUNCHES["flash_decode"] == 1
 
 
 # ----------------------------------------------------------------- serving

@@ -119,6 +119,55 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_build_caches_by_source_and_flags_and_keeps_the_report(
+        monkeypatch, tmp_path):
+    """A library is reused only with its ptxas report beside it: one left
+    without a report (or built under other flags) is compiled again, so
+    ``resource_usage`` always finds the report of the library it reads."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        'echo run >> "${0%/*}/calls"\n'
+        'while [ "$#" -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+        ': > "$out"\n'
+        "echo \"ptxas info    : Compiling entry function '_Z1av' for "
+        "'sm_90a'\"\n"
+        'echo "ptxas info    : Used 40 registers, used 1 barriers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+
+    def calls():
+        return len((tmp_path / "calls").read_text().split())
+
+    lib = _build.build("segsum")
+    assert calls() == 1 and _build.build("segsum") == lib and calls() == 1
+    assert _build.resource_usage(lib)["_Z1av"]["registers"] == 40
+    lib.with_suffix(".log").unlink()  # cached by a build that kept no report
+    assert _build.build("segsum") == lib and calls() == 2
+    assert _build.resource_usage(lib)["_Z1av"]["registers"] == 40
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, "-lineinfo"))
+    other = _build.build("segsum")
+    assert other != lib and calls() == 3 and other.with_suffix(".log").exists()
+
+
+def test_resource_usage_reads_the_ptxas_report(tmp_path):
+    """The build keeps ptxas' report beside each library; registers,
+    spills and static shared memory are read back per kernel."""
+    lib = tmp_path / "libx-0.so"
+    lib.with_suffix(".log").write_text(
+        "ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 175 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+        "ptxas info    : Used 32 registers, used 1 barriers, 1152 bytes smem\n")
+    assert _build.resource_usage(lib) == {
+        "_Z1av": {"registers": 175, "spill_stores": 8, "spill_loads": 4,
+                  "smem": 0},
+        "_Z1bv": {"registers": 32, "spill_stores": 0, "spill_loads": 0,
+                  "smem": 1152}}
+
+
 # ------------------------------------------------------------- knobs
 def test_backend_knob(monkeypatch):
     monkeypatch.delenv("REPRO_TORCH_BACKEND", raising=False)
