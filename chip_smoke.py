@@ -20,7 +20,9 @@ Phases, each printing one JSON line:
   full       the main path: a LiveJournal-sized powerlaw graph (n=4,847,571,
              43,000,000 draws, ~86M directed edges resident on the card),
              built once for every full-width phase; decompose(...,
-             "semicore*") on "cuda" against the plain version
+             "semicore*") on "cuda" against the plain version; each of its
+             supersteps timed alone on the card, with its frontier's rows
+             and edges and its bound (``per_superstep``)
   per_probe  the same decompose per probe and on "torch", each equal to the
              "cuda" result; the segment-sum kernel's block-read counter
              equal to (num_probes + 1) x kernel_blocks_active
@@ -43,9 +45,11 @@ their plain versions over the reference's sweeps (kernels/cases.py), flash
 decode also at every boundary of its split rule and at cache_len <= 0.
 
 then the kernels line (launches on each kernel's path, error against the
-plain version, times and bounds), the card's name and power limit, and the
-result line.  Any mismatch raises and exits non-zero.  Needs CUDA, nvcc and
-the repository's ``src/``.
+plain version, times and bounds; the superstep pair also at the state
+entering pass 20, by kernel through the profiler, and beside the pair of
+an earlier checkout's port under ``baseline/`` when one is there), the
+card's name and power limit, and the result line.  Any mismatch raises
+and exits non-zero.  Needs CUDA, nvcc and the repository's ``src/``.
 """
 from __future__ import annotations
 
@@ -65,6 +69,19 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12     # 32-bit rate outside the tensor cores (same sheet)
 FUSED_REPLACES = "src/repro/kernels/fused_superstep.py:202"  # _superstep_kernel
 FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused_superstep.cu"
+#: the superstep pair is also timed at the state entering this pass (a late,
+#: small frontier) of the main path
+LATE_PASS = 20
+#: device busy-wait (cycles, ~1.2 ms at 1.7 GHz) ahead of each superstep
+#: run of the per-superstep timing: the host enqueues a superstep while the
+#: card waits, so its events time the card's work alone
+SUPERSTEP_QUEUE_CYCLES = 2_000_000
+#: runs of each superstep in the per-superstep timing (the least counts)
+SUPERSTEP_RUNS = 3
+#: an earlier checkout's port (``git archive <commit> src/repro_torch`` under
+#: baseline/, git-ignored), whose superstep pair is timed beside the shipped
+#: one when present
+BASELINE_SRC = ROOT / "baseline" / "src"
 SEGSUM_SOURCE = "src/repro_torch/kernels/csrc/segsum.cu"
 SEGSUM_REPLACES = {
     "segment_sum_active": "src/repro/kernels/segsum_active.py:21",  # _kernel
@@ -191,6 +208,20 @@ def bound(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S) -> tuple:
     t_ops = ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"
+
+
+def row_bytes(n: int, edges: int) -> int:
+    """Least bytes of one row pass: segptr, the active flags, core and
+    cnt read once, the frontier's edges (4 B of nbr each), the two outputs
+    written once, upd."""
+    return 4 * (n + 1) + n + 4 * n + 4 * n + 4 * edges + 8 * n + 4
+
+
+def push_bytes(n: int, edges: int) -> int:
+    """Least bytes of one push pass: segptr, the flags, core and core2
+    read once, the pushing rows' edges (4 B of nbr each), the target read
+    and written once."""
+    return 4 * (n + 1) + n + 4 * n + 4 * n + 4 * edges + 8 * n
 
 
 def cuda_ms(fn, reps: int, device) -> float:
@@ -563,9 +594,11 @@ def phase_small(device, n: int, m: int) -> None:
     emit(out)
 
 
-def phase_full(device, g, gen_s: float) -> tuple:
-    """The main path at full width: returns (the fused kernels' launches on
-    it, its result, the device ms of all its supersteps)."""
+def phase_full(device, g, gen_s: float) -> dict:
+    """The main path at full width: returns the fused kernels' launches on
+    it (``launches``), its result (``result``), the device ms of all its
+    supersteps by both clocks and their bound, and the state entering pass
+    ``LATE_PASS`` (``late``)."""
     import torch
 
     from repro_torch.core import CudaBackend, decompose
@@ -624,6 +657,13 @@ def phase_full(device, g, gen_s: float) -> tuple:
         "supersteps_on_device": sum(per_pass) / 1e3,
     }
 
+    # each superstep alone on the card, its frontier and its bound
+    rq, passes, late = per_superstep(device, g)
+    same_result(rq, r, "full per-superstep rerun")
+    out["per_superstep"] = {k: [p[k] for p in passes] for k in passes[0]}
+    out["superstep_device_ms_total"] = sum(p["device_ms"] for p in passes)
+    out["superstep_bound_ms_total"] = sum(p["bound_ms"] for p in passes)
+
     t = time.perf_counter()
     rp = decompose(g, "semicore*", backend=CudaBackend(device=device,
                                                        plain=True))
@@ -631,7 +671,82 @@ def phase_full(device, g, gen_s: float) -> tuple:
     out["plain_wall_s"] = time.perf_counter() - t
     same_result(r, rp, "full semicore*")
     emit(out)
-    return launches, r, out["superstep_ms_total"]
+    return {"launches": launches, "result": r,
+            "superstep_ms": out["superstep_ms_total"],
+            "superstep_device_ms": out["superstep_device_ms_total"],
+            "superstep_bound_ms": out["superstep_bound_ms_total"],
+            "late": late}
+
+
+def timed_superstep(step, args, kw) -> tuple:
+    """``step(*args, **kw)`` run ``SUPERSTEP_RUNS`` times on the same
+    inputs (a superstep writes only new tensors), each run queued behind a
+    device busy-wait (``SUPERSTEP_QUEUE_CYCLES``) so that its CUDA events
+    time its kernels alone; returns (the last run's result, the event pairs).
+    The least of the runs is the device time: a host stall longer than the
+    busy-wait lengthens one run, not all."""
+    import torch
+
+    pairs = []
+    for _ in range(SUPERSTEP_RUNS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SUPERSTEP_QUEUE_CYCLES)
+        s.record()
+        res = step(*args, **kw)
+        e.record()
+        pairs.append((s, e))
+    return res, pairs
+
+
+def per_superstep(device, g) -> tuple:
+    """The main path once more, each superstep timed alone on the card
+    (:func:`timed_superstep`).  Returns (the result, per superstep its
+    device ms, its frontier's rows and edges, the rows whose core changed
+    and their edges, and the bound of ``row_pass`` + ``push_pass`` on
+    them, the state entering pass ``LATE_PASS``)."""
+    import torch
+
+    from repro_torch.core import CudaBackend, decompose
+
+    be = CudaBackend(device=device)
+    deg = torch.as_tensor(g.degrees(), device=device)
+    rec, late = [], {}
+    resident_ops = be.resident_ops
+
+    def ops(*a):
+        step, counts = resident_ops(*a)
+
+        def timed(core, cnt, active, segptr, nbr, **kw):
+            if len(rec) == LATE_PASS:
+                late.update(core=core.clone(), cnt=cnt.clone(),
+                            active=active.clone())
+            res, pairs = timed_superstep(
+                step, (core, cnt, active, segptr, nbr), kw)
+            pushing = active & (res[0] != core)
+            rec.append((pairs, torch.stack([
+                active.sum(), (deg * active).sum(), pushing.sum(),
+                (deg * pushing).sum()])))
+            return res
+
+        return timed, counts
+
+    be.resident_ops = ops
+    r = decompose(g, "semicore*", backend=be)
+    torch.cuda.synchronize(device)
+    stats = torch.stack([x[1] for x in rec]).cpu().numpy()
+    passes = []
+    for (pairs, _), (rows, edges, prows, pedges) in zip(rec, stats):
+        bms, _ = bound(row_bytes(g.n, int(edges)) + push_bytes(g.n, int(pedges)),
+                       int(edges + pedges))
+        passes.append({"device_ms": min(s.elapsed_time(e) for s, e in pairs),
+                       "frontier_rows": int(rows),
+                       "frontier_edges": int(edges),
+                       "push_rows": int(prows), "push_edges": int(pedges),
+                       "bound_ms": bms})
+    check(len(passes) > LATE_PASS and late,
+          f"the main path ran no pass {LATE_PASS}")
+    return r, passes, late
 
 
 def time_supersteps(backend) -> list:
@@ -774,70 +889,154 @@ def flags_reads(rows, active, block_edges: int) -> tuple:
     return int(read.sum()), int(torch.unique(rows[read]).numel())
 
 
-def kernel_entries(g, device, tables, launches, superstep_ms) -> list:
-    """Time each kernel and its plain version at the first semicore* pass
-    of the main path (every node with an edge active, cnt = 0); the segment
-    sums at that pass's first h-index probe (D = 1, int32).  The superstep
-    pair also carries ``superstep_ms``, the device time of every superstep
-    of the main path (both kernels and the frontier ops, CUDA events)."""
+def baseline_superstep():
+    """The superstep module of the checkout under ``BASELINE_SRC``, loaded
+    beside the shipped one under another package name (its kernel is built
+    from its own source into its own build directory), or None."""
+    import importlib
+    import importlib.util
+
+    kdir = BASELINE_SRC / "repro_torch" / "kernels"
+    if not (kdir / "fused_superstep.py").exists():
+        return None
+    spec = importlib.util.spec_from_file_location(
+        "superstep_baseline", kdir / "__init__.py",
+        submodule_search_locations=[str(kdir)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["superstep_baseline"] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module("superstep_baseline.fused_superstep")
+
+
+def superstep_entries(g, device, tables, launches, main) -> list:
+    """``row_pass`` and ``push_pass`` (semicore*) held to their plain
+    versions and timed at two states of the main path: its first pass
+    (every node with an edge active, cnt = 0) and the state entering pass
+    ``LATE_PASS``; beside them the pair of the checkout under
+    ``BASELINE_SRC`` when there is one, by the same clock (``device_ms``),
+    and each kernel of a call by the profiler.  The entries also carry the
+    main path's superstep times (both clocks) and its bound."""
     import torch
 
     from repro_torch.kernels import fused_superstep as fsk
-    from repro_torch.kernels import segsum as ssk, segsum_active as ssa
 
     star = fsk.MODE_SEMICORE_STAR
     deg = g.degrees()
     n = g.n
-    segptr, nbr, rows = tables["segptr"], tables["nbr"], tables["rows"]
-    core = torch.as_tensor(deg.astype(np.int32), device=device)
-    cnt = torch.zeros(n, dtype=torch.int32, device=device)
-    active_h = deg > 0
-    active = torch.as_tensor(active_h, device=device)
+    segptr, nbr = tables["segptr"], tables["nbr"]
+    deg_t = torch.as_tensor(deg, device=device)
+    plan = fsk.bin_plan(segptr)
+    baseline = baseline_superstep()
+    states = {
+        "first": {"core": torch.as_tensor(deg.astype(np.int32),
+                                          device=device),
+                  "cnt": torch.zeros(n, dtype=torch.int32, device=device),
+                  "active": torch.as_tensor(deg > 0, device=device)},
+        "late": main["late"]}
+    at = {"row_pass": {}, "push_pass": {}}
+    for label, st in states.items():
+        core, cnt, active = st["core"], st["cnt"], st["active"]
+        reps = 10 if label == "first" else 50
 
-    def row():
-        return fsk.row_pass(star, segptr, nbr, core, cnt, active)
+        def row(mod=fsk, **kw):
+            return mod.row_pass(star, segptr, nbr, core, cnt, active, **kw)
 
-    def row_plain():
-        return fsk.row_pass_plain(star, segptr, nbr, core, cnt, active)
+        def push(tgt, core2, mod=fsk, **kw):
+            mod.push_pass(star, segptr, nbr, core, core2, active, tgt, **kw)
 
-    got, want = row(), row_plain()
-    row_err = max(int((got[i] - want[i]).abs().max()) for i in range(2))
-    row_err = max(row_err, abs(int(got[2]) - int(want[2])))
-    core2, cnt2 = got[0], got[1]
-    e_row = int(deg[active_h].sum())
-    row_bytes = 4 * (n + 1) + n + 4 * n + 4 * n + 4 * e_row + 8 * n + 4
-    row_ms = cuda_ms(row, 10, device)
-    row_plain_ms = cuda_ms(row_plain, 2, device)
-
-    tgt = cnt2.clone()
-    fsk.push_pass(star, segptr, nbr, core, core2, active, tgt)
-    tgt_plain = cnt2.clone()
-    fsk.push_pass_plain(star, segptr, nbr, core, core2, active, tgt_plain)
-    push_err = int((tgt - tgt_plain).abs().max())
-    pushing = active_h & (core2.cpu().numpy() != deg)
-    e_push = int(deg[pushing].sum())
-    push_bytes = 4 * (n + 1) + n + 4 * n + 4 * n + 4 * e_push + 8 * n
-    scratch = cnt2.clone()
-    push_ms = cuda_ms(lambda: fsk.push_pass(star, segptr, nbr, core, core2,
-                                            active, scratch), 10, device)
-    push_plain_ms = cuda_ms(lambda: fsk.push_pass_plain(
-        star, segptr, nbr, core, core2, active, scratch), 2, device)
-    check(row_err == 0 and push_err == 0, "kernel != plain at full width")
+        got = row(plan=plan)
+        want = fsk.row_pass_plain(star, segptr, nbr, core, cnt, active)
+        row_err = max(int((got[i] - want[i]).abs().max()) for i in range(2))
+        row_err = max(row_err, abs(int(got[2]) - int(want[2])))
+        core2, cnt2 = want[0], want[1]
+        tgt, tgt_plain = cnt2.clone(), cnt2.clone()
+        push(tgt, core2, plan=plan)
+        fsk.push_pass_plain(star, segptr, nbr, core, core2, active, tgt_plain)
+        push_err = int((tgt - tgt_plain).abs().max())
+        check(row_err == 0 and push_err == 0,
+              f"superstep pair != plain at the {label} pass")
+        e_row = int(deg_t[active].sum())
+        e_push = int(deg_t[active & (core2 != core)].sum())
+        scratch = cnt2.clone()
+        times = {
+            "row_pass": (row_err, e_row, row_bytes(n, e_row),
+                         device_ms(lambda: row(plan=plan), reps, device),
+                         cuda_ms(lambda: fsk.row_pass_plain(
+                             star, segptr, nbr, core, cnt, active), 2,
+                             device)),
+            "push_pass": (push_err, e_push, push_bytes(n, e_push),
+                          device_ms(lambda: push(scratch, core2, plan=plan),
+                                    reps, device),
+                          cuda_ms(lambda: fsk.push_pass_plain(
+                              star, segptr, nbr, core, core2, active,
+                              scratch), 2, device))}
+        base = {}
+        if baseline is not None:
+            b = row(mod=baseline)
+            bt = cnt2.clone()
+            push(bt, core2, mod=baseline)
+            check(all(torch.equal(x, y) for x, y in zip(b, want))
+                  and torch.equal(bt, tgt_plain),
+                  f"baseline superstep pair != plain at the {label} pass")
+            base = {"row_pass": device_ms(lambda: row(mod=baseline), reps,
+                                          device),
+                    "push_pass": device_ms(lambda: push(scratch, core2,
+                                                        mod=baseline),
+                                           reps, device)}
+        # each kernel of the pair's calls, by the profiler (3 calls each)
+        kernels = {
+            "row_pass": device_profile(
+                lambda: [row(plan=plan) for _ in range(3)], top=8),
+            "push_pass": device_profile(
+                lambda: [push(scratch, core2, plan=plan) for _ in range(3)],
+                top=8)}
+        for name, (err, edges, nbytes, ms, pms) in times.items():
+            bms, by = bound(nbytes, edges)
+            prof = kernels[name]["top_kernels_ms"]
+            at[name][label] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "baseline_ms": base.get(name),
+                "frontier_rows": int(active.sum()), "active_edges": edges,
+                "bytes": nbytes,
+                "profiled_ms_per_call": {k: v / 3 for k, v in prof.items()}}
 
     entries = []
-    for name, err, ms, pms, nbytes, ops in (
-            ("row_pass", row_err, row_ms, row_plain_ms, row_bytes, e_row),
-            ("push_pass", push_err, push_ms, push_plain_ms, push_bytes,
-             e_push)):
-        bms, by = bound(nbytes, ops)
+    for name, t in at.items():
+        first, late = t["first"], t["late"]
         entries.append({
             "name": name, "route": "cuda", "source": FUSED_SOURCE,
             "replaces": FUSED_REPLACES, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None, "parity": "bit-identical",
-            "main_path_superstep_ms": superstep_ms,
+            "max_abs_err": max(first["max_abs_err"], late["max_abs_err"]),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None, "parity": "bit-identical",
+            "profiled_ms_per_call": first["profiled_ms_per_call"],
+            "late_pass": {"pass": LATE_PASS, **late},
+            "baseline": None if baseline is None else {
+                "src": str(BASELINE_SRC.relative_to(ROOT)),
+                "ms": first["baseline_ms"], "late_ms": late["baseline_ms"]},
+            "main_path_superstep_ms": main["superstep_ms"],
+            "main_path_superstep_device_ms": main["superstep_device_ms"],
+            "main_path_superstep_bound_ms": main["superstep_bound_ms"],
             "shape": {"n": n, "directed_edges": g.num_directed,
-                      "active_edges": ops, "bytes": nbytes}})
+                      "active_edges": first["active_edges"],
+                      "bytes": first["bytes"]}})
+    return entries
+
+
+def kernel_entries(g, device, tables, launches, main) -> list:
+    """The superstep pair (:func:`superstep_entries`), then the segment
+    sums timed at the first semicore* pass's first h-index probe (D = 1,
+    int32) against their plain versions."""
+    import torch
+
+    from repro_torch.kernels import segsum as ssk, segsum_active as ssa
+
+    entries = superstep_entries(g, device, tables, launches, main)
+    n = g.n
+    nbr, rows = tables["nbr"], tables["rows"]
+    core = torch.as_tensor(g.degrees().astype(np.int32), device=device)
+    active = torch.as_tensor(g.degrees() > 0, device=device)
 
     # the segment sums: the first probe's indicator, mid = (deg + 1) // 2,
     # over every block (all active), D = 1 int32, at the engine's block
@@ -1374,12 +1573,13 @@ def main() -> int:
     t0 = time.perf_counter()
     g = powerlaw_graph(*FULL)
     gen_s = time.perf_counter() - t0
-    launches, r, superstep_ms = phase_full(device, g, gen_s)
+    main_path = phase_full(device, g, gen_s)
+    launches, r = main_path["launches"], main_path["result"]
     launches.update(phase_per_probe(device, g, r))
     tables = device_tables(g, device)
     launches.update(phase_segment_sum(device, g, r, tables))
-    entries = kernel_entries(g, device, tables, launches, superstep_ms)
-    del g, r, tables
+    entries = kernel_entries(g, device, tables, launches, main_path)
+    del g, r, tables, main_path
     bag_launches, profile_embed, profile_ids = phase_mind(device)
     launches.update(bag_launches)
     launches.update(phase_lm(device))

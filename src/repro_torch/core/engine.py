@@ -28,6 +28,7 @@ plain versions on the host, as the CPU tests do).
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 
@@ -372,7 +373,12 @@ class CudaBackend(DeviceBackend):
 
     def resident_ops(self, rs, block_edges, num_probes):
         if self.fused:
-            return self.fused_pass, self.fused_counts
+            if self.plain:
+                return self.fused_pass, self.fused_counts
+            # the kernels' work-list layout, once per structure
+            plan = rs.bin_plan()
+            return (functools.partial(self.fused_pass, plan=plan),
+                    functools.partial(self.fused_counts, plan=plan))
         from .resident import probe_ops
 
         return probe_ops("cuda", rs, block_edges, num_probes)

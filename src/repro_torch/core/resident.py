@@ -82,6 +82,7 @@ class ResidentStructure:
     nbr: torch.Tensor        # (E_pad,) int32 device edge targets (pad: 0)
     device: torch.device
     _rows: torch.Tensor | None = None  # (E,) int32 edge sources, on demand
+    _bin_plan: torch.Tensor | None = None  # fused kernels' list layout
 
     def matches(self, planner) -> bool:
         buffered = planner.eng.buffered
@@ -103,6 +104,16 @@ class ResidentStructure:
                 torch.arange(self.n, dtype=torch.int32, device=self.device),
                 deg, output_size=self.E)
         return self._rows
+
+    def bin_plan(self) -> torch.Tensor:
+        """The fused superstep kernels' work-list layout by degree bin
+        (``kernels.fused_superstep.bin_plan``): degrees are fixed for a
+        graph version, so it is built on first use and kept."""
+        if self._bin_plan is None:
+            from ..kernels.fused_superstep import bin_plan
+
+            self._bin_plan = bin_plan(self.segptr)
+        return self._bin_plan
 
 
 _EDGE_BUCKET = 8192

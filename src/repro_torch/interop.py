@@ -56,15 +56,22 @@ def warm_state(core, cnt=None) -> tuple:
             None if cnt is None else np.array(cnt, dtype=np.int64))
 
 
-def params_from(arrays, spec_tree, device="cpu"):
+def params_from(arrays, spec_tree, device=None):
     """The port's :class:`~repro_torch.models.params.ParamTree` holding
     ``arrays``, a parameter tree of the JAX package given as nested dicts
     of numpy arrays (``jax.tree.map(np.asarray, params)``), leaf for leaf
     under the reference's names.  Each leaf must have its spec's shape and
-    is stored in its spec's dtype; a missing or extra leaf raises."""
+    is stored in its spec's dtype; a missing or extra leaf raises.
+
+    ``device`` ``None`` means the first GPU and raises without one
+    (:func:`repro_torch.core.engine.resolve_device`): only an explicit
+    ``device="cpu"`` lands the weights on the host."""
     import torch
 
+    from .core.engine import resolve_device
     from .models.params import ParamTree
+
+    device = resolve_device(device)
 
     def carry(arr_tree, specs, path):
         if not isinstance(arr_tree, dict):
@@ -94,7 +101,7 @@ def params_from(arrays, spec_tree, device="cpu"):
         return ParamTree(carry(arrays, spec_tree, ""))
 
 
-def mind_params_from(arrays, cfg, device="cpu"):
+def mind_params_from(arrays, cfg, device=None):
     """MIND's parameters (:func:`repro_torch.models.recsys.mind_param_specs`)
     from the reference's tree."""
     from .models.recsys import mind_param_specs
@@ -102,7 +109,7 @@ def mind_params_from(arrays, cfg, device="cpu"):
     return params_from(arrays, mind_param_specs(cfg), device)
 
 
-def lm_params_from(arrays, cfg, device="cpu"):
+def lm_params_from(arrays, cfg, device=None):
     """The dense LM's parameters
     (:func:`repro_torch.models.transformer.lm_param_specs`) from the
     reference's tree."""

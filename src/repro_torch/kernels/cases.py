@@ -9,6 +9,13 @@ one partial tail block, odd n, isolated nodes, empty/all/random frontiers.
 edge in both endpoint lists, the contract of the port's push pass) and the
 node state of one superstep, from numpy's generator alone.
 
+The fused superstep kernels' degree bins are checked on
+:func:`binned_case` (a row at every degree of ``BIN_DEGREES``: each
+boundary of ``fused_superstep.degree_bin`` -1, at and +1, and 0) and
+:func:`star_case` (a hub of ``STAR_LEAVES`` leaves, whose cap outgrows
+the shared histogram), with node state from :func:`superstep_state` over
+the frontiers of ``STATE_FRONTIERS``.
+
 The segment sums are checked over ``SEGSUM_DTYPES`` x ``SEGSUM_WIDTHS`` x
 ``SEGSUM_BLOCKS`` x ``SEGSUM_FRONTIERS``: :func:`segsum_rows` draws sorted
 rows with rows longer than a block, empty rows and an edge count that
@@ -29,7 +36,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["CASES", "superstep_case", "SEGSUM_DTYPES", "SEGSUM_WIDTHS",
+__all__ = ["CASES", "superstep_case", "BIN_DEGREES", "STAR_LEAVES",
+           "STATE_FRONTIERS", "binned_case", "star_case", "superstep_state", "SEGSUM_DTYPES", "SEGSUM_WIDTHS",
            "SEGSUM_BLOCKS", "SEGSUM_FRONTIERS", "SEGSUM_TOL", "segsum_rows",
            "segsum_values", "segsum_frontier", "BAG_CASES", "BAG_MODES",
            "BAG_DTYPES", "BAG_TOL", "bag_case", "DECODE_CASES",
@@ -104,6 +112,86 @@ def superstep_case(n: int, m: int, iso_frac: float, frontier: str,
     thr = np.where(active, rng.integers(0, cmax + 1, size=n), 0)
     return dict(seg_ptr=seg_ptr, nbr=nbr, rows=rows, core=core, cnt=cnt,
                 active=active, thr=thr.astype(np.int32))
+
+
+#: a row of each degree: fused_superstep's bin boundaries (33, 513, 8192)
+#: -1, at and +1, the bins' edges (1, 32, 512, 8191) and 0
+BIN_DEGREES = (0, 1, 2, 31, 32, 33, 34, 511, 512, 513, 514, 8190, 8191,
+               8192, 8193)
+STAR_LEAVES = 100_000
+#: frontiers of :func:`superstep_state`: no row, one row (the largest
+#: degree), every row, a random 40%
+STATE_FRONTIERS = ("none", "one", "all", "rand")
+
+
+def _symmetric(n: int, src: np.ndarray, dst: np.ndarray) -> tuple:
+    """(seg_ptr int64, nbr int32) of the undirected multigraph with these
+    edges, each in both endpoint lists, rows sorted."""
+    rows = np.concatenate([src, dst]).astype(np.int64)
+    nbr = np.concatenate([dst, src]).astype(np.int64)
+    order = np.lexsort((nbr, rows))
+    deg = np.bincount(rows, minlength=n)
+    seg_ptr = np.zeros(n + 1, dtype=np.int64)
+    seg_ptr[1:] = np.cumsum(deg)
+    return seg_ptr, nbr[order].astype(np.int32)
+
+
+def binned_case(rng: np.random.Generator, pool: int = 2000) -> dict:
+    """``seg_ptr``/``nbr`` (as :func:`superstep_case`) of a graph with one
+    hub row of each degree in ``BIN_DEGREES``, whose edges go to a pool of
+    ``pool`` nodes that also share random edges among themselves (their
+    degrees fill the small bins)."""
+    hubs = len(BIN_DEGREES)
+    n = hubs + pool
+    src = [np.full(d, h) for h, d in enumerate(BIN_DEGREES)]
+    dst = [hubs + rng.integers(0, pool, size=d) for d in BIN_DEGREES]
+    ps = hubs + rng.integers(0, pool, size=6 * pool)
+    pd = hubs + rng.integers(0, pool, size=6 * pool)
+    keep = ps != pd
+    seg_ptr, nbr = _symmetric(n, np.concatenate(src + [ps[keep]]),
+                              np.concatenate(dst + [pd[keep]]))
+    return dict(seg_ptr=seg_ptr, nbr=nbr)
+
+
+def star_case(rng: np.random.Generator, leaves: int = STAR_LEAVES) -> dict:
+    """A hub (row 0) with ``leaves`` leaves, each leaf also joined to one
+    random other leaf."""
+    n = leaves + 1
+    a = rng.integers(1, n, size=leaves)
+    b = rng.integers(1, n, size=leaves)
+    keep = a != b
+    seg_ptr, nbr = _symmetric(n, np.concatenate([np.zeros(leaves, np.int64),
+                                                 a[keep]]),
+                              np.concatenate([np.arange(1, n), b[keep]]))
+    return dict(seg_ptr=seg_ptr, nbr=nbr)
+
+
+def superstep_state(seg_ptr: np.ndarray, frontier: str, cores: str,
+                    rng: np.random.Generator) -> dict:
+    """Node state of one superstep on a table: ``core`` the degrees
+    (``cores="degree"``, the first pass) or uniform in [0, 2 x degree]
+    (``"random"``: caps below and at the degree), ``cnt`` uniform in [0,
+    8), ``active`` by ``frontier`` (``STATE_FRONTIERS``; "one" is the
+    row of largest degree), ``thr`` count thresholds in [0, core]."""
+    deg = np.diff(seg_ptr)
+    n = len(deg)
+    if cores == "degree":
+        core = deg.copy()
+    else:
+        core = rng.integers(0, 2 * deg + 1)
+    if frontier == "none":
+        active = np.zeros(n, dtype=bool)
+    elif frontier == "one":
+        active = np.zeros(n, dtype=bool)
+        active[int(np.argmax(deg))] = True
+    elif frontier == "all":
+        active = np.ones(n, dtype=bool)
+    else:
+        active = rng.random(n) < 0.4
+    return dict(core=core.astype(np.int32),
+                cnt=rng.integers(0, 8, size=n).astype(np.int32),
+                active=active,
+                thr=rng.integers(0, core + 1).astype(np.int32))
 
 
 def segsum_rows(rng: np.random.Generator, n: int, E: int) -> np.ndarray:

@@ -21,6 +21,8 @@ from repro_torch.kernels import embedding_bag as ebk  # noqa: E402
 from repro_torch.kernels import flash_decode as fdk  # noqa: E402
 from repro_torch.kernels.cases import (BAG_CASES, BAG_DTYPES,  # noqa: E402
                                        BAG_MODES, BAG_TOL, CASES,
+                                       STATE_FRONTIERS, binned_case,
+                                       star_case, superstep_state,
                                        DECODE_BATCH, DECODE_CASES,
                                        DECODE_DTYPES, DECODE_TOL,
                                        SEGSUM_BLOCKS, SEGSUM_DTYPES,
@@ -136,6 +138,154 @@ def test_warm_settle_on_the_card(dev):
                         CudaBackend(device=dev, plain=True))
     _same(got, plain, "warm_settle")
     np.testing.assert_array_equal(got.core, imcore_peel(bg.materialize()))
+
+
+# ------------------------------------------- superstep bins and frontiers
+def _table(c, dev):
+    return (torch.as_tensor(c["seg_ptr"].astype(np.int32), device=dev),
+            torch.as_tensor(c["nbr"], device=dev))
+
+
+def _state(st, dev):
+    return {k: torch.as_tensor(v, device=dev) for k, v in st.items()}
+
+
+def _every_mode_matches_plain(table, t, what):
+    """fused_pass (3 algorithms), fused_hindex and fused_counts against
+    their plain versions, bit for bit; a plan built once is shared."""
+    plan = fsk.bin_plan(table[0])
+    args = (t["core"], t["cnt"], t["active"], *table)
+    for algo in ALGORITHMS:
+        got = fsk.fused_pass(*args, algorithm=algo, plan=plan)
+        want = fsk.fused_pass_plain(*args, algorithm=algo)
+        for name, g_, w_ in zip(("core2", "cnt2", "active2", "upd"), got,
+                                want):
+            assert torch.equal(g_, w_), f"{what} {algo} {name}"
+    got = fsk.fused_hindex(t["core"], t["active"], *table)
+    want = fsk.fused_hindex_plain(t["core"], t["active"], *table)
+    for name, g_, w_ in zip(("h", "cnt_at_h"), got, want):
+        assert torch.equal(g_, w_), f"{what} hindex {name}"
+    got = fsk.fused_counts(t["core"], t["thr"], t["active"], *table,
+                           plan=plan)
+    want = fsk.fused_counts_plain(t["core"], t["thr"], t["active"], *table)
+    assert torch.equal(got, want), f"{what} counts"
+
+
+@pytest.mark.parametrize("cores", ["degree", "random"])
+@pytest.mark.parametrize("frontier", STATE_FRONTIERS)
+def test_bins_match_plain_at_every_boundary(dev, frontier, cores):
+    """A row at each bin boundary -1, at and +1 (and degree 0), every
+    mode; with the degrees as cores the two bin-3 rows take the probe
+    loop (cap >= HIST_BINS), with random cores the histogram."""
+    rng = np.random.default_rng(11)
+    c = binned_case(rng)
+    table = _table(c, dev)
+    t = _state(superstep_state(c["seg_ptr"], frontier, cores, rng), dev)
+    fsk.reset_launch_counts()
+    _every_mode_matches_plain(table, t, f"{frontier}/{cores}")
+    torch.cuda.synchronize(dev)
+    assert fsk.LAUNCHES["row_pass"] == 5
+    assert fsk.LAUNCHES["push_pass"] == 2
+
+
+@pytest.mark.parametrize("frontier", ["one", "all", "rand"])
+def test_star_hub_past_the_shared_histogram(dev, frontier):
+    """A hub of 100,000 leaves (bin 3, always on the frontier) whose cap
+    and h both exceed the shared histogram: its leaves' cores are uniform
+    in [0, 20,000), so h is about 16,700; the leaves fill bin 0."""
+    rng = np.random.default_rng(12)
+    c = star_case(rng)
+    table = _table(c, dev)
+    st = superstep_state(c["seg_ptr"], frontier, "degree", rng)
+    st["core"] = rng.integers(0, 20_000, size=len(st["core"])).astype(
+        np.int32)
+    st["core"][0] = np.diff(c["seg_ptr"])[0]
+    st["active"][0] = True
+    t = _state(st, dev)
+    _every_mode_matches_plain(table, t, f"star/{frontier}")
+    h, _ = fsk.fused_hindex(t["core"], t["active"], *table)
+    assert int(h[0]) > fsk.HIST_BINS
+
+
+def test_supersteps_and_upd_match_plain_until_the_frontier_empties(dev):
+    """The resident loop by hand: each semicore* superstep's outputs and
+    upd equal the plain version's, on to three supersteps past the empty
+    frontier (what a chunk's overrun runs)."""
+    g = chung_lu(3000, 15000, seed=8)
+    indptr = torch.as_tensor(g.indptr.astype(np.int32), device=dev)
+    nbr = torch.as_tensor(g.adj.astype(np.int32), device=dev)
+    core = torch.as_tensor(g.degrees().astype(np.int32), device=dev)
+    cnt = torch.zeros_like(core)
+    active = core > 0
+    plan = fsk.bin_plan(indptr)
+    steps, empty = 0, 0
+    while empty < 3:
+        got = fsk.fused_pass(core, cnt, active, indptr, nbr,
+                             algorithm="semicore*", plan=plan)
+        want = fsk.fused_pass_plain(core, cnt, active, indptr, nbr,
+                                    algorithm="semicore*")
+        for name, g_, w_ in zip(("core2", "cnt2", "active2", "upd"), got,
+                                want):
+            assert torch.equal(g_, w_), f"superstep {steps}: {name}"
+        core, cnt, active, _ = got
+        empty += not bool(active.any())
+        steps += 1
+    np.testing.assert_array_equal(core.cpu().numpy(), imcore_peel(g))
+    assert steps > 5
+
+
+@pytest.mark.parametrize("algorithm", ALGORITHMS)
+def test_frontier_that_empties_mid_chunk(dev, algorithm):
+    """One chunk of 64 supersteps outlasts the run: the supersteps past the
+    empty frontier change nothing and are not counted."""
+    g = chung_lu(2000, 9000, seed=9)
+    fsk.reset_launch_counts()
+    got = decompose(g, algorithm, block_edges=64, superstep_chunk=64)
+    assert got.iterations < 64 <= fsk.LAUNCHES["row_pass"]
+    plain = decompose(g, algorithm, block_edges=64, superstep_chunk=64,
+                      backend=CudaBackend(device=dev, plain=True))
+    _same(got, plain, f"chunk 64 {algorithm}")
+
+
+def test_decompose_reads_no_edge_of_an_inactive_row(dev):
+    """The fused kernels' run charges the kernel blocks of the frontier
+    alone, as the per-probe kernels (which count the blocks they read) and
+    the plain version do, with the same updates per superstep."""
+    g = chung_lu(3000, 15000, seed=10)
+    fused = decompose(g, "semicore*", block_edges=64)
+    plain = decompose(g, "semicore*", block_edges=64,
+                      backend=CudaBackend(device=dev, plain=True))
+    ssk.reset_blocks_read()
+    per_probe = decompose(g, "semicore*", block_edges=64,
+                          backend=CudaBackend(device=dev, fused=False))
+    for other in (plain, per_probe):
+        for f in ("kernel_blocks_active", "kernel_blocks_skipped",
+                  "updates_per_iter", "computations_per_iter"):
+            assert getattr(fused, f) == getattr(other, f), f
+    num_probes = max(1, int(np.ceil(np.log2(int(g.degrees().max()) + 2))))
+    assert ssk.blocks_read(dev) == \
+        (num_probes + 1) * fused.kernel_blocks_active
+
+
+def test_views_off_16_bytes_are_refused(dev):
+    _, t = next(_cases(14, dev))
+    table = (t["seg_ptr"], t["nbr"])
+    core = torch.cat([t["core"][:1], t["core"]])[1:]  # 4 bytes in
+    with pytest.raises(ValueError, match="16-byte"):
+        fsk.fused_hindex(core, t["active"], *table)
+    cnt2 = torch.cat([t["cnt"][:1], t["cnt"]])[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        fsk.push_pass(fsk.MODE_SEMICORE_STAR, *table, t["core"], t["core"],
+                      t["active"], cnt2)
+
+
+def test_plan_of_another_shape_is_refused(dev):
+    _, t = next(_cases(13, dev))
+    table = (t["seg_ptr"], t["nbr"])
+    with pytest.raises(ValueError, match="plan"):
+        fsk.fused_pass(t["core"], t["cnt"], t["active"], *table,
+                       algorithm="semicore*",
+                       plan=torch.zeros(3, dtype=torch.int32, device=dev))
 
 
 # ------------------------------------------------------------ segment sums

@@ -38,7 +38,8 @@ def carried():
     jcfg = jget("mind").reduced()
     cfg = get_config("mind").reduced()
     jp = jinit(jrec.mind_param_specs(jcfg), jax.random.PRNGKey(0))
-    return jcfg, cfg, jp, mind_params_from(jax.tree.map(np.asarray, jp), cfg)
+    return jcfg, cfg, jp, mind_params_from(jax.tree.map(np.asarray, jp), cfg,
+                                           device="cpu")
 
 
 def _jax(batch):
@@ -170,14 +171,26 @@ def test_params_from_refuses_missing_extra_and_misshapen_leaves(carried):
     specs = rec.mind_param_specs(cfg)
     missing = {k: v for k, v in arrays.items() if k != "bilinear"}
     with pytest.raises(ValueError, match=r"missing leaves \['bilinear'\]"):
-        params_from(missing, specs)
+        params_from(missing, specs, device="cpu")
     extra = {**arrays, "mlp": {**arrays["mlp"], "b3": arrays["mlp"]["b2"]}}
     with pytest.raises(ValueError, match=r"mlp: .*extra leaves \['b3'\]"):
-        params_from(extra, specs)
+        params_from(extra, specs, device="cpu")
     bad = {**arrays, "bilinear": arrays["bilinear"][:, :3]}
     with pytest.raises(ValueError, match="bilinear: shape"):
-        params_from(bad, specs)
-    carried_tree = params_from(arrays, specs)
+        params_from(bad, specs, device="cpu")
+    carried_tree = params_from(arrays, specs, device="cpu")
     for name in ("item_embed", "profile_proj"):
         np.testing.assert_array_equal(carried_tree[name].numpy(),
                                       arrays[name])
+
+
+@pytest.mark.parametrize("carry", [params_from, mind_params_from])
+def test_carried_weights_default_to_the_card(carried, carry, monkeypatch):
+    """Without a device the weights go to cuda:0; with no GPU that raises
+    and names the explicit host device, rather than landing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cfg, jp, _ = carried
+    arrays = jax.tree.map(np.asarray, jp)
+    what = rec.mind_param_specs(cfg) if carry is params_from else cfg
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        carry(arrays, what)

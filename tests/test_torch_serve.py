@@ -45,7 +45,8 @@ def _configs(which):
 def _carried(which, seed=0):
     jcfg, cfg = _configs(which)
     jp = jinit(jtfm.lm_param_specs(jcfg), jax.random.PRNGKey(seed))
-    return jcfg, cfg, jp, lm_params_from(jax.tree.map(np.asarray, jp), cfg)
+    return jcfg, cfg, jp, lm_params_from(jax.tree.map(np.asarray, jp), cfg,
+                                         device="cpu")
 
 
 def _prompts(vocab, B=2, S=5, step=0):
