@@ -25,7 +25,9 @@ Phases, each printing one JSON line:
              and edges and its bound (``per_superstep``)
   per_probe  the same decompose per probe and on "torch", each equal to the
              "cuda" result; the segment-sum kernel's block-read counter
-             equal to (num_probes + 1) x kernel_blocks_active
+             equal to (num_probes + 1) x kernel_blocks_active; the per-probe
+             decompose once more under the profiler, its device time split
+             between the segment-sum kernels and the rest
   segment_sum  segment_sum((core[nbr] >= core[rows]), rows, n) at full
              width equal to the result's cnt (Eq. 2)
   mind       full-width MIND (configs/mind.py, seeded weights, item table
@@ -45,10 +47,10 @@ their plain versions over the reference's sweeps (kernels/cases.py), flash
 decode also at every boundary of its split rule and at cache_len <= 0.
 
 then the kernels line (launches on each kernel's path, error against the
-plain version, times and bounds; the superstep pair also at the state
-entering pass 20, by kernel through the profiler, and beside the pair of
-an earlier checkout's port under ``baseline/`` when one is there), the
-card's name and power limit, and the result line.  Any mismatch raises
+plain version, times and bounds; the superstep pair and the segment sums
+also at the state entering pass 20, and beside the kernels of an earlier
+checkout's port under ``baseline/`` when one is there), the card's name
+and power limit, and the result line.  Any mismatch raises
 and exits non-zero.  Needs CUDA, nvcc and the repository's ``src/``.
 """
 from __future__ import annotations
@@ -79,8 +81,8 @@ SUPERSTEP_QUEUE_CYCLES = 2_000_000
 #: runs of each superstep in the per-superstep timing (the least counts)
 SUPERSTEP_RUNS = 3
 #: an earlier checkout's port (``git archive <commit> src/repro_torch`` under
-#: baseline/, git-ignored), whose superstep pair is timed beside the shipped
-#: one when present
+#: baseline/, git-ignored), whose superstep pair and segment sums are timed
+#: beside the shipped ones when present
 BASELINE_SRC = ROOT / "baseline" / "src"
 SEGSUM_SOURCE = "src/repro_torch/kernels/csrc/segsum.cu"
 SEGSUM_REPLACES = {
@@ -90,7 +92,8 @@ SEGSUM_REPLACES = {
     # prefetch (computed in jnp by make_superstep_segsum)
     "block_flags": "src/repro/kernels/ops.py:111",
 }
-FLAGS_THREADS = 256  # kThreads of csrc/segsum.cu: block_flags' stride
+#: substrings of the segment-sum kernels' names in a profile
+SEGSUM_KERNEL_NAMES = ("segsum", "block_flags")
 F32_OPS_PER_S = 67e12       # float32 outside the tensor cores (same sheet)
 BF16_OPS_PER_S = 989e12     # bf16 dense on the tensor cores (same sheet)
 BAG_SOURCE = "src/repro_torch/kernels/csrc/embedding_bag.cu"
@@ -326,21 +329,38 @@ def parity_segsum(device) -> dict:
                 for kind in SEGSUM_FRONTIERS:
                     act = torch.as_tensor(segsum_frontier(kind, rng, n),
                                           device=device)
-                    flags = ssa.block_flags(rows, act, be)
+                    flags, ids, count = ssa.active_blocks(rows, act, be)
                     check(torch.equal(flags, ssa.block_flags_plain(rows, act,
                                                                    be)),
                           f"{what} {kind}: flags")
-                    err = close(
-                        ssa.segsum_active(vals, rows, flags, n, be),
-                        ssa.segsum_active_plain(vals, rows, flags, n, be),
-                        dtype, f"{what} {kind}: segment_sum_active")
-                    worst[dtype] = max(worst[dtype], err)
-                    checked += 2
+                    check(same_list(ids, count, flags),
+                          f"{what} {kind}: active-block list")
+                    want = ssa.segsum_active_plain(vals, rows, flags, n, be)
+                    for blocks in (None, (ids, count)):
+                        err = close(
+                            ssa.segsum_active(vals, rows, flags, n, be,
+                                              blocks=blocks),
+                            want, dtype, f"{what} {kind}: segment_sum_active")
+                        worst[dtype] = max(worst[dtype], err)
+                    checked += 4
     torch.cuda.synchronize(device)
     return {"checks": checked, "dtypes": list(SEGSUM_DTYPES),
             "widths": list(SEGSUM_WIDTHS), "block_edges": list(SEGSUM_BLOCKS),
             "frontiers": list(SEGSUM_FRONTIERS), "max_abs_err": worst,
             "tolerance": {k: list(v) for k, v in SEGSUM_TOL.items()}}
+
+
+def same_list(ids, count, flags) -> bool:
+    """The kernel's active-block list (any order) holds the flagged blocks'
+    ids, as the plain version lists them."""
+    import torch
+
+    from repro_torch.kernels import segsum_active as ssa
+
+    want_ids, want_count = ssa.block_list_plain(flags)
+    c = int(count.item())
+    return c == int(want_count.item()) and torch.equal(
+        torch.sort(ids[:c]).values, want_ids[:c])
 
 
 def _close(got, want, tol, what) -> float:
@@ -824,6 +844,13 @@ def phase_per_probe(device, g, ref) -> dict:
             run.update(blocks_read=read,
                        kernel_blocks_active=r.kernel_blocks_active,
                        kernel_blocks_skipped=r.kernel_blocks_skipped)
+            # the same decompose under the profiler: its device time split
+            # between the segment-sum kernels and the rest (the torch glue
+            # of each probe, the structure's upload)
+            run["device_profile"] = device_profile(
+                lambda: decompose(g, "semicore*", backend=CudaBackend(
+                    device=device, fused=False)), top=8,
+                groups={"segment_sum_kernels": SEGSUM_KERNEL_NAMES})
         else:
             check(not run_launches, "torch launched a kernel of the port")
         out["runs"][label] = run
@@ -870,42 +897,41 @@ def phase_segment_sum(device, g, ref, tables) -> dict:
 
 
 def flags_reads(rows, active, block_edges: int) -> tuple:
-    """(rows read, distinct node flags read) by ``block_flags`` on this
-    frontier: each of a block's ``FLAGS_THREADS`` threads strides the block
-    and stops after its first active row."""
+    """(rows read, distinct node flags read) by the least reading of the
+    block flags on this frontier: each block's rows up to and including
+    its first active row, all of them where it has none."""
     import torch
 
     E = rows.shape[0]
     e = torch.arange(E, device=rows.device)
-    pos = e % block_edges
-    stride = pos // FLAGS_THREADS
-    thread = (e // block_edges) * FLAGS_THREADS + pos % FLAGS_THREADS
+    block = e // block_edges
     hit = active[rows.long()]
     nb = -(-E // block_edges)
-    first = torch.full((nb * FLAGS_THREADS,), block_edges,
-                       dtype=torch.int64, device=rows.device)
-    first.scatter_reduce_(0, thread[hit], stride[hit], "amin")
-    read = stride <= first[thread]
+    first = torch.full((nb,), E, dtype=torch.int64, device=rows.device)
+    first.scatter_reduce_(0, block[hit], e[hit], "amin")
+    read = e <= first[block]
     return int(read.sum()), int(torch.unique(rows[read]).numel())
 
 
-def baseline_superstep():
-    """The superstep module of the checkout under ``BASELINE_SRC``, loaded
-    beside the shipped one under another package name (its kernel is built
-    from its own source into its own build directory), or None."""
+def baseline_module(name: str):
+    """The kernel module ``name`` of the checkout under ``BASELINE_SRC``,
+    loaded beside the shipped one under another package name (its kernels
+    are built from its own sources into its own build directory), or
+    None."""
     import importlib
     import importlib.util
 
     kdir = BASELINE_SRC / "repro_torch" / "kernels"
-    if not (kdir / "fused_superstep.py").exists():
+    if not (kdir / f"{name}.py").exists():
         return None
-    spec = importlib.util.spec_from_file_location(
-        "superstep_baseline", kdir / "__init__.py",
-        submodule_search_locations=[str(kdir)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules["superstep_baseline"] = pkg
-    spec.loader.exec_module(pkg)
-    return importlib.import_module("superstep_baseline.fused_superstep")
+    if "port_baseline" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "port_baseline", kdir / "__init__.py",
+            submodule_search_locations=[str(kdir)])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules["port_baseline"] = pkg
+        spec.loader.exec_module(pkg)
+    return importlib.import_module(f"port_baseline.{name}")
 
 
 def superstep_entries(g, device, tables, launches, main) -> list:
@@ -926,7 +952,7 @@ def superstep_entries(g, device, tables, launches, main) -> list:
     segptr, nbr = tables["segptr"], tables["nbr"]
     deg_t = torch.as_tensor(deg, device=device)
     plan = fsk.bin_plan(segptr)
-    baseline = baseline_superstep()
+    baseline = baseline_module("fused_superstep")
     states = {
         "first": {"core": torch.as_tensor(deg.astype(np.int32),
                                           device=device),
@@ -1026,85 +1052,140 @@ def superstep_entries(g, device, tables, launches, main) -> list:
 
 def kernel_entries(g, device, tables, launches, main) -> list:
     """The superstep pair (:func:`superstep_entries`), then the segment
-    sums timed at the first semicore* pass's first h-index probe (D = 1,
-    int32) against their plain versions."""
+    sums (:func:`segsum_entries`)."""
+    return superstep_entries(g, device, tables, launches, main) + \
+        segsum_entries(g, device, tables, launches, main)
+
+
+def segsum_entries(g, device, tables, launches, main) -> list:
+    """The segment sums at the first h-index probe (D = 1, int32, the
+    engine's 512-edge blocks) of two states of the per-probe decompose:
+    its first pass (every node with an edge active, core = degree) and the
+    state entering pass ``LATE_PASS`` (the main path's, which the per-probe
+    path goes through pass for pass).  At each, every kernel is held to its
+    plain version, timed by :func:`device_ms` in turns with the kernels of
+    the checkout under ``BASELINE_SRC`` when there is one, and bounded by
+    the bytes that state needs: the rows up to each block's first active
+    row (block_flags, plus the flags and the list written), the walked
+    blocks' rows and values (8 B an edge), the list and the output written
+    once (the sums)."""
     import torch
 
     from repro_torch.kernels import segsum as ssk, segsum_active as ssa
 
-    entries = superstep_entries(g, device, tables, launches, main)
-    n = g.n
-    nbr, rows = tables["nbr"], tables["rows"]
-    core = torch.as_tensor(g.degrees().astype(np.int32), device=device)
-    active = torch.as_tensor(g.degrees() > 0, device=device)
-
-    # the segment sums: the first probe's indicator, mid = (deg + 1) // 2,
-    # over every block (all active), D = 1 int32, at the engine's block
-    be = 512
-    E = g.num_directed
-    mid = (core + 1) // 2
-    vals = (core[nbr] >= mid[rows]).to(torch.int32)
+    n, E, be = g.n, g.num_directed, 512
     nb = -(-E // be)
-    flags = ssa.block_flags(rows, active, be)
-    flags_plain = ssa.block_flags_plain(rows, active, be)
-    flags_err = int((flags - flags_plain).abs().max())
-    rows_read, nodes_read = flags_reads(rows, active, be)
+    nbr, rows = tables["nbr"], tables["rows"]
+    deg = g.degrees()
+    base_ss = baseline_module("segsum")
+    base_ssa = baseline_module("segsum_active")
+    block_len = torch.full((nb,), be, dtype=torch.int64, device=device)
+    block_len[-1] = E - (nb - 1) * be
+    states = {"first": (torch.as_tensor(deg.astype(np.int32), device=device),
+                        torch.as_tensor(deg > 0, device=device)),
+              "late": (main["late"]["core"], main["late"]["active"])}
+    at = {"block_flags": {}, "segment_sum_active": {}, "segment_sum": {}}
+    for label, (core, active) in states.items():
+        reps = 20 if label == "first" else 50
+        # the pass's first probe: lo = 0, hi = c_old, mid = (c_old + 1) // 2
+        mid = (torch.where(active, core, 0) + 1) // 2
+        vals = (core[nbr] >= mid[rows]).to(torch.int32)
+        flags, ids, count = ssa.active_blocks(rows, active, be)
+        blocks = (ids, count)
+        check(torch.equal(flags, ssa.block_flags_plain(rows, active, be))
+              and same_list(ids, count, flags),
+              f"block flags or their list != plain at the {label} probe")
+        n_act = int(flags.sum())
+        e_act = int(block_len[flags.bool()].sum())
+        rows_read, nodes_read = flags_reads(rows, active, be)
+        want = {"segment_sum_active": ssa.segsum_active_plain(
+                    vals, rows, flags, n, be),
+                "segment_sum": ssk.segment_sum_plain(vals, rows, n, be)}
 
-    def library():  # one PyTorch call computing the same sum
-        return torch.zeros(n, dtype=torch.int32, device=device).index_add_(
-            0, rows, vals)
+        def library():  # one PyTorch call computing the same sum
+            return torch.zeros(n, dtype=torch.int32, device=device
+                               ).index_add_(0, rows, vals)
 
-    lib_out = library()
-    timed = {
-        "block_flags": (
-            lambda: ssa.block_flags(rows, active, be),
-            lambda: ssa.block_flags_plain(rows, active, be), flags_err,
-            # the rows its early exit reads, the node flags they name (one
-            # byte each), the flags written
-            4 * rows_read + nodes_read + 4 * nb, rows_read, None),
-        "segment_sum_active": (
-            lambda: ssa.segsum_active(vals, rows, flags, n, be),
-            lambda: ssa.segsum_active_plain(vals, rows, flags, n, be),
-            int((ssa.segsum_active(vals, rows, flags, n, be)
-                 - ssa.segsum_active_plain(vals, rows, flags, n, be))
-                .abs().max()),
-            # rows and vals once (8 B/edge), the flags, the output's zero
-            # fill and write
-            8 * E + 4 * nb + 8 * n, E, library),
-        "segment_sum": (
-            lambda: ssk.segment_sum(vals, rows, n, be),
-            lambda: ssk.segment_sum_plain(vals, rows, n, be),
-            int((ssk.segment_sum(vals, rows, n, be)
-                 - ssk.segment_sum_plain(vals, rows, n, be)).abs().max()),
-            8 * E + 8 * n, E, library),
-    }
-    check(all(t[2] == 0 for t in timed.values()),
-          "segment-sum kernels != plain at full width")
-    check(torch.equal(ssk.segment_sum(vals, rows, n, be), lib_out),
-          "segment_sum != index_add_ at full width")
-    for name, (fn, plain, err, nbytes, ops, lib) in timed.items():
-        bms, by = bound(nbytes, ops)
+        check(torch.equal(want["segment_sum"], library()),
+              f"segment_sum_plain != index_add_ at the {label} probe")
+
+        # name: (kernel, plain, baseline kernel, bytes, operations,
+        #        library where it computes the same function)
+        timed = {
+            "block_flags": (
+                lambda: ssa.active_blocks(rows, active, be),
+                lambda: ssa.active_blocks_plain(rows, active, be),
+                base_ssa and (lambda: base_ssa.block_flags(rows, active, be)),
+                4 * rows_read + nodes_read + 4 * nb + 4 * n_act + 4,
+                rows_read, None),
+            "segment_sum_active": (
+                lambda: ssa.segsum_active(vals, rows, flags, n, be,
+                                          blocks=blocks),
+                lambda: ssa.segsum_active_plain(vals, rows, flags, n, be),
+                base_ssa and (lambda: base_ssa.segsum_active(
+                    vals, rows, flags, n, be)),
+                8 * e_act + 4 * n_act + 4 + 4 * n, e_act,
+                library if n_act == nb else None),
+            "segment_sum": (
+                lambda: ssk.segment_sum(vals, rows, n, be),
+                lambda: ssk.segment_sum_plain(vals, rows, n, be),
+                base_ss and (lambda: base_ss.segment_sum(vals, rows, n, be)),
+                8 * E + 4 * n, E, library)}
+        for name, (fn, plain, base, nbytes, ops, lib) in timed.items():
+            err = 0
+            if name != "block_flags":
+                err = int((fn() - want[name]).abs().max())
+                check(err == 0, f"{name} != plain at the {label} probe")
+                if base is not None:
+                    check(torch.equal(base(), want[name]),
+                          f"baseline {name} != plain at the {label} probe")
+            ms, base_ms = [], []
+            for _ in range(2):  # in turns: kernel, baseline, kernel, baseline
+                ms.append(device_ms(fn, reps, device))
+                if base is not None:
+                    base_ms.append(device_ms(base, reps, device))
+            bms, by = bound(nbytes, ops)
+            at[name][label] = {
+                "max_abs_err": err, "ms": min(ms), "plain_ms": cuda_ms(
+                    plain, 3, device),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": None if lib is None else device_ms(
+                    lib, reps, device),
+                "baseline_ms": min(base_ms) if base_ms else None,
+                "active_blocks": n_act, "active_edges": e_act,
+                "bytes": nbytes,
+                **({"rows_read": rows_read, "nodes_read": nodes_read}
+                   if name == "block_flags" else {})}
+
+    entries = []
+    for name, t in at.items():
+        first, late = t["first"], t["late"]
         entries.append({
             "name": name, "route": "cuda", "source": SEGSUM_SOURCE,
             "replaces": SEGSUM_REPLACES[name], "launches": launches[name],
-            "max_abs_err": err, "ms": cuda_ms(fn, 20, device),
-            "plain_ms": cuda_ms(plain, 3, device), "bound_ms": bms,
-            "bound_by": by,
-            "library_ms": None if lib is None else cuda_ms(lib, 20, device),
-            "parity": "bit-identical",
+            "max_abs_err": max(first["max_abs_err"], late["max_abs_err"]),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "parity": "bit-identical",
+            "late_probe": {"pass": LATE_PASS, **late},
+            "baseline": None if base_ss is None else {
+                "src": str(BASELINE_SRC.relative_to(ROOT)),
+                "ms": first["baseline_ms"], "late_ms": late["baseline_ms"]},
             "shape": {"n": n, "directed_edges": E, "block_edges": be,
-                      "blocks": nb, "active_blocks": int(flags.sum()),
-                      "D": 1, "dtype": "int32", "bytes": nbytes,
-                      **({"rows_read": rows_read, "nodes_read": nodes_read}
-                         if name == "block_flags" else {})}})
+                      "blocks": nb, "D": 1, "dtype": "int32", **{
+                          k: first[k] for k in first if k in (
+                              "active_blocks", "active_edges", "bytes",
+                              "rows_read", "nodes_read")}}})
     return entries
 
 
-def device_profile(fn, top: int = 6) -> dict:
+def device_profile(fn, top: int = 6, groups: dict | None = None) -> dict:
     """``fn()`` under ``torch.profiler`` (CPU and CUDA activity): wall, the
-    device time the kernels took, the device's busy share of the wall, and
-    the ``top`` kernels by device time.  Device times are None when the
-    profiler records none (not measured)."""
+    device time the kernels took, the device's busy share of the wall, the
+    ``top`` kernels by device time and, for ``groups`` ({label: name
+    substrings}), the device time of the kernels whose name holds one of
+    a group's substrings (``group_ms``, the rest under "other").  Device
+    times are None when the profiler records none (not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1120,12 +1201,20 @@ def device_profile(fn, top: int = 6) -> dict:
                and getattr(e, "self_device_time_total", 0) > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     by_time = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
-    return {"wall_ms": wall * 1e3,
-            "device_ms": busy_us / 1e3 if kernels else None,
-            "device_busy_share": busy_us / 1e6 / wall if kernels else None,
-            "kernels_launched": sum(e.count for e in kernels),
-            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                               for e in by_time}}
+    out = {"wall_ms": wall * 1e3,
+           "device_ms": busy_us / 1e3 if kernels else None,
+           "device_busy_share": busy_us / 1e6 / wall if kernels else None,
+           "kernels_launched": sum(e.count for e in kernels),
+           "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                              for e in by_time}}
+    if groups:
+        group_ms = {label: 0.0 for label in (*groups, "other")}
+        for e in kernels:
+            label = next((k for k, subs in groups.items()
+                          if any(x in e.key for x in subs)), "other")
+            group_ms[label] += e.self_device_time_total / 1e3
+        out["group_ms"] = group_ms if kernels else None
+    return out
 
 
 # ------------------------------------------------------------ serving

@@ -7,14 +7,17 @@ over the edges ``e`` with ``rows[e] == r``, for ``vals`` (E,) or (E, D) in
 float32, bfloat16 or int32, ``rows`` (E,) int32 sorted non-decreasing in
 ``[0, num_segments)``.  The result has the dtype of ``vals``.
 
-One kernel of ``csrc/segsum.cu`` (``ss_segsum``) serves this module and
-:mod:`.segsum_active`: with a per-block flag array it skips the blocks whose
-flag is 0 without reading their values; here every block is read.  Integer
-values sum exactly in int32; float32 and bfloat16 sum in float32 and a
-bfloat16 result is rounded once at the end.  Unsorted ``rows`` violate the
-precondition and are not checked (that would cost a device pass); an edge
-whose row lies outside ``[0, num_segments)`` is dropped, as the
-reference's scatter drops it.
+One launch of ``csrc/segsum.cu`` (``ss_segsum``) serves this module and
+:mod:`.segsum_active`.  At D = 1 a card-sized grid of warps walks the edge
+blocks, one warp a block, here every block, there the active blocks' list
+(or, given flags alone, every block whose flag is set); wider values run a
+thread block per edge block.  Integer values sum exactly in int32; float32
+and bfloat16 sum in float32 and a bfloat16 result is rounded once at the
+end.  Unsorted ``rows`` violate the precondition and are not checked (that
+would cost a device pass); an edge whose row lies outside
+``[0, num_segments)`` is dropped, as the reference's scatter drops it.
+:func:`vector_width` picks 16-byte or scalar loads from the operands'
+alignment and the block size.
 
 The wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors; there is no other route.  ``segment_sum_plain`` runs the plain
@@ -29,13 +32,16 @@ import ctypes
 import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "KERNEL_SOURCE", "DTYPES",
-           "segment_sum", "segment_sum_plain", "blocks_read",
-           "reset_blocks_read"]
+           "VEC", "vector_width", "segment_sum", "segment_sum_plain",
+           "blocks_read", "reset_blocks_read"]
 
 KERNEL_SOURCE = "segsum"  # csrc/segsum.cu
 
 #: value dtypes the kernel takes, with the source's `enum DType` codes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+#: edges a 16-byte load of rows holds (``kVec`` of the source)
+VEC = 4
 
 #: kernel launches per wrapper, counted where the kernel is launched
 LAUNCHES = {"segment_sum": 0}
@@ -103,6 +109,18 @@ def num_blocks(E: int, block_edges: int) -> int:
     return -(-E // block_edges)
 
 
+def vector_width(block_edges: int, *tensors) -> int:
+    """``VEC`` (16-byte loads: ``VEC`` int32 rows, float32 or int32 values a
+    word, ``VEC`` bfloat16 values in 8 bytes) when every block of every
+    tensor starts on a boundary of ``VEC`` elements, i.e. each tensor's
+    start does and ``block_edges`` is a multiple of ``VEC``; else 1
+    (scalar loads)."""
+    if block_edges % VEC:
+        return 1
+    ok = all(t.data_ptr() % (VEC * t.element_size()) == 0 for t in tensors)
+    return VEC if ok else 1
+
+
 # ----------------------------------------------------------- CUDA route
 def _lib():
     from . import _build
@@ -110,18 +128,21 @@ def _lib():
     lib = _build.load(KERNEL_SOURCE)
     if not getattr(lib, "_repro_sigs", False):
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ss_block_flags.argtypes = [vp, vp, ll, i, i, vp, vp]
+        lib.ss_block_flags.argtypes = [vp, vp, ll, i, i, i, vp, vp, vp, vp]
         lib.ss_block_flags.restype = i
-        lib.ss_segsum.argtypes = [vp, vp, vp, ll, i, i, i, i, vp, vp, vp]
+        lib.ss_segsum.argtypes = [vp, vp, vp, vp, vp, ll, i, i, i, i, i, vp,
+                                  vp, vp]
         lib.ss_segsum.restype = i
         lib._repro_sigs = True
     return lib
 
 
 def launch_segsum(vals, rows, flags, num_segments: int, block_edges: int,
-                  counter: str, launches: dict):
+                  counter: str, launches: dict, blocks=None):
     """One ``ss_segsum`` launch on CUDA tensors (``flags`` None: every
-    block); counts it in ``launches[counter]``."""
+    block; ``blocks`` the ``(ids, count)`` list of the flagged blocks, which
+    D = 1 walks instead of the flags); counts it in
+    ``launches[counter]``."""
     E = rows.shape[0]
     D = 1 if vals.dim() == 1 else vals.shape[1]
     acc_dtype = torch.int32 if vals.dtype == torch.int32 else torch.float32
@@ -131,10 +152,13 @@ def launch_segsum(vals, rows, flags, num_segments: int, block_edges: int,
         lib = _lib()
         with torch.cuda.device(vals.device):
             stream = torch.cuda.current_stream().cuda_stream
+            ids, count = (None, None) if blocks is None else \
+                (blocks[0].data_ptr(), blocks[1].data_ptr())
             err = lib.ss_segsum(
                 vals.data_ptr(), rows.data_ptr(),
-                None if flags is None else flags.data_ptr(), E, D,
-                block_edges, num_segments, DTYPES[vals.dtype], out.data_ptr(),
+                None if flags is None else flags.data_ptr(), ids, count, E,
+                D, block_edges, num_segments, DTYPES[vals.dtype],
+                vector_width(block_edges, rows, vals), out.data_ptr(),
                 _blocks_counter(vals.device).data_ptr(), stream)
         launches[counter] += 1
         if err:
@@ -167,8 +191,8 @@ def segment_sum_plain(vals, rows, num_segments: int, block_edges: int = 512):
 # ----------------------------------------------------------- dispatch
 def segment_sum(vals, rows, num_segments: int, block_edges: int = 512):
     """Segment sum: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors.  ``block_edges`` is the kernel's edge block (one thread
-    block each); it does not change the result."""
+    CPU tensors.  ``block_edges`` is the kernel's edge block (one warp each
+    at D = 1); it does not change the result."""
     check_operands(vals, rows, num_segments, block_edges)
     if vals.device.type == "cuda":
         return launch_segsum(vals, rows, None, num_segments, block_edges,

@@ -13,14 +13,20 @@ block reads none of its values.
 
 Two kernels of ``csrc/segsum.cu``:
 
-* ``block_flags`` — the (nb,) int32 flags, once per pass;
-* ``segment_sum_active`` — the segment sum of :mod:`.segsum` reading one
-  flag per block (the same ``ss_segsum`` kernel, given the flag array).
+* ``block_flags`` — the (nb,) int32 flags, once per pass, and in the same
+  launch the active blocks' list: their ids in ``ids[:count]`` (any order)
+  and ``count``, a (1,) int32 tensor left on the device
+  (:func:`active_blocks`; its plain version :func:`active_blocks_plain`
+  lists them in ascending order, :func:`block_list_plain`);
+* ``segment_sum_active`` — the segment sum of :mod:`.segsum` over the
+  list (the same ``ss_segsum`` kernel; given the flags alone, it visits
+  every block and skips those whose flag is 0).
 
-:func:`make_superstep_segsum` computes a pass's flags once and returns an
-``apply(vals)`` for the pass's probes; :func:`segment_sum_active` is the
-one-shot form.  They are the counterparts of the reference's
-``ops.make_superstep_segsum`` and ``ops.segment_sum_active``.
+:func:`make_superstep_segsum` computes a pass's flags and list once and
+returns an ``apply(vals)`` for the pass's probes; no count is read on the
+host.  :func:`segment_sum_active` is the one-shot form.  They are the
+counterparts of the reference's ``ops.make_superstep_segsum`` and
+``ops.segment_sum_active``.
 
 The block size that decides activity must be the one the caller accounts
 blocks at (the engine's ``min(block_edges, 512)``).  The reference pads E
@@ -38,7 +44,8 @@ import torch
 
 from . import segsum as _ss
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "block_flags",
+__all__ = ["LAUNCHES", "reset_launch_counts", "active_blocks",
+           "active_blocks_plain", "block_list_plain", "block_flags",
            "block_flags_plain", "segsum_active", "segsum_active_plain",
            "make_superstep_segsum", "segment_sum_active"]
 
@@ -75,6 +82,17 @@ def _check_flags(flags, rows, block_edges: int) -> None:
                          f"{tuple(flags.shape)} on {flags.device}")
 
 
+def _check_blocks(blocks, flags) -> None:
+    ids, count = blocks
+    if ids.dtype != torch.int32 or count.dtype != torch.int32 \
+            or ids.device != flags.device or count.device != flags.device \
+            or ids.shape != flags.shape or tuple(count.shape) != (1,) \
+            or not ids.is_contiguous():
+        raise ValueError(f"blocks must be (ids, count): a contiguous "
+                         f"{tuple(flags.shape)} and a (1,) int32 tensor on "
+                         f"{flags.device}")
+
+
 # ------------------------------------------------------- plain versions
 def block_flags_plain(rows, node_active, block_edges: int = 512):
     """(nb,) int32: 1 iff some edge of the block has an active row."""
@@ -85,6 +103,23 @@ def block_flags_plain(rows, node_active, block_edges: int = 512):
     hit = valid & node_active[torch.where(valid, rows, 0)] if n else valid
     hit = torch.cat([hit, hit.new_zeros(nb * block_edges - E)])
     return hit.view(nb, block_edges).any(1).to(torch.int32)
+
+
+def block_list_plain(flags):
+    """``(ids, count)`` of the flagged blocks: ``ids`` (nb,) int32 holds
+    their ids in ascending order, then zeros; ``count`` (1,) int32."""
+    on = torch.nonzero(flags).flatten().to(torch.int32)
+    ids = torch.zeros_like(flags)
+    ids[:on.shape[0]] = on
+    count = torch.tensor([on.shape[0]], dtype=torch.int32,
+                         device=flags.device)
+    return ids, count
+
+
+def active_blocks_plain(rows, node_active, block_edges: int = 512):
+    """``(flags, ids, count)``: :func:`block_flags_plain` and its list."""
+    flags = block_flags_plain(rows, node_active, block_edges)
+    return (flags, *block_list_plain(flags))
 
 
 def segsum_active_plain(vals, rows, flags, num_segments: int,
@@ -98,34 +133,48 @@ def segsum_active_plain(vals, rows, flags, num_segments: int,
 
 
 # ----------------------------------------------------------- dispatch
-def block_flags(rows, node_active, block_edges: int = 512):
-    """Per-block activity flags: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+def active_blocks(rows, node_active, block_edges: int = 512):
+    """``(flags, ids, count)``: per-block activity flags and the active
+    blocks' list, the CUDA kernel for CUDA tensors (one launch; the list
+    in any order), the plain version for CPU tensors."""
     if rows.device.type == "cpu":
-        return block_flags_plain(rows, node_active, block_edges)
+        return active_blocks_plain(rows, node_active, block_edges)
     if rows.device.type != "cuda":
         raise ValueError(f"no block flags for device {rows.device}")
     _check_flags_operands(rows, node_active, block_edges)
     E = rows.shape[0]
-    flags = torch.empty(_ss.num_blocks(E, block_edges), dtype=torch.int32,
-                        device=rows.device)
+    nb = _ss.num_blocks(E, block_edges)
+    flags = torch.empty(nb, dtype=torch.int32, device=rows.device)
+    ids = torch.empty(nb, dtype=torch.int32, device=rows.device)
+    count = torch.zeros(1, dtype=torch.int32, device=rows.device)
     if E:
         lib = _ss._lib()
         with torch.cuda.device(rows.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.ss_block_flags(rows.data_ptr(), node_active.data_ptr(),
-                                     E, block_edges, node_active.shape[0],
-                                     flags.data_ptr(), stream)
+            err = lib.ss_block_flags(
+                rows.data_ptr(), node_active.data_ptr(), E, block_edges,
+                node_active.shape[0], _ss.vector_width(block_edges, rows),
+                flags.data_ptr(), ids.data_ptr(), count.data_ptr(), stream)
         LAUNCHES["block_flags"] += 1
         if err:
             raise RuntimeError(f"block_flags launch failed: CUDA error {err}")
-    return flags
+    return flags, ids, count
+
+
+def block_flags(rows, node_active, block_edges: int = 512):
+    """Per-block activity flags: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    return active_blocks(rows, node_active, block_edges)[0]
 
 
 def segsum_active(vals, rows, flags, num_segments: int,
-                  block_edges: int = 512):
-    """Block-skipping segment sum given the pass's ``flags``: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+                  block_edges: int = 512, *, blocks=None):
+    """Block-skipping segment sum given the pass's ``flags`` (and, to walk
+    only the active blocks at D = 1, their ``(ids, count)`` list from
+    :func:`active_blocks`): the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if blocks is not None:
+        _check_blocks(blocks, flags)
     if vals.device.type == "cpu":
         return segsum_active_plain(vals, rows, flags, num_segments,
                                    block_edges)
@@ -134,7 +183,7 @@ def segsum_active(vals, rows, flags, num_segments: int,
     _ss.check_operands(vals, rows, num_segments, block_edges)
     _check_flags(flags, rows, block_edges)
     return _ss.launch_segsum(vals, rows, flags, num_segments, block_edges,
-                             "segment_sum_active", LAUNCHES)
+                             "segment_sum_active", LAUNCHES, blocks)
 
 
 # -------------------------------------------------------- entry points
@@ -144,13 +193,14 @@ def make_superstep_segsum(rows, node_active, num_segments: int, *,
 
     One pass runs several sums over the same ``rows`` with the same
     frontier mask (the h-index probes and the cnt refresh): the per-block
-    activity flags are computed here once, and the returned ``apply(vals)``
-    runs one skipping sum per call.
+    activity flags and the active blocks' list are computed here once, and
+    the returned ``apply(vals)`` runs one skipping sum per call.
     """
-    flags = block_flags(rows, node_active, block_edges)
+    flags, *blocks = active_blocks(rows, node_active, block_edges)
 
     def apply(vals):
-        return segsum_active(vals, rows, flags, num_segments, block_edges)
+        return segsum_active(vals, rows, flags, num_segments, block_edges,
+                             blocks=blocks)
 
     return apply
 

@@ -359,6 +359,182 @@ def test_segsum_wrapper_refuses_what_the_kernel_cannot_take(dev):
                           block_edges=4)
 
 
+def _d1_case(seed, dtype, be, kind, dev, n=300, E=4001):
+    """Seeded D = 1 operands (rows longer than a block, empty rows, at most
+    E edges: 1,483 at the defaults, not a multiple of 4 or of any block
+    size) and a frontier."""
+    rng = np.random.default_rng(seed)
+    rows = torch.as_tensor(segsum_rows(rng, n, E), device=dev)
+    vals = torch.as_tensor(segsum_values(rng, rows.shape[0], 1, dtype),
+                           device=dev).to(getattr(torch, dtype))
+    act = torch.as_tensor(segsum_frontier(kind, rng, n), device=dev)
+    return n, rows, vals, act
+
+
+def _listed(ids, count):
+    return torch.sort(ids[:int(count.item())]).values
+
+
+@pytest.mark.parametrize("kind", SEGSUM_FRONTIERS)
+@pytest.mark.parametrize("be", SEGSUM_BLOCKS)
+@pytest.mark.parametrize("dtype", SEGSUM_DTYPES)
+def test_segsum_d1_kernel_matches_plain(dev, dtype, be, kind):
+    """The D = 1 warp kernel by each route (the list, the flags alone,
+    every block) against the plain versions; the list against
+    ``block_list_plain``; the read counter against the list's count."""
+    n, rows, vals, act = _d1_case(7, dtype, be, kind, dev)
+    assert rows.shape[0] % 4 and ssk.vector_width(be, rows, vals) == 4
+    flags, ids, count = ssa.active_blocks(rows, act, be)
+    assert torch.equal(flags, ssa.block_flags_plain(rows, act, be))
+    want_ids, want_count = ssa.block_list_plain(flags)
+    assert torch.equal(count, want_count)
+    assert torch.equal(_listed(ids, count), want_ids[:int(want_count)])
+    want = ssa.segsum_active_plain(vals, rows, flags, n, be)
+    for blocks in ((ids, count), None):
+        ssk.reset_blocks_read()
+        _segsum_close(ssa.segsum_active(vals, rows, flags, n, be,
+                                        blocks=blocks), want, dtype,
+                      f"segment_sum_active {kind} blocks={blocks is not None}")
+        assert ssk.blocks_read(dev) == int(count.item())
+    ssk.reset_blocks_read()
+    _segsum_close(ssk.segment_sum(vals, rows, n, be),
+                  ssk.segment_sum_plain(vals, rows, n, be), dtype,
+                  "segment_sum")
+    assert ssk.blocks_read(dev) == flags.shape[0]
+
+
+def test_segsum_row_across_three_blocks_with_the_middle_skipped(dev):
+    """Row 1 spans blocks 0-3 (64 edges each).  With block 1 skipped it
+    gets the sum of its edges in blocks 0, 2 and 3; with rows 0 and 2
+    active (blocks 0 and 3), of its edges in blocks 0 and 3."""
+    be = 64
+    rows_h = np.array([0] * 10 + [1] * 230 + [2] * 16, np.int32)  # E = 256
+    rows = torch.as_tensor(rows_h, device=dev)
+    vals = torch.arange(1, 257, dtype=torch.int32, device=dev)
+    flags = torch.tensor([1, 0, 1, 1], dtype=torch.int32, device=dev)
+    ids, count = ssa.block_list_plain(flags)
+    got = ssa.segsum_active(vals, rows, flags, 3, be, blocks=(ids, count))
+    keep = np.repeat([True, False, True, True], be)
+    v = np.arange(1, 257)
+    want = [v[(rows_h == r) & keep].sum() for r in range(3)]
+    assert got.cpu().tolist() == want
+    assert torch.equal(got, ssa.segsum_active_plain(vals, rows, flags, 3, be))
+    # the same through the kernel's own flags: row 0 active covers block 0,
+    # row 2 blocks 3 only, so row 1 keeps blocks 0 and 3
+    act = torch.tensor([True, False, True], device=dev)
+    flags2, ids2, count2 = ssa.active_blocks(rows, act, be)
+    assert flags2.cpu().tolist() == [1, 0, 0, 1] and int(count2) == 2
+    assert torch.equal(
+        ssa.segsum_active(vals, rows, flags2, 3, be, blocks=(ids2, count2)),
+        ssa.segsum_active_plain(vals, rows, flags2, 3, be))
+
+
+@pytest.mark.parametrize("E", [1, 2, 3, 5, 63, 127, 129, 130, 515])
+@pytest.mark.parametrize("dtype", SEGSUM_DTYPES)
+def test_segsum_d1_below_a_block_and_off_multiples_of_4(dev, dtype, E):
+    for be in (512, 64, 3):
+        n, rows, vals, act = _d1_case(E, dtype, be, "sparse", dev, n=200,
+                                      E=E)
+        assert rows.shape[0] == E
+        act[rows[0]] = True
+        flags, ids, count = ssa.active_blocks(rows, act, be)
+        assert torch.equal(flags, ssa.block_flags_plain(rows, act, be))
+        _segsum_close(ssa.segsum_active(vals, rows, flags, n, be,
+                                        blocks=(ids, count)),
+                      ssa.segsum_active_plain(vals, rows, flags, n, be),
+                      dtype, f"E={E} be={be}")
+        _segsum_close(ssk.segment_sum(vals, rows, n, be),
+                      ssk.segment_sum_plain(vals, rows, n, be), dtype,
+                      f"E={E} be={be}")
+
+
+@pytest.mark.parametrize("rows_off,vals_off", [(1, 0), (0, 1), (2, 3),
+                                               (4, 4), (0, 2)])
+@pytest.mark.parametrize("dtype", SEGSUM_DTYPES)
+def test_segsum_d1_views_off_16_bytes(dev, dtype, rows_off, vals_off):
+    """Views whose start is off a 16-byte boundary take the scalar
+    layout and give the same sums."""
+    n, rows0, vals0, act = _d1_case(11, dtype, 128, "prefix", dev)
+    E = rows0.shape[0] - 8
+    rows_buf = torch.zeros(E + 8, dtype=torch.int32, device=dev)
+    vals_buf = torch.zeros(E + 8, dtype=vals0.dtype, device=dev)
+    rows = rows_buf[rows_off:rows_off + E]
+    vals = vals_buf[vals_off:vals_off + E]
+    rows.copy_(rows0[:E])
+    vals.copy_(vals0[:E])
+    want_vec = 4 if rows_off % 4 == 0 and vals_off % 4 == 0 else 1
+    assert ssk.vector_width(128, rows, vals) == want_vec
+    flags, ids, count = ssa.active_blocks(rows, act, 128)
+    assert torch.equal(flags, ssa.block_flags_plain(rows, act, 128))
+    _segsum_close(ssa.segsum_active(vals, rows, flags, n, 128,
+                                    blocks=(ids, count)),
+                  ssa.segsum_active_plain(vals, rows, flags, n, 128), dtype,
+                  f"offsets {rows_off} {vals_off}")
+    _segsum_close(ssk.segment_sum(vals, rows, n, 128),
+                  ssk.segment_sum_plain(vals, rows, n, 128), dtype,
+                  f"offsets {rows_off} {vals_off}")
+
+
+def test_segsum_all_flags_zero_reads_nothing(dev):
+    n, rows, vals, act = _d1_case(12, "int32", 64, "none", dev)
+    flags, ids, count = ssa.active_blocks(rows, act, 64)
+    assert not flags.any() and int(count) == 0
+    ssk.reset_blocks_read()
+    before = ssk.blocks_read(dev)
+    out = ssa.segsum_active(vals, rows, flags, n, 64, blocks=(ids, count))
+    assert not out.any()
+    out = ssa.segsum_active(vals, rows, flags, n, 64)
+    assert not out.any()
+    assert ssk.blocks_read(dev) == before == 0
+
+
+def test_segsum_counter_grows_by_the_lists_count_each_launch(dev):
+    n, rows, vals, _ = _d1_case(13, "int32", 64, "all", dev)
+    rng = np.random.default_rng(13)
+    ssk.reset_blocks_read()
+    total = 0
+    for kind in ("sparse", "prefix", "all", "none", "sparse"):
+        act = torch.as_tensor(segsum_frontier(kind, rng, n), device=dev)
+        apply_ = ssa.make_superstep_segsum(rows, act, n, block_edges=64)
+        flags, ids, count = ssa.active_blocks(rows, act, 64)
+        for _ in range(3):
+            apply_(vals)
+            total += int(count.item())
+            assert ssk.blocks_read(dev) == total, kind
+
+
+def test_segsum_int32_sums_equal_across_launches(dev):
+    n, rows, vals, act = _d1_case(14, "int32", 512, "sparse", dev,
+                                  n=100_000, E=200_003)
+    assert rows.shape[0] == 200_003
+    apply_ = ssa.make_superstep_segsum(rows, act, n, block_edges=512)
+    first = apply_(vals)
+    whole = ssk.segment_sum(vals, rows, n)
+    for _ in range(5):
+        assert torch.equal(apply_(vals), first)
+        assert torch.equal(ssk.segment_sum(vals, rows, n), whole)
+
+
+def test_segsum_float32_d1_stays_within_tolerance_across_launches(dev):
+    """A pinned divergence: the reference's sums are deterministic (each
+    block's one-hot matmul, then its window scatter, in block order,
+    ``repro/kernels/segsum_active.py`` and ``ops.make_superstep_segsum``);
+    the kernel adds the runs of a block's first and last rows with float
+    atomics, in an order that may change from launch to launch.  Every
+    launch stays within ``SEGSUM_TOL`` of the plain version."""
+    n, rows, vals, act = _d1_case(15, "float32", 64, "all", dev, n=100_000,
+                                  E=200_003)
+    assert rows.shape[0] == 200_003
+    flags, ids, count = ssa.active_blocks(rows, act, 64)
+    want = ssa.segsum_active_plain(vals, rows, flags, n, 64)
+    for _ in range(10):
+        _segsum_close(ssa.segsum_active(vals, rows, flags, n, 64,
+                                        blocks=(ids, count)), want,
+                      "float32", "repeated launch")
+        _segsum_close(ssk.segment_sum(vals, rows, n, 64), want, "float32",
+                      "repeated launch")
+
+
 @pytest.mark.parametrize("algorithm", ALGORITHMS)
 def test_per_probe_and_torch_on_the_card_match_fused(dev, algorithm):
     g = chung_lu(3000, 15000, seed=3)

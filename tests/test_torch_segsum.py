@@ -218,6 +218,89 @@ def test_partial_last_block_flags_match_the_padded_reference(E):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("block_edges", [64, 128, 512])
+@pytest.mark.parametrize("kind", SEGSUM_FRONTIERS)
+def test_active_block_list_is_flatnonzero_of_the_jax_mask(block_edges, kind):
+    """The flags equal the block-activity mask inside the reference's
+    ``make_superstep_segsum``; the plain list holds flatnonzero of them,
+    in order, then zeros, and its count."""
+    import inspect
+
+    rng = np.random.default_rng(block_edges)
+    n = 120
+    rows = segsum_rows(rng, n, 1500)
+    active = segsum_frontier(kind, rng, n)
+    apply_ = jops.make_superstep_segsum(jnp.asarray(rows), jnp.asarray(active),
+                                        n, block_edges=block_edges)
+    mask = np.asarray(inspect.getclosurevars(apply_).nonlocals["block_active"])
+    flags, ids, count = ssa.active_blocks(torch.as_tensor(rows),
+                                          torch.as_tensor(active), block_edges)
+    np.testing.assert_array_equal(flags.numpy(), mask)
+    on = np.flatnonzero(mask)
+    assert ids.dtype == count.dtype == torch.int32
+    assert ids.shape == flags.shape and tuple(count.shape) == (1,)
+    assert int(count) == len(on)
+    np.testing.assert_array_equal(ids[:len(on)].numpy(), on)
+    assert not ids[len(on):].any()
+    lid, lcount = ssa.block_list_plain(flags)
+    assert torch.equal(lid, ids) and torch.equal(lcount, count)
+
+
+def _at(dtype, offset: int, size: int = 64):
+    """A (size,) view ``offset`` elements into a fresh tensor (whose start
+    the allocator aligns to at least 16 bytes)."""
+    base = torch.zeros(size + 8, dtype=dtype)
+    assert base.data_ptr() % 16 == 0
+    return base[offset:offset + size]
+
+
+@pytest.mark.parametrize("block_edges,want", [(512, 4), (64, 4), (4, 4),
+                                              (1, 1), (2, 1), (510, 1),
+                                              (513, 1)])
+def test_vector_width_follows_the_block_size(block_edges, want):
+    rows, vals = _at(torch.int32, 0), _at(torch.int32, 0)
+    assert ss.vector_width(block_edges, rows, vals) == want
+    assert ss.vector_width(block_edges, rows) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4, 8])
+def test_vector_width_follows_each_operands_alignment(dtype, offset):
+    """16-byte words of rows and 4-value words of vals (8 bytes of
+    bfloat16): every operand must start on a 4-element boundary."""
+    rows = _at(torch.int32, 0)
+    vals = _at(TORCH_DTYPES[dtype], offset)
+    want = 4 if offset % 4 == 0 else 1
+    assert ss.vector_width(512, rows, vals) == want
+    assert ss.vector_width(512, vals, rows) == want
+    assert ss.vector_width(512, _at(torch.int32, offset), _at(
+        TORCH_DTYPES[dtype], 0)) == want
+
+
+@pytest.mark.parametrize("kind", SEGSUM_FRONTIERS)
+def test_superstep_segsum_over_the_list_matches_jax(kind):
+    """``make_superstep_segsum`` (flags and list once, then the probes) and
+    ``segsum_active`` given the list equal the reference at D = 1."""
+    rng = np.random.default_rng(21)
+    n, be = 120, 64
+    rows = segsum_rows(rng, n, 1500)
+    active = segsum_frontier(kind, rng, n)
+    t_rows, t_act = torch.as_tensor(rows), torch.as_tensor(active)
+    apply_ = ssa.make_superstep_segsum(t_rows, t_act, n, block_edges=be)
+    j_apply = jops.make_superstep_segsum(jnp.asarray(rows),
+                                         jnp.asarray(active), n,
+                                         block_edges=be)
+    flags, *blocks = ssa.active_blocks(t_rows, t_act, be)
+    for probe in range(3):
+        vals = segsum_values(rng, len(rows), 1, "int32")
+        want = np.asarray(j_apply(jnp.asarray(vals)))
+        np.testing.assert_array_equal(apply_(torch.as_tensor(vals)).numpy(),
+                                      want, err_msg=f"probe {probe}")
+        got = ssa.segsum_active(torch.as_tensor(vals), t_rows, flags, n, be,
+                                blocks=blocks)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_per_probe_engine_decides_activity_at_the_accounting_block(
         monkeypatch):
     """The per-probe superstep computes block flags at the block size the
@@ -264,6 +347,16 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="flags"):
         ssa.segsum_active(torch.zeros(10), rows,
                           torch.ones(2, dtype=torch.int32), 3, block_edges=4)
+    flags = torch.ones(3, dtype=torch.int32)
+    for blocks in ((torch.zeros(2, dtype=torch.int32),
+                    torch.zeros(1, dtype=torch.int32)),
+                   (torch.zeros(3, dtype=torch.int32),
+                    torch.zeros(1, dtype=torch.int64)),
+                   (torch.zeros(3, dtype=torch.int32),
+                    torch.zeros(2, dtype=torch.int32))):
+        with pytest.raises(ValueError, match="blocks"):
+            ssa.segsum_active(torch.zeros(10), rows, flags, 3, block_edges=4,
+                              blocks=blocks)
 
 
 # ------------------------------------------------------ shared h-index ops
