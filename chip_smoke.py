@@ -48,9 +48,11 @@ decode also at every boundary of its split rule and at cache_len <= 0.
 
 then the kernels line (launches on each kernel's path, error against the
 plain version, times and bounds; the superstep pair and the segment sums
-also at the state entering pass 20, and beside the kernels of an earlier
-checkout's port under ``baseline/`` when one is there), the card's name
-and power limit, and the result line.  Any mismatch raises
+also at the state entering pass 20; the embedding bag also bit for bit
+against the slot-order sum, with its rate of gathered rows and at the
+small batches of serve_p99 and retrieval_cand; beside the kernels of an
+earlier checkout's port under ``baseline/`` when one is there), the
+card's name and power limit, and the result line.  Any mismatch raises
 and exits non-zero.  Needs CUDA, nvcc and the repository's ``src/``.
 """
 from __future__ import annotations
@@ -1477,10 +1479,16 @@ def phase_lm(device) -> dict:
 
 
 def bag_entries(device, launches, profile_embed, profile_ids) -> list:
-    """The embedding bag at MIND's serve_bulk bags."""
+    """The embedding bag at MIND's serve_bulk bags: held to its plain
+    version and, bit for bit, to the slot-order sum; timed in turns with
+    the kernel of the checkout under ``BASELINE_SRC`` when there is one
+    (held to the same sum), and so at the small batches of serve_p99
+    (4,096 bags) and retrieval_cand (8 bags), their first bags."""
+    import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.kernels.ref import embedding_bag_slot_order
 
     entries = []
     # ---- embedding bag: 2,097,152 bags of 16 slots, D = 64, mean, no weights
@@ -1492,28 +1500,67 @@ def bag_entries(device, launches, profile_embed, profile_ids) -> list:
     got = ebk.embedding_bag(table, idx, mode="mean")
     want = ebk.embedding_bag_plain(table, idx, mode="mean")
     err = _close(got, want, (1e-5, 1e-5), "embedding_bag at serve_bulk")
+    exact = embedding_bag_slot_order(table, idx, "mean")
+    check(torch.equal(got, exact), "embedding_bag at serve_bulk != the "
+          "slot-order sum bit for bit")
+    base = baseline_module("embedding_bag")
+    if base is not None:
+        check(torch.equal(base.embedding_bag(table, idx, mode="mean"), exact),
+              "baseline embedding_bag at serve_bulk != the slot-order sum")
+    del exact
 
     def library():  # one PyTorch call computing the same function here
         return F.embedding_bag(idx, table, mode="mean")
 
     _close(library(), want, (1e-5, 1e-5), "F.embedding_bag at serve_bulk")
+
+    def in_turns(fn, base_fn, timer, reps) -> tuple:
+        """(kernel ms, baseline ms or None), each the least of two runs:
+        kernel, baseline, baseline, kernel."""
+        ms, base_ms = [timer(fn, reps, device)], []
+        if base_fn is not None:
+            base_ms = [timer(base_fn, reps, device),
+                       timer(base_fn, reps, device)]
+        ms.append(timer(fn, reps, device))
+        return min(ms), min(base_ms) if base_ms else None
+
+    ms, base_ms = in_turns(
+        lambda: ebk.embedding_bag(table, idx, mode="mean"),
+        base and (lambda: base.embedding_bag(table, idx, mode="mean")),
+        cuda_ms, 20)
+    small = {}
+    for cell, bags in (("serve_p99", 4096), ("retrieval_cand", 8)):
+        part = idx[:bags]
+        check(torch.equal(ebk.embedding_bag(table, part, mode="mean"),
+                          got[:bags]), f"embedding_bag at {cell}'s {bags} "
+              "bags != its rows at serve_bulk")
+        k, bk = in_turns(
+            lambda: ebk.embedding_bag(table, part, mode="mean"),
+            base and (lambda: base.embedding_bag(table, part, mode="mean")),
+            device_ms, 200)
+        small[cell] = {"bags": bags, "ms": k, "baseline_ms": bk}
     nbytes = 4 * B * L + 4 * B * D + 4 * N * D
+    gathered = 4 * B * L * D
     bms, by = bound(nbytes, 2 * B * L * D, F32_OPS_PER_S)
     entries.append({
         "name": "embedding_bag", "route": "cuda", "source": BAG_SOURCE,
         "replaces": BAG_REPLACES, "launches": launches["embedding_bag"],
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: ebk.embedding_bag(table, idx, mode="mean"), 20,
-                      device),
+        "max_abs_err": err, "ms": ms,
         "plain_ms": cuda_ms(lambda: ebk.embedding_bag_plain(table, idx,
                                                             mode="mean"),
                             3, device),
         "bound_ms": bms, "bound_by": by,
         "library_ms": cuda_ms(library, 20, device),
-        "tolerance": [1e-5, 1e-5],
+        "tolerance": [1e-5, 1e-5], "parity": "bit-identical to the "
+        "slot-order sum", "baseline_ms": base_ms,
+        "baseline_src": None if base is None else str(
+            BASELINE_SRC.relative_to(ROOT)),
+        "gathered_tb_per_s": gathered / ms / 1e9,
+        "plan": ebk.card_plan(table, idx),
+        "small_batches": small,
         "shape": {"bags": B, "slots": L, "D": D, "rows": N, "dtype":
                   "float32", "mode": "mean", "bytes": nbytes,
-                  "gathered_bytes": 4 * B * L * D}})
+                  "gathered_bytes": gathered}})
     del got, want
 
     return entries

@@ -53,8 +53,12 @@ SEGSUM_FRONTIERS = ("all", "none", "sparse", "prefix")
 SEGSUM_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-1),
               "int32": (0, 0)}
 
+#: the reference's sweep, then MIND's own bags (1,000 rows of 64, 16
+#: slots), more slots than one warp has lanes (L = 37), and a width of 20
+#: (no whole bfloat16 16-byte word)
 BAG_CASES = ((100, 16, 4, 3), (1000, 64, 8, 10), (37, 128, 16, 5),
-             (10, 8, 1, 1))
+             (10, 8, 1, 1), (1000, 64, 64, 16), (300, 64, 9, 37),
+             (50, 20, 6, 7))
 BAG_MODES = ("sum", "mean")
 BAG_DTYPES = ("float32", "bfloat16")
 #: (rtol, atol): both sides sum in float32 in another order and round once;

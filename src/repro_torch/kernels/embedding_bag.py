@@ -18,7 +18,10 @@ reads, so a serving step never waits on the host for the check (the
 serving entry points check host batches before they move to the card).
 
 The wrapper runs the kernel (``csrc/embedding_bag.cu``) for CUDA tensors
-and the plain version for CPU tensors; there is no other route.
+and the plain version for CPU tensors; there is no other route.  The
+launch's layout is decided here (:func:`plan`): 16-byte or scalar row
+loads, the lanes a bag, and whether the launch is smaller than one wave
+of the card (then the kernel keeps more row loads in flight a lane).
 ``embedding_bag_plain`` runs the plain version on any device.
 ``LAUNCHES`` counts kernel launches.
 """
@@ -29,6 +32,7 @@ import ctypes
 import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "KERNEL_SOURCE", "DTYPES",
+           "plan", "card_plan", "wave_threads",
            "embedding_bag", "embedding_bag_plain", "raise_bad_index"]
 
 KERNEL_SOURCE = "embedding_bag"  # csrc/embedding_bag.cu
@@ -43,6 +47,8 @@ MODES = ("sum", "mean")
 
 #: per CUDA device, the int32 word the kernel sets on an index >= N
 _BAD_INDEX: dict = {}
+#: per CUDA device, the threads one wave of the card holds
+_WAVE: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -86,29 +92,52 @@ def check_operands(table, indices, weights, mode: str):
 
 
 # ----------------------------------------------------------- CUDA route
-def _lib():
-    from . import _build
-
-    lib = _build.load(KERNEL_SOURCE)
+def _bind(lib):
+    """``lib``, a loaded ``csrc/embedding_bag.cu``, with its C signature."""
     if not getattr(lib, "_repro_sigs", False):
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.eb_embedding_bag.argtypes = [vp, vp, vp, ll, i, i, ll, i, i, i, i,
-                                         vp, vp, vp]
+                                         i, vp, vp, vp]
         lib.eb_embedding_bag.restype = i
         lib._repro_sigs = True
     return lib
 
 
-def _layout(table) -> tuple:
-    """(vec, tpb): 16-byte loads when every row starts 16-byte aligned, and
-    the fewest lanes (a power of two <= 32) that cover a row."""
+def _lib():
+    from . import _build
+
+    return _bind(_build.load(KERNEL_SOURCE))
+
+
+def plan(table, indices, wave: int) -> dict:
+    """The launch's layout: ``vec`` elements a lane loads (16 bytes when
+    every row starts 16-byte aligned, else 1), ``tpb``, the fewest lanes
+    (a power of two <= 32) that cover a row, and ``small``: the launch's
+    threads (a group of ``tpb`` a bag) fill less than one wave of the
+    card, ``wave`` threads (its SMs x the threads an SM holds)."""
     D = table.shape[1]
     wide = 16 // table.element_size()
     vec = wide if D % wide == 0 and table.data_ptr() % 16 == 0 else 1
     tpb = 1
     while tpb < 32 and tpb * vec < D:
         tpb *= 2
-    return vec, tpb
+    return {"vec": vec, "tpb": tpb, "small": indices.shape[0] * tpb < wave}
+
+
+def wave_threads(device) -> int:
+    """The threads one wave of the CUDA ``device`` holds (its SMs x the
+    threads an SM holds), read from the card once."""
+    wave = _WAVE.get(device)
+    if wave is None:
+        props = torch.cuda.get_device_properties(device)
+        wave = _WAVE[device] = props.multi_processor_count \
+            * props.max_threads_per_multi_processor
+    return wave
+
+
+def card_plan(table, indices) -> dict:
+    """:func:`plan` on the card that holds ``table``."""
+    return plan(table, indices, wave_threads(table.device))
 
 
 def _bad_word(device) -> torch.Tensor:
@@ -142,16 +171,16 @@ def launch_bag(table, indices, weights, mode: str):
     D = table.shape[1]
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     if B and D:
-        vec, tpb = _layout(table)
+        p = card_plan(table, indices)
         lib = _lib()
         with torch.cuda.device(table.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.eb_embedding_bag(
                 table.data_ptr(), indices.data_ptr(),
                 None if weights is None else weights.data_ptr(), B, L, D,
-                table.shape[0], DTYPES[table.dtype], vec, tpb,
-                int(mode == "mean"), _bad_word(table.device).data_ptr(),
-                out.data_ptr(), stream)
+                table.shape[0], DTYPES[table.dtype], p["vec"],
+                int(p["small"]), p["tpb"], int(mode == "mean"),
+                _bad_word(table.device).data_ptr(), out.data_ptr(), stream)
         LAUNCHES["embedding_bag"] += 1
         if err:
             raise RuntimeError(f"embedding_bag launch failed: CUDA error {err}")

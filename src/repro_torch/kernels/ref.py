@@ -10,6 +10,11 @@ need not be sorted.
 ``embedding_bag_ref``: gather + masked weighted sum or mean; a masked slot
 reads row 0 and multiplies it by 0, as the reference does.
 
+``embedding_bag_slot_order`` is the port's own, with no counterpart
+there: the unweighted bag summed slot by slot in float32, the order in
+which the CUDA kernel sums (its fmaf with weight 1 is this add), so the
+kernel equals it bit for bit.
+
 ``flash_decode_ref``: full masked softmax attention of one query token in
 float32, the TPU kernel's ``(H, d)`` / ``(Hkv, S, d)`` layout.
 """
@@ -17,7 +22,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fused_superstep_ref", "embedding_bag_ref", "flash_decode_ref"]
+__all__ = ["fused_superstep_ref", "embedding_bag_ref",
+           "embedding_bag_slot_order", "flash_decode_ref"]
 
 NEG_INF = -1e30
 
@@ -77,6 +83,24 @@ def embedding_bag_ref(table, indices, weights, mode: str = "sum"):
     if mode == "mean":
         out = out / w.sum(dim=1, keepdim=True).clamp(min=1e-9)
     return out
+
+
+def embedding_bag_slot_order(table, indices, mode: str = "sum"):
+    """Unweighted bags, each column's slots added in slot order in float32,
+    one row gather a slot; a slot with an index < 0 or >= N adds nothing
+    and does not count in the mean (at least 1e-9).  Rounded once to the
+    table's dtype."""
+    N = table.shape[0]
+    acc = torch.zeros(indices.shape[0], table.shape[1], device=table.device)
+    cnt = torch.zeros(indices.shape[0], 1, device=table.device)
+    for col in indices.t():
+        ok = ((col >= 0) & (col < N))[:, None]
+        rows = table[col.clamp(0, N - 1).long()]
+        acc = torch.where(ok, acc + rows.float(), acc)
+        cnt = cnt + ok
+    if mode == "mean":
+        acc = acc / cnt.clamp(min=1e-9)
+    return acc.to(table.dtype)
 
 
 def flash_decode_ref(q, k, v, cache_len):

@@ -19,6 +19,7 @@ from repro_torch.kernels import fused_superstep as fsk  # noqa: E402
 from repro_torch.kernels import segsum as ssk, segsum_active as ssa  # noqa: E402
 from repro_torch.kernels import embedding_bag as ebk  # noqa: E402
 from repro_torch.kernels import flash_decode as fdk  # noqa: E402
+from repro_torch.kernels.ref import embedding_bag_slot_order  # noqa: E402
 from repro_torch.kernels.cases import (BAG_CASES, BAG_DTYPES,  # noqa: E402
                                        BAG_MODES, BAG_TOL, CASES,
                                        STATE_FRONTIERS, binned_case,
@@ -655,6 +656,122 @@ def test_embedding_bag_wrapper_refuses_what_the_kernel_cannot_take(dev):
         ebk.embedding_bag(table, idx.cpu())
     with pytest.raises(ValueError, match="contiguous"):
         ebk.embedding_bag(torch.zeros(4, 10, device=dev).t(), idx)
+
+
+def _mind_bags(dev, B, seed, N=100_000, D=64, L=16, low=-1, dtype="float32",
+               offset=0):
+    """A (N, D) normal table, ``offset`` elements into its buffer, and
+    (B, L) int32 indices uniform in [low, N), drawn on the card."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    buf = torch.randn(N * D + offset, generator=gen, device=dev)
+    table = buf.to(getattr(torch, dtype))[offset:].view(N, D)
+    idx = torch.randint(low, N, (B, L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return table, idx, gen
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("D,L", [(64, 16), (64, 37), (20, 7)])
+@pytest.mark.parametrize("dtype", BAG_DTYPES)
+def test_embedding_bag_200k_bags(dev, dtype, D, L, offset):
+    """200,000 bags, more than one wave of the card (the kChunk instance),
+    at MIND's width and BAG_CASES' L = 37 (several rounds of shuffles, an
+    unroll remainder) and D = 20, on tables 16-byte aligned and one element
+    off (scalar loads): unweighted bags bit for bit the slot-order sum
+    (float32 and bfloat16: both sum in float32 in slot order and round
+    once), weighted ones within BAG_TOL of the plain version."""
+    table, idx, gen = _mind_bags(dev, 200_000, 7, D=D, L=L, dtype=dtype,
+                                 offset=offset)
+    p = ebk.card_plan(table, idx)
+    wide = 16 // table.element_size()
+    assert not p["small"]
+    assert p["vec"] == (wide if offset == 0 and D % wide == 0 else 1)
+    for mode in BAG_MODES:
+        got = ebk.embedding_bag(table, idx, mode=mode)
+        assert torch.equal(got, embedding_bag_slot_order(table, idx, mode)), \
+            mode
+    w = torch.rand(idx.shape, generator=gen, device=dev) + 0.5
+    _close(ebk.embedding_bag(table, idx, w, mode="mean"),
+           ebk.embedding_bag_plain(table, idx, w, mode="mean"),
+           BAG_TOL[dtype], f"{dtype} weighted D={D} L={L} +{offset}")
+    ebk.raise_bad_index(dev)
+
+
+@pytest.mark.parametrize("bags", [1, 8, 4_096, 16_895])
+@pytest.mark.parametrize("dtype", BAG_DTYPES)
+def test_embedding_bag_launches_below_one_wave(dev, dtype, bags):
+    """Batches of retrieval_cand's and serve_p99's sizes, and one bag
+    below a wave of the card: the instance with more row loads in flight,
+    bit for bit the slot-order sum like the large launches."""
+    table, idx, gen = _mind_bags(dev, bags, 11, dtype=dtype)
+    props = torch.cuda.get_device_properties(dev)
+    small = bags * 16 < props.multi_processor_count \
+        * props.max_threads_per_multi_processor
+    assert ebk.card_plan(table, idx)["small"] is small
+    for mode in BAG_MODES:
+        assert torch.equal(ebk.embedding_bag(table, idx, mode=mode),
+                           embedding_bag_slot_order(table, idx, mode)), mode
+    w = torch.rand(idx.shape, generator=gen, device=dev) + 0.5
+    _close(ebk.embedding_bag(table, idx, w, mode="mean"),
+           ebk.embedding_bag_plain(table, idx, w, mode="mean"),
+           BAG_TOL[dtype], f"{dtype} weighted, {bags} bags")
+
+
+@pytest.mark.parametrize("dtype", BAG_DTYPES)
+@pytest.mark.parametrize("table_off,idx_off", [(0, 0), (1, 0), (0, 1),
+                                               (3, 2), (4, 4)])
+def test_embedding_bag_views_off_16_bytes(dev, dtype, table_off, idx_off):
+    """Table and index views 1-4 elements into their buffers: scalar row
+    loads where a row may start off 16 bytes."""
+    N, D, B, L = 100_000, 64, 5_000, 16
+    gen = torch.Generator(dev).manual_seed(8)
+    tbuf = torch.randn(N * D + 8, generator=gen, device=dev).to(
+        getattr(torch, dtype))
+    table = tbuf[table_off:table_off + N * D].view(N, D)
+    ibuf = torch.randint(-1, N, (B * L + 8,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    idx = ibuf[idx_off:idx_off + B * L].view(B, L)
+    p = ebk.card_plan(table, idx)
+    wide = 16 // table.element_size()
+    assert p["vec"] == (wide if table_off % wide == 0 else 1)
+    for mode in BAG_MODES:
+        assert torch.equal(ebk.embedding_bag(table, idx, mode=mode),
+                           embedding_bag_slot_order(table, idx, mode)), mode
+    w = torch.rand(idx.shape, generator=gen, device=dev) + 0.5
+    _close(ebk.embedding_bag(table, idx, w, mode="sum"),
+           ebk.embedding_bag_plain(table, idx, w, mode="sum"),
+           BAG_TOL[dtype], f"{dtype} table+{table_off} idx+{idx_off}")
+
+
+def test_embedding_bag_index_past_the_table_on_a_large_batch(dev):
+    """An index >= N among 200,000 bags: no row read, nothing added, and
+    the device word set."""
+    table, idx, _ = _mind_bags(dev, 200_000, 9, low=0)
+    ebk.raise_bad_index(dev)
+    idx[123_457, 5] = 100_000
+    idx[199_999, 15] = 2 ** 31 - 1
+    got = ebk.embedding_bag(table, idx, mode="mean")
+    with pytest.raises(IndexError, match="rows"):
+        ebk.raise_bad_index(dev)
+    masked = torch.where(idx < 100_000, idx, -1)
+    assert torch.equal(got, ebk.embedding_bag(table, masked, mode="mean"))
+    assert torch.equal(got, embedding_bag_slot_order(table, idx, "mean"))
+    ebk.raise_bad_index(dev)  # masked slots set nothing
+
+
+def test_embedding_bag_reads_no_masked_row_on_a_large_batch(dev):
+    """A NaN row 0 changes nothing for bags whose masked slots would read
+    it in the reference."""
+    table, idx, gen = _mind_bags(dev, 200_000, 10)
+    idx[idx == 0] = 1
+    idx[:, 3] = -1
+    w = torch.rand(idx.shape, generator=gen, device=dev) + 0.5
+    base = ebk.embedding_bag(table, idx, w, mode="mean")
+    table[0] = float("nan")
+    got = ebk.embedding_bag(table, idx, w, mode="mean")
+    assert torch.equal(got, base) and bool(torch.isfinite(got).all())
+    empty = torch.full((70_000, 16), -1, dtype=torch.int32, device=dev)
+    assert bool((ebk.embedding_bag(table, empty, mode="mean") == 0).all())
 
 
 # ------------------------------------------------------------ flash decode
