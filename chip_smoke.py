@@ -16,7 +16,11 @@ Phases, each printing one JSON line:
              semicore+, semicore* and a warm settle on the "cuda" backend,
              every result field equal to the plain version on the card, core
              equal to imcore_peel; the same runs per probe
-             (CudaBackend(fused=False)) and on "torch", equal to "cuda"
+             (CudaBackend(fused=False)) and on "torch", equal to "cuda";
+             the seven update families (graph/update_cases.py) through
+             CoreMaintainer.apply on "cuda", per probe, "torch" and the
+             plain version, each (core, cnt) equal to the numpy per-edge
+             oracle (SemiDelete*, SemiInsert*, SemiInsert) bit for bit
   full       the main path: a LiveJournal-sized powerlaw graph (n=4,847,571,
              43,000,000 draws, ~86M directed edges resident on the card),
              built once for every full-width phase; decompose(...,
@@ -30,6 +34,26 @@ Phases, each printing one JSON line:
              between the segment-sum kernels and the rest
   segment_sum  segment_sum((core[nbr] >= core[rows]), rows, n) at full
              width equal to the result's cnt (Eq. 2)
+  maintain   edge-update maintenance at full width, from the main path's
+             (core, cnt): 100 edges deleted in one batch, settled masked
+             fused and per probe, each equal to a fresh decompose of the
+             graph without them; re-inserted in a second batch, landing on
+             the main path's result exactly; a batch of no-ops that
+             rebuilds no structure; a light batch (100 deletes, 100
+             inserts whose candidate sets stay under the group cap) and a
+             mixed batch of 1,000 updates (45% deletes), each applied in
+             parallel on "cuda", serially on "cuda" (one warm_settle) and
+             in parallel per probe, the three equal and equal to a fresh
+             decompose of the materialised graph.  The light batch's
+             parallel legs must settle masked; each leg prints the path it
+             took (the mixed batch's parallel legs fall back to
+             warm_settle: a component past the cap).  The mixed batch is
+             cut from 10,000: one parallel apply of 10,000 spends ~290 s
+             planning on the host (core/probe_maintain.py times it).  Each
+             apply prints its wall and host split (structural apply,
+             planning, structure rebuild and upload, device settle), its
+             supersteps' device ms, rounds, groups and fallbacks, block
+             reads, peak device memory and peak host RSS
   mind       full-width MIND (configs/mind.py, seeded weights, item table
              256 MB) serving the three recsys cells of configs/shapes.py
              (serve_p99: 512 users, 100 requests; serve_bulk: 262,144 users;
@@ -46,8 +70,9 @@ The parity phase also holds the embedding-bag and flash-decode kernels to
 their plain versions over the reference's sweeps (kernels/cases.py), flash
 decode also at every boundary of its split rule and at cache_len <= 0.
 
-then the kernels line (launches on each kernel's path, error against the
-plain version, times and bounds; the superstep pair and the segment sums
+then the kernels line (launches on each kernel's path, and on the
+maintain path (``maintain_launches``), error against the plain version,
+times and bounds; the superstep pair and the segment sums
 also at the state entering pass 20; the embedding bag also bit for bit
 against the slot-order sum, with its rate of gathered rows and at the
 small batches of serve_p99 and retrieval_cand; beside the kernels of an
@@ -59,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -127,6 +153,14 @@ DECODE_SHAPES = (("served", 8, 32768, LM_PROMPT + LM_GENERATE),
 #: 256 and 257, the last step; held on the decode_32k cache with one below
 #: and at each boundary of the kernel's split rule up to the last step
 DECODE_HELD_LENS = (1, 256, 257, 544)
+#: the maintain phase: edges deleted and re-inserted in the round trip
+#: (and the light batch's deletes and inserts), updates of the mixed batch (deletes at repro/stream/workload.py's odds;
+#: 1,000, not 10,000, since the parallel plan of 10,000 takes ~290 s on
+#: the host), and the seed of both draws
+MAINTAIN_ROUND_TRIP = 100
+MAINTAIN_MIXED = 1_000
+MAINTAIN_P_DELETE = 0.45
+MAINTAIN_SEED = 19
 #: a bf16 result against its plain version: both round one float32 result
 #: to bf16 once, so an element may differ by one bf16 step of itself, which
 #: is at most 2**-7 of the largest |want|.  The limit scales with what is
@@ -609,11 +643,82 @@ def phase_small(device, n: int, m: int) -> None:
             device, lambda b: warm_settle(HostEngine(bg), star.core,
                                           inserted, b),
             rw, "small warm_settle")}
+    out["runs"]["maintain"] = small_maintain(device, g, star)
     # last: materialize() flushes the buffer, which rewrites the base CSR
     # (and so the block layout every later engine would charge)
     check(np.array_equal(rw.core, imcore_peel(bg.materialize())),
           "small warm_settle: core != peel")
     emit(out)
+
+
+def small_maintain(device, g, star) -> dict:
+    """The seven update families through ``CoreMaintainer.apply`` from
+    ``star``'s state on every substrate of the port, each leg's (core, cnt)
+    after every family equal to the numpy per-edge oracle's (Algs. 6-8,
+    SemiInsert* and SemiInsert alike) bit for bit.  The fused kernels must
+    launch on the "cuda" leg and the segment sums on the per-probe leg;
+    the plain version and "torch" launch none."""
+    import torch
+
+    from repro_torch.core import CoreMaintainer, CudaBackend, UpdateBatch
+    from repro_torch.graph import BufferedGraph
+    from repro_torch.graph.update_cases import families
+    from repro_torch.runtime import Settings
+
+    state = (star.core, star.cnt)
+    legs = {"cuda": lambda: "cuda",
+            "per_probe": lambda: CudaBackend(device=device, fused=False),
+            "torch": lambda: "torch",
+            "plain": lambda: CudaBackend(device=device, plain=True)}
+    out = {"families": {}, "legs": {k: {"wall_s": 0.0, "launches": {}}
+                                    for k in legs}}
+    for name, batches in families(g, star.core).items():
+        batches = [UpdateBatch.from_wire(b) for b in batches]
+        rec = {"ops": sum(len(b) for b in batches)}
+        want = None
+        for algo in ("semiinsert*", "semiinsert"):
+            t = time.perf_counter()
+            oracle = CoreMaintainer(BufferedGraph(g), state=state,
+                                    settings=Settings(backend="numpy",
+                                                      parallel_maint=False))
+            for b in batches:
+                oracle.apply(b, insert_algorithm=algo)
+            rec[f"oracle_{algo}_s"] = time.perf_counter() - t
+            got = (oracle.core, oracle.cnt)
+            check(want is None or all(np.array_equal(x, y)
+                                      for x, y in zip(got, want)),
+                  f"maintain {name}: SemiInsert != SemiInsert*")
+            want = got
+        for label, make in legs.items():
+            reset_launch_counts()
+            t = time.perf_counter()
+            m = CoreMaintainer(BufferedGraph(g), state=state, backend=make(),
+                               device=device)
+            stats = [m.apply(b) for b in batches]
+            torch.cuda.synchronize(device)
+            leg = out["legs"][label]
+            leg["wall_s"] += time.perf_counter() - t
+            for k, v in launch_counts().items():
+                if v:
+                    leg["launches"][k] = leg["launches"].get(k, 0) + v
+            check(np.array_equal(m.core, want[0])
+                  and np.array_equal(m.cnt, want[1]),
+                  f"maintain {name} on {label} != the per-edge oracle")
+            rec[label] = {k: sum(getattr(s_, k) for s_ in stats)
+                          for k in ("groups", "fallbacks", "settle_passes",
+                                    "num_changed")}
+        out["families"][name] = rec
+    fused = out["legs"]["cuda"]["launches"]
+    probe = out["legs"]["per_probe"]["launches"]
+    for name in ("row_pass", "push_pass"):
+        check(fused.get(name, 0) > 0, f"maintain: {name} never launched")
+    for name in ("block_flags", "segment_sum_active"):
+        check(probe.get(name, 0) > 0,
+              f"maintain per probe: {name} never launched")
+    for label in ("torch", "plain"):
+        check(not out["legs"][label]["launches"],
+              f"maintain: {label} launched a kernel of the port")
+    return out
 
 
 def phase_full(device, g, gen_s: float) -> dict:
@@ -858,6 +963,272 @@ def phase_per_probe(device, g, ref) -> dict:
         out["runs"][label] = run
     emit(out)
     return launches
+
+
+def timed_apply(device, m, batch, events: list) -> tuple:
+    """``m.apply(batch)`` traced: returns (its MaintStats, its record: the
+    wall, the host split by span, supersteps and their device ms by CUDA
+    events (``events``, from :func:`time_supersteps` on ``m.backend``),
+    rounds, groups, fallbacks and escalations, block reads, structure
+    builds, launches, peak device memory and the process's peak RSS)."""
+    import torch
+
+    from repro_torch.obs import metrics, trace
+
+    reg = metrics.get_registry()
+    snap = reg.snapshot()
+    builds = m.backend.structure_builds
+    events.clear()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    trace.clear_trace()
+    trace.start_trace()
+    t = time.perf_counter()
+    s = m.apply(batch)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t
+    trace.stop_trace()
+    spans = trace.get_collector().to_chrome()["traceEvents"]
+    d = reg.delta(snap)
+
+    def span_s(name):
+        return sum(e["dur"] for e in spans
+                   if e["name"] == name and e.get("ph") == "X") / 1e6
+
+    structure = span_s("resident.structure")
+    return s, {
+        "wall_s": wall, "algorithm": s.algorithm, "path": settle_path(s),
+        "host_split_s": {
+            "structural_apply": span_s("maintenance.structural"),
+            "arrays_plan_peel": span_s("maintenance.plan"),
+            "structure_rebuild_upload": structure,
+            "device_settle": span_s("maintenance.settle") - structure},
+        "deletes": s.num_deletes, "inserts": s.num_inserts,
+        "noops": s.num_noops, "num_changed": s.num_changed,
+        "supersteps": s.iterations,
+        "rounds": int(metrics.sum_by_name(
+            d, "repro_maintenance_settle_rounds_sum")),
+        "groups": s.groups, "largest_group": s.largest_group,
+        "fallbacks": s.fallbacks,
+        "escalations": int(metrics.sum_by_name(
+            d, "repro_maintenance_escalations_total")),
+        "edge_block_reads": s.edge_block_reads,
+        "node_table_reads": s.node_table_reads,
+        "superstep_device_ms": sum(a.elapsed_time(b) for a, b in events),
+        "supersteps_launched": len(events),
+        "structure_builds": m.backend.structure_builds - builds,
+        "launches": {k: v for k, v in launch_counts().items() if v},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+        "host_peak_rss_bytes":
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+
+
+def settle_path(s) -> str:
+    """Which settle an apply ran, from its MaintStats: "warm_settle" (the
+    serial path), "fallback" (the grouped settle sent a round to
+    warm_settle), "masked" (every round in the masked fixpoint) or
+    "none" (nothing to settle)."""
+    if s.algorithm.startswith("batch-settle"):
+        return "warm_settle"
+    if s.fallbacks:
+        return "fallback"
+    return "masked" if s.iterations else "none"
+
+
+def mixed_legs(device) -> dict:
+    """The maintainer arguments of a batch's three paths: the grouped
+    settle on "cuda", the serial one (one warm_settle) on "cuda", the
+    grouped settle per probe."""
+    from repro_torch.core import CudaBackend
+    from repro_torch.runtime import Settings
+
+    return {"parallel_cuda": lambda: {},
+            "serial_cuda": lambda: {"settings": Settings(
+                backend="cuda", parallel_maint=False)},
+            "parallel_per_probe": lambda: {"backend": CudaBackend(
+                device=device, fused=False)}}
+
+
+def apply_legs(device, g, r, batch, legs, what="mixed batch") -> dict:
+    """``batch`` applied from ``r``'s state on a fresh maintainer for each
+    of ``legs`` (names of :func:`mixed_legs`), every (core, cnt) equal to
+    the first's; returns each leg's :func:`timed_apply` record, and the
+    last leg's buffered graph and the state under ``"_last"``."""
+    import torch
+
+    from repro_torch.core import CoreMaintainer
+    from repro_torch.graph import BufferedGraph
+
+    make = mixed_legs(device)
+    out, first = {}, None
+    for label in legs:
+        bg = BufferedGraph(g)
+        m = CoreMaintainer(bg, state=(r.core, r.cnt), device=device,
+                           **make[label]())
+        events = time_supersteps(m.backend)
+        _, out[label] = timed_apply(device, m, batch, events)
+        got = (m.core, m.cnt)
+        if first is None:
+            first = got
+        check(np.array_equal(got[0], first[0])
+              and np.array_equal(got[1], first[1]),
+              f"{what}: {label} != {legs[0]}")
+        del m
+        torch.cuda.empty_cache()
+    out["_last"] = (bg, first)
+    return out
+
+
+def phase_maintain(device, g, r) -> dict:
+    """Edge-update maintenance at full width from the main path's result
+    ``r``: the round trip, a no-op batch, a light batch and the mixed batch
+    on three paths, each held to a fresh decompose.  Returns the kernels'
+    launches over the phase's applies."""
+    import torch
+
+    from repro_torch.core import (CoreMaintainer, CudaBackend, Delete,
+                                  Insert, UpdateBatch, decompose,
+                                  warm_settle)
+    from repro_torch.graph import BufferedGraph, CSRGraph
+    from repro_torch.graph.update_cases import light_batch, mixed_batch
+
+    state = (r.core, r.cnt)
+    out = {"phase": "maintain", "n": g.n, "directed_edges": g.num_directed}
+    total: dict = {}
+
+    def count(rec):
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+    def fresh(graph, what):
+        """A cold decompose of ``graph`` on the card: the answer a batch
+        must land on, independent of the maintainer's settle."""
+        t = time.perf_counter()
+        rf = decompose(graph, "semicore*", backend=CudaBackend(device=device))
+        torch.cuda.synchronize(device)
+        out[f"{what}_fresh_decompose_wall_s"] = time.perf_counter() - t
+        return rf
+
+    def held(got, rf, what):
+        check(np.array_equal(got[0], rf.core)
+              and np.array_equal(got[1], rf.cnt),
+              f"{what}: (core, cnt) != a fresh decompose")
+
+    # the paper's round trip: delete edges in one batch, re-insert them
+    rng = np.random.default_rng(MAINTAIN_SEED)
+    e = g.edge_list()
+    idx = rng.choice(len(e), MAINTAIN_ROUND_TRIP, replace=False)
+    pick = e[idx]
+    keep = np.ones(len(e), dtype=bool)
+    keep[idx] = False
+    t = time.perf_counter()
+    g_del = CSRGraph.from_edges(g.n, e[keep], dedup=False)
+    out["round_trip_graph_build_s"] = time.perf_counter() - t
+    del e, keep
+    r_del = fresh(g_del, "round_trip_delete")
+    del g_del
+    dels = UpdateBatch(Delete(int(u), int(v)) for u, v in pick)
+    ins = UpdateBatch(Insert(int(u), int(v)) for u, v in pick)
+    # the delete batch per probe first: the masked settle on the segment
+    # sums, from the same state
+    mp = CoreMaintainer(BufferedGraph(g), state=state,
+                        backend=CudaBackend(device=device, fused=False))
+    s_dp, rec = timed_apply(device, mp, dels, time_supersteps(mp.backend))
+    count(rec)
+    check(rec["path"] == "masked" and s_dp.groups > 0,
+          f"round trip: per-probe delete batch not settled masked ({s_dp})")
+    check(rec["launches"].get("segment_sum_active", 0) > 0,
+          "round trip: segment_sum_active never launched on the delete "
+          "batch per probe")
+    held((mp.core, mp.cnt), r_del, "round trip: per-probe delete batch")
+    out["round_trip_delete_per_probe"] = rec
+    del mp
+    torch.cuda.empty_cache()
+    m = CoreMaintainer(BufferedGraph(g), state=state, device=device)
+    events = time_supersteps(m.backend)
+    s_del, rec = timed_apply(device, m, dels, events)
+    count(rec)
+    check(s_del.num_deletes == MAINTAIN_ROUND_TRIP, "round trip: deletes")
+    check(rec["path"] == "masked" and s_del.groups > 0,
+          f"round trip: delete batch not settled masked ({s_del})")
+    for name in ("row_pass", "push_pass"):
+        check(rec["launches"].get(name, 0) > 0,
+              f"round trip: {name} never launched on the delete batch")
+    held((m.core, m.cnt), r_del, "round trip: delete batch")
+    out["round_trip_delete"] = rec
+    s_ins, rec = timed_apply(device, m, ins, events)
+    count(rec)
+    check(s_ins.num_inserts == MAINTAIN_ROUND_TRIP, "round trip: inserts")
+    check(np.array_equal(m.core, r.core) and np.array_equal(m.cnt, r.cnt),
+          "round trip: (core, cnt) != the main path's")
+    out["round_trip_insert"] = rec
+    # a batch of no-ops leaves the version, and so the retained structure:
+    # a settle bound before it and one after it share one build
+    warm_settle(m.engine, m.core, 0, m.backend)
+    version, builds = m.bg.version, m.backend.structure_builds
+    s_noop = m.apply(ins)
+    rw = warm_settle(m.engine, m.core, 0, m.backend)
+    check(s_noop.num_noops == MAINTAIN_ROUND_TRIP
+          and m.bg.version == version
+          and m.backend.structure_builds == builds,
+          "no-op batch moved the version or rebuilt the structure")
+    check(np.array_equal(rw.core, r.core), "settle after no-ops != main path")
+    out["noop_batch"] = {
+        "noops": s_noop.num_noops,
+        "structure_builds": m.backend.structure_builds - builds}
+    del m, rw
+    torch.cuda.empty_cache()
+
+    # deletes plus inserts planned under the cap: the grouped settle takes
+    # both in the masked fixpoint, fused and per probe
+    batch = UpdateBatch.from_wire(light_batch(
+        g, r.core, r.cnt, MAINTAIN_ROUND_TRIP, MAINTAIN_ROUND_TRIP,
+        seed=MAINTAIN_SEED))
+    light = apply_legs(device, g, r, batch, list(mixed_legs(device)),
+                       "light batch")
+    bg, first = light.pop("_last")
+    for label, rec in light.items():
+        count(rec)
+        if label != "serial_cuda":
+            check(rec["path"] == "masked" and rec["inserts"] > 0,
+                  f"light batch: {label} settled by {rec['path']}, "
+                  f"{rec['inserts']} inserts")
+    out["light"] = {"updates": len(batch),
+                    "paths": {k: v["path"] for k, v in light.items()},
+                    **light}
+    t = time.perf_counter()
+    final = bg.materialize()
+    out["light_materialize_s"] = time.perf_counter() - t
+    held(first, fresh(final, "light"), "light batch")
+    del bg, final
+    torch.cuda.empty_cache()
+
+    # the mixed batch from the same state on three paths
+    t = time.perf_counter()
+    batch = UpdateBatch.from_wire(mixed_batch(
+        g, MAINTAIN_MIXED, seed=MAINTAIN_SEED, p_delete=MAINTAIN_P_DELETE))
+    out["mixed_draw_s"] = time.perf_counter() - t
+    mixed = apply_legs(device, g, r, batch, list(mixed_legs(device)))
+    bg, first = mixed.pop("_last")
+    for rec in mixed.values():
+        count(rec)
+    check(mixed["serial_cuda"]["path"] == "warm_settle",
+          "mixed batch: the serial leg did not run warm_settle")
+    # what the three-way check compares: the parallel legs' paths
+    out["mixed"] = {"updates": len(batch),
+                    "paths": {k: v["path"] for k, v in mixed.items()},
+                    **mixed}
+    out["launches"] = dict(total)
+    # last: materialize() flushes the buffer of the last leg's graph
+    t = time.perf_counter()
+    final = bg.materialize()
+    out["materialize_s"] = time.perf_counter() - t
+    held(first, fresh(final, "mixed"), "mixed batch")
+    out["host_peak_rss_bytes"] = \
+        resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    emit(out)
+    return total
 
 
 def device_tables(g, device) -> dict:
@@ -1715,12 +2086,18 @@ def main() -> int:
     tables = device_tables(g, device)
     launches.update(phase_segment_sum(device, g, r, tables))
     entries = kernel_entries(g, device, tables, launches, main_path)
-    del g, r, tables, main_path
+    del tables, main_path
+    # the maintain path's launches: counts set to 0 before each apply and
+    # read after it (timed_apply), summed over the phase
+    maintain = phase_maintain(device, g, r)
+    del g, r
     bag_launches, profile_embed, profile_ids = phase_mind(device)
     launches.update(bag_launches)
     launches.update(phase_lm(device))
     entries += bag_entries(device, launches, profile_embed, profile_ids)
     entries += decode_entries(device, launches)
+    for entry in entries:
+        entry["maintain_launches"] = maintain.get(entry["name"], 0)
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

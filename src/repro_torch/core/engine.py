@@ -712,6 +712,16 @@ class PassPlanner:
 # ===========================================================================
 # The generic batch superstep loop (Jacobi; one superstep == one pass)
 # ===========================================================================
+def resident_on(engine, backend) -> bool:
+    """Whether ``backend`` settles in the device-resident fixpoint:
+    a device backend, unless ``REPRO_TORCH_DEVICE_RESIDENT=0`` or, with
+    that unset, the ``device_resident`` of ``engine``'s Settings says no."""
+    settings = getattr(engine, "settings", None)
+    return backend.device_resident and _runtime.setting(
+        "device_resident", None if settings is None
+        else settings.device_resident)
+
+
 def run_batch(engine, algorithm: str, backend=None, *,
               core: np.ndarray | None = None,
               cnt: np.ndarray | None = None,
@@ -731,8 +741,7 @@ def run_batch(engine, algorithm: str, backend=None, *,
     ``REPRO_TORCH_DEVICE_RESIDENT=0``.
     """
     backend = resolve_backend(backend, device)
-    if backend.device_resident and rebind and \
-            _runtime.setting("device_resident"):
+    if rebind and resident_on(engine, backend):
         from .resident import run_resident
 
         return run_resident(engine, algorithm, backend, core=core, cnt=cnt,
@@ -878,7 +887,7 @@ def warm_settle(engine, core0: np.ndarray, applied_inserts: int,
         np.asarray(core0, dtype=np.int64) + int(applied_inserts),
         engine.degrees(),
     ).astype(np.int64)
-    if backend.device_resident and _runtime.setting("device_resident"):
+    if resident_on(engine, backend):
         from .resident import run_resident
 
         return run_resident(engine, "semicore*", backend, core=warm,

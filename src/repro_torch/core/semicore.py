@@ -53,11 +53,15 @@ class HostEngine:
     paper's single buffer).  Batch-schedule compute goes to
     :mod:`repro_torch.core.engine`: ``backend=`` ("cuda" | "torch" |
     "numpy" | a ComputeBackend instance) and ``device=`` pick the
-    substrate.
+    substrate.  ``settings`` (a :class:`repro_torch.runtime.Settings`)
+    supplies the backend and the resident chunk where a batch call leaves
+    them ``None`` (the environment still wins).
     """
 
     def __init__(self, graph, block_edges: int = DEFAULT_BLOCK_EDGES,
-                 pool_blocks: int = 1):
+                 pool_blocks: int = 1,
+                 settings: "_runtime.Settings | None" = None):
+        self.settings = settings
         if isinstance(graph, BufferedGraph):
             self.buffered: BufferedGraph | None = graph
             base = graph.base
@@ -91,6 +95,16 @@ class HostEngine:
     def n(self) -> int:
         return self.graph.n
 
+    def _defaults(self, backend, superstep_chunk):
+        """Fill unset per-call knobs from this engine's Settings."""
+        if self.settings is not None:
+            if backend is None:
+                backend = _runtime.setting("backend", self.settings.backend)
+            if superstep_chunk is None:
+                superstep_chunk = _runtime.setting(
+                    "resident_chunk", self.settings.resident_chunk)
+        return backend, superstep_chunk
+
     # =====================================================================
     # Algorithm 3: SemiCore
     # =====================================================================
@@ -98,6 +112,7 @@ class HostEngine:
                  superstep_chunk: int | None = None,
                  device=None) -> DecompResult:
         if schedule == "batch":
+            backend, superstep_chunk = self._defaults(backend, superstep_chunk)
             return run_batch(self, "semicore", backend,
                              superstep_chunk=superstep_chunk, device=device)
         _seq_only(backend)
@@ -142,6 +157,7 @@ class HostEngine:
                       superstep_chunk: int | None = None,
                       device=None) -> DecompResult:
         if schedule == "batch":
+            backend, superstep_chunk = self._defaults(backend, superstep_chunk)
             return run_batch(self, "semicore+", backend,
                              superstep_chunk=superstep_chunk, device=device)
         _seq_only(backend)
@@ -209,6 +225,7 @@ class HostEngine:
         """Full Algorithm 5; with (core, cnt, vrange) given, runs its lines
         4-14 as a warm-started settle loop."""
         if schedule == "batch":
+            backend, superstep_chunk = self._defaults(backend, superstep_chunk)
             return run_batch(self, "semicore*", backend, core=core, cnt=cnt,
                              superstep_chunk=superstep_chunk, device=device)
         _seq_only(backend)

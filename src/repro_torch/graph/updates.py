@@ -121,13 +121,16 @@ class BufferedGraph:
         """Rewrite the CSR applying all buffered updates."""
         if self._size == 0:
             return
-        e = self.base.edge_list()
+        e = self.base.edge_list()  # each edge once, u < v
         dels = {(min(u, v), max(u, v))
                 for u, vs in self._del.items() for v in vs}
         if dels:
-            keep = np.array(
-                [(min(a, b), max(a, b)) not in dels for a, b in e], dtype=bool)
-            e = e[keep]
+            # one int64 key per edge (u * n + v): the filter is vectorised,
+            # the kept edges stay in edge_list order
+            n64 = np.int64(max(self.n, 1))
+            gone = np.array(sorted(dels), dtype=np.int64)
+            e = e[~np.isin(e[:, 0] * n64 + e[:, 1],
+                           gone[:, 0] * n64 + gone[:, 1])]
         adds = {(min(u, v), max(u, v))
                 for u, vs in self._ins.items() for v in vs}
         if adds:

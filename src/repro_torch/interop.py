@@ -11,6 +11,10 @@ their numpy fields, by attribute, never by importing that implementation:
   ``capacity``);
 * :func:`warm_state` — a ``(core, cnt)`` pair, or any object with ``core``
   and ``cnt`` arrays;
+* :func:`update_batch_from` — any iterable of ops with ``kind`` ("+" or
+  "-") and ``u``/``v`` fields (the JAX package's ``UpdateBatch``);
+* :func:`maintainer_state_from` — any object with a buffered graph ``bg``
+  and ``core``/``cnt`` arrays (the JAX package's ``CoreMaintainer``);
 * :func:`params_from` (:func:`mind_params_from`, :func:`lm_params_from`)
   — a parameter tree as nested dicts of numpy arrays, leaf for leaf.
 
@@ -24,7 +28,8 @@ import numpy as np
 from .graph.storage import CSRGraph
 from .graph.updates import BufferedGraph
 
-__all__ = ["csr_from", "buffered_from", "warm_state", "params_from",
+__all__ = ["csr_from", "buffered_from", "warm_state",
+           "update_batch_from", "maintainer_state_from", "params_from",
            "mind_params_from", "lm_params_from"]
 
 
@@ -54,6 +59,24 @@ def warm_state(core, cnt=None) -> tuple:
         core, cnt = core.core, core.cnt
     return (np.array(core, dtype=np.int64),
             None if cnt is None else np.array(cnt, dtype=np.int64))
+
+
+def update_batch_from(batch):
+    """The port's :class:`~repro_torch.core.update.UpdateBatch` of the same
+    ops, in the same order, read by each op's ``kind``, ``u`` and ``v``."""
+    from .core.update import Delete, Insert, UpdateBatch
+
+    kinds = {"+": Insert, "-": Delete}
+    return UpdateBatch(kinds[op.kind](int(op.u), int(op.v)) for op in batch)
+
+
+def maintainer_state_from(maintainer) -> tuple:
+    """``(BufferedGraph, core, cnt)`` of a maintainer mid-stream: its
+    buffered graph through :func:`buffered_from` and its state through
+    :func:`warm_state`, ready for ``CoreMaintainer(bg, state=(core,
+    cnt))``."""
+    core, cnt = warm_state(maintainer.core, maintainer.cnt)
+    return buffered_from(maintainer.bg), core, cnt
 
 
 def params_from(arrays, spec_tree, device=None):

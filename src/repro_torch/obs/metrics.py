@@ -23,6 +23,7 @@ __all__ = [
     "histogram",
     "sum_by_name",
     "DEFAULT_TIME_BUCKETS",
+    "DEFAULT_COUNT_BUCKETS",
 ]
 
 OBS_ENV_VAR = "REPRO_TORCH_OBS"
@@ -31,6 +32,11 @@ OBS_ENV_VAR = "REPRO_TORCH_OBS"
 DEFAULT_TIME_BUCKETS: Tuple[float, ...] = (
     0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
     0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+#: size-like buckets (group sizes, node counts): upper bounds.
+DEFAULT_COUNT_BUCKETS: Tuple[float, ...] = (
+    0.0, 1.0, 2.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 1000.0,
 )
 
 _LabelKey = Tuple[Tuple[str, str], ...]

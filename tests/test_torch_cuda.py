@@ -15,6 +15,7 @@ from repro_torch.core import (CudaBackend, HostEngine, TorchBackend,  # noqa: E4
                               decompose, warm_settle)
 from repro_torch.core.imcore import imcore_peel  # noqa: E402
 from repro_torch.graph import BufferedGraph, chung_lu  # noqa: E402
+from repro_torch.graph.update_cases import FAMILIES as update_families  # noqa: E402
 from repro_torch.kernels import fused_superstep as fsk  # noqa: E402
 from repro_torch.kernels import segsum as ssk, segsum_active as ssa  # noqa: E402
 from repro_torch.kernels import embedding_bag as ebk  # noqa: E402
@@ -591,6 +592,144 @@ def test_per_probe_warm_settle_on_the_card(dev):
     plain_torch = warm_settle(HostEngine(bg, block_edges=64), core0, ni,
                               TorchBackend(device=dev))
     _same(plain_torch, fused, "torch warm_settle", FIELDS[:-2])
+
+
+# ------------------------------------------------------------ maintenance
+def _masked_state(g, seed):
+    """A grouped-settle state on ``g`` plus 8 isolated nodes: a warm upper
+    bound (cores raised, isolated nodes given a core above 0, as the
+    peeled warm states can), cnt exact w.r.t. it, a random mask that
+    takes in every isolated node."""
+    from repro_torch.core.localcore import compute_cnt_batch
+
+    g = type(g).from_edges(g.n + 8, g.edge_list())
+    rng = np.random.default_rng(seed)
+    core0 = decompose(g, "semicore*").core
+    warm = np.minimum(core0 + rng.integers(0, 3, g.n), g.degrees())
+    warm[-8:] = rng.integers(1, 4, 8)
+    vals, seg_ptr, _ = HostEngine(g).planner.gather(np.arange(g.n), warm)
+    cnt = compute_cnt_batch(vals, seg_ptr, warm)
+    mask = rng.random(g.n) < 0.5
+    mask[-8:] = True
+    return g, warm, cnt, mask
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_masked_settle_on_the_card_matches_plain(dev, fused):
+    from repro_torch.core import run_resident
+
+    g, warm, cnt, mask = _masked_state(chung_lu(3000, 15000, seed=6), 6)
+    fsk.reset_launch_counts()
+    ssa.reset_launch_counts()
+    got = run_resident(HostEngine(g, block_edges=64), "semicore*",
+                       CudaBackend(device=dev, fused=fused), core=warm,
+                       cnt=cnt, settle_mask=mask)
+    launched = (fsk.LAUNCHES["push_pass"] if fused
+                else ssa.LAUNCHES["segment_sum_active"])
+    assert got.iterations > 0 and launched > 0
+    plain = run_resident(HostEngine(g, block_edges=64), "semicore*",
+                         CudaBackend(device=dev, plain=True), core=warm,
+                         cnt=cnt, settle_mask=mask)
+    if fused:
+        _same(got, plain, "masked settle")
+    else:
+        # a row without edges that drops counts as an update per probe (as
+        # on the reference's xla backend) and not in the fused kernels (as
+        # in its Pallas kernel): per probe holds every other field to the
+        # plain version and its update counts to torch's
+        _same(got, plain, "masked settle per probe",
+              [f for f in FIELDS if f != "updates_per_iter"])
+        ref = run_resident(HostEngine(g, block_edges=64), "semicore*",
+                           TorchBackend(device=dev), core=warm, cnt=cnt,
+                           settle_mask=mask)
+        assert got.updates_per_iter == ref.updates_per_iter
+        assert sum(got.updates_per_iter) == sum(plain.updates_per_iter) + 8
+    # frozen nodes keep their core; the isolated ones drop to 0
+    np.testing.assert_array_equal(got.core[~mask], warm[~mask])
+    np.testing.assert_array_equal(got.core[-8:], 0)
+
+
+def _maint_legs(dev):
+    return {"cuda": "cuda", "per_probe": CudaBackend(device=dev, fused=False),
+            "torch": TorchBackend(device=dev),
+            "plain": CudaBackend(device=dev, plain=True)}
+
+
+@pytest.mark.parametrize("family", sorted(update_families))
+def test_maintenance_on_the_card_matches_plain_and_oracle(dev, family):
+    from repro_torch.core import CoreMaintainer, UpdateBatch
+    from repro_torch.runtime import Settings
+
+    g = chung_lu(20000, 100000, seed=7)
+    r = decompose(g, "semicore*")
+    batches = [UpdateBatch.from_wire(b) for b in
+               update_families[family](g, np.random.default_rng(29), r.core)]
+    oracle = CoreMaintainer(BufferedGraph(g), state=(r.core, r.cnt),
+                            settings=Settings(backend="numpy",
+                                              parallel_maint=False))
+    for b in batches:
+        oracle.apply(b)
+    for label, backend in _maint_legs(dev).items():
+        m = CoreMaintainer(BufferedGraph(g), state=(r.core, r.cnt),
+                           backend=backend, device=dev)
+        stats = [m.apply(b) for b in batches]
+        assert all(s.algorithm.startswith("parallel(") for s in stats)
+        np.testing.assert_array_equal(m.core, oracle.core, err_msg=label)
+        np.testing.assert_array_equal(m.cnt, oracle.cnt, err_msg=label)
+    np.testing.assert_array_equal(oracle.core,
+                                  imcore_peel(oracle.bg.materialize()))
+
+
+def test_maintenance_kernels_launch_on_the_card(dev):
+    """Over the families, the fused leg launches the superstep pair and the
+    per-probe leg the segment sums; the serial leg runs warm_settle."""
+    from repro_torch.core import CoreMaintainer, UpdateBatch
+    from repro_torch.runtime import Settings
+
+    g = chung_lu(20000, 100000, seed=8)
+    r = decompose(g, "semicore*")
+    fams = [UpdateBatch.from_wire(b) for name in ("delete_sparse",
+                                                  "cascade_delete")
+            for b in update_families[name](g, np.random.default_rng(3),
+                                           r.core)]
+    for backend, names in (("cuda", ("row_pass", "push_pass")),
+                           (CudaBackend(device=dev, fused=False),
+                            ("block_flags", "segment_sum_active"))):
+        fsk.reset_launch_counts()
+        ssa.reset_launch_counts()
+        m = CoreMaintainer(BufferedGraph(g), state=(r.core, r.cnt),
+                           backend=backend, device=dev)
+        for b in fams:
+            m.apply(b)
+        launches = {**fsk.LAUNCHES, **ssa.LAUNCHES}
+        assert all(launches[k] > 0 for k in names), launches
+    serial = CoreMaintainer(BufferedGraph(g), state=(r.core, r.cnt),
+                            settings=Settings(parallel_maint=False),
+                            device=dev)
+    for b in fams:
+        assert serial.apply(b).algorithm == "batch-settle(cuda)"
+    np.testing.assert_array_equal(serial.core, m.core)
+    np.testing.assert_array_equal(serial.cnt, m.cnt)
+
+
+def test_noop_batch_on_the_card_rebuilds_no_structure(dev):
+    from repro_torch.core import CoreMaintainer, Delete, Insert, UpdateBatch
+
+    g = chung_lu(20000, 100000, seed=9)
+    r = decompose(g, "semicore*")
+    m = CoreMaintainer(BufferedGraph(g), state=(r.core, r.cnt), device=dev)
+    gone = [tuple(map(int, e)) for e in g.edge_list()[:50]]
+    m.apply(UpdateBatch([Delete(*e) for e in gone]))
+    warm_settle(m.engine, m.core, 0, m.backend)  # binds this version
+    version, builds = m.bg.version, m.backend.structure_builds
+    s = m.apply(UpdateBatch([Delete(*e) for e in gone]))
+    assert s.num_noops == 50 and m.bg.version == version
+    again = warm_settle(m.engine, m.core, 0, m.backend)
+    assert m.backend.structure_builds == builds
+    np.testing.assert_array_equal(again.core, m.core)
+    m.apply(UpdateBatch([Insert(*e) for e in gone]))
+    np.testing.assert_array_equal(m.core, r.core)
+    np.testing.assert_array_equal(m.cnt, r.cnt)
 
 
 # ---------------------------------------------------------- embedding bag

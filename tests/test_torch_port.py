@@ -41,7 +41,9 @@ WALKED = ["repro_torch.configs.registry", "repro_torch.configs.shapes",
           "repro_torch.models.layers", "repro_torch.serve.engine",
           "repro_torch.kernels.embedding_bag",
           "repro_torch.kernels.flash_decode", "repro_torch.core.engine",
-          "repro_torch.graph.storage", "repro_torch.obs.trace"]
+          "repro_torch.graph.storage", "repro_torch.obs.trace",
+          "repro_torch.core.maintenance", "repro_torch.core.parallel_maint",
+          "repro_torch.core.update", "repro_torch.graph.update_cases"]
 
 
 def test_ast_walk_covers_every_subpackage():
