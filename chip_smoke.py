@@ -20,7 +20,10 @@ Phases, each printing one JSON line:
              the seven update families (graph/update_cases.py) through
              CoreMaintainer.apply on "cuda", per probe, "torch" and the
              plain version, each (core, cnt) equal to the numpy per-edge
-             oracle (SemiDelete*, SemiInsert*, SemiInsert) bit for bit
+             oracle (SemiDelete*, SemiInsert*, SemiInsert) bit for bit;
+             EMCore (the external-memory baseline) with its core equal to
+             imcore_peel, its rounds, block reads and writes and peak
+             memory beside semicore*'s block reads and node-state bytes
   full       the main path: a LiveJournal-sized powerlaw graph (n=4,847,571,
              43,000,000 draws, ~86M directed edges resident on the card),
              built once for every full-width phase; decompose(...,
@@ -32,6 +35,18 @@ Phases, each printing one JSON line:
              equal to (num_probes + 1) x kernel_blocks_active; the per-probe
              decompose once more under the profiler, its device time split
              between the segment-sum kernels and the rest
+  outofcore  the semi-external path at full width: the same powerlaw
+             stream built into on-disk tables by build_csr (default chunk,
+             in a child process, this script with --ooc-build-child, that
+             reports its sampled peak RSS), memmap-loaded and held
+             array-equal to the in-memory graph, loaded afresh and
+             decomposed on "cuda" with every result field equal to the
+             main path's, the host RSS sampled over the decompose; the
+             relabel="degree" build of the small phase's stream the same
+             way (cut from full width: 259 s of host time there), held to
+             the small graph and its result through perm; each superstep
+             of the decomposes timed alone (the node-order lever), block
+             and node-table reads with and without the relabel
   segment_sum  segment_sum((core[nbr] >= core[rows]), rows, n) at full
              width equal to the result's cnt (Eq. 2)
   maintain   edge-update maintenance at full width, from the main path's
@@ -70,8 +85,9 @@ The parity phase also holds the embedding-bag and flash-decode kernels to
 their plain versions over the reference's sweeps (kernels/cases.py), flash
 decode also at every boundary of its split rule and at cache_len <= 0.
 
-then the kernels line (launches on each kernel's path, and on the
-maintain path (``maintain_launches``), error against the plain version,
+then the kernels line (launches on each kernel's path, on the
+maintain path (``maintain_launches``) and on the out-of-core path
+(``outofcore_launches``), error against the plain version,
 times and bounds; the superstep pair and the segment sums
 also at the state entering pass 20; the embedding bag also bit for bit
 against the slot-order sum, with its rate of gathered rows and at the
@@ -84,9 +100,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import resource
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -161,6 +180,11 @@ MAINTAIN_ROUND_TRIP = 100
 MAINTAIN_MIXED = 1_000
 MAINTAIN_P_DELETE = 0.45
 MAINTAIN_SEED = 19
+#: the outofcore phase's builds run in a child process of their own (its
+#: peak RSS is the build's), which this script stops at this limit
+OOC_BUILD_TIMEOUT_S = 600
+#: the period at which :func:`sampled_rss` reads /proc/self/statm
+RSS_SAMPLE_S = 0.01
 #: a bf16 result against its plain version: both round one float32 result
 #: to bf16 once, so an element may differ by one bf16 step of itself, which
 #: is at most 2**-7 of the largest |want|.  The limit scales with what is
@@ -178,6 +202,45 @@ def emit(record: dict) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def statm() -> tuple:
+    """This process's (resident, anonymous) bytes now, from
+    /proc/self/statm; anonymous is resident less file-backed pages, so a
+    memmap's touched pages count in the first only."""
+    with open("/proc/self/statm") as f:
+        resident, shared = map(int, f.read().split()[1:3])
+    page = os.sysconf("SC_PAGE_SIZE")
+    return resident * page, (resident - shared) * page
+
+
+@contextlib.contextmanager
+def sampled_rss():
+    """Sample :func:`statm` on a thread every ``RSS_SAMPLE_S`` while the
+    block runs; the yielded dict gets, on exit, the start and the peak of
+    each (``rss_start_bytes``, ``rss_peak_bytes``, ``anon_start_bytes``,
+    ``anon_peak_bytes``).  ``ru_maxrss`` cannot stand in: it is the
+    process's lifetime high-water mark (a child inherits its parent's
+    across fork and exec), and the H100 machine's /proc has no VmHWM."""
+    start = statm()
+    peak = list(start)
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(RSS_SAMPLE_S):
+            peak[:] = map(max, peak, statm())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    rec: dict = {}
+    try:
+        yield rec
+    finally:
+        done.set()
+        sampler.join()
+        peak[:] = map(max, peak, statm())
+        rec.update(rss_start_bytes=start[0], rss_peak_bytes=peak[0],
+                   anon_start_bytes=start[1], anon_peak_bytes=peak[1])
 
 
 def same_result(a, b, what: str) -> None:
@@ -583,7 +646,9 @@ def other_substrates(device, run, ref, what: str) -> dict:
     return out
 
 
-def phase_small(device, n: int, m: int) -> None:
+def phase_small(device, n: int, m: int) -> tuple:
+    """The small graph on every substrate; returns (the graph, its
+    semicore* result on "cuda")."""
     import torch
 
     from repro_torch.core import CudaBackend, HostEngine, decompose, warm_settle
@@ -644,11 +709,35 @@ def phase_small(device, n: int, m: int) -> None:
                                           inserted, b),
             rw, "small warm_settle")}
     out["runs"]["maintain"] = small_maintain(device, g, star)
+    out["emcore"] = small_emcore(g, star, expect)
     # last: materialize() flushes the buffer, which rewrites the base CSR
     # (and so the block layout every later engine would charge)
     check(np.array_equal(rw.core, imcore_peel(bg.materialize())),
           "small warm_settle: core != peel")
     emit(out)
+    return g, star
+
+
+def small_emcore(g, star, expect) -> dict:
+    """EMCore, the external-memory baseline (Algorithm 2), on the small
+    graph at its default partitions and memory budget: its core equal to
+    imcore_peel, and its rounds, block reads and writes and peak memory
+    beside semicore*'s edge block reads and node-state bytes (the paper's
+    Fig. 9 comparison at this size)."""
+    from repro_torch.core import emcore
+
+    t = time.perf_counter()
+    em = emcore(g)
+    wall = time.perf_counter() - t
+    check(np.array_equal(em.core, expect), "emcore: core != peel")
+    return {"wall_s": wall, "rounds": em.rounds,
+            "read_blocks": em.read_blocks, "write_blocks": em.write_blocks,
+            "peak_memory_edges": em.peak_memory_edges,
+            "peak_memory_bytes": em.peak_memory_bytes,
+            "over_budget_rounds": em.over_budget_rounds,
+            "semicore_star": {"edge_block_reads": star.edge_block_reads,
+                              "node_table_reads": star.node_table_reads,
+                              "memory_bytes": star.memory_bytes}}
 
 
 def small_maintain(device, g, star) -> dict:
@@ -963,6 +1052,171 @@ def phase_per_probe(device, g, ref) -> dict:
         out["runs"][label] = run
     emit(out)
     return launches
+
+
+def ooc_build_child(out_dir: str, relabel: str, n: str, m: str) -> int:
+    """``python3 chip_smoke.py --ooc-build-child OUT_DIR RELABEL N DRAWS``:
+    ``build_csr`` of the powerlaw stream of that shape at the default
+    chunk_edges into ``out_dir``, in a process of its own so that its
+    sampled peak RSS is the build's.  Prints its BuildStats, wall and RSS
+    as one JSON line; saves perm beside ``out_dir``."""
+    from repro_torch.graph import build_csr, powerlaw_chunks
+
+    n, m = int(n), int(m)
+    with sampled_rss() as rss:
+        t = time.perf_counter()
+        stats = build_csr(powerlaw_chunks(n=n, m=m, gamma=2.5, seed=0),
+                          out_dir, n=n, relabel=relabel)
+        wall = time.perf_counter() - t
+    if stats.perm is not None:
+        np.save(out_dir + ".perm.npy", stats.perm)
+    emit({"wall_s": wall, **stats.to_json(), **rss})
+    return 0
+
+
+def build_out_of_core(out_dir: str, relabel: str, shape: tuple) -> dict:
+    """``build_csr`` of the powerlaw stream of ``shape`` (n, draws) into
+    ``out_dir`` in a child process (:func:`ooc_build_child`); returns its
+    JSON record."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--ooc-build-child",
+         out_dir, relabel, str(shape[0]), str(shape[1])],
+        capture_output=True, text=True, timeout=OOC_BUILD_TIMEOUT_S)
+    check(proc.returncode == 0,
+          f"out-of-core build ({relabel}) failed: {proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def hold_relabeled(g2, g, perm) -> None:
+    """``g2`` is ``g`` with node v renamed ``perm[v]``: equal degrees
+    through perm, and the same sorted (src, dst) keys once ``g``'s are
+    renamed (each CSR row is sorted, so ``g2``'s keys are sorted already)."""
+    check(g2.n == g.n and g2.num_directed == g.num_directed,
+          "relabeled build: n or 2m differs")
+    deg = g.degrees()
+    check(np.array_equal(g2.degrees()[perm], deg),
+          "relabeled build: degrees differ through perm")
+    check(np.all(np.diff(g2.degrees()) <= 0),
+          "relabeled build: ids are not degree-descending")
+    n64 = np.int64(g.n)
+    want = perm[np.repeat(np.arange(g.n, dtype=np.int64), deg)] * n64
+    want += perm[np.asarray(g.adj)]
+    want.sort()
+    got = np.repeat(np.arange(g.n, dtype=np.int64), g2.degrees()) * n64
+    got += np.asarray(g2.adj)
+    check(np.array_equal(got, want),
+          "relabeled build: edges differ from the graph's through perm")
+
+
+def phase_outofcore(device, g, r, small) -> dict:
+    """The semi-external path: the full phase's stream built out of core
+    into on-disk tables (``build_csr`` at the default chunk, in a child
+    process), memmap-loaded and held array-equal to the in-memory graph
+    ``g``, decomposed on the card with every DecompResult field equal to
+    the main path's ``r``; then the ``relabel="degree"`` build of the small
+    phase's stream (``small``: its graph and semicore* result), held to
+    them through perm (equal passes and updates per pass).  The relabeled
+    build runs at the small shape because at full width it took 259 s of
+    host time on the H100 machine (PERF.md), past this script's budget.
+    Each decompose starts from a fresh load (no table page mapped yet) and
+    reports this process's resident and anonymous memory at its start and
+    peak (:func:`sampled_rss`).  Each decompose, and the decompose of the
+    graph the relabel renames, is run once more with every superstep timed
+    alone (:func:`per_superstep`): the node-order lever on the first
+    superstep.  Returns the kernels' launches over the two decomposes."""
+    import torch
+
+    from repro_torch.core import CudaBackend, decompose
+    from repro_torch.graph import CSRGraph
+    from repro_torch.obs import trace
+
+    legs = (("plain", "none", FULL, g, r), ("degree", "degree", SMALL, *small))
+    out = {"phase": "outofcore", "n": g.n, "directed_edges": g.num_directed,
+           "relabeled_n": small[0].n,
+           "relabeled_directed_edges": small[0].num_directed,
+           "builds": {}, "decomposes": {}}
+    total: dict = {}
+    with tempfile.TemporaryDirectory(prefix="ooc_") as work:
+        for label, relabel, shape, base, base_r in legs:
+            path = os.path.join(work, label)
+            rec = build_out_of_core(path, relabel, shape)
+            t = time.perf_counter()
+            go = CSRGraph.load(path, mmap=True)
+            check(isinstance(go.adj, np.memmap),
+                  f"outofcore {label}: adj is not memmapped")
+            perm = None
+            if relabel == "none":
+                check(np.array_equal(go.indptr, base.indptr)
+                      and np.array_equal(go.adj, base.adj),
+                      "outofcore: the memmapped graph != the in-memory one")
+            else:
+                perm = np.load(path + ".perm.npy")
+                hold_relabeled(go, base, perm)
+            rec["hold_s"] = time.perf_counter() - t
+            out["builds"][label] = rec
+            # the hold mapped every table page: unmap them, then load anew
+            del go
+            go = CSRGraph.load(path, mmap=True)
+
+            # the decompose: counts set to 0 just before, read just after
+            reset_launch_counts()
+            trace.clear_trace()
+            trace.start_trace()
+            with sampled_rss() as rss:
+                t = time.perf_counter()
+                ro = decompose(go, "semicore*",
+                               backend=CudaBackend(device=device))
+                torch.cuda.synchronize(device)
+                wall = time.perf_counter() - t
+            trace.stop_trace()
+            launches = {k: v for k, v in launch_counts().items() if v}
+            for name in ("row_pass", "push_pass"):
+                check(launches.get(name, 0) > 0,
+                      f"outofcore {label}: {name} never launched")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            spans = trace.get_collector().to_chrome()["traceEvents"]
+            if perm is None:
+                same_result(ro, base_r, "outofcore decompose")
+            else:
+                check(np.array_equal(ro.core[perm], base_r.core)
+                      and np.array_equal(ro.cnt[perm], base_r.cnt),
+                      "outofcore relabeled: core or cnt differ through perm")
+                for f in ("iterations", "updates_per_iter",
+                          "computations_per_iter", "node_computations"):
+                    check(getattr(ro, f) == getattr(base_r, f),
+                          f"outofcore relabeled: {f}")
+            rq, passes, _ = per_superstep(device, go)
+            same_result(rq, ro, f"outofcore {label} per-superstep rerun")
+            dec = out["decomposes"][label] = {
+                "wall_s": wall,
+                "structure_s": sum(
+                    e["dur"] for e in spans
+                    if e["name"] == "resident.structure"
+                    and e.get("ph") == "X") / 1e6,
+                "passes": ro.iterations, "launches": launches,
+                "edge_block_reads": ro.edge_block_reads,
+                "node_table_reads": ro.node_table_reads,
+                "kernel_blocks_active": ro.kernel_blocks_active,
+                "first_superstep_device_ms": passes[0]["device_ms"],
+                "first_superstep_bound_ms": passes[0]["bound_ms"],
+                "superstep_device_ms_total": sum(p["device_ms"]
+                                                 for p in passes),
+                "host_memory": rss}
+            if perm is not None:
+                # the graph the relabel renames, by the same clock
+                _, base_passes, _ = per_superstep(device, base)
+                dec["without_relabel"] = {
+                    "edge_block_reads": base_r.edge_block_reads,
+                    "node_table_reads": base_r.node_table_reads,
+                    "kernel_blocks_active": base_r.kernel_blocks_active,
+                    "first_superstep_device_ms":
+                        base_passes[0]["device_ms"],
+                    "superstep_device_ms_total": sum(
+                        p["device_ms"] for p in base_passes)}
+            del go, ro, rq
+    emit(out)
+    return total
 
 
 def timed_apply(device, m, batch, events: list) -> tuple:
@@ -2058,7 +2312,10 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    if argv[:1] == ["--ooc-build-child"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        return ooc_build_child(*argv[1:])
     import torch
 
     if not torch.cuda.is_available():
@@ -2075,7 +2332,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     phase_build()
     phase_parity(device)
-    phase_small(device, *SMALL)
+    small = phase_small(device, *SMALL)
     # the LiveJournal-sized graph, built once for every full-width phase
     t0 = time.perf_counter()
     g = powerlaw_graph(*FULL)
@@ -2083,6 +2340,8 @@ def main() -> int:
     main_path = phase_full(device, g, gen_s)
     launches, r = main_path["launches"], main_path["result"]
     launches.update(phase_per_probe(device, g, r))
+    # the out-of-core path's launches, summed over its two decomposes
+    outofcore = phase_outofcore(device, g, r, small)
     tables = device_tables(g, device)
     launches.update(phase_segment_sum(device, g, r, tables))
     entries = kernel_entries(g, device, tables, launches, main_path)
@@ -2098,6 +2357,7 @@ def main() -> int:
     entries += decode_entries(device, launches)
     for entry in entries:
         entry["maintain_launches"] = maintain.get(entry["name"], 0)
+        entry["outofcore_launches"] = outofcore.get(entry["name"], 0)
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2107,4 +2367,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

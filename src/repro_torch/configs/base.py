@@ -1,10 +1,13 @@
-"""Config dataclasses of the LM and recsys families (+ reduced smoke
-configs).
+"""Config dataclasses of the LM, recsys and core-graph families (+ reduced
+smoke configs).
 
-The port's copy of ``repro/configs/base.py`` for the families it serves:
+The port's copy of ``repro/configs/base.py`` for the families it runs:
 ``LMConfig`` and ``RecsysConfig`` with ``reduced()``, field for field, with
-``dtype`` a torch dtype.  ``MoEConfig`` and ``MLAConfig`` are copied as
-data only: the port's transformer refuses a config that sets them.
+``dtype`` a torch dtype; ``CoreGraphConfig``, the paper's own workload,
+field for field with the port's backend names (the reference's
+``"pallas"`` is ``"cuda"``, its ``"xla"`` is ``"torch"``).  ``MoEConfig``
+and ``MLAConfig`` are copied as data only: the port's transformer refuses
+a config that sets them.
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ from typing import Any
 
 import torch
 
-__all__ = ["MoEConfig", "MLAConfig", "LMConfig", "RecsysConfig"]
+__all__ = ["MoEConfig", "MLAConfig", "LMConfig", "RecsysConfig",
+           "CoreGraphConfig"]
 
 
 @dataclass(frozen=True)
@@ -94,3 +98,29 @@ class RecsysConfig:
         return replace(self, n_items=1000, profile_vocab=500, embed_dim=16,
                        hist_len=8, profile_bag=4, mlp_dim=32,
                        num_sampled_negatives=16)
+
+
+@dataclass(frozen=True)
+class CoreGraphConfig:
+    """The paper's own workload: web-scale core decomposition (Table I scale)."""
+    name: str
+    n: int
+    m_directed: int
+    max_deg: int
+    kind: str = "coregraph"
+    block_edges: int = 4096      # edge-table block size (storage.DEFAULT_BLOCK_EDGES)
+    pool_blocks: int = 1         # BlockReader LRU pool; 1 = paper's single buffer
+    build_chunk_edges: int = 1 << 22  # out-of-core build ingest chunk (build.py)
+    backend: str = "numpy"       # batch-schedule substrate (core/engine.py):
+                                 # numpy | torch | cuda | shard (the last not
+                                 # ported: resolve_backend refuses it)
+    num_shards: int | None = None  # mesh width for backend="shard"
+    superstep_chunk: int = 8     # device-resident passes per host round-trip
+                                 # (core/resident.py), threaded through
+                                 # decompose / CoreMaintainer as
+                                 # superstep_chunk=cfg.superstep_chunk;
+                                 # REPRO_TORCH_RESIDENT_CHUNK overrides it
+
+    def reduced(self) -> "CoreGraphConfig":
+        return replace(self, n=2000, m_directed=16_000, max_deg=64,
+                       build_chunk_edges=1 << 12)

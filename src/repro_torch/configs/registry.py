@@ -13,14 +13,14 @@ __all__ = ["ARCH_IDS", "PORTED", "get_config"]
 PORTED = {
     "qwen3-0.6b": "qwen3_0_6b",
     "mind": "mind",
+    "semicore-webscale": "semicore_webscale",
 }
 
 ARCH_IDS = ["yi-34b", "qwen3-14b", "qwen3-0.6b", "arctic-480b",
             "deepseek-v3-671b", "graphsage-reddit", "gcn-cora", "schnet",
             "egnn", "mind"]
 
-_NOT_PORTED = {a: "ROADMAP Queue 1 item 9" for a in ARCH_IDS if a not in PORTED}
-_NOT_PORTED["semicore-webscale"] = "ROADMAP Queue 1 item 8"
+_NOT_PORTED = {a: "ROADMAP Queue 1 item 8" for a in ARCH_IDS if a not in PORTED}
 
 
 def get_config(arch_id: str):

@@ -132,6 +132,12 @@ class DecompResult:
     def kmax(self) -> int:
         return int(self.core.max()) if len(self.core) else 0
 
+    @property
+    def memory_bytes(self) -> int:
+        """O(n) node-state bytes held in memory (the paper's bound)."""
+        per_node = 8 + (8 if self.cnt is not None else 0) + 1
+        return len(self.core) * per_node
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the first GPU, and raises without one: the port never
@@ -583,6 +589,9 @@ def resolve_backend(backend=None, device=None) -> ComputeBackend:
         return CudaBackend(device=device)
     if name == "torch":
         return TorchBackend(device=device)
+    if name == "shard":
+        raise NotImplementedError(
+            "backend 'shard' is not ported yet (ROADMAP Queue 1 item 6)")
     raise ValueError(f"unknown compute backend {name!r}")
 
 

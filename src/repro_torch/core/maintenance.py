@@ -109,6 +109,8 @@ class CoreMaintainer:
     maintenance (Algs. 6-8); on a device backend it is one warm-started
     SemiCore* batch settle.  Device backends settle on their bound resident
     structure, which is version-keyed: a no-op batch re-uploads nothing.
+    ``retry`` (a :class:`repro_torch.faults.RetryPolicy`) retries a failed
+    block fill of the engine's reader.
     """
 
     def __init__(
@@ -122,6 +124,7 @@ class CoreMaintainer:
         settings: "_runtime.Settings | None" = None,
         group_cap: int | None = None,
         device=None,
+        retry=None,
     ):
         if settings is not None:
             if backend is None:
@@ -134,7 +137,8 @@ class CoreMaintainer:
         self.group_cap = group_cap
         self.bg = graph if isinstance(graph, BufferedGraph) else BufferedGraph(graph)
         self.engine = HostEngine(
-            self.bg, block_edges, pool_blocks=pool_blocks, settings=settings)
+            self.bg, block_edges, pool_blocks=pool_blocks, settings=settings,
+            retry=retry)
         self.backend = resolve_backend(backend, device)
         self.superstep_chunk = superstep_chunk
         if self.backend.device_resident and not isinstance(

@@ -55,12 +55,13 @@ class HostEngine:
     "numpy" | a ComputeBackend instance) and ``device=`` pick the
     substrate.  ``settings`` (a :class:`repro_torch.runtime.Settings`)
     supplies the backend and the resident chunk where a batch call leaves
-    them ``None`` (the environment still wins).
+    them ``None`` (the environment still wins).  ``retry`` (a
+    :class:`repro_torch.faults.RetryPolicy`) retries a failed block fill.
     """
 
     def __init__(self, graph, block_edges: int = DEFAULT_BLOCK_EDGES,
                  pool_blocks: int = 1,
-                 settings: "_runtime.Settings | None" = None):
+                 settings: "_runtime.Settings | None" = None, retry=None):
         self.settings = settings
         if isinstance(graph, BufferedGraph):
             self.buffered: BufferedGraph | None = graph
@@ -69,7 +70,8 @@ class HostEngine:
             self.buffered = None
             base = graph
         self.graph = base
-        self.reader = BlockReader(base, block_edges, pool_blocks=pool_blocks)
+        self.reader = BlockReader(base, block_edges, pool_blocks=pool_blocks,
+                                  retry=retry)
         self.planner = PassPlanner(self)
 
     def _sync(self) -> None:

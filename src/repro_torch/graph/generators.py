@@ -8,7 +8,10 @@ same seed:
   * ``erdos_renyi`` -- uniform random (control / tests);
   * ``ba``          -- Barabási–Albert preferential attachment;
   * ``powerlaw_chunks`` -- Chung-Lu edges streamed as ``(k, 2)`` chunks,
-    O(chunk) memory per draw, for graphs of tens of millions of edges.
+    O(chunk) memory per draw, for graphs of tens of millions of edges;
+  * ``rmat_chunks`` / ``uniform_chunks`` -- the R-MAT and uniform regimes
+    streamed the same way.  The streams feed the external-memory builder
+    (:func:`repro_torch.graph.build.build_csr`).
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from .storage import CSRGraph
 
 __all__ = [
     "chung_lu", "rmat", "erdos_renyi", "ba", "DATASET_SUITE", "make_dataset",
-    "rmat_chunks", "powerlaw_chunks",
+    "rmat_chunks", "powerlaw_chunks", "uniform_chunks",
 ]
 
 
@@ -115,6 +118,14 @@ def powerlaw_chunks(n: int, m: int, gamma: float = 2.5, seed: int = 0,
         src = draw(k)
         dst = draw(k)
         yield np.stack([perm[src], perm[dst]], axis=1).astype(np.int64)
+
+
+def uniform_chunks(n: int, m: int, seed: int = 0, chunk_edges: int = 1 << 20):
+    """Stream uniform (Erdős–Rényi-style) endpoint pairs."""
+    rng = np.random.default_rng(seed)
+    for lo in range(0, m, chunk_edges):
+        k = min(chunk_edges, m - lo)
+        yield rng.integers(0, n, size=(k, 2), dtype=np.int64)
 
 
 # A scaled-down stand-in for Table I: name -> (generator, kwargs), spanning

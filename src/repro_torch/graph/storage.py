@@ -4,20 +4,31 @@ The port's own copy of ``repro/graph/storage.py``.  The **edge table**
 stores ``nbr(v_1), nbr(v_2), ...`` consecutively; the **node table** the
 offset of every node.  The edge table is cut into blocks of
 ``block_edges`` edges, the unit of I/O accounting under the
-external-memory model.  :class:`BlockReader` models the paper's single
-block buffer, generalised to an LRU pool by ``pool_blocks`` (``1`` is the
-paper's model exactly).
+external-memory model.
 
-Not in this copy yet: on-disk ``.npy`` graphs, the fault-injection hook on
-block fills and the retry policy; they come with the streaming slice.
+Two backings sit behind the one :class:`CSRGraph`: in-memory numpy arrays,
+and ``indptr.npy`` / ``adj.npy`` / ``meta.json`` on disk, opened with
+``np.memmap`` by :meth:`CSRGraph.load` (the edge table stays on disk).
+Graphs too large for ``CSRGraph.from_edges`` (whole-array sorts) are built
+in that layout by :func:`repro_torch.graph.build.build_csr` with O(n) +
+O(chunk) peak memory.
+
+:class:`BlockReader` models the paper's single block buffer, generalised
+to an LRU pool by ``pool_blocks`` (``1`` is the paper's model exactly).
+Each block fill passes the ``block.read`` fault hook of
+:mod:`repro_torch.faults.fs`, and an optional ``retry`` policy retries a
+failed fill.
 """
 from __future__ import annotations
 
+import json
+import os
 from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
 
+from ..faults import fs as _faults
 from ..obs import metrics as _metrics
 
 __all__ = [
@@ -67,7 +78,11 @@ class CSRGraph:
 
     def __post_init__(self) -> None:
         self.indptr = np.asarray(self.indptr, dtype=np.int64)
-        self.adj = np.asarray(self.adj, dtype=np.int32)
+        # adj may be a memmap (the edge table on disk): an int32 array is
+        # kept as it is, so loading never copies the table into memory
+        if not (isinstance(self.adj, np.ndarray)
+                and self.adj.dtype == np.int32):
+            self.adj = np.asarray(self.adj, dtype=np.int32)
 
     @property
     def n(self) -> int:
@@ -134,6 +149,50 @@ class CSRGraph:
         src = np.repeat(np.arange(self.n, dtype=np.int32), np.diff(self.indptr))
         return src, self.adj
 
+    def induced_subgraph(self, nodes: np.ndarray) -> "CSRGraph":
+        """Induced subgraph with nodes relabeled 0..len(nodes)-1."""
+        nodes = np.asarray(nodes, dtype=np.int64)
+        remap = np.full(self.n, -1, dtype=np.int64)
+        remap[nodes] = np.arange(len(nodes))
+        e = self.edge_list()
+        keep = (remap[e[:, 0]] >= 0) & (remap[e[:, 1]] >= 0)
+        return CSRGraph.from_edges(len(nodes), remap[e[keep]], dedup=False)
+
+    def sample_edges(self, frac: float, seed: int = 0) -> "CSRGraph":
+        """Keep a random fraction of edges (incident nodes kept; §VI-C)."""
+        e = self.edge_list()
+        keep = np.random.default_rng(seed).random(len(e)) < frac
+        return CSRGraph.from_edges(self.n, e[keep], dedup=False)
+
+    def sample_nodes(self, frac: float, seed: int = 0) -> "CSRGraph":
+        """Induced subgraph of a random node sample (§VI-C)."""
+        rng = np.random.default_rng(seed)
+        return self.induced_subgraph(np.flatnonzero(rng.random(self.n) < frac))
+
+    def relabel(self, perm: np.ndarray) -> "CSRGraph":
+        """Relabel node ids: new id of old node v is perm[v]."""
+        perm = np.asarray(perm, dtype=np.int64)
+        return CSRGraph.from_edges(self.n, perm[self.edge_list()], dedup=False)
+
+    def save(self, path: str) -> None:
+        """Write ``indptr.npy``, ``adj.npy`` and ``meta.json`` under ``path``
+        (the layout :func:`repro_torch.graph.build.build_csr` emits)."""
+        os.makedirs(path, exist_ok=True)
+        np.save(os.path.join(path, "indptr.npy"), self.indptr)
+        np.save(os.path.join(path, "adj.npy"), self.adj)
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump({"n": self.n, "m": self.m}, f)
+
+    @classmethod
+    def load(cls, path: str, *, mmap: bool = True) -> "CSRGraph":
+        """Open a saved graph; with ``mmap`` the tables stay on disk and
+        ``adj`` is an ``np.memmap`` (read-only)."""
+        mode = "r" if mmap else None
+        return cls(indptr=np.load(os.path.join(path, "indptr.npy"),
+                                  mmap_mode=mode),
+                   adj=np.load(os.path.join(path, "adj.npy"),
+                               mmap_mode=mode))
+
 
 class BlockReader:
     """Block-granular, I/O-accounted access to the edge table.
@@ -143,13 +202,16 @@ class BlockReader:
     full scans cost ``ceil(2m / B)`` I/Os; SemiCore+/SemiCore* pay one I/O
     per distinct block touched.  ``pool_blocks`` > 1 turns the buffer into
     an LRU pool (hits are free, misses evict the least recently used).
+    ``retry`` (a :class:`repro_torch.faults.RetryPolicy`) retries a block
+    fill that raised ``OSError``.
     """
 
     def __init__(self, graph: CSRGraph, block_edges: int = DEFAULT_BLOCK_EDGES,
-                 pool_blocks: int = 1):
+                 pool_blocks: int = 1, retry=None):
         self.graph = graph
         self.block_edges = int(block_edges)
         self.pool_blocks = max(1, int(pool_blocks))
+        self.retry = retry
         self.reads = 0  # edge-table block read I/Os
         self.node_table_reads = 0  # node-table block read I/Os
         self.hits = 0  # pool hits
@@ -165,6 +227,21 @@ class BlockReader:
     def invalidate(self) -> None:
         """Drop every resident block (the backing CSR was rewritten)."""
         self._pool.clear()
+
+    def reset_io(self) -> None:
+        self.reads = 0
+        self.node_table_reads = 0
+        self.hits = 0
+        self.invalidate()
+
+    @property
+    def bytes_read(self) -> int:
+        return (self.reads + self.node_table_reads) * self.block_edges * 4
+
+    @property
+    def resident_blocks(self) -> tuple[int, ...]:
+        """Resident block ids, least- to most-recently used."""
+        return tuple(self._pool)
 
     def _touch(self, block: int) -> None:
         pool = self._pool
@@ -234,14 +311,48 @@ class BlockReader:
         for b in blocks[max(0, k - P):].tolist():
             pool[b] = None
 
+    def _fill_span(self, first: int, last: int) -> list[int]:
+        """Touch blocks ``first..last``, fetching the missing ones; returns
+        the blocks this call filled.
+
+        The fault hook (standing in for the disk read) runs *before* a
+        missing block is charged or made resident, so a failed fill leaves
+        no pool entry and no charge behind: a retried read misses again and
+        is charged once.  Blocks filled earlier in the span stay resident
+        across a mid-span failure (their data arrived), and the retry hits
+        them.
+        """
+        filled: list[int] = []
+        for b in range(first, last + 1):
+            if b not in self._pool:
+                _faults.on_op("block.read")  # may raise a transient IOError
+                filled.append(b)
+            self._touch(b)
+        return filled
+
     def load_neighbors(self, v: int) -> np.ndarray:
         """Load nbr(v), touching every block the adjacency list spans."""
         lo = int(self.graph.indptr[v])
         hi = int(self.graph.indptr[v + 1])
         if hi > lo:
-            for b in range(lo // self.block_edges,
-                           (hi - 1) // self.block_edges + 1):
-                self._touch(b)
+            first = lo // self.block_edges
+            last = (hi - 1) // self.block_edges
+            if self.retry is None:
+                filled = self._fill_span(first, last)
+            else:
+                filled = self.retry.call(self._fill_span, first, last,
+                                         op="block.read")
+            try:
+                return self.graph.adj[lo:hi]
+            except OSError:
+                # a block charged as read never delivered its bytes (a
+                # memmap page-in failure): drop this call's fills and undo
+                # their charges, so residency never lies about the disk
+                for b in filled:
+                    if b in self._pool:
+                        del self._pool[b]
+                        self.reads -= 1
+                raise
         return self.graph.adj[lo:hi]
 
     def account_node_table_scan(self, v_lo: int, v_hi: int) -> None:

@@ -44,9 +44,16 @@ class BufferedGraph:
         self._del: dict[int, set[int]] = {}
         self._size = 0
         self._deg_delta = np.zeros(graph.n, dtype=np.int64)
+        self.flushes = 0
+        self._flush_hooks: list = []
         # structural version: bumped by every applied update and every
         # flush; the device-resident edge table is cached against it
         self.version = 0
+
+    def add_flush_hook(self, fn) -> None:
+        """Register ``fn(self)`` to run after every CSR rewrite (flush): a
+        flush invalidates any reader state pointed at the old CSR arrays."""
+        self._flush_hooks.append(fn)
 
     @property
     def n(self) -> int:
@@ -140,7 +147,10 @@ class BufferedGraph:
         self._del.clear()
         self._size = 0
         self._deg_delta[:] = 0
+        self.flushes += 1
         self.version += 1
+        for fn in self._flush_hooks:
+            fn(self)
 
     def materialize(self) -> CSRGraph:
         """Flush and return the up-to-date CSR."""

@@ -8,7 +8,7 @@ their numpy fields, by attribute, never by importing that implementation:
 * :func:`csr_from` — any object with ``indptr``/``adj`` arrays;
 * :func:`buffered_from` — any object with a ``base`` CSR and the buffered
   edge deltas (``_ins``/``_del`` endpoint sets, ``_deg_delta``, ``version``,
-  ``capacity``);
+  ``flushes``, ``capacity``);
 * :func:`warm_state` — a ``(core, cnt)`` pair, or any object with ``core``
   and ``cnt`` arrays;
 * :func:`update_batch_from` — any iterable of ops with ``kind`` ("+" or
@@ -41,7 +41,8 @@ def csr_from(graph) -> CSRGraph:
 
 def buffered_from(buffered) -> BufferedGraph:
     """The port's BufferedGraph holding the same base CSR and the same
-    buffered edge deltas (and structural version) as ``buffered``."""
+    buffered edge deltas (and structural version and flush count) as
+    ``buffered``."""
     out = BufferedGraph(csr_from(buffered.base),
                         buffer_capacity=buffered.capacity)
     out._ins = {int(u): {int(v) for v in vs} for u, vs in buffered._ins.items()}
@@ -49,6 +50,7 @@ def buffered_from(buffered) -> BufferedGraph:
     out._size = int(buffered._size)
     out._deg_delta = np.array(buffered._deg_delta, dtype=np.int64)
     out.version = int(buffered.version)
+    out.flushes = int(buffered.flushes)
     return out
 
 

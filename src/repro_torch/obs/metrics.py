@@ -115,6 +115,11 @@ class Counter(_MetricFamily):
     def inc(self, amount: float = 1.0) -> None:
         self.labels().inc(amount)
 
+    @property
+    def value(self) -> float:
+        """The family's total over every label series."""
+        return sum(s.value for s in self._series.values())
+
 
 class Histogram(_MetricFamily):
     kind = "histogram"

@@ -732,6 +732,48 @@ def test_noop_batch_on_the_card_rebuilds_no_structure(dev):
     np.testing.assert_array_equal(m.cnt, r.cnt)
 
 
+# ------------------------------------------------- out-of-core (memmapped)
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "per_probe"])
+@pytest.mark.parametrize("algorithm", ALGORITHMS)
+def test_memmapped_build_decomposes_on_the_card(dev, tmp_path, algorithm,
+                                                 fused):
+    """A graph built out of core and memmap-loaded decomposes on the
+    kernels exactly as its in-memory build does; so does its
+    degree-relabeled build, through perm."""
+    from repro_torch.graph import CSRGraph, build_csr, powerlaw_chunks
+
+    def stream():
+        return powerlaw_chunks(3000, 24_000, seed=6, chunk_edges=5000)
+
+    build_csr(stream(), str(tmp_path / "g"), n=3000, chunk_edges=4096)
+    stats = build_csr(stream(), str(tmp_path / "d"), n=3000,
+                      chunk_edges=4096, relabel="degree")
+    g = CSRGraph.load(str(tmp_path / "g"), mmap=True)
+    assert isinstance(g.adj, np.memmap)
+    mem = CSRGraph.from_edges(3000, np.concatenate(list(stream())))
+    fsk.reset_launch_counts()
+    ssa.reset_launch_counts()
+    got = decompose(g, algorithm, block_edges=64,
+                    backend=CudaBackend(device=dev, fused=fused))
+    torch.cuda.synchronize(dev)
+    if fused:
+        assert fsk.LAUNCHES["row_pass"] > 0
+    else:
+        assert ssa.LAUNCHES["segment_sum_active"] > 0
+    want = decompose(mem, algorithm, block_edges=64,
+                     backend=CudaBackend(device=dev, fused=fused))
+    _same(got, want, f"memmap {algorithm}")
+    np.testing.assert_array_equal(got.core, imcore_peel(mem))
+    r2 = decompose(CSRGraph.load(str(tmp_path / "d"), mmap=True), algorithm,
+                   block_edges=64, backend=CudaBackend(device=dev,
+                                                       fused=fused))
+    np.testing.assert_array_equal(r2.core[stats.perm], got.core)
+    if got.cnt is not None:
+        np.testing.assert_array_equal(r2.cnt[stats.perm], got.cnt)
+    assert r2.iterations == got.iterations
+    assert r2.updates_per_iter == got.updates_per_iter
+
+
 # ---------------------------------------------------------- embedding bag
 def _close(got, want, tol, what):
     rtol, atol = tol

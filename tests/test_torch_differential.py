@@ -3,9 +3,11 @@ backing × compute backend of ``repro_torch`` against the JAX package and
 the in-memory BZ oracle (Algorithm 1), on the seeded graph families of
 ``tests/test_differential.py``.
 
-Backings: ``inmem`` (the generator's CSR) and ``buffered`` (a
-``BufferedGraph`` whose base differs from the target graph and whose
-update buffer patches it back).  Backends, on the host (``device="cpu"``):
+Backings: ``inmem`` (the generator's CSR), ``memmap`` (the CSR saved to
+disk and reopened with ``np.memmap``, each package its own save and load:
+the out-of-core edge table) and ``buffered`` (a ``BufferedGraph`` whose
+base differs from the target graph and whose update buffer patches it
+back).  Backends, on the host (``device="cpu"``):
 ``numpy``; ``cuda``, the fused superstep kernels' plain versions;
 ``cuda_per_probe``, the per-probe segment sums' plain versions; ``torch``.
 The seq schedule is the paper's reference and runs on numpy only.  Every
@@ -15,6 +17,7 @@ per-probe kernels) for cuda per probe; xla for torch.
 """
 import functools
 import os
+import tempfile
 from unittest import mock
 
 import numpy as np
@@ -27,10 +30,10 @@ from repro.core.semicore import decompose as jdecompose  # noqa: E402
 
 from repro_torch.core import CudaBackend, TorchBackend, decompose  # noqa: E402
 from repro_torch.core.imcore import imcore_bz  # noqa: E402
+from repro_torch.graph import CSRGraph  # noqa: E402
 from repro_torch.interop import buffered_from, csr_from  # noqa: E402
 
-from test_differential import (ALGORITHMS, FAMILIES,  # noqa: E402
-                               _buffered_backing)
+from test_differential import ALGORITHMS, FAMILIES, _with_backing  # noqa: E402
 
 #: port backend -> (the reference's counterpart, REPRO_PALLAS_FUSED for
 #: it, the port's backend)
@@ -43,7 +46,7 @@ BACKENDS = {
 }
 #: the reference's backend name in DecompResult -> the port's
 NAMES = {"numpy": "numpy", "pallas": "cuda", "xla": "torch"}
-BACKINGS = ("inmem", "buffered")
+BACKINGS = ("inmem", "memmap", "buffered")
 CASES = [(s, b) for s in ("seq", "batch") for b in BACKENDS
          if s == "batch" or b == "numpy"]
 FIELDS = ("iterations", "node_computations", "edge_block_reads",
@@ -57,10 +60,23 @@ def reference(family: str, algorithm: str, schedule: str, backing: str,
               backend: str, fused: str):
     """(graph, the reference's target, its result)."""
     g = FAMILIES[family]()
-    target = g if backing == "inmem" else _buffered_backing(g)
-    with mock.patch.dict(os.environ, {"REPRO_PALLAS_FUSED": fused}):
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.dict(os.environ, {"REPRO_PALLAS_FUSED": fused}):
+        target = _with_backing(g, backing, tmp)
         return g, target, jdecompose(target, algorithm, schedule,
                                      block_edges=64, backend=backend)
+
+
+def port_target(target, backing: str, tmp_path):
+    """The port's copy of the reference's target; ``memmap`` saved by the
+    port and reopened memmapped."""
+    if backing == "buffered":
+        return buffered_from(target)
+    g = csr_from(target)
+    if backing == "memmap":
+        g.save(str(tmp_path / "g"))
+        g = CSRGraph.load(str(tmp_path / "g"), mmap=True)
+    return g
 
 
 @pytest.mark.parametrize("schedule,backend", CASES,
@@ -69,14 +85,12 @@ def reference(family: str, algorithm: str, schedule: str, backing: str,
 @pytest.mark.parametrize("algorithm", ALGORITHMS)
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_differential_matches_jax_and_bz(family, algorithm, backing,
-                                         schedule, backend):
+                                         schedule, backend, tmp_path):
     ref_backend, fused, make = BACKENDS[backend]
     g, target, want = reference(family, algorithm, schedule, backing,
                                 ref_backend, fused)
-    port_target = csr_from(target) if backing == "inmem" else \
-        buffered_from(target)
-    got = decompose(port_target, algorithm, schedule, block_edges=64,
-                    backend=make())
+    got = decompose(port_target(target, backing, tmp_path), algorithm,
+                    schedule, block_edges=64, backend=make())
     what = f"{family}/{algorithm}/{schedule}/{backing}/{backend}"
     np.testing.assert_array_equal(got.core, imcore_bz(csr_from(g)),
                                   err_msg=what)

@@ -43,14 +43,17 @@ WALKED = ["repro_torch.configs.registry", "repro_torch.configs.shapes",
           "repro_torch.kernels.flash_decode", "repro_torch.core.engine",
           "repro_torch.graph.storage", "repro_torch.obs.trace",
           "repro_torch.core.maintenance", "repro_torch.core.parallel_maint",
-          "repro_torch.core.update", "repro_torch.graph.update_cases"]
+          "repro_torch.core.update", "repro_torch.graph.update_cases",
+          "repro_torch.graph.build", "repro_torch.core.emcore",
+          "repro_torch.faults.fs", "repro_torch.faults.plan",
+          "repro_torch.faults.retry", "repro_torch.configs.semicore_webscale"]
 
 
 def test_ast_walk_covers_every_subpackage():
     """The import check below parses every module of every subpackage."""
     subpackages = {p.parent.name for p in SOURCES if p.name == "__init__.py"}
-    assert {"configs", "core", "data", "graph", "kernels", "models", "obs",
-            "serve"} <= subpackages
+    assert {"configs", "core", "data", "faults", "graph", "kernels",
+            "models", "obs", "serve"} <= subpackages
 
 
 # ------------------------------------------------------------- isolation
