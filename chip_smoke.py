@@ -69,6 +69,25 @@ Phases, each printing one JSON line:
              planning, structure rebuild and upload, device settle), its
              supersteps' device ms, rounds, groups and fallbacks, block
              reads, peak device memory and peak host RSS
+  stream     the streaming core service at full width, on the main path's
+             graph and state: CoreWriter (WAL with fsync, a snapshot every
+             4 batches, 2 kept, in a temporary directory under chiprun_out/;
+             the serial settle, one warm_settle a batch: the default
+             parallel plan took 17-27 s a batch and fell back anyway)
+             ingests 5 micro-batches of 128 (one mixed_batch draw of 768
+             distinct updates), a query burst after each (coreness and
+             in_kcore of 1,000 seeded nodes one call each, top_k(100),
+             kcore_members at the degeneracy, degeneracy()); CoreReplica
+             bootstraps from the epoch-4 snapshot plus WAL record 5; batch
+             6 goes in and the replica syncs to lag 0; the writer is dropped
+             without a snapshot and CoreWriter.recover restores it from the
+             snapshot plus records 5-6 (warm restart).  Writer, replica and
+             recovered writer hold equal (core, cnt), equal to a fresh
+             decompose of the final graph, and equal replies with equal
+             watermarks.  Prints each batch's wall, settle path and span
+             split, the query latency p50/p99 by kind, the snapshot save
+             and manifest-check seconds, the bootstrap, sync and recovery
+             walls and the superstep pair's launches
   mind       full-width MIND (configs/mind.py, seeded weights, item table
              256 MB) serving the three recsys cells of configs/shapes.py
              (serve_p99: 512 users, 100 requests; serve_bulk: 262,144 users;
@@ -86,8 +105,8 @@ their plain versions over the reference's sweeps (kernels/cases.py), flash
 decode also at every boundary of its split rule and at cache_len <= 0.
 
 then the kernels line (launches on each kernel's path, on the
-maintain path (``maintain_launches``) and on the out-of-core path
-(``outofcore_launches``), error against the plain version,
+maintain path (``maintain_launches``), on the out-of-core path
+(``outofcore_launches``) and on the stream path (``stream_launches``), error against the plain version,
 times and bounds; the superstep pair and the segment sums
 also at the state entering pass 20; the embedding bag also bit for bit
 against the slot-order sum, with its rate of gathered rows and at the
@@ -180,6 +199,15 @@ MAINTAIN_ROUND_TRIP = 100
 MAINTAIN_MIXED = 1_000
 MAINTAIN_P_DELETE = 0.45
 MAINTAIN_SEED = 19
+#: the stream phase: micro-batches of one mixed draw from the main path's
+#: graph (the reference bench's largest batch, repro's
+#: benchmarks/bench_stream.py:44), the writer's snapshot period, the
+#: seeded nodes of each query burst and the seed of both draws
+STREAM_BATCHES = 6
+STREAM_BATCH = 128
+STREAM_SNAPSHOT_EVERY = 4
+STREAM_QUERIES = 1_000
+STREAM_SEED = 23
 #: the outofcore phase's builds run in a child process of their own (its
 #: peak RSS is the build's), which this script stops at this limit
 OOC_BUILD_TIMEOUT_S = 600
@@ -1485,6 +1513,222 @@ def phase_maintain(device, g, r) -> dict:
     return total
 
 
+def query_burst(svc, nodes, lat: dict) -> dict:
+    """One burst of the service's queries, each call timed into ``lat``
+    (seconds by kind): ``coreness`` and ``in_kcore`` of every node in
+    ``nodes`` one call each, then ``top_k(100)``, ``kcore_members`` at the
+    degeneracy (its size is kcore_size) and ``degeneracy()``.  Returns
+    the vector replies, each with its watermark, for comparison."""
+    def timed(kind, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        lat.setdefault(kind, []).append(time.perf_counter() - t)
+        return out
+
+    deg = timed("degeneracy", svc.degeneracy)
+    k = max(int(deg) // 2, 1)
+    for v in nodes:
+        timed("coreness", svc.coreness, int(v))
+        timed("in_kcore", svc.in_kcore, int(v), k)
+    top = timed("top_k", svc.top_k, 100)
+    members = timed("kcore_members", svc.kcore_members, int(deg))
+    return {"coreness": svc.coreness(nodes), "in_kcore": svc.in_kcore(nodes, k),
+            "top_k": top, "kcore_members": members, "degeneracy": deg}
+
+
+def same_replies(got: dict, want: dict, what: str) -> None:
+    for kind, w in want.items():
+        g = got[kind]
+        check(g.epoch == w.epoch, f"{what}: {kind} watermark {g.epoch} != "
+              f"{w.epoch}")
+        check(np.array_equal(np.asarray(g), np.asarray(w)),
+              f"{what}: {kind} reply")
+
+
+def phase_stream(device, g, r) -> dict:
+    """The streaming core service at full width from the main path's
+    graph ``g`` and state ``r``: a writer (WAL with fsync, a snapshot every
+    ``STREAM_SNAPSHOT_EVERY`` batches, two kept) ingests micro-batches 1-5
+    with a query burst after each; a replica bootstraps from the epoch-4
+    snapshot plus WAL record 5; batch 6 goes in and the replica syncs to
+    lag 0; the writer is dropped without a snapshot and recovered from the
+    snapshot plus records 5-6.  Writer, replica and recovered writer are
+    held to each other and to a fresh decompose; their replies to each
+    other's, watermarks included.  Returns the kernels' launches over the
+    stream path (writer, bootstrap, sync, recovery)."""
+    import torch
+
+    from repro_torch.core import CudaBackend, decompose
+    from repro_torch.graph.update_cases import mixed_batch
+    from repro_torch.obs import trace
+    from repro_torch.runtime import Settings
+    from repro_torch.stream import CoreReplica, CoreWriter
+
+    out = {"phase": "stream", "n": g.n, "directed_edges": g.num_directed,
+           "batches": STREAM_BATCHES, "batch_updates": STREAM_BATCH}
+    t = time.perf_counter()
+    ops = mixed_batch(g, STREAM_BATCHES * STREAM_BATCH, seed=STREAM_SEED,
+                      p_delete=MAINTAIN_P_DELETE)
+    out["draw_s"] = time.perf_counter() - t
+    batches = [ops[i:i + STREAM_BATCH] for i in range(0, len(ops),
+                                                       STREAM_BATCH)]
+    nodes = np.random.default_rng(STREAM_SEED).choice(
+        g.n, STREAM_QUERIES, replace=False)
+    total: dict = {}
+    lat: dict = {}
+
+    def traced(fn):
+        """``fn()`` with the counts at 0 and a trace: (its result, wall,
+        the spans' seconds by name, the launches)."""
+        reset_launch_counts()
+        trace.clear_trace()
+        trace.start_trace()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t
+        trace.stop_trace()
+        spans: dict = {}
+        for e in trace.get_collector().to_chrome()["traceEvents"]:
+            if e.get("ph") == "X":
+                spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+        launches = {k: v for k, v in launch_counts().items() if v}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return res, wall, spans, launches
+
+    def split(spans):
+        keys = ("maintenance.structural", "maintenance.plan",
+                "maintenance.settle", "resident.structure", "wal.append",
+                "snapshot.save", "wal.rotate")
+        return {k: spans.get(k, 0.0) for k in keys}
+
+    root = ROOT / "chiprun_out"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="stream_", dir=root) as tmp:
+        wal, snaps = os.path.join(tmp, "wal.log"), os.path.join(tmp, "snaps")
+        # the writer (and the recovered one) settle serially: on the
+        # default parallel path every 128-update batch planned for 17-27 s
+        # on the host and then fell back to warm_settle anyway (PERF.md,
+        # PR 21 run 1); the replica keeps its default, as the reference's
+        # has no settings
+        kw = dict(wal_path=wal, snapshot_dir=snaps, snapshot_keep=2,
+                  device=device, settings=Settings(backend="cuda",
+                                                   parallel_maint=False))
+        w, wall, _, launches = traced(lambda: CoreWriter(
+            g, state=(r.core, r.cnt), wal_fsync=True,
+            snapshot_every=STREAM_SNAPSHOT_EVERY, **kw))
+        out["writer_start"] = {"wall_s": wall, "launches": launches}
+        paths = []
+
+        def record_paths(m):
+            """Keep the MaintStats of each of ``m``'s applies in
+            ``paths``: a BatchStats does not say which settle ran."""
+            apply = m.apply
+
+            def recorded(*a, **k):
+                paths.append(apply(*a, **k))
+                return paths[-1]
+
+            m.apply = recorded
+
+        record_paths(w.maintainer)
+        recs = []
+
+        def ingest(b):
+            st, wall, spans, launches = traced(lambda: w.ingest(b))
+            recs.append({"epoch": st.epoch, "wall_s": wall,
+                         "path": settle_path(paths[-1]),
+                         "algorithm": paths[-1].algorithm,
+                         "deletes": st.num_applied_deletes,
+                         "inserts": st.num_applied_inserts,
+                         "noops": st.num_noops,
+                         "supersteps": st.iterations,
+                         "edge_block_reads": st.edge_block_reads,
+                         "span_s": split(spans), "launches": launches})
+            return query_burst(w, nodes, lat)
+
+        for b in batches[:-1]:
+            ingest(b)
+        check(w.epoch == STREAM_BATCHES - 1, f"writer epoch {w.epoch}")
+        snap_dir = os.path.join(snaps, f"snap_{STREAM_SNAPSHOT_EVERY:012d}")
+        check(os.path.isdir(snap_dir), "no snapshot at epoch "
+              f"{STREAM_SNAPSHOT_EVERY}")
+        out["snapshot_bytes"] = sum(
+            os.path.getsize(os.path.join(snap_dir, f))
+            for f in os.listdir(snap_dir))
+        t = time.perf_counter()
+        w.snapshots.verify(snap_dir)
+        out["manifest_check_s"] = time.perf_counter() - t
+
+        rep, wall, spans, launches = traced(lambda: CoreReplica(
+            snapshot_dir=snaps, wal_path=wal, device=device))
+        record_paths(rep.maintainer)
+        bs = rep.last_bootstrap
+        check(bs.snapshot_epoch == STREAM_SNAPSHOT_EVERY
+              and bs.replayed_batches == 1 and bs.warm_restart
+              and rep.epoch == STREAM_BATCHES - 1,
+              f"replica bootstrap: {bs}")
+        out["bootstrap"] = {"wall_s": wall, "stats": vars(bs),
+                            "span_s": {k: spans.get(k, 0.0) for k in (
+                                "replica.bootstrap", "resident.structure")},
+                            "launches": launches}
+
+        want = ingest(batches[-1])
+        out["ingest"] = recs
+        out["snapshot_save_s"] = sum(x["span_s"]["snapshot.save"]
+                                     for x in recs)
+        applied, wall, spans, launches = traced(rep.sync)
+        check(applied == 1 and rep.lag() == 0 and rep.epoch == w.epoch,
+              f"replica sync: applied {applied}, lag {rep.lag()}")
+        out["sync"] = {"wall_s": wall, "path": settle_path(paths[-1]),
+                       "algorithm": paths[-1].algorithm,
+                       "span_s": split(spans), "launches": launches}
+        same_replies(query_burst(rep, nodes, lat), want, "replica")
+
+        # the crash: the writer goes without a snapshot; its WAL holds 5-6
+        core, cnt = w.maintainer.core.copy(), w.maintainer.cnt.copy()
+        final_bg = w.bg
+        w.close()
+        del w
+        (w2, rs), wall, spans, launches = traced(
+            lambda: CoreWriter.recover(**kw))
+        check(rs.warm_restart and rs.replayed_batches == 2
+              and rs.snapshot_epoch == STREAM_SNAPSHOT_EVERY
+              and w2.epoch == STREAM_BATCHES, f"recovery: {rs}")
+        out["recovery"] = {"wall_s": wall, "stats": vars(rs),
+                           "span_s": {"resident.structure": spans.get(
+                               "resident.structure", 0.0)},
+                           "launches": launches}
+        same_replies(query_burst(w2, nodes, lat), want, "recovered writer")
+        out["launches"] = dict(total)
+        for name in ("row_pass", "push_pass"):
+            check(total.get(name, 0) > 0,
+                  f"stream: {name} never launched on the stream path")
+
+        for what, m in (("replica", rep.maintainer),
+                        ("recovered writer", w2.maintainer)):
+            check(np.array_equal(m.core, core) and np.array_equal(m.cnt, cnt),
+                  f"stream: {what} (core, cnt) != the writer's at epoch "
+                  f"{STREAM_BATCHES}")
+        t = time.perf_counter()
+        final = final_bg.materialize()
+        out["materialize_s"] = time.perf_counter() - t
+        rf = decompose(final, "semicore*", backend=CudaBackend(device=device))
+        check(np.array_equal(rf.core, core) and np.array_equal(rf.cnt, cnt),
+              "stream: (core, cnt) != a fresh decompose of the final graph")
+        w2.close()
+        del rep, w2, final, final_bg, rf
+    out["query_latency_s"] = {
+        k: {"calls": len(v), "p50": float(np.percentile(v, 50)),
+            "p99": float(np.percentile(v, 99))} for k, v in lat.items()}
+    out["host_peak_rss_bytes"] = \
+        resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    torch.cuda.empty_cache()
+    emit(out)
+    return total
+
+
 def device_tables(g, device) -> dict:
     """The flat CSR on the card: segptr (n+1,), nbr and rows (E,), int32."""
     import torch
@@ -2349,6 +2593,9 @@ def main(argv: list) -> int:
     # the maintain path's launches: counts set to 0 before each apply and
     # read after it (timed_apply), summed over the phase
     maintain = phase_maintain(device, g, r)
+    # the stream path's launches: writer ingest, replica bootstrap and
+    # sync, recovery, each with the counts set to 0 before it
+    stream = phase_stream(device, g, r)
     del g, r
     bag_launches, profile_embed, profile_ids = phase_mind(device)
     launches.update(bag_launches)
@@ -2358,6 +2605,7 @@ def main(argv: list) -> int:
     for entry in entries:
         entry["maintain_launches"] = maintain.get(entry["name"], 0)
         entry["outofcore_launches"] = outofcore.get(entry["name"], 0)
+        entry["stream_launches"] = stream.get(entry["name"], 0)
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -39,7 +39,7 @@ TWITTER_PALLAS = CoreGraphConfig(name="semicore-twitter-pallas",
                                  pool_blocks=1, build_chunk_edges=1 << 24,
                                  backend="cuda", superstep_chunk=4)
 # The Clueweb cell on a 256-device mesh (the reference's sharded backend;
-# not ported, ROADMAP Queue 1 item 6).
+# not ported, ROADMAP Queue 1 item 5).
 CLUEWEB_SHARD = CoreGraphConfig(name="semicore-clueweb-shard",
                                 n=978_408_098, m_directed=85_148_214_938,
                                 max_deg=75_611_696, block_edges=4096,

@@ -591,7 +591,7 @@ def resolve_backend(backend=None, device=None) -> ComputeBackend:
         return TorchBackend(device=device)
     if name == "shard":
         raise NotImplementedError(
-            "backend 'shard' is not ported yet (ROADMAP Queue 1 item 6)")
+            "backend 'shard' is not ported yet (ROADMAP Queue 1 item 5)")
     raise ValueError(f"unknown compute backend {name!r}")
 
 

@@ -121,10 +121,10 @@ class CoreMaintainer:
         pool_blocks: int = 1,
         backend=None,
         superstep_chunk: int | None = None,
+        retry=None,
         settings: "_runtime.Settings | None" = None,
         group_cap: int | None = None,
         device=None,
-        retry=None,
     ):
         if settings is not None:
             if backend is None:

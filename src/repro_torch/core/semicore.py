@@ -60,8 +60,8 @@ class HostEngine:
     """
 
     def __init__(self, graph, block_edges: int = DEFAULT_BLOCK_EDGES,
-                 pool_blocks: int = 1,
-                 settings: "_runtime.Settings | None" = None, retry=None):
+                 pool_blocks: int = 1, retry=None,
+                 settings: "_runtime.Settings | None" = None):
         self.settings = settings
         if isinstance(graph, BufferedGraph):
             self.buffered: BufferedGraph | None = graph
@@ -320,6 +320,8 @@ def decompose(
     pool_blocks: int = 1,
     backend=None,
     superstep_chunk: int | None = None,
+    settings: "_runtime.Settings | None" = None,
+    *,
     device=None,
 ) -> DecompResult:
     """One-call core decomposition with the chosen paper algorithm.
@@ -331,8 +333,12 @@ def decompose(
     ``device="cpu"`` runs on the host (the cuda backend through its
     kernels' plain versions).  ``superstep_chunk`` sizes the resident
     passes per host round-trip (``REPRO_TORCH_RESIDENT_CHUNK``).
+    ``settings`` (a :class:`repro_torch.runtime.Settings`) supplies the
+    backend and the chunk where they are left ``None`` (the environment
+    still wins).
     """
-    eng = HostEngine(graph, block_edges, pool_blocks=pool_blocks)
+    eng = HostEngine(graph, block_edges, pool_blocks=pool_blocks,
+                     settings=settings)
     kw = dict(backend=backend, superstep_chunk=superstep_chunk, device=device)
     if algorithm == "semicore":
         return eng.semicore(schedule, **kw)

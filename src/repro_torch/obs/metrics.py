@@ -1,25 +1,29 @@
-"""Process-local metrics registry: counters and fixed-bucket histograms.
+"""Process-local metrics registry: counters, gauges, fixed-bucket histograms.
 
-The port's own copy of ``repro/obs/metrics.py``, cut to what the
-decomposition slice writes.  Metric names are the reference's, so a
-registry delta around one ``decompose()`` reconciles with its
-``DecompResult`` exactly as in the reference.  ``REPRO_TORCH_OBS=0``
-turns every mutator into a no-op; it is read per call.
+The port's own copy of ``repro/obs/metrics.py``.  Metric names are the
+reference's, so a registry delta around one ``decompose()`` reconciles
+with its ``DecompResult`` exactly as in the reference, and the same
+sequence of observations gives the same ``to_prometheus()`` text.
+``REPRO_TORCH_OBS=0`` turns every mutator into a no-op; it is read per
+call.
 """
 from __future__ import annotations
 
 import bisect
+import math
 import os
-from typing import Dict, Iterable, Mapping, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 __all__ = [
     "OBS_ENV_VAR",
     "obs_enabled",
     "Counter",
+    "Gauge",
     "Histogram",
     "MetricsRegistry",
     "get_registry",
     "counter",
+    "gauge",
     "histogram",
     "sum_by_name",
     "DEFAULT_TIME_BUCKETS",
@@ -34,7 +38,8 @@ DEFAULT_TIME_BUCKETS: Tuple[float, ...] = (
     0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
 )
 
-#: size-like buckets (group sizes, node counts): upper bounds.
+#: size-like buckets (group sizes, node counts, replica lag in epochs):
+#: upper bounds; 0 gets its own bucket.
 DEFAULT_COUNT_BUCKETS: Tuple[float, ...] = (
     0.0, 1.0, 2.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 1000.0,
 )
@@ -68,6 +73,24 @@ class _CounterSeries:
             self.value += amount
 
 
+class _GaugeSeries:
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value = 0.0
+
+    def set(self, value: float) -> None:
+        if obs_enabled():
+            self.value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        if obs_enabled():
+            self.value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
+
+
 class _HistogramSeries:
     __slots__ = ("buckets", "counts", "sum", "count")
 
@@ -84,6 +107,21 @@ class _HistogramSeries:
         self.counts[bisect.bisect_left(self.buckets, value)] += 1
         self.sum += value
         self.count += 1
+
+    def quantile(self, q: float) -> float:
+        """Bucket-interpolated quantile estimate (0 when empty)."""
+        if self.count == 0:
+            return 0.0
+        target = q * self.count
+        seen = 0
+        for i, c in enumerate(self.counts):
+            if seen + c >= target and c > 0:
+                lo = self.buckets[i - 1] if i > 0 else 0.0
+                hi = self.buckets[i] if i < len(self.buckets) else self.buckets[-1]
+                frac = (target - seen) / c
+                return lo + (hi - lo) * min(1.0, max(0.0, frac))
+            seen += c
+        return self.buckets[-1]
 
 
 class _MetricFamily:
@@ -121,6 +159,27 @@ class Counter(_MetricFamily):
         return sum(s.value for s in self._series.values())
 
 
+class Gauge(_MetricFamily):
+    kind = "gauge"
+
+    def _make_series(self) -> _GaugeSeries:
+        return _GaugeSeries()
+
+    def set(self, value: float) -> None:
+        self.labels().set(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        self.labels().inc(amount)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.labels().dec(amount)
+
+    @property
+    def value(self) -> float:
+        """The unlabeled series' value."""
+        return self.labels().value
+
+
 class Histogram(_MetricFamily):
     kind = "histogram"
 
@@ -137,6 +196,18 @@ class Histogram(_MetricFamily):
 
     def observe(self, value: float) -> None:
         self.labels().observe(value)
+
+    def quantile(self, q: float) -> float:
+        """The unlabeled series' quantile estimate."""
+        return self.labels().quantile(q)
+
+    @property
+    def count(self) -> int:
+        return sum(s.count for s in self._series.values())
+
+    @property
+    def sum(self) -> float:
+        return sum(s.sum for s in self._series.values())
 
 
 class MetricsRegistry:
@@ -164,20 +235,27 @@ class MetricsRegistry:
     def counter(self, name: str, help: str = "") -> Counter:
         return self._get_or_create(Counter, name, help)
 
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get_or_create(Gauge, name, help)
+
     def histogram(self, name: str, help: str = "",
                   buckets: Iterable[float] = DEFAULT_TIME_BUCKETS) -> Histogram:
         return self._get_or_create(Histogram, name, help, buckets=buckets)
 
+    def get(self, name: str) -> Optional[_MetricFamily]:
+        return self._families.get(name)
+
     def snapshot(self) -> Dict[str, float]:
         """Flat ``{name{labels}: value}`` of all monotonic samples
-        (counters, and each histogram's ``_sum`` and ``_count``)."""
+        (counters, and each histogram's ``_sum`` and ``_count``); gauges
+        are point-in-time and left out."""
         out: Dict[str, float] = {}
         for fam in self._families.values():
             for key, series in fam._series.items():
                 lbl = _format_labels(key)
                 if fam.kind == "counter":
                     out[f"{fam.name}{lbl}"] = series.value
-                else:
+                elif fam.kind == "histogram":
                     out[f"{fam.name}_sum{lbl}"] = series.sum
                     out[f"{fam.name}_count{lbl}"] = float(series.count)
         return out
@@ -186,6 +264,54 @@ class MetricsRegistry:
         """Current snapshot minus ``since`` (samples born later count fully)."""
         now = self.snapshot()
         return {k: v - since.get(k, 0.0) for k, v in now.items()}
+
+    def to_dict(self) -> dict:
+        """JSON-friendly dump of every family and series."""
+        out: dict = {}
+        for fam in sorted(self._families.values(), key=lambda f: f.name):
+            series = []
+            for key, s in sorted(fam._series.items()):
+                entry: dict = {"labels": dict(key)}
+                if fam.kind == "histogram":
+                    entry["sum"] = s.sum
+                    entry["count"] = s.count
+                    entry["buckets"] = [
+                        [b, c] for b, c in zip(list(s.buckets) + ["+Inf"], s.counts)
+                    ]
+                else:
+                    entry["value"] = s.value
+                series.append(entry)
+            out[fam.name] = {"type": fam.kind, "help": fam.help, "series": series}
+        return out
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format (version 0.0.4)."""
+        lines = []
+        for fam in sorted(self._families.values(), key=lambda f: f.name):
+            lines.append(f"# HELP {fam.name} {fam.help}")
+            lines.append(f"# TYPE {fam.name} {fam.kind}")
+            for key, s in sorted(fam._series.items()):
+                lbl = _format_labels(key)
+                if fam.kind == "histogram":
+                    cum = 0
+                    for b, c in zip(s.buckets, s.counts):
+                        cum += c
+                        le = _format_labels(key + (("le", _fmt_float(b)),))
+                        lines.append(f"{fam.name}_bucket{le} {cum}")
+                    cum += s.counts[-1]
+                    le = _format_labels(key + (("le", "+Inf"),))
+                    lines.append(f"{fam.name}_bucket{le} {cum}")
+                    lines.append(f"{fam.name}_sum{lbl} {_fmt_float(s.sum)}")
+                    lines.append(f"{fam.name}_count{lbl} {s.count}")
+                else:
+                    lines.append(f"{fam.name}{lbl} {_fmt_float(s.value)}")
+        return "\n".join(lines) + "\n"
+
+
+def _fmt_float(v: float) -> str:
+    if isinstance(v, float) and v == int(v) and abs(v) < 1e15 and math.isfinite(v):
+        return str(int(v))
+    return repr(float(v))
 
 
 def sum_by_name(delta: Mapping[str, float], name: str) -> float:
@@ -204,6 +330,10 @@ def get_registry() -> MetricsRegistry:
 
 def counter(name: str, help: str = "") -> Counter:
     return _default_registry.counter(name, help)
+
+
+def gauge(name: str, help: str = "") -> Gauge:
+    return _default_registry.gauge(name, help)
 
 
 def histogram(name: str, help: str = "",

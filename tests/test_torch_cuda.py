@@ -1164,3 +1164,96 @@ def test_lm_serving_on_the_card_matches_plain(dev, dtype, monkeypatch):
         tok = lk[:, -1].argmax(-1, keepdim=True).to(torch.int32)
     if dtype == "float32":
         _close(kernel.caches["k"], plain.caches["k"], tol, "k caches")
+
+
+# ----------------------------------------------------- the streaming service
+def _stream_run(root, place):
+    """A writer and a replica through ingest, snapshot, bootstrap, tail and
+    recover on a small seeded graph, each placed by ``place()`` (the
+    backend arguments); returns every (core, cnt) and every reply (value
+    and watermark) in order, and each batch's update counts."""
+    from repro_torch.stream import CoreReplica, CoreWriter
+    from repro_torch.graph.update_cases import mixed_batch
+
+    g = chung_lu(3000, 15000, seed=12)
+    ops = mixed_batch(g, 6 * 40, seed=5)
+    batches = [ops[i:i + 40] for i in range(0, len(ops), 40)]
+    nodes = np.arange(0, g.n, 7)
+    paths = dict(wal_path=str(root / "wal.log"),
+                 snapshot_dir=str(root / "snaps"))
+    seen = []
+
+    def record(svc):
+        m = svc.maintainer
+        deg = svc.degeneracy()
+        replies = (svc.coreness(nodes), svc.in_kcore(nodes, 3),
+                   svc.top_k(25), svc.kcore_members(int(deg)), deg)
+        seen.append((m.core.copy(), m.cnt.copy(),
+                     [(np.asarray(x).tolist(), x.epoch) for x in replies]))
+
+    w = CoreWriter(g, block_edges=128, snapshot_every=4, snapshot_keep=2,
+                   **paths, **place())
+    stats = [w.ingest(b) for b in batches[:5]]
+    record(w)
+    rep = CoreReplica(block_edges=128, **paths, **place())
+    assert rep.last_bootstrap.replayed_batches == 1
+    record(rep)
+    stats.append(w.ingest(batches[5]))
+    record(w)
+    assert rep.sync() == 1 and rep.lag() == 0
+    record(rep)
+    w.close()
+    w2, rs = CoreWriter.recover(block_edges=128, snapshot_keep=2, **paths,
+                                **place())
+    assert rs.warm_restart and rs.replayed_batches == 2 and w2.epoch == 6
+    record(w2)
+    np.testing.assert_array_equal(w2.maintainer.core,
+                                  imcore_peel(w2.bg.materialize()))
+    return seen, [(s.num_applied_deletes, s.num_applied_inserts, s.num_noops,
+                   s.num_changed) for s in stats]
+
+
+@pytest.mark.parametrize("leg", ("fused", "per_probe"))
+def test_stream_service_on_the_card_matches_numpy(dev, tmp_path, leg):
+    """Writer ingest, replica bootstrap and tail, and recovery on the
+    card's "cuda" substrate (fused or per probe) equal the same run on
+    numpy: every (core, cnt), reply and watermark, and the update counts;
+    the superstep pair (or the segment sums) launch on the way."""
+    names = (("row_pass", "push_pass") if leg == "fused"
+             else ("block_flags", "segment_sum_active"))
+    fsk.reset_launch_counts()
+    ssa.reset_launch_counts()
+    got = _stream_run(tmp_path / leg, lambda: {
+        "backend": CudaBackend(device=dev, fused=leg == "fused")})
+    launches = {**fsk.LAUNCHES, **ssa.LAUNCHES}
+    assert all(launches[k] > 0 for k in names), launches
+    want = _stream_run(tmp_path / "numpy", lambda: {"backend": "numpy"})
+    assert len(got[0]) == len(want[0]) == 5
+    for i, ((gc, gn, gr), (wc, wn, wr)) in enumerate(zip(got[0], want[0])):
+        np.testing.assert_array_equal(gc, wc, err_msg=f"core, step {i}")
+        np.testing.assert_array_equal(gn, wn, err_msg=f"cnt, step {i}")
+        assert gr == wr, f"replies, step {i}"
+    assert got[1] == want[1]
+
+
+def test_stream_service_defaults_to_the_card(dev, tmp_path):
+    """Without backend or device the writer, its recovery and the replica
+    settle with the fused kernels on cuda:0."""
+    from repro_torch.stream import CoreReplica, CoreWriter
+
+    g = chung_lu(3000, 15000, seed=13)
+    paths = dict(wal_path=str(tmp_path / "wal.log"),
+                 snapshot_dir=str(tmp_path / "snaps"))
+    w = CoreWriter(g, **paths)
+    assert w.maintainer.backend.name == "cuda"
+    w.snapshot()
+    fsk.reset_launch_counts()
+    w.ingest([("-",) + tuple(map(int, e)) for e in g.edge_list()[:30]])
+    rep = CoreReplica(**paths)
+    w.close()
+    w2, rs = CoreWriter.recover(**paths)
+    assert fsk.LAUNCHES["row_pass"] > 0 and rs.warm_restart
+    for svc in (rep, w2):
+        assert svc.maintainer.backend.device == torch.device("cuda", 0)
+        np.testing.assert_array_equal(svc.maintainer.core, w.maintainer.core)
+        np.testing.assert_array_equal(svc.maintainer.cnt, w.maintainer.cnt)

@@ -172,6 +172,58 @@ def test_chunk_env_knob(monkeypatch):
                                "repro_resident_host_syncs_total") == 1
 
 
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_decompose_settings_reach_the_run(monkeypatch, backend):
+    """``decompose(g, settings=Settings(backend, resident_chunk))`` runs
+    on that backend in chunks of that many passes, as the reference's
+    does with its Settings; an explicit argument still wins."""
+    from repro.runtime import Settings as JSettings
+    from repro_torch.runtime import Settings
+
+    for var in ("REPRO_TORCH_BACKEND", "REPRO_TORCH_RESIDENT_CHUNK",
+                "REPRO_BACKEND", "REPRO_RESIDENT_CHUNK"):
+        monkeypatch.delenv(var, raising=False)
+    g = chung_lu(400, 1600, seed=3)
+    want = jdecompose(g, "semicore*", "batch", block_edges=64,
+                      settings=JSettings(
+                          backend="xla" if backend == "torch"
+                          else "pallas-interpret", resident_chunk=3))
+    reg = metrics.get_registry()
+    snap = reg.snapshot()
+    got = decompose(csr_from(g), "semicore*", "batch", block_edges=64,
+                    settings=Settings(backend=backend, resident_chunk=3),
+                    device="cpu")
+    syncs = metrics.sum_by_name(reg.delta(snap),
+                                "repro_resident_host_syncs_total")
+    assert got.backend == backend
+    assert syncs == -(-want.iterations // 3)
+    assert_same(got, want, backend)
+    r = decompose(csr_from(g), "semicore*", block_edges=64, backend="numpy",
+                  settings=Settings(backend=backend), device="cpu")
+    assert r.backend == "numpy"
+
+
+def test_host_engine_takes_the_reference_positions():
+    """``HostEngine(graph, block_edges, pool_blocks, retry, settings)`` by
+    position, as the reference's: the pool, the retry policy and the
+    Settings all land, and the run equals the reference's."""
+    from repro.faults import RetryPolicy as JRetry
+    from repro.runtime import Settings as JSettings
+    from repro_torch.faults import RetryPolicy
+    from repro_torch.runtime import Settings
+
+    g = chung_lu(400, 1600, seed=4)
+    retry = RetryPolicy(2, base_delay=0.0)
+    eng = HostEngine(csr_from(g), 64, 4, retry,
+                     Settings(backend="torch", resident_chunk=2))
+    ref = JHostEngine(g, 64, 4, JRetry(2, base_delay=0.0),
+                      JSettings(backend="xla", resident_chunk=2))
+    assert eng.reader.pool_blocks == 4 and eng.reader.retry is retry
+    got = eng.semicore_star("batch", device="cpu")
+    assert got.backend == "torch"
+    assert_same(got, ref.semicore_star("batch"), "positional")
+
+
 @pytest.mark.parametrize("schedule", ["seq", "batch"])
 def test_numpy_backend_matches_jax(schedule):
     g = chung_lu(400, 1600, seed=3)

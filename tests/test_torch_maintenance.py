@@ -414,6 +414,43 @@ def test_device_resident_off_takes_the_host_settle(monkeypatch, off_by):
     assert port.backend.structure_builds == builds
 
 
+@pytest.mark.parametrize("substrate", ["numpy", "cuda"])
+def test_maintainer_takes_the_reference_positions(substrate):
+    """``CoreMaintainer(graph, block_edges, state, pool_blocks, backend,
+    superstep_chunk, retry, settings)`` by position, as the reference's:
+    each lands, and the serial settle the Settings ask for equals the
+    reference's, state and stats."""
+    from repro.faults import RetryPolicy as JRetry
+    from repro_torch.faults import RetryPolicy
+
+    g = chung_lu(250, 1000, seed=13)
+    batches = FAMILIES["mixed"](g, 250, np.random.default_rng(31))
+    r = jimcore_bz(g)
+    ser = oracle(JBuffered(g))
+    retry = RetryPolicy(2, base_delay=0.0)
+    place = SUBSTRATES[substrate]()
+    port = CoreMaintainer(BufferedGraph(csr_from(g)), 64, (ser.core, ser.cnt),
+                          2, place["backend"], 4, retry,
+                          Settings(parallel_maint=False),
+                          device=place.get("device"))
+    ref = JMaintainer(JBuffered(g), 64, (ser.core, ser.cnt), 2,
+                      "numpy" if substrate == "numpy" else "xla", 4,
+                      JRetry(2, base_delay=0.0),
+                      JSettings(parallel_maint=False))
+    assert port.engine.reader.pool_blocks == 2
+    assert port.engine.reader.retry is retry
+    assert port.superstep_chunk == 4 and port.backend.name == substrate
+    np.testing.assert_array_equal(port.core, r)
+    for ops in batches:
+        batch = JBatch(ops)
+        got = port.apply(update_batch_from(batch))
+        want = ref.apply(batch)
+        ser.apply(batch)
+        assert not got.algorithm.startswith("parallel(")
+        same_state(port, ser)
+        same_stats(got, want)
+
+
 # ---------------------------------------------------- structure and buffer
 def test_noop_batch_rebuilds_no_structure():
     g = chung_lu(300, 1200, seed=6)

@@ -365,7 +365,7 @@ def test_core_graph_config_defaults_match_reference():
 
 def test_registry_loads_the_webscale_cells():
     assert get_config("semicore-webscale") is webscale.CLUEWEB
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         resolve_backend(webscale.CLUEWEB_SHARD.backend)
     # every other cell's backend resolves to a port backend by name
     for name in WEBSCALE[:-2]:

@@ -46,14 +46,19 @@ WALKED = ["repro_torch.configs.registry", "repro_torch.configs.shapes",
           "repro_torch.core.update", "repro_torch.graph.update_cases",
           "repro_torch.graph.build", "repro_torch.core.emcore",
           "repro_torch.faults.fs", "repro_torch.faults.plan",
-          "repro_torch.faults.retry", "repro_torch.configs.semicore_webscale"]
+          "repro_torch.faults.retry", "repro_torch.configs.semicore_webscale",
+          "repro_torch.obs.bench", "repro_torch.serve.registry",
+          "repro_torch.stream.admission", "repro_torch.stream.backpressure",
+          "repro_torch.stream.integrity", "repro_torch.stream.replica",
+          "repro_torch.stream.service", "repro_torch.stream.wal",
+          "repro_torch.stream.workload"]
 
 
 def test_ast_walk_covers_every_subpackage():
     """The import check below parses every module of every subpackage."""
     subpackages = {p.parent.name for p in SOURCES if p.name == "__init__.py"}
     assert {"configs", "core", "data", "faults", "graph", "kernels",
-            "models", "obs", "serve"} <= subpackages
+            "models", "obs", "serve", "stream"} <= subpackages
 
 
 # ------------------------------------------------------------- isolation
