@@ -56,7 +56,7 @@ Phases, each printing one JSON line:
              the main path's result exactly; a batch of no-ops that
              rebuilds no structure; a light batch (100 deletes, 100
              inserts whose candidate sets stay under the group cap) and a
-             mixed batch of 1,000 updates (45% deletes), each applied in
+             mixed batch of 300 updates (45% deletes), each applied in
              parallel on "cuda", serially on "cuda" (one warm_settle) and
              in parallel per probe, the three equal and equal to a fresh
              decompose of the materialised graph.  The light batch's
@@ -64,7 +64,8 @@ Phases, each printing one JSON line:
              took (the mixed batch's parallel legs fall back to
              warm_settle: a component past the cap).  The mixed batch is
              cut from 10,000: one parallel apply of 10,000 spends ~290 s
-             planning on the host (core/probe_maintain.py times it).  Each
+             planning on the host, of 1,000 44-76 s (core/probe_maintain.py
+             times any size).  Each
              apply prints its wall and host split (structural apply,
              planning, structure rebuild and upload, device settle), its
              supersteps' device ms, rounds, groups and fallbacks, block
@@ -88,6 +89,21 @@ Phases, each printing one JSON line:
              split, the query latency p50/p99 by kind, the snapshot save
              and manifest-check seconds, the bootstrap, sync and recovery
              walls and the superstep pair's launches
+  shard      the shard backend at full width on the main path's graph:
+             decompose(..., "semicore*") over [cuda:0] (S = 1) and
+             [cuda:0] * 4 (S = 4; one shard a card too when more are
+             visible), each equal to the main path's result in every field
+             but the kernel-block tallies and run again with each
+             superstep queued behind a busy-wait (device ms); S = 4 on the
+             kernels' plain versions, equal in every field; from the main
+             path's (core, cnt) a 100-edge delete through
+             CoreMaintainer.apply and a warm_settle of the graph less those
+             edges, on the shards and on "torch" (which counts updates as
+             the shard does), equal in every field.  Prints each run's
+             wall, supersteps, their ms and the gather's a superstep
+             (CUDA events around the backend's superstep and gather), the
+             host split by span, per-shard edges, shard_pad_edges and peak
+             device memory
   mind       full-width MIND (configs/mind.py, seeded weights, item table
              256 MB) serving the three recsys cells of configs/shapes.py
              (serve_p99: 512 users, 100 requests; serve_bulk: 262,144 users;
@@ -106,7 +122,9 @@ decode also at every boundary of its split rule and at cache_len <= 0.
 
 then the kernels line (launches on each kernel's path, on the
 maintain path (``maintain_launches``), on the out-of-core path
-(``outofcore_launches``) and on the stream path (``stream_launches``), error against the plain version,
+(``outofcore_launches``), on the stream path (``stream_launches``) and
+on the shard path (``shard_launches``, its runs but the timing reruns),
+error against the plain version,
 times and bounds; the superstep pair and the segment sums
 also at the state entering pass 20; the embedding bag also bit for bit
 against the slot-order sum, with its rate of gathered rows and at the
@@ -193,10 +211,11 @@ DECODE_SHAPES = (("served", 8, 32768, LM_PROMPT + LM_GENERATE),
 DECODE_HELD_LENS = (1, 256, 257, 544)
 #: the maintain phase: edges deleted and re-inserted in the round trip
 #: (and the light batch's deletes and inserts), updates of the mixed batch (deletes at repro/stream/workload.py's odds;
-#: 1,000, not 10,000, since the parallel plan of 10,000 takes ~290 s on
-#: the host), and the seed of both draws
+#: 300, not 10,000: the parallel plan of 10,000 takes ~290 s on the host,
+#: and of 1,000 44-76 s a leg, which put the script near its time limit),
+#: and the seed of both draws
 MAINTAIN_ROUND_TRIP = 100
-MAINTAIN_MIXED = 1_000
+MAINTAIN_MIXED = 300
 MAINTAIN_P_DELETE = 0.45
 MAINTAIN_SEED = 19
 #: the stream phase: micro-batches of one mixed draw from the main path's
@@ -208,6 +227,11 @@ STREAM_BATCH = 128
 STREAM_SNAPSHOT_EVERY = 4
 STREAM_QUERIES = 1_000
 STREAM_SEED = 23
+# the shard phase: shards on one card (the device list repeats cuda:0);
+# the busy-wait a superstep is queued behind when timed (~5 ms: S row
+# and push passes, the gather and the sums take the host up to ~1 ms)
+SHARD_COUNT = 4
+SHARD_QUEUE_CYCLES = 10_000_000
 #: the outofcore phase's builds run in a child process of their own (its
 #: peak RSS is the build's), which this script stops at this limit
 OOC_BUILD_TIMEOUT_S = 600
@@ -323,11 +347,41 @@ def launch_counts() -> dict:
     return out
 
 
-def powerlaw_graph(n: int, m: int):
+def powerlaw_graph(n: int, m: int, device=None):
+    """The seeded powerlaw graph: ``m`` endpoint pairs drawn on the host,
+    made the canonical CSR of ``CSRGraph.from_edges`` (self loops dropped,
+    duplicates merged, lists sorted, by the same int64 keys ``src * n +
+    dst``).  With a CUDA ``device`` the keys are sorted on the card, array
+    for array the host's (the small phase holds the two equal; the
+    outofcore phase holds the builder's tables to this graph)."""
     from repro_torch.graph import CSRGraph, powerlaw_chunks
 
     edges = np.concatenate(list(powerlaw_chunks(n=n, m=m, gamma=2.5, seed=0)))
-    return CSRGraph.from_edges(n, edges)
+    if device is None or device.type != "cuda":
+        return CSRGraph.from_edges(n, edges)
+    import torch
+
+    e = torch.as_tensor(edges, device=device)
+    del edges
+    e = e[e[:, 0] != e[:, 1]]
+    key = torch.unique(torch.minimum(e[:, 0], e[:, 1]) * n
+                       + torch.maximum(e[:, 0], e[:, 1]))  # sorted
+    del e
+    lo = key // n
+    hi = key - lo * n
+    del key
+    src = torch.cat([lo, hi])
+    dst = torch.cat([hi, lo])
+    del lo, hi
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    torch.cumsum(torch.bincount(src, minlength=n), 0, out=indptr[1:])
+    key = torch.sort(src * n + dst).values
+    del src, dst
+    adj = (key - key // n * n).to(torch.int32)
+    del key
+    g = CSRGraph(indptr=indptr.cpu().numpy(), adj=adj.cpu().numpy())
+    torch.cuda.empty_cache()
+    return g
 
 
 def bound(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S) -> tuple:
@@ -684,8 +738,12 @@ def phase_small(device, n: int, m: int) -> tuple:
     from repro_torch.graph import BufferedGraph
 
     t0 = time.perf_counter()
-    g = powerlaw_graph(n, m)
+    g = powerlaw_graph(n, m, device)
     gen_s = time.perf_counter() - t0
+    gh = powerlaw_graph(n, m)
+    check(np.array_equal(g.indptr, gh.indptr) and np.array_equal(g.adj, gh.adj),
+          "small: the graph made on the card != CSRGraph.from_edges'")
+    del gh
     expect = imcore_peel(g)
     out = {"phase": "small", "n": g.n, "directed_edges": g.num_directed,
            "dmax": int(g.degrees().max()), "kmax": int(expect.max()),
@@ -1729,6 +1787,208 @@ def phase_stream(device, g, r) -> dict:
     return total
 
 
+def shard_run(device, be, fn, queue_cycles: int = 0) -> tuple:
+    """``fn()`` (a run on the shard backend ``be``) traced with the counts
+    at 0: returns (its result, its record: wall, supersteps, their summed
+    ms and the gather's a superstep, each by CUDA events around ``be``'s
+    ``superstep`` and ``gather``, the host split by span, launches, peak
+    device memory, what was allocated at the start and the rise).  With
+    ``queue_cycles`` each superstep is queued behind
+    a device busy-wait that long, so that its events time its kernels
+    alone (device time; the wall then includes the waits)."""
+    import torch
+
+    from repro_torch.obs import trace
+
+    steps, gathers = [], []
+
+    def timed(store, call, queue=0):
+        def wrapped(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            if queue:
+                torch.cuda._sleep(queue)
+            s.record()
+            res = call(*a, **kw)
+            e.record()
+            store.append((s, e))
+            return res
+        return wrapped
+
+    be.superstep = timed(steps, be.superstep, queue_cycles)
+    be.gather = timed(gathers, be.gather)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    allocated = torch.cuda.memory_allocated(device)
+    reset_launch_counts()
+    trace.clear_trace()
+    trace.start_trace()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t
+    trace.stop_trace()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    del be.superstep, be.gather  # back to the class's methods
+    spans: dict = {}
+    for e in trace.get_collector().to_chrome()["traceEvents"]:
+        if e.get("ph") == "X":
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+    gather_ms = [a.elapsed_time(b) for a, b in gathers]
+    return res, {
+        "wall_s": wall, "supersteps": getattr(res, "iterations", None),
+        "supersteps_launched": len(steps),
+        "superstep_ms_total": sum(a.elapsed_time(b) for a, b in steps),
+        "queue_cycles": queue_cycles,
+        "gather_ms_per_superstep": sum(gather_ms) / max(1, len(gather_ms)),
+        "host_split_s": {k: spans.get(k, 0.0) for k in (
+            "resident.structure", "resident.chunk", "cnt_prologue",
+            "maintenance.structural", "maintenance.plan",
+            "maintenance.settle")},
+        "launches": launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+        "memory_allocated_start": allocated,
+        "peak_memory_rise": torch.cuda.max_memory_allocated(device)
+        - allocated}
+
+
+def phase_shard(device, g, r) -> dict:
+    """The shard backend at full width on the main path's graph ``g``:
+    ``decompose(..., "semicore*")`` over ``[cuda:0]`` (S = 1) and
+    ``[cuda:0] * SHARD_COUNT`` (and one shard a card where more than one is
+    visible), each equal to the main path's result ``r`` in every field
+    but the kernel-block tallies (which the shard backend does not keep);
+    the same at S = SHARD_COUNT on the kernels' plain versions, equal in
+    every field; then from ``r``'s (core, cnt) a ``MAINTAIN_ROUND_TRIP``-
+    edge delete through ``CoreMaintainer.apply`` and a ``warm_settle`` of
+    the graph less those edges, each on the shards and on "torch" (which
+    counts updates as the shard does), equal in every field.  Returns the
+    kernels' launches over the phase's shard runs."""
+    import torch
+
+    from repro_torch.core import (CoreMaintainer, Delete, HostEngine,
+                                  ShardedBackend, TorchBackend, UpdateBatch,
+                                  decompose, warm_settle)
+    from repro_torch.graph import BufferedGraph
+
+    out = {"phase": "shard", "n": g.n, "directed_edges": g.num_directed}
+    total: dict = {}
+    fields = ["iterations", "node_computations", "updates_per_iter",
+              "computations_per_iter", "edge_block_reads", "node_table_reads"]
+
+    def held(a, b, what, more=()):
+        check(np.array_equal(a.core, b.core), f"{what}: core")
+        check((a.cnt is None) == (b.cnt is None)
+              and (a.cnt is None or np.array_equal(a.cnt, b.cnt)),
+              f"{what}: cnt")
+        for f in fields + list(more):
+            check(getattr(a, f) == getattr(b, f), f"{what}: {f}")
+
+    def count(rec, what):
+        for name in ("row_pass", "push_pass"):
+            check(rec["launches"].get(name, 0) > 0,
+                  f"shard: {name} never launched on {what}")
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+    layouts = {"S1": [device], f"S{SHARD_COUNT}": [device] * SHARD_COUNT}
+    if torch.cuda.device_count() > 1:
+        layouts["one_a_card"] = [torch.device("cuda", i)
+                                 for i in range(torch.cuda.device_count())]
+    runs = {}
+    for label, devs in layouts.items():
+        be = ShardedBackend(devices=devs)
+        be.retain_structure = True  # read its tables after the run
+        res, rec = shard_run(device, be, lambda: decompose(
+            g, "semicore*", backend=be))
+        held(res, r, f"shard {label} vs the main path")
+        count(rec, f"the {label} decompose")
+        # again, each superstep queued behind a busy-wait: device time
+        res_q, rec_q = shard_run(device, be, lambda: decompose(
+            g, "semicore*", backend=be), SHARD_QUEUE_CYCLES)
+        held(res_q, r, f"shard {label} queued vs the main path")
+        rec["queued"] = {k: rec_q[k] for k in (
+            "superstep_ms_total", "gather_ms_per_superstep", "queue_cycles",
+            "wall_s")}
+        ss = be._resident
+        rec.update(num_shards=res.num_shards,
+                   shard_pad_edges=res.shard_pad_edges,
+                   per_shard_edges=[int(x) for x in ss.per_shard_edges],
+                   per_shard_push_edges=[int(t.in_nbr.shape[0])
+                                         for t in ss.shards],
+                   bounds=[int(x) for x in ss.bounds])
+        be.retain_structure = False
+        be.unbind()
+        out[label] = rec
+        runs[label] = res
+        torch.cuda.empty_cache()
+    label = f"S{SHARD_COUNT}"
+    t = time.perf_counter()
+    plain = decompose(g, "semicore*", backend=ShardedBackend(
+        devices=[device] * SHARD_COUNT, plain=True))
+    torch.cuda.synchronize(device)
+    out[f"{label}_plain_wall_s"] = time.perf_counter() - t
+    held(runs[label], plain, f"shard {label} vs its plain versions",
+         ["num_shards", "shard_pad_edges"])
+    held(runs["S1"], plain, "shard S1 vs the plain versions")
+    torch.cuda.empty_cache()
+
+    # maintenance from the main path's (core, cnt): the delete batch on
+    # the shards and on "torch", then a warm settle of the graph less it
+    rng = np.random.default_rng(MAINTAIN_SEED)
+    e = g.edge_list()
+    pick = e[rng.choice(len(e), MAINTAIN_ROUND_TRIP, replace=False)]
+    del e
+    dels = UpdateBatch(Delete(int(u), int(v)) for u, v in pick)
+    applied = {}
+    for leg, make in (("shard", lambda: ShardedBackend(
+            devices=[device] * SHARD_COUNT)),
+            ("torch", lambda: TorchBackend(device=device))):
+        m = CoreMaintainer(BufferedGraph(g), state=(r.core, r.cnt),
+                           backend=make())
+        stats, rec = shard_run(device, m.backend, lambda: m.apply(dels)) \
+            if leg == "shard" else timed_apply(device, m, dels, [])
+        rec["path"] = settle_path(stats)
+        applied[leg] = (m.core, m.cnt, stats)
+        if leg == "shard":
+            count(rec, "the delete batch")
+        out[f"delete_batch_{leg}"] = rec
+        del m
+        torch.cuda.empty_cache()
+    check(np.array_equal(applied["shard"][0], applied["torch"][0])
+          and np.array_equal(applied["shard"][1], applied["torch"][1]),
+          "shard: delete batch (core, cnt) != torch's")
+    for f in ("node_computations", "edge_block_reads", "node_table_reads",
+              "iterations", "num_changed", "num_deletes", "groups",
+              "largest_group", "fallbacks", "settle_passes"):
+        check(getattr(applied["shard"][2], f) == getattr(applied["torch"][2],
+                                                         f),
+              f"shard: delete batch {f} != torch's")
+
+    def settle(backend):
+        bg = BufferedGraph(g)
+        for u, v in pick:
+            bg.delete_edge(int(u), int(v))
+        return warm_settle(HostEngine(bg), r.core, 0, backend)
+
+    be = ShardedBackend(devices=[device] * SHARD_COUNT)
+    ws, rec = shard_run(device, be, lambda: settle(be))
+    count(rec, "the warm settle")
+    out["warm_settle_shard"] = rec
+    t = time.perf_counter()
+    wt = settle(TorchBackend(device=device))
+    torch.cuda.synchronize(device)
+    out["warm_settle_torch_wall_s"] = time.perf_counter() - t
+    held(ws, wt, "shard warm settle vs torch")
+    check(np.array_equal(ws.core, applied["shard"][0])
+          and np.array_equal(ws.cnt, applied["shard"][1]),
+          "shard: warm settle != the delete batch's state")
+    out["launches"] = dict(total)
+    torch.cuda.empty_cache()
+    emit(out)
+    return total
+
+
 def device_tables(g, device) -> dict:
     """The flat CSR on the card: segptr (n+1,), nbr and rows (E,), int32."""
     import torch
@@ -2579,7 +2839,7 @@ def main(argv: list) -> int:
     small = phase_small(device, *SMALL)
     # the LiveJournal-sized graph, built once for every full-width phase
     t0 = time.perf_counter()
-    g = powerlaw_graph(*FULL)
+    g = powerlaw_graph(*FULL, device)
     gen_s = time.perf_counter() - t0
     main_path = phase_full(device, g, gen_s)
     launches, r = main_path["launches"], main_path["result"]
@@ -2596,6 +2856,9 @@ def main(argv: list) -> int:
     # the stream path's launches: writer ingest, replica bootstrap and
     # sync, recovery, each with the counts set to 0 before it
     stream = phase_stream(device, g, r)
+    # the shard path's launches: counts set to 0 before each shard run and
+    # read after it, summed over the phase
+    shard = phase_shard(device, g, r)
     del g, r
     bag_launches, profile_embed, profile_ids = phase_mind(device)
     launches.update(bag_launches)
@@ -2606,6 +2869,7 @@ def main(argv: list) -> int:
         entry["maintain_launches"] = maintain.get(entry["name"], 0)
         entry["outofcore_launches"] = outofcore.get(entry["name"], 0)
         entry["stream_launches"] = stream.get(entry["name"], 0)
+        entry["shard_launches"] = shard.get(entry["name"], 0)
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -112,9 +112,13 @@ class CoreGraphConfig:
     pool_blocks: int = 1         # BlockReader LRU pool; 1 = paper's single buffer
     build_chunk_edges: int = 1 << 22  # out-of-core build ingest chunk (build.py)
     backend: str = "numpy"       # batch-schedule substrate (core/engine.py):
-                                 # numpy | torch | cuda | shard (the last not
-                                 # ported: resolve_backend refuses it)
-    num_shards: int | None = None  # mesh width for backend="shard"
+                                 # numpy | torch | cuda | shard
+    num_shards: int | None = None  # shards for backend="shard"
+                                 # (engine.ShardedBackend): contiguous edge
+                                 # shards minimax-balanced by edge count,
+                                 # replicated O(n) core, one gather of owned
+                                 # slices a superstep.  None =
+                                 # REPRO_TORCH_NUM_SHARDS, else one a GPU
     superstep_chunk: int = 8     # device-resident passes per host round-trip
                                  # (core/resident.py), threaded through
                                  # decompose / CoreMaintainer as
@@ -124,3 +128,12 @@ class CoreGraphConfig:
     def reduced(self) -> "CoreGraphConfig":
         return replace(self, n=2000, m_directed=16_000, max_deg=64,
                        build_chunk_edges=1 << 12)
+
+    def compute_backend(self, device=None):
+        """This cell's batch-schedule backend (``backend``, and for
+        ``"shard"`` its ``num_shards``), placed on ``device`` (for
+        ``"shard"``, the device of every shard; ``None``: the GPUs)."""
+        from ..core.engine import resolve_backend
+
+        return resolve_backend(self.backend, device,
+                               num_shards=self.num_shards)

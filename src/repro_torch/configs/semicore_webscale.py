@@ -38,8 +38,9 @@ TWITTER_PALLAS = CoreGraphConfig(name="semicore-twitter-pallas",
                                  max_deg=2_997_487, block_edges=4096,
                                  pool_blocks=1, build_chunk_edges=1 << 24,
                                  backend="cuda", superstep_chunk=4)
-# The Clueweb cell on a 256-device mesh (the reference's sharded backend;
-# not ported, ROADMAP Queue 1 item 5).
+# The Clueweb cell over 256 shards (the shard backend: one contiguous edge
+# shard a device, the O(n) core replicated on each, ~3.9 GB; its
+# compute_backend() needs 256 listed devices).
 CLUEWEB_SHARD = CoreGraphConfig(name="semicore-clueweb-shard",
                                 n=978_408_098, m_directed=85_148_214_938,
                                 max_deg=75_611_696, block_edges=4096,

@@ -20,7 +20,10 @@ The port's counterpart of ``repro/core/engine.py``:
   :class:`TorchBackend` (plain torch prefix sums, counterpart of
   ``XLABackend``).  Device backends run the whole fixpoint device-resident
   (``resident.run_resident``) unless ``REPRO_TORCH_DEVICE_RESIDENT=0``
-  selects the per-pass loop below.
+  selects the per-pass loop below.  :class:`ShardedBackend` cuts the edge
+  table into contiguous node-range shards over a list of devices and runs
+  the fused superstep on every shard (``resident.run_sharded``); it has
+  no per-pass loop.
 
 Device backends run on ``cuda:0`` unless given another device; asking for
 the default device without a GPU raises (``device="cpu"`` runs the kernels'
@@ -29,6 +32,7 @@ plain versions on the host, as the CPU tests do).
 from __future__ import annotations
 
 import functools
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -47,6 +51,7 @@ __all__ = [
     "DeviceBackend",
     "CudaBackend",
     "TorchBackend",
+    "ShardedBackend",
     "edge_ge_counts",
     "hindex_bsearch",
     "resolve_backend",
@@ -127,6 +132,11 @@ class DecompResult:
     # block size; active + skipped = kernel blocks summed over passes
     kernel_blocks_active: int = 0
     kernel_blocks_skipped: int = 0
+    # shard backend only: the number of shards and the padding cost of the
+    # reference's rectangular (S, E) shard layout (slots wasted by padding
+    # every shard to the heaviest one's edge count)
+    num_shards: int = 0
+    shard_pad_edges: int = 0
 
     @property
     def kmax(self) -> int:
@@ -574,11 +584,164 @@ class TorchBackend(DeviceBackend):
         return cnt.cpu().numpy().astype(np.int64)
 
 
-def resolve_backend(backend=None, device=None) -> ComputeBackend:
+def _indexed(device) -> torch.device:
+    """``device`` as a torch.device, ``"cuda"`` with its index made
+    explicit (so one card listed two ways is one device)."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+class ShardedBackend(DeviceBackend):
+    """The shard substrate: the paper's semi-external contract over a list
+    of devices (counterpart of the reference's mesh ``ShardedBackend``).
+
+    Edge shards never move: ``distributed.shard_layout`` cuts the merged
+    flat table into contiguous node ranges minimax-balanced by edge count,
+    so every owned node's complete adjacency is local.  Each shard is an
+    ordinary table of the fused superstep kernels, of full length n: its
+    rows outside its range are empty.  Node state (``core``) is replicated
+    O(n) per distinct device.  A superstep (``resident.run_sharded``) runs
+    ``row_pass`` on every shard from the pass-start core, gathers the owned
+    slices into one post-update core per device (the one gather a
+    superstep), runs ``push_pass`` on every shard against it and sums the
+    shards' frontier counts.  The planner's I/O trace is replayed on the
+    host from the per-chunk owned frontier slices, so the shard backend
+    walks the numpy backend's exact passes at every shard count.
+
+    ``devices`` lists the shards' devices and may repeat one (several
+    shards on one card, or on the CPU); ``None`` takes every visible GPU
+    and raises without one.  ``num_shards`` (``None``: one a listed device)
+    may not exceed the list's length.  ``plain=True`` runs the fused
+    kernels' plain torch versions on the listed devices: the yardstick the
+    card's parity checks compare with.  The bound
+    :class:`~repro_torch.core.resident.ShardedStructure` is cached per
+    base-CSR version like the flat resident table.  There is no per-pass
+    host loop (``requires_resident``), and no CPU fallback: a CUDA device
+    runs the kernels or raises.
+    """
+
+    name = "shard"
+    consumes_gather = False
+    mesh_sharded = True       # run_resident dispatches to run_sharded
+    requires_resident = True  # no per-pass loop exists for this one
+
+    def __init__(self, num_shards: int | None = None, devices=None,
+                 plain: bool = False):
+        from ..kernels import fused_superstep as fsk
+
+        if devices is None:
+            first = resolve_device(None)  # raises without a GPU
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())] or [first]
+        self.devices = [_indexed(d) for d in devices]
+        if not self.devices:
+            raise ValueError("shard backend: the device list is empty")
+        super().__init__(self.devices[0])
+        self.num_shards = None if num_shards is None else int(num_shards)
+        self.plain = bool(plain)
+        if self.plain:
+            self.name = "shard-plain"
+            self.row_pass = lambda *a, plan=None: fsk.row_pass_plain(*a)
+            self.push_pass = lambda *a, plan=None: fsk.push_pass_plain(*a)
+        else:
+            self.row_pass = fsk.row_pass
+            self.push_pass = fsk.push_pass
+
+    def resolve_shards(self) -> int:
+        avail = len(self.devices)
+        S = avail if self.num_shards is None else self.num_shards
+        if not 1 <= S <= avail:
+            raise ValueError(
+                f"shard backend: num_shards={S} but only {avail} device(s) "
+                "are listed; list a device once per shard (it may repeat, "
+                "e.g. devices=[cuda:0] * S) or lower CoreGraphConfig."
+                "num_shards / REPRO_TORCH_NUM_SHARDS")
+        return S
+
+    def bind_resident(self, planner: "PassPlanner"):
+        from .resident import build_sharded_structure
+
+        planner.eng._sync()
+        S = self.resolve_shards()
+        ss = self._resident
+        if ss is not None and ss.S == S and ss.matches(planner):
+            return ss
+        with _trace.span("resident.structure", cat="engine",
+                         backend=self.name, nodes=planner.n, shards=S):
+            ss = build_sharded_structure(planner, S, self.devices[:S])
+        self.structure_builds += 1
+        self._resident = ss
+        return ss
+
+    def gather(self, ss, core2_parts) -> dict:
+        """The superstep's one gather: each shard's owned slice of its
+        post-update core copied into one (n,) core per distinct device
+        (a peer copy between cards, a slice copy within one)."""
+        out = {}
+        for dev in ss.devices:
+            full = torch.empty(ss.n, dtype=torch.int32, device=dev)
+            for t, part in zip(ss.shards, core2_parts):
+                full[t.lo:t.hi].copy_(part[t.lo:t.hi])
+            out[dev] = full
+        return out
+
+    def superstep(self, ss, core, cnt, active, *, algorithm, cand=None):
+        """One superstep over every shard.
+
+        ``core`` maps each device to its replicated (n,) int32 pass-start
+        core; ``cnt`` and ``active`` hold one (n,) array per shard, only
+        its owned rows meaningful (``active`` False elsewhere).  Returns
+        ``(core2, cnt2, active2, upd, nact)`` in the same layout; ``upd``
+        (rows whose core changed, counted on the gathered core as the
+        reference's shard does) and ``nact`` (next frontier size) are 0-dim
+        int32 on the first device.  ``cand`` (one owned mask a shard)
+        confines the next frontier (the masked settle)."""
+        from ..kernels import fused_superstep as fsk
+
+        mode = fsk._ALGORITHM_MODE[algorithm]
+        star = mode == fsk.MODE_SEMICORE_STAR
+        parts = [self.row_pass(mode, t.segptr, t.nbr, core[t.device],
+                               cnt[i] if star else None, active[i],
+                               plan=t.plan)
+                 for i, t in enumerate(ss.shards)]
+        core2 = self.gather(ss, [p[0] for p in parts])
+        d0 = ss.devices[0]
+        upd = (core2[d0] != core[d0]).sum(dtype=torch.int32)
+        if mode == fsk.MODE_SEMICORE:
+            return core2, cnt, active, upd, None
+        cnt2, active2 = [], []
+        for i, t in enumerate(ss.shards):
+            target = parts[i][1] if star else torch.zeros_like(core[t.device])
+            a2 = self.push_pass(mode, t.in_segptr, t.in_nbr, core[t.device],
+                                core2[t.device], t.every_row, target,
+                                plan=t.in_plan)
+            active2.append(a2 & (t.owned if cand is None else cand[i]))
+            cnt2.append(target if star else None)
+        nact = sum(a.sum(dtype=torch.int32).to(d0) for a in active2)
+        return core2, cnt2 if star else cnt, active2, upd, nact
+
+    def counts(self, ss, core) -> list:
+        """The warm settle's Eq. 2 prologue on every shard: #(nbr core >=
+        core) of each owned row (one ``fused_counts`` row pass a shard)."""
+        from ..kernels import fused_superstep as fsk
+
+        return [self.row_pass(fsk.MODE_COUNTS, t.segptr, t.nbr,
+                              core[t.device], core[t.device], t.owned,
+                              plan=t.plan)[0]
+                for t in ss.shards]
+
+
+def resolve_backend(backend=None, device=None, *,
+                    num_shards: int | None = None) -> ComputeBackend:
     """Backend instance passthrough, or by name (``"cuda"`` | ``"torch"`` |
-    ``"numpy"``); ``None`` resolves ``REPRO_TORCH_BACKEND`` (default
-    ``"cuda"``), as the reference's ``resolve_backend`` does.  ``device``
-    places a named device backend."""
+    ``"shard"`` | ``"numpy"``); ``None`` resolves ``REPRO_TORCH_BACKEND``
+    (default ``"cuda"``), as the reference's ``resolve_backend`` does.
+    ``device`` places a named device backend; for ``"shard"`` it is the
+    device of every shard (``None``: one shard a visible GPU), and
+    ``num_shards`` (else ``REPRO_TORCH_NUM_SHARDS``, the reference's
+    ``REPRO_NUM_SHARDS``) the number of shards."""
     if isinstance(backend, ComputeBackend):
         return backend
     name = str(backend if backend is not None
@@ -590,8 +753,11 @@ def resolve_backend(backend=None, device=None) -> ComputeBackend:
     if name == "torch":
         return TorchBackend(device=device)
     if name == "shard":
-        raise NotImplementedError(
-            "backend 'shard' is not ported yet (ROADMAP Queue 1 item 5)")
+        if num_shards is None:
+            ns = os.environ.get("REPRO_TORCH_NUM_SHARDS")
+            num_shards = int(ns) if ns else None
+        devices = None if device is None else [device] * (num_shards or 1)
+        return ShardedBackend(num_shards=num_shards, devices=devices)
     raise ValueError(f"unknown compute backend {name!r}")
 
 
@@ -724,7 +890,10 @@ class PassPlanner:
 def resident_on(engine, backend) -> bool:
     """Whether ``backend`` settles in the device-resident fixpoint:
     a device backend, unless ``REPRO_TORCH_DEVICE_RESIDENT=0`` or, with
-    that unset, the ``device_resident`` of ``engine``'s Settings says no."""
+    that unset, the ``device_resident`` of ``engine``'s Settings says no;
+    always for a backend with no per-pass loop (``requires_resident``)."""
+    if getattr(backend, "requires_resident", False):
+        return True
     settings = getattr(engine, "settings", None)
     return backend.device_resident and _runtime.setting(
         "device_resident", None if settings is None

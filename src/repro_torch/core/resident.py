@@ -40,7 +40,11 @@ from .engine import (DecompResult, _KB_ACTIVE, _KB_SKIPPED, _MAINT_PROLOGUE,
 
 __all__ = [
     "ResidentStructure",
+    "ShardedStructure",
+    "ShardTable",
     "build_structure",
+    "build_sharded_structure",
+    "run_sharded",
     "probe_ops",
     "run_resident",
     "chunk_len",
@@ -341,6 +345,7 @@ def run_resident(engine, algorithm: str, backend, *,
                  cnt: np.ndarray | None = None,
                  initial_cnt_scan: bool = False,
                  superstep_chunk: int | None = None,
+                 max_supersteps: int | None = None,
                  settle_mask: np.ndarray | None = None) -> DecompResult:
     """Run a batch-schedule decomposition with the fixpoint device-resident.
 
@@ -354,7 +359,20 @@ def run_resident(engine, algorithm: str, backend, *,
     the frontier starts at ``(cnt < core) & (core > 0) & mask`` and stays
     inside it.  Frozen nodes keep their core; their cnt still takes exact
     push decrements from falling masked neighbours.
+
+    A sharded backend (``ShardedBackend``) dispatches to
+    :func:`run_sharded`: the same contract with the edge table cut into
+    shards, plus the ``max_supersteps`` budget (the flat path refuses it).
     """
+    if getattr(backend, "mesh_sharded", False):
+        return run_sharded(engine, algorithm, backend, core=core, cnt=cnt,
+                           initial_cnt_scan=initial_cnt_scan,
+                           superstep_chunk=superstep_chunk,
+                           max_supersteps=max_supersteps,
+                           settle_mask=settle_mask)
+    if max_supersteps is not None:
+        raise ValueError("max_supersteps is only supported on the shard "
+                         "backend (budgeted runs)")
     if settle_mask is not None and algorithm != "semicore*":
         raise ValueError("settle_mask is a semicore* (cnt-gated) discipline")
 
@@ -560,5 +578,392 @@ def run_resident(engine, algorithm: str, backend, *,
             if sp.active:
                 sp.set(passes_run=int(ran_h.sum()))
         if done:
+            break
+    return result(core_t, None)
+
+
+
+# ===========================================================================
+# Sharded execution (the `shard` backend)
+# ===========================================================================
+@dataclass
+class ShardTable:
+    """One shard's device tables: two ordinary fused-superstep tables of
+    full length n over the shard's owned range ``[lo, hi)``.
+
+    * ``segptr``/``nbr`` — the shard's rows: empty outside ``[lo, hi)``,
+      neighbours as global ids (the row pass's table);
+    * ``in_segptr``/``in_nbr`` — the edges *into* the owned range: every
+      row's neighbours that lie in ``[lo, hi)`` (by the CSR's symmetry,
+      the transpose of the shard's rows, as many edges; the push pass's
+      table, so a changed row anywhere pushes its decrements or marks
+      into the owned rows that need them, and into no other).
+
+    ``plan``/``in_plan`` are the kernels' work-list layouts (built once at
+    bind), ``owned`` the (n,) mask of ``[lo, hi)``, ``every_row`` an all-True
+    (n,) mask (the push pass's pushers: the rows whose core changed).
+    """
+
+    device: torch.device
+    lo: int
+    hi: int
+    segptr: torch.Tensor     # (n+1,) int32
+    nbr: torch.Tensor        # (E_s,) int32
+    in_segptr: torch.Tensor  # (n+1,) int32
+    in_nbr: torch.Tensor     # (E_s,) int32
+    plan: torch.Tensor
+    in_plan: torch.Tensor
+    owned: torch.Tensor      # (n,) bool
+    every_row: torch.Tensor  # (n,) bool
+
+
+@dataclass
+class ShardedStructure:
+    """The sharded working set of one graph version.
+
+    The merged flat adjacency is cut into contiguous node-range shards
+    (``distributed.shard_layout``: minimax edge balance, int32-validated)
+    and uploaded once per structural version — the version-keyed cache
+    contract of :class:`ResidentStructure`.  The host fields are the
+    reference's (``owned_ids_h``/``owned_mask_h``, the rectangular
+    layout's ``pad_edges``, ``per_shard_edges``); the device side is one
+    :class:`ShardTable` per shard that owns a node (``shards``; a shard
+    with an empty range has none, and takes no part in a superstep).
+    """
+
+    graph: object            # base CSRGraph this structure was built from
+    version: int             # BufferedGraph.version at build time (0 if none)
+    n: int
+    E: int                   # merged flat edge count (buffered deltas applied)
+    S: int                   # number of shards
+    V: int                   # owned-node slots per shard (padded)
+    seg_ptr: np.ndarray      # (n+1,) int64 merged flat offsets, host
+    bounds: np.ndarray       # (S+1,) int64 node-range cuts
+    owned_ids_h: np.ndarray  # (S, V) int32 host — global id per slot (pad n)
+    owned_mask_h: np.ndarray # (S, V) bool host
+    pad_edges: int           # S * Emax - E (the rectangular layout's waste)
+    per_shard_edges: np.ndarray  # (S,) int64
+    devices: list            # the distinct devices, in first-shard order
+    shards: list             # ShardTable per shard with nodes
+
+    def matches(self, planner) -> bool:
+        buffered = planner.eng.buffered
+        ver = buffered.version if buffered is not None else 0
+        return self.graph is planner.eng.graph and self.version == ver
+
+
+def _shard_table(nbr_flat: np.ndarray, seg_ptr: np.ndarray, lo: int,
+                 hi: int, device) -> ShardTable:
+    """One shard's tables on ``device``, from the host flat table: its
+    rows uploaded, their transpose built there (a stable sort of the
+    shard's edges by target), so a device holds only its shards' edges."""
+    from ..kernels.fused_superstep import bin_plan
+
+    n = len(seg_ptr) - 1
+    e0, e1 = int(seg_ptr[lo]), int(seg_ptr[hi])
+    segptr = torch.as_tensor((np.clip(seg_ptr, e0, e1) - e0).astype(
+        np.int32)).to(device, copy=True)
+    nbr = torch.as_tensor(np.ascontiguousarray(
+        nbr_flat[e0:e1], dtype=np.int32)).to(device, copy=True)
+    if lo == 0 and hi == n:
+        # every row owned: the rows are their own transpose (symmetry)
+        in_segptr, in_nbr = segptr, nbr
+    else:
+        rows = torch.repeat_interleave(
+            torch.arange(n, dtype=torch.int32, device=device),
+            segptr[1:] - segptr[:-1], output_size=e1 - e0)
+        in_nbr = rows[torch.argsort(nbr, stable=True)]
+        del rows
+        in_segptr = torch.zeros(n + 1, dtype=torch.int32, device=device)
+        torch.cumsum(torch.bincount(nbr, minlength=n), 0, dtype=torch.int32,
+                     out=in_segptr[1:])
+    owned = torch.zeros(n, dtype=torch.bool, device=device)
+    owned[lo:hi] = True
+    return ShardTable(
+        device=torch.device(device), lo=lo, hi=hi, segptr=segptr, nbr=nbr,
+        in_segptr=in_segptr, in_nbr=in_nbr, plan=bin_plan(segptr),
+        in_plan=bin_plan(in_segptr), owned=owned,
+        every_row=torch.ones(n, dtype=torch.bool, device=device))
+
+
+def build_sharded_structure(planner, num_shards: int,
+                            devices: list) -> ShardedStructure:
+    """Merged flat adjacency of all nodes, cut into shards, each uploaded
+    once to its device (``devices``: one a shard); charge-free, like
+    :func:`build_structure` (disk I/O stays per pass, replayed
+    planner-side)."""
+    from .distributed import shard_layout
+
+    planner.eng._sync()
+    nbr_flat, seg_ptr = planner.full_structure()
+    n = planner.n
+    E = int(len(nbr_flat))
+    lay = shard_layout(seg_ptr, num_shards, n)
+    if E and (int(nbr_flat.min()) < 0 or int(nbr_flat.max()) >= n):
+        raise ValueError(f"neighbour ids must lie in [0, {n})")
+    S = int(lay["owned_ids"].shape[0])
+    bounds = lay["bounds"]
+    distinct = list(dict.fromkeys(torch.device(d) for d in devices[:S]))
+    seg_ptr = np.asarray(seg_ptr, dtype=np.int64)
+    shards = [_shard_table(nbr_flat, seg_ptr, int(bounds[s]),
+                           int(bounds[s + 1]), devices[s])
+              for s in range(S) if bounds[s] < bounds[s + 1]]
+    buffered = planner.eng.buffered
+    return ShardedStructure(
+        graph=planner.eng.graph,
+        version=buffered.version if buffered is not None else 0,
+        n=n,
+        E=E,
+        S=S,
+        V=int(lay["owned_ids"].shape[1]),
+        seg_ptr=seg_ptr,
+        bounds=bounds,
+        owned_ids_h=lay["owned_ids"],
+        owned_mask_h=lay["owned_mask"],
+        pad_edges=int(lay["pad_edges"]),
+        per_shard_edges=lay["per_shard_edges"],
+        devices=distinct,
+        shards=shards,
+    )
+
+
+def run_sharded(engine, algorithm: str, backend, *,
+                core: np.ndarray | None = None,
+                cnt: np.ndarray | None = None,
+                initial_cnt_scan: bool = False,
+                superstep_chunk: int | None = None,
+                max_supersteps: int | None = None,
+                settle_mask: np.ndarray | None = None) -> DecompResult:
+    """Run a batch-schedule decomposition with the edge table sharded.
+
+    The shard-layout sibling of :func:`run_resident`: identical passes,
+    histories and planner replay, with cnt and the frontier kept
+    owner-local (one (n,) array a shard, only its owned rows meaningful)
+    and the core replicated per device.  Each superstep is the backend's
+    :meth:`~repro_torch.core.engine.ShardedBackend.superstep`.  Updates
+    are counted on the gathered core, as the reference's shard does: an
+    edgeless row that drops counts.  ``max_supersteps`` budgets the run
+    exactly (the last chunk is cut to the remaining budget); the partial
+    core is a valid upper bound by monotone convergence.
+    """
+    if settle_mask is not None and algorithm != "semicore*":
+        raise ValueError("settle_mask is a semicore* (cnt-gated) discipline")
+    if algorithm not in ("semicore", "semicore+", "semicore*"):
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    planner = engine.planner
+    n = engine.n
+    ss = backend.bind_resident(planner)
+    chunk = chunk_len(superstep_chunk)
+    om = _pass_obs(algorithm, backend.name)
+    d0 = ss.devices[0] if ss.devices else None  # none: no node, no edge
+
+    warm = core is not None
+    if warm:
+        core = np.asarray(core, dtype=np.int64).copy()
+    else:
+        core = engine.degrees().astype(np.int64)
+
+    upd_hist: list = []
+    comp_hist: list = []
+    iters = 0
+    comp = 0
+    all_nodes = np.arange(n, dtype=np.int64)
+
+    def replicate(arr) -> dict:
+        host = torch.as_tensor(np.asarray(arr, dtype=np.int32))
+        return {d: host.to(d, copy=True) for d in ss.devices}
+
+    def localize(arr, dtype) -> list:
+        """A global (n,) host array as one (n,) array a shard, zero (False)
+        outside the shard's owned range."""
+        host = torch.as_tensor(np.asarray(arr).astype(dtype))
+        out = []
+        for t in ss.shards:
+            x = torch.zeros(n, dtype=host.dtype, device=t.device)
+            x[t.lo:t.hi] = host[t.lo:t.hi].to(t.device)
+            out.append(x)
+        return out
+
+    def globalize(parts) -> np.ndarray:
+        """The owned slices of per-shard (n,) arrays as one host array."""
+        out = np.zeros(n, dtype=np.int64)
+        for t, x in zip(ss.shards, parts):
+            out[t.lo:t.hi] = x[t.lo:t.hi].cpu().numpy()
+        return out
+
+    def chunk_size() -> int:
+        if max_supersteps is None:
+            return chunk
+        return max(1, min(chunk, max_supersteps - iters))
+
+    def budget_hit() -> bool:
+        return max_supersteps is not None and iters >= max_supersteps
+
+    def pull(fronts, upds, ran, done):
+        """One chunk's summaries to the host: (frontier masks or None,
+        updates, ran flags, done); the masks from the owned slices."""
+        _HOST_SYNCS.inc()
+        summary = torch.stack(
+            [*upds, *(r.to(torch.int32) for r in ran),
+             done.to(torch.int32)]).cpu().numpy()
+        k = len(upds)
+        masks = None
+        if fronts:
+            masks = np.zeros((k, n), dtype=bool)
+            for i, t in enumerate(ss.shards):
+                masks[:, t.lo:t.hi] = torch.stack(
+                    [f[i][t.lo:t.hi] for f in fronts]).cpu().numpy()
+        return masks, summary[:k], summary[k:2 * k].astype(bool), \
+            bool(summary[-1])
+
+    def result(core_f, cnt_f):
+        backend.unbind()
+        return DecompResult(
+            core=_host(core_f[d0] if isinstance(core_f, dict) else core_f),
+            cnt=None if cnt_f is None else _host(cnt_f),
+            iterations=iters,
+            node_computations=comp,
+            edge_block_reads=planner.reader.reads,
+            node_table_reads=planner.reader.node_table_reads,
+            algorithm=algorithm,
+            schedule="batch",
+            updates_per_iter=upd_hist,
+            computations_per_iter=comp_hist,
+            backend=backend.name,
+            num_shards=ss.S,
+            shard_pad_edges=ss.pad_edges,
+        )
+
+    def replay_all_nodes(upd: int) -> None:
+        nonlocal iters, comp
+        iters += 1
+        comp += n
+        upd_hist.append(upd)
+        comp_hist.append(n)
+        planner.charge_only(all_nodes)
+        planner.account_node_scan(0, n - 1)
+        om[0].inc()
+        om[1].inc(n)
+        om[2].inc(upd)
+
+    def frontier_loop(algo, core_t, cnt_t, active_t, cand_t):
+        """The chunked loop of semicore* / semicore+ from the owned
+        frontier ``active_t``; returns the final (core, cnt)."""
+        nonlocal iters, comp
+        nact = sum(a.sum(dtype=torch.int32).to(d0) for a in active_t)
+        while True:
+            with _trace.span("resident.chunk", cat="engine", algorithm=algo,
+                             backend=backend.name, shards=ss.S,
+                             chunk=chunk) as sp:
+                fronts, upds, ran = [], [], []
+                for _ in range(chunk_size()):
+                    fronts.append(active_t)
+                    ran.append(nact > 0)
+                    core_t, cnt_t, active_t, upd, nact = backend.superstep(
+                        ss, core_t, cnt_t, active_t, algorithm=algo,
+                        cand=cand_t)
+                    upds.append(upd)
+                masks, upds_h, ran_h, done = pull(fronts, upds, ran,
+                                                  nact == 0)
+                iters, comp = _replay_chunk(
+                    planner, ss, 0, 0, None, masks, upds_h, ran_h, upd_hist,
+                    comp_hist, iters, comp, om, algo)
+                if sp.active:
+                    sp.set(passes_run=int(ran_h.sum()))
+            if done or budget_hit():
+                return core_t, cnt_t
+
+    # ------------------------------------------------------------ semicore*
+    if algorithm == "semicore*":
+        core_t = replicate(core) if ss.E else None
+        if initial_cnt_scan:
+            # warm_settle prologue: one accounted full scan recomputes cnt
+            # exactly (Eq. 2) w.r.t. the warm upper bound, on every shard
+            t0 = time.perf_counter()
+            with _trace.span("cnt_prologue", cat="maintenance",
+                             backend=backend.name, nodes=n):
+                planner.charge_only(all_nodes)
+                planner.account_node_scan(0, n - 1)
+                if ss.E:
+                    cnt = globalize(backend.counts(ss, core_t))
+                else:
+                    cnt = np.zeros(n, dtype=np.int64)
+            _MAINT_PROLOGUE.observe(time.perf_counter() - t0)
+        elif warm:
+            cnt = np.asarray(cnt, dtype=np.int64).copy()
+        else:
+            cnt = np.zeros(n, dtype=np.int64)
+        active0 = (cnt < core) & (core > 0)
+        if settle_mask is not None:
+            active0 &= np.asarray(settle_mask, dtype=bool)
+        if ss.E == 0:
+            # edgeless table: any deficient node drops straight to h = 0 in
+            # one pass, and nothing can re-activate — numpy's loop verbatim
+            if active0.any():
+                f = np.flatnonzero(active0)
+                iters, comp = 1, len(f)
+                upd = int((core[f] != 0).sum())
+                upd_hist.append(upd)
+                comp_hist.append(len(f))
+                _replay_pass(planner, f, None, ss, 0, 0)
+                om[0].inc()
+                om[1].inc(len(f))
+                om[2].inc(upd)
+                core[f] = 0
+                cnt[f] = 0
+            return result(core, cnt)
+        if not active0.any():
+            # settled warm state: zero passes, like numpy's while-loop
+            return result(core, cnt)
+        cand_t = None if settle_mask is None else localize(
+            np.asarray(settle_mask, dtype=bool), bool)
+        core_t, cnt_t = frontier_loop(
+            "semicore*", core_t, localize(cnt, np.int32),
+            localize(active0, bool), cand_t)
+        return result(core_t, globalize(cnt_t))
+
+    # ------------------------------------------------- semicore / semicore+
+    if ss.E == 0:
+        # h == core == degrees == 0 everywhere: one all-node pass converges
+        # (semicore runs it even on an empty graph, as numpy's loop does)
+        if algorithm == "semicore" or n:
+            replay_all_nodes(0)
+        return result(core, None)
+
+    core_t = replicate(core)
+    if algorithm == "semicore+":
+        core_t, _ = frontier_loop("semicore+", core_t, None,
+                                  localize(np.ones(n, dtype=bool), bool),
+                                  None)
+        return result(core_t, None)
+
+    # semicore: every node, every pass — the final no-update pass included;
+    # once done, the pass sees no row active and changes nothing
+    done_t = torch.zeros((), dtype=torch.bool, device=d0)
+    while True:
+        with _trace.span("resident.chunk", cat="engine",
+                         algorithm="semicore", backend=backend.name,
+                         shards=ss.S, chunk=chunk) as sp:
+            upds, ran = [], []
+            for _ in range(chunk_size()):
+                running = ~done_t
+                ran.append(running)
+                active_t = [t.owned & running.to(t.device)
+                            for t in ss.shards]
+                core_t, _, _, upd, _ = backend.superstep(
+                    ss, core_t, None, active_t, algorithm="semicore")
+                done_t = upd == 0
+                upds.append(upd)
+            _, upds_h, ran_h, done = pull([], upds, ran, done_t)
+            for k in range(len(ran_h)):
+                if not ran_h[k]:
+                    break
+                replay_all_nodes(int(upds_h[k]))
+                _trace.instant("superstep.replay", cat="engine",
+                               algorithm="semicore", index=iters,
+                               frontier=n, updates=int(upds_h[k]))
+            if sp.active:
+                sp.set(passes_run=int(ran_h.sum()))
+        if done or budget_hit():
             break
     return result(core_t, None)

@@ -804,12 +804,22 @@ class CoreWriter(QueryAPI):
             if applied_d or applied_i:
                 warm_restart = True
                 bg.flush()  # one CSR rewrite so the settle scans exact lists
+                # the settle's backend and chunk as the writer's maintainer
+                # resolves them: arguments, then settings, then the knobs
+                settings = service_kwargs.get("settings")
+                backend = service_kwargs.get("backend")
+                chunk = service_kwargs.get("superstep_chunk")
+                if settings is not None:
+                    if backend is None:
+                        backend = settings.backend
+                    if chunk is None:
+                        chunk = settings.resident_chunk
                 eng = HostEngine(bg, block_edges, pool_blocks=pool_blocks,
-                                 retry=service_kwargs.get("retry"))
-                settle = warm_settle(
-                    eng, core0, applied_i, service_kwargs.get("backend"),
-                    superstep_chunk=service_kwargs.get("superstep_chunk"),
-                    device=service_kwargs.get("device"))
+                                 retry=service_kwargs.get("retry"),
+                                 settings=settings)
+                settle = warm_settle(eng, core0, applied_i, backend,
+                                     superstep_chunk=chunk,
+                                     device=service_kwargs.get("device"))
                 state = (settle.core, settle.cnt)
             else:
                 state = (core0, cnt0)

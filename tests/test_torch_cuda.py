@@ -15,6 +15,8 @@ from repro_torch.core import (CudaBackend, HostEngine, TorchBackend,  # noqa: E4
                               decompose, warm_settle)
 from repro_torch.core.imcore import imcore_peel  # noqa: E402
 from repro_torch.graph import BufferedGraph, chung_lu  # noqa: E402
+from repro_torch.graph.differential_cases import (  # noqa: E402
+    BACKINGS as DIFF_BACKINGS, FAMILIES as DIFF_FAMILIES, with_backing)
 from repro_torch.graph.update_cases import FAMILIES as update_families  # noqa: E402
 from repro_torch.kernels import fused_superstep as fsk  # noqa: E402
 from repro_torch.kernels import segsum as ssk, segsum_active as ssa  # noqa: E402
@@ -1257,3 +1259,139 @@ def test_stream_service_defaults_to_the_card(dev, tmp_path):
         assert svc.maintainer.backend.device == torch.device("cuda", 0)
         np.testing.assert_array_equal(svc.maintainer.core, w.maintainer.core)
         np.testing.assert_array_equal(svc.maintainer.cnt, w.maintainer.cnt)
+
+
+# ------------------------------------------------------- the shard backend
+SHARD_FIELDS = FIELDS[:-2] + ("num_shards", "shard_pad_edges")
+
+
+def _shards(dev, S, **kw):
+    from repro_torch.core import ShardedBackend
+
+    return ShardedBackend(devices=[dev] * S, **kw)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("algorithm", ALGORITHMS)
+def test_shard_backend_on_the_card_matches_plain_and_flat(dev, algorithm, S):
+    """S shards on cuda:0 run the superstep pair on every shard, equal in
+    every field to their plain versions and, but for the shard fields, to
+    the flat "cuda" run."""
+    g = chung_lu(20000, 100000, seed=8)
+    fsk.reset_launch_counts()
+    got = decompose(g, algorithm, block_edges=64, backend=_shards(dev, S))
+    torch.cuda.synchronize(dev)
+    assert fsk.LAUNCHES["row_pass"] >= S * got.iterations
+    if algorithm != "semicore":
+        assert fsk.LAUNCHES["push_pass"] >= S * got.iterations
+    plain = decompose(g, algorithm, block_edges=64,
+                      backend=_shards(dev, S, plain=True))
+    _same(got, plain, f"shard {algorithm} S={S}", SHARD_FIELDS)
+    assert got.num_shards == S
+    flat = decompose(g, algorithm, block_edges=64,
+                     backend=CudaBackend(device=dev))
+    _same(got, flat, f"shard vs flat {algorithm} S={S}", FIELDS[:-2])
+    np.testing.assert_array_equal(got.core, imcore_peel(g))
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_shard_warm_settle_on_the_card_matches_plain(dev, S):
+    g = chung_lu(20000, 100000, seed=9)
+    core0 = decompose(g, "semicore*", backend=CudaBackend(device=dev)).core
+    e = g.edge_list()
+
+    def run(backend):
+        bg = BufferedGraph(g)
+        for i in range(0, 1000, 10):
+            assert bg.delete_edge(*map(int, e[i]))
+        return warm_settle(HostEngine(bg, block_edges=64), core0, 0, backend)
+
+    fsk.reset_launch_counts()
+    got = run(_shards(dev, S))
+    assert fsk.LAUNCHES["row_pass"] > 0 and got.iterations > 0
+    _same(got, run(_shards(dev, S, plain=True)), f"warm S={S}", SHARD_FIELDS)
+    _same(got, run(TorchBackend(device=dev)), f"warm S={S} vs torch",
+          FIELDS[:-2])
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_shard_edgeless_drop_settle_counts_as_torch(dev, S):
+    """An isolated node with a core above 0 drops in the masked settle: the
+    shard counts it as an update (as the reference's shard and "torch"
+    do), the flat fused kernels do not."""
+    from repro_torch.core import run_resident
+
+    g, warm, cnt, mask = _masked_state(chung_lu(3000, 15000, seed=6), 6)
+
+    def run(backend):
+        return run_resident(HostEngine(g, block_edges=64), "semicore*",
+                            backend, core=warm, cnt=cnt, settle_mask=mask)
+
+    fsk.reset_launch_counts()
+    got = run(_shards(dev, S))
+    assert fsk.LAUNCHES["push_pass"] > 0
+    _same(got, run(_shards(dev, S, plain=True)), f"masked S={S}",
+          SHARD_FIELDS)
+    ref = run(TorchBackend(device=dev))
+    _same(got, ref, f"masked S={S} vs torch", FIELDS[:-2])
+    fused = run(CudaBackend(device=dev))
+    assert sum(got.updates_per_iter) == sum(fused.updates_per_iter) + 8
+    np.testing.assert_array_equal(got.core[-8:], 0)
+
+
+def test_shard_maintainer_on_the_card_matches_plain(dev):
+    from repro_torch.core import CoreMaintainer, UpdateBatch
+    from repro_torch.graph.update_cases import light_batch
+
+    g = chung_lu(20000, 100000, seed=10)
+    legs = {"kernels": _shards(dev, 4), "plain": _shards(dev, 4, plain=True)}
+    ms = {k: CoreMaintainer(g, block_edges=64, backend=b)
+          for k, b in legs.items()}
+    for ops in (light_batch(g, ms["kernels"].core, ms["kernels"].cnt, 40, 40,
+                            seed=2),):
+        stats = {k: m.apply(UpdateBatch.from_wire(ops))
+                 for k, m in ms.items()}
+        np.testing.assert_array_equal(ms["kernels"].core, ms["plain"].core)
+        np.testing.assert_array_equal(ms["kernels"].cnt, ms["plain"].cnt)
+        for f in ("node_computations", "iterations", "num_changed",
+                  "edge_block_reads", "settle_passes", "groups"):
+            assert getattr(stats["kernels"], f) == \
+                getattr(stats["plain"], f), f
+    np.testing.assert_array_equal(
+        ms["kernels"].core, imcore_peel(ms["kernels"].bg.materialize()))
+
+
+# ------------------------------------ the differential sweep on the card
+@pytest.mark.parametrize("backing", DIFF_BACKINGS)
+@pytest.mark.parametrize("algorithm", ALGORITHMS)
+@pytest.mark.parametrize("family", sorted(DIFF_FAMILIES))
+def test_differential_sweep_on_the_card(dev, tmp_path, family, algorithm,
+                                        backing):
+    """Every family x algorithm x backing on the card's substrates — "cuda"
+    fused and per probe, "torch", "shard" at S = 1 and 3 — each equal in
+    every field to its plain version (the same backend on the host, which
+    the CPU sweep holds to the reference; for the shards also the plain
+    versions on the card) and to the BZ oracle."""
+    g = DIFF_FAMILIES[family]()
+    target = with_backing(g, backing, str(tmp_path))
+    legs = {
+        "cuda": (CudaBackend(device=dev), CudaBackend(device="cpu")),
+        "per_probe": (CudaBackend(device=dev, fused=False),
+                      CudaBackend(device="cpu", fused=False)),
+        "torch": (TorchBackend(device=dev), TorchBackend(device="cpu")),
+        "shard_1": (_shards(dev, 1), _shards(torch.device("cpu"), 1)),
+        "shard_3": (_shards(dev, 3), _shards(torch.device("cpu"), 3)),
+    }
+    want_core = imcore_peel(g)
+    for name, (card, host) in legs.items():
+        what = f"{family}/{algorithm}/{backing}/{name}"
+        got = decompose(target, algorithm, block_edges=64, backend=card)
+        want = decompose(target, algorithm, block_edges=64, backend=host)
+        fields = SHARD_FIELDS if name.startswith("shard") else FIELDS
+        _same(got, want, what, fields)
+        np.testing.assert_array_equal(got.core, want_core, err_msg=what)
+        if name.startswith("shard"):
+            plain = decompose(target, algorithm, block_edges=64,
+                              backend=_shards(dev, got.num_shards,
+                                              plain=True))
+            _same(got, plain, what + " plain", fields)

@@ -365,8 +365,12 @@ def test_core_graph_config_defaults_match_reference():
 
 def test_registry_loads_the_webscale_cells():
     assert get_config("semicore-webscale") is webscale.CLUEWEB
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        resolve_backend(webscale.CLUEWEB_SHARD.backend)
+    # the shard cell reaches the shard backend with its shard count
+    shard = webscale.CLUEWEB_SHARD.compute_backend(device="cpu")
+    assert shard.name == "shard" and shard.num_shards == 256
+    assert shard.devices == [torch.device("cpu")] * 256
+    assert resolve_backend(webscale.CLUEWEB_SHARD.backend,
+                           device="cpu").name == "shard"
     # every other cell's backend resolves to a port backend by name
     for name in WEBSCALE[:-2]:
         assert resolve_backend(getattr(webscale, name).backend,

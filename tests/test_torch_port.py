@@ -51,7 +51,8 @@ WALKED = ["repro_torch.configs.registry", "repro_torch.configs.shapes",
           "repro_torch.stream.admission", "repro_torch.stream.backpressure",
           "repro_torch.stream.integrity", "repro_torch.stream.replica",
           "repro_torch.stream.service", "repro_torch.stream.wal",
-          "repro_torch.stream.workload"]
+          "repro_torch.stream.workload", "repro_torch.core.distributed",
+          "repro_torch.graph.differential_cases"]
 
 
 def test_ast_walk_covers_every_subpackage():
