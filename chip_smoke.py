@@ -115,6 +115,25 @@ Phases, each printing one JSON line:
              512 tokens, then 32 greedy tokens, on the flash-decode kernels;
              replayed teacher-forced beside the plain attention, every
              step's logits and greedy tokens compared
+  lm_prefill Qwen3-0.6B's cache-free forward: serve_prefill on lm_serve's
+             8 prompts held to the engine's logits after the last prompt
+             token; the prefill_32k cell at batch 2 (cut from 32),
+             S = 32,768, through chunked_attention, timed with its peak
+             memory; one layer's chunked attention at S = 32,768 held on
+             its last 1,024 rows to a masked float32 softmax over every
+             key.  Then Qwen3-14B at full depth (40 layers, G = 5) behind
+             ServeEngine: 8 prompts of 64 tokens, 16 greedy tokens, flash
+             decode under every layer, each decode step's logits held to
+             the cache-free forward
+  lm_moe     DeepSeek-V3-671B (MLA latent caches, 256 experts top-8 and a
+             shared expert; 61 layers cut to 3, the dense one and 2
+             routed) and Arctic-480B (128 experts top-2 beside a dense
+             MLP, G = 7; 35 layers cut to 2) at full width, one after the
+             other: the same serving and hold (the cache-free side at a
+             capacity that drops nothing, positions routed otherwise
+             counted), then serve_prefill at B = 1, S = 4,096 (cut from
+             32 x 32,768), timed, with the share of assignments dropped
+             at the published capacity factor
 
 The parity phase also holds the embedding-bag and flash-decode kernels to
 their plain versions over the reference's sweeps (kernels/cases.py), flash
@@ -122,8 +141,10 @@ decode also at every boundary of its split rule and at cache_len <= 0.
 
 then the kernels line (launches on each kernel's path, on the
 maintain path (``maintain_launches``), on the out-of-core path
-(``outofcore_launches``), on the stream path (``stream_launches``) and
+(``outofcore_launches``), on the stream path (``stream_launches``),
 on the shard path (``shard_launches``, its runs but the timing reruns),
+on Qwen3-14B's decode (``lm_prefill_launches``) and on Arctic's
+(``lm_moe_launches``),
 error against the plain version,
 times and bounds; the superstep pair and the segment sums
 also at the state entering pass 20; the embedding bag also bit for bit
@@ -205,6 +226,45 @@ DECODE_HEADS = (16, 8, 128)
 DECODE_SHAPES = (("served", 8, 32768, LM_PROMPT + LM_GENERATE),
                  ("decode_32k", 8, 32768, 32768),
                  ("long_500k", 1, 524288, 524288))
+#: lm_prefill: serve_prefill of the prefill_32k cell (S = 32,768) on
+#: Qwen3-0.6B, batch cut from 32 to 2 (the chunked form's float32
+#: (S, 1,024) scores of a chunk are ~4.3 GB at B = 2), after one warm call
+#: at S = 2,048; the chunked attention held on its last 1,024 query rows
+PREFILL_B, PREFILL_S, PREFILL_WARM_S, PREFILL_HELD_ROWS = 2, 32768, 2048, 1024
+#: the models served beyond Qwen3-0.6B: 8 slots, prompts of 64 tokens,
+#: 16 greedy tokens (caches of 80 positions)
+ZOO_SLOTS, ZOO_PROMPT, ZOO_GENERATE = 8, 64, 16
+#: full-width depth cuts (n_layers, first_k_dense): the deepest that leave
+#: room to work on 80 GB (DeepSeek-V3 ~51.9 GB of weights from 61 layers
+#: cut to 3: the dense layer and 2 routed ones; Arctic ~55.4 GB from 35 to
+#: 2); Qwen3-14B runs all 40 layers (~29.5 GB)
+ZOO_DEPTH = {"deepseek-v3-671b": (3, 1), "arctic-480b": (2, 0)}
+#: the MoE models' serve_prefill, (B, S), cut from prefill_32k's 32 x
+#: 32,768: at 32k DeepSeek's 128 decompressed heads' float32 scores are
+#: ~17 GB a chunk beside the ~52 GB of weights
+MOE_PREFILL = (1, 4096)
+#: decode against the cache-free forward, |logit difference| at most this
+#: share of the cache-free logits' standard deviation.  LM_LOGITS_ATOL is
+#: 0.42 of Qwen3-0.6B's logit std (~0.6); both sides round each product
+#: and the attention output to bf16 once, in another order (M = 8 rows a
+#: decode step against 512 a prefill), which moves a residual element by
+#: one bf16 step where the rounding flips, in any layer (40 in Qwen3-14B)
+ZOO_LOGITS_REL = 0.5
+#: least share of (token, MoE layer) pairs that decode and the cache-free
+#: form route to the same experts.  A bf16 step in the layer's input moves
+#: the router logits by ~1e-3 against a spacing of ~0.2 between the k-th
+#: and (k+1)-th of 256 (std ~1.7), so ~1% of DeepSeek's pairs may flip;
+#: a flipped token's logits are not held to ZOO_LOGITS_REL (they take
+#: another expert's output), only counted
+MOE_ROUTING_AGREE = 0.9
+#: flash decode also timed at the served shapes of the zoo's GQA models,
+#: (label, B, T, cache_len, (H, Hkv, d)): Qwen3-14B (G = 5) and Arctic
+#: (G = 7) at their caches' last step
+ZOO_DECODE_SHAPES = (
+    ("served_qwen3_14b", ZOO_SLOTS, ZOO_PROMPT + ZOO_GENERATE,
+     ZOO_PROMPT + ZOO_GENERATE, (40, 8, 128)),
+    ("served_arctic_480b", ZOO_SLOTS, ZOO_PROMPT + ZOO_GENERATE,
+     ZOO_PROMPT + ZOO_GENERATE, (56, 8, 128)))
 #: cache lengths the served decode reaches (1 .. 512 + 32): one position,
 #: 256 and 257, the last step; held on the decode_32k cache with one below
 #: and at each boundary of the kernel's split rule up to the last step
@@ -2498,10 +2558,11 @@ def phase_mind(device) -> tuple:
     return {"embedding_bag": launches}, params["profile_embed"], profile_ids
 
 
-def phase_lm(device) -> dict:
+def phase_lm(device) -> tuple:
     """Full-width Qwen3-0.6B behind ServeEngine on the flash-decode kernels,
     replayed teacher-forced beside the plain attention.  Returns the main
-    path's launches."""
+    path's launches and, for the lm_prefill phase, the weights, the
+    prompts and the engine's logits after the last prompt token."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2530,6 +2591,7 @@ def phase_lm(device) -> dict:
     eng = ServeEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=device)
     events = []
     decode = eng.decode
+    prefill_logits = []
 
     def timed_decode(tokens):
         s = torch.cuda.Event(enable_timing=True)
@@ -2538,6 +2600,8 @@ def phase_lm(device) -> dict:
         logits = decode(tokens)
         e.record()
         events.append((s, e))
+        if len(events) == LM_PROMPT:  # the prefill's last step
+            prefill_logits.append(logits)
         return logits
 
     eng.decode = timed_decode
@@ -2548,10 +2612,7 @@ def phase_lm(device) -> dict:
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t
     launches = {k: v for k, v in launch_counts().items() if v}
-    for name in ("flash_decode", "flash_decode_combine"):
-        check(launches.get(name, 0) == steps * cfg.n_layers,
-              f"lm_serve: {name} launched {launches.get(name, 0)} times, "
-              f"not {steps} steps x {cfg.n_layers} layers")
+    check_decode_launches(launches, steps, cfg.n_layers, "lm_serve")
     check(toks.shape == (LM_SLOTS, LM_GENERATE)
           and ((toks >= 0) & (toks < cfg.vocab)).all(), "lm_serve: tokens")
     # stream time between events around each step (host gaps included)
@@ -2604,7 +2665,374 @@ def phase_lm(device) -> dict:
                replay_tokens_equal=same_tok,
                replay_tokens=LM_SLOTS * LM_GENERATE)
     emit(out)
+    return launches, {"params": params, "prompts": prompts,
+                      "prefill_logits": prefill_logits[0]}
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """``moe_apply`` as the transformer calls it, each call's routing
+    recorded: the top-k expert ids of its tokens (T, k), sorted, as
+    ``moe_apply`` draws them from its input and router."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    seen, inner = [], tfm.moe_apply
+
+    def recording(p, cfg, x, *args, **kw):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ p["router"].float(), dim=-1)
+        seen.append(torch.topk(probs, cfg.moe.top_k).indices.sort(-1).values)
+        return inner(p, cfg, x, *args, **kw)
+
+    tfm.moe_apply = recording
+    try:
+        yield seen
+    finally:
+        tfm.moe_apply = inner
+
+
+def free_card(device) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+
+
+def hold_decode_vs_full(device, cfg, params, prompts) -> dict:
+    """A fresh engine's teacher-forced decode logits at every prompt
+    position against the cache-free forward over the same prompts, each
+    position's largest |difference| held to :data:`ZOO_LOGITS_REL` of the
+    cache-free logits' std.  MoE: the cache-free side runs at a capacity
+    factor that drops nothing (C >= T, this check only), a decode step
+    drops nothing (C >= slots); positions whose tokens took other experts
+    on the two sides in some MoE layer are counted, not held, and the
+    pairs that agree must be :data:`MOE_ROUTING_AGREE` of all.  Where the
+    cache-free top-2 gap exceeds the tolerance, the greedy tokens agree."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.serve import ServeEngine
+
+    B, S = prompts.shape
+    full_cfg = cfg
+    if cfg.moe is not None:
+        m = cfg.moe
+        full_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k))
+        check(moe_capacity(full_cfg.moe, B * S) >= B * S
+              and moe_capacity(m, B) >= B, f"{cfg.name}: a hold side drops")
+    tok = torch.as_tensor(prompts, device=device)
+    with torch.inference_mode(), recorded_routing() as routes:
+        eng = ServeEngine(params, cfg, B, S, device=device)
+        steps = torch.stack([eng.decode(tok[:, i:i + 1])[:, 0]
+                             for i in range(S)], dim=1).float()
+        n_dec = len(routes)
+        del eng
+        hidden, _ = tfm.lm_forward(params, full_cfg, tok)
+        full = tfm.lm_logits(params, full_cfg, hidden).float()
+        del hidden
+    agree = torch.ones((B, S), dtype=torch.bool, device=device)
+    out = {}
+    if cfg.moe is not None:
+        n_moe = len(routes) - n_dec
+        k = cfg.moe.top_k
+        check(n_dec == S * n_moe, f"{cfg.name}: {n_dec} decode routings")
+        dec = torch.stack(routes[:n_dec]).reshape(S, n_moe, B, k)
+        ful = torch.stack(routes[n_dec:]).reshape(n_moe, B, S, k)
+        same = (dec.permute(2, 0, 1, 3) == ful.permute(1, 2, 0, 3)).all(-1)
+        agree = same.all(-1)
+        share = float(same.float().mean())
+        out.update(moe_layers=n_moe, routing_pairs=B * S * n_moe,
+                   routing_agree_share=share,
+                   positions_rerouted=int((~agree).sum()))
+        check(share >= MOE_ROUTING_AGREE, f"{cfg.name}: decode and the "
+              f"cache-free form route {share:.4f} of the pairs alike")
+    err = (steps - full).abs().amax(-1)
+    tol = ZOO_LOGITS_REL * float(full.std())
+    held = float(err[agree].max())
+    top = full.topk(2, dim=-1)
+    sure = (top.values[..., 0] - top.values[..., 1]) > tol
+    flips = int((sure & agree & (steps.argmax(-1) != top.indices[..., 0]))
+                .sum())
+    out.update(positions=B * S, logits_std=float(full.std()),
+               logits_tol=tol, max_abs_logit_err=held,
+               max_abs_logit_err_rerouted=float(err[~agree].max())
+               if bool((~agree).any()) else None,
+               greedy_held_equal=int((sure & agree).sum()))
+    check(bool(torch.isfinite(full).all() and torch.isfinite(steps).all()),
+          f"{cfg.name}: logits not finite")
+    check(held <= tol, f"{cfg.name}: decode logits differ from the "
+          f"cache-free form by {held} > {tol}")
+    check(flips == 0, f"{cfg.name}: {flips} greedy tokens differ where the "
+          "cache-free top-2 gap exceeds the tolerance")
+    return out
+
+
+def zoo_serve(device, cfg, params, prompts) -> tuple:
+    """``ServeEngine(ZOO_SLOTS, ZOO_PROMPT + ZOO_GENERATE)``: the prompts
+    through decode steps, then :data:`ZOO_GENERATE` greedy tokens, each
+    step between CUDA events, the launch counts set to 0 just before and
+    read just after; then :func:`hold_decode_vs_full`.  Returns (record,
+    launches)."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    steps = ZOO_PROMPT + ZOO_GENERATE
+    # warm the kernels and the allocator on a short engine
+    ServeEngine(params, cfg, ZOO_SLOTS, 8, device=device).generate(
+        prompts[:, :4], 2)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    eng = ServeEngine(params, cfg, ZOO_SLOTS, steps, device=device)
+    events, decode = [], eng.decode
+
+    def timed_decode(tokens):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        logits = decode(tokens)
+        e.record()
+        events.append((s, e))
+        return logits
+
+    eng.decode = timed_decode
+    reset_launch_counts()
+    t = time.perf_counter()
+    toks = eng.generate(prompts, ZOO_GENERATE)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t
+    launches = {k: v for k, v in launch_counts().items() if v}
+    check(toks.shape == (ZOO_SLOTS, ZOO_GENERATE)
+          and ((toks >= 0) & (toks < cfg.vocab)).all(), f"{cfg.name}: tokens")
+    ev_ms = [s_.elapsed_time(e_) for s_, e_ in events]
+    rec = {"slots": ZOO_SLOTS, "prompt": ZOO_PROMPT,
+           "generate": ZOO_GENERATE, "decode_steps": steps, "wall_s": wall,
+           "ms_per_step": wall * 1e3 / steps,
+           "event_ms_per_step": float(np.mean(ev_ms)),
+           "event_ms_per_step_generate": float(np.mean(ev_ms[ZOO_PROMPT:])),
+           "tokens_per_s": ZOO_SLOTS * steps / wall, "launches": launches,
+           "cache_bytes": sum(c.numel() * c.element_size()
+                              for c in eng.caches.values()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
+    del eng
+    rec["decode_vs_cache_free"] = hold_decode_vs_full(device, cfg, params,
+                                                      prompts)
+    return rec, launches
+
+
+def zoo_model(device, cfg) -> tuple:
+    """``cfg``'s weights drawn on the card from seed 0: (params, record)."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import tree_num_params
+
+    t = time.perf_counter()
+    params = tfm.lm_init(cfg, torch.Generator(device).manual_seed(0))
+    torch.cuda.synchronize(device)
+    return params, {"arch": cfg.name, "n_layers": cfg.n_layers,
+                    "params": tree_num_params(tfm.lm_param_specs(cfg)),
+                    "init_s": time.perf_counter() - t,
+                    "weights_bytes": torch.cuda.memory_allocated(device)}
+
+
+def check_decode_launches(launches, steps: int, layers: int, what: str):
+    for name in ("flash_decode", "flash_decode_combine"):
+        check(launches.get(name, 0) == steps * layers,
+              f"{what}: {name} launched {launches.get(name, 0)} times, not "
+              f"{steps} steps x {layers} layers")
+
+
+def plain_attention_rows(q, k, v, rows: int):
+    """The last ``rows`` query rows of causal GQA attention over every key,
+    one masked float32 softmax (the (rows, T) scores formed whole), in
+    q's dtype."""
+    import torch
+
+    B, S, H, d = q.shape
+    G = H // k.shape[2]
+    qf = q[:, -rows:].float()
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bshd,bthd->bhst", qf, kf) / (d ** 0.5)
+    q_pos = torch.arange(S - rows, S, device=q.device)[:, None]
+    s.masked_fill_(torch.arange(k.shape[1], device=q.device) > q_pos,
+                   float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    del s
+    return torch.einsum("bhst,bthd->bshd", p, vf).to(q.dtype)
+
+
+def phase_lm_prefill(device, held) -> dict:
+    """Qwen3-0.6B's cache-free prefill at full width: ``serve_prefill`` on
+    phase_lm's prompts held to the engine's logits after the last prompt
+    token; the prefill_32k cell (B = 2, S = 32,768) timed; the chunked
+    attention of one layer at S = 32,768 held on its last rows to one
+    masked softmax over all keys.  Then Qwen3-14B at full depth behind
+    ServeEngine (:func:`zoo_serve`), flash decode under all 40 layers.
+    Returns Qwen3-14B's launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenSource
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import chunked_attention, rms_norm
+
+    # lm_serve's engines hold ~30 GB of caches in reference cycles (the
+    # timed decode wrapped on the engine): collect them first
+    free_card(device)
+    cfg = get_config("qwen3-0.6b")
+    params = held.pop("params")
+    out = {"phase": "lm_prefill", "arch": cfg.name,
+           "logits_atol": LM_LOGITS_ATOL,
+           "reduced": {"prefill_32k_batch": [32, PREFILL_B]}}
+    with torch.inference_mode():
+        got = tfm.serve_prefill(params, cfg, torch.as_tensor(
+            held["prompts"], device=device))
+        err = float((got.float() - held["prefill_logits"].float())
+                    .abs().max())
+        check(err <= LM_LOGITS_ATOL, f"lm_prefill: serve_prefill differs "
+              f"from the engine's prefill by {err} > {LM_LOGITS_ATOL}")
+        out["serve_prefill_vs_engine"] = {
+            "prompts": list(held["prompts"].shape), "max_abs_logit_err": err}
+        tokens = torch.as_tensor(TokenSource(PREFILL_B, PREFILL_S, cfg.vocab,
+                                             seed=1)(0)["tokens"],
+                                 device=device)
+        tfm.serve_prefill(params, cfg, tokens[:, :PREFILL_WARM_S])
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        logits = tfm.serve_prefill(params, cfg, tokens)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t
+        check(logits.shape == (PREFILL_B, 1, cfg.vocab)
+              and bool(torch.isfinite(logits).all()), "lm_prefill: logits")
+        out["prefill_32k"] = {
+            "B": PREFILL_B, "S": PREFILL_S, "wall_s": wall,
+            "tokens_per_s": PREFILL_B * PREFILL_S / wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
+        # one layer's attention at S = 32,768, timed and held
+        lp = tfm._layer_slice(params["layers"], 0)
+        x = rms_norm(params["embed"][tokens.long()].to(cfg.dtype),
+                     lp["ln_attn"])
+        pos = torch.arange(PREFILL_S, device=device).expand(PREFILL_B,
+                                                            PREFILL_S)
+        q, k, v = tfm._gqa_qkv(lp["attn"], cfg, x, pos)
+        del x, logits
+        s_ev = torch.cuda.Event(enable_timing=True)
+        e_ev = torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        o = chunked_attention(q, k, v)
+        e_ev.record()
+        torch.cuda.synchronize(device)
+        H, d = q.shape[2], q.shape[3]
+        # the causal work: every (query, key <= query) pair, QK and PV
+        flops = 4 * PREFILL_B * H * d * PREFILL_S * (PREFILL_S + 1) // 2
+        attn_ms = s_ev.elapsed_time(e_ev)
+        R = PREFILL_HELD_ROWS
+        err, lim = bf16_hold(o[:, -R:], plain_attention_rows(q, k, v, R))
+        check(err <= lim, f"lm_prefill: chunked_attention's last {R} rows "
+              f"differ from the plain softmax by {err} > {lim}")
+        out["chunked_attention_layer"] = {
+            "q": list(q.shape), "k": list(k.shape), "ms": attn_ms,
+            "causal_flops": flops,
+            "tflops_per_s": flops / attn_ms / 1e9,
+            "bound_ms": bound(0, flops, F32_OPS_PER_S)[0],
+            "held_rows": R, "max_abs_err": err, "limit": lim,
+            "tolerance": "2**-7 * max|want| (float32 scores, bf16 out)"}
+        del q, k, v, o, tokens
+    del params
+    free_card(device)
+    emit(out)
+
+    cfg = get_config("qwen3-14b")
+    params, rec = zoo_model(device, cfg)
+    prompts = TokenSource(ZOO_SLOTS, ZOO_PROMPT, cfg.vocab, seed=0)(0)[
+        "tokens"]
+    serve, launches = zoo_serve(device, cfg, params, prompts)
+    check_decode_launches(launches, ZOO_PROMPT + ZOO_GENERATE, cfg.n_layers,
+                          "lm_prefill qwen3-14b")
+    del params
+    free_card(device)
+    emit({"phase": "lm_prefill", **rec, "serve": serve,
+          "logits_rel": ZOO_LOGITS_REL})
     return launches
+
+
+def phase_lm_moe(device) -> dict:
+    """DeepSeek-V3-671B (MLA, the latent-cache decode) and Arctic-480B
+    (flash decode, G = 7) at full width, depth cut (:data:`ZOO_DEPTH`):
+    ServeEngine (:func:`zoo_serve`, each model's decode held to its
+    cache-free forward), then ``serve_prefill`` at :data:`MOE_PREFILL`,
+    timed, with the share of (token, expert) assignments dropped at the
+    published capacity factor in each routed layer.  Each model is freed
+    before the next.  Returns Arctic's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenSource
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import moe_capacity
+
+    arctic = {}
+    for arch, (depth, dense) in ZOO_DEPTH.items():
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, n_layers=depth, moe=dataclasses.replace(
+            base.moe, first_k_dense=dense))
+        params, rec = zoo_model(device, cfg)
+        rec["reduced"] = {"n_layers": [base.n_layers, depth],
+                          "first_k_dense": [base.moe.first_k_dense, dense],
+                          "prefill_32k": [[32, 32768], list(MOE_PREFILL)]}
+        prompts = TokenSource(ZOO_SLOTS, ZOO_PROMPT, cfg.vocab, seed=0)(0)[
+            "tokens"]
+        serve, launches = zoo_serve(device, cfg, params, prompts)
+        # GQA decode runs kernel #5 under every layer; MLA's latent decode
+        # is the reference's einsum form, no kernel
+        check_decode_launches(launches, ZOO_PROMPT + ZOO_GENERATE,
+                              cfg.n_layers if cfg.mla is None else 0,
+                              f"lm_moe {arch}")
+        if cfg.mla is None:
+            arctic = launches
+        B, S = MOE_PREFILL
+        tokens = torch.as_tensor(TokenSource(B, S, cfg.vocab, seed=1)(0)[
+            "tokens"], device=device)
+        C = moe_capacity(cfg.moe, B * S)
+        with torch.inference_mode():
+            with recorded_routing() as routes:  # and the warm call
+                tfm.serve_prefill(params, cfg, tokens)
+            X, k = cfg.moe.num_experts, cfg.moe.top_k
+            dropped = [int((torch.bincount(r.reshape(-1), minlength=X) - C)
+                           .clamp(min=0).sum()) for r in routes]
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            t = time.perf_counter()
+            logits = tfm.serve_prefill(params, cfg, tokens)
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t
+        check(logits.shape == (B, 1, cfg.vocab)
+              and bool(torch.isfinite(logits).all()), f"lm_moe {arch} prefill")
+        rec["prefill"] = {
+            "B": B, "S": S, "wall_s": wall, "tokens_per_s": B * S / wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+            "capacity": C, "capacity_factor": cfg.moe.capacity_factor,
+            "dropped_share_by_layer": [x / (B * S * k) for x in dropped]}
+        del params, tokens, logits, routes
+        free_card(device)
+        emit({"phase": "lm_moe", **rec, "serve": serve,
+              "logits_rel": ZOO_LOGITS_REL,
+              "routing_agree_min": MOE_ROUTING_AGREE})
+    return arctic
 
 
 def bag_entries(device, launches, profile_embed, profile_ids) -> list:
@@ -2721,7 +3149,8 @@ def decode_entries(device, launches) -> list:
     decode_32k cache, 8 x 32768, at cache_len 544, the last served step,
     where every main-path launch runs), held there at the served lengths
     and the split rule's boundaries; and on the full decode_32k and
-    long_500k (1 x 524288) caches at cache_len = T.  Times are device
+    long_500k (1 x 524288) caches at cache_len = T; then at the served
+    shapes of Qwen3-14B and Arctic (:data:`ZOO_DECODE_SHAPES`).  Times are device
     times (:func:`device_ms`); SDPA is timed on views cut to cache_len,
     which only a caller that knows the length on the host can make."""
     import torch
@@ -2729,12 +3158,13 @@ def decode_entries(device, launches) -> list:
 
     from repro_torch.kernels import flash_decode as fdk
 
-    H, Hkv, d = DECODE_HEADS
-    G = H // Hkv
     served_len = LM_PROMPT + LM_GENERATE
     gen = torch.Generator(device).manual_seed(5)
     timed, combine = {}, {}
-    for label, Bq, T, n in DECODE_SHAPES:
+    for label, Bq, T, n, (H, Hkv, d) in (
+            *((*shape, DECODE_HEADS) for shape in DECODE_SHAPES),
+            *ZOO_DECODE_SHAPES):
+        G = H // Hkv
         q, k, v = (torch.randn(shape, generator=gen, device=device).to(
             torch.bfloat16) for shape in ((Bq, H, d), (Bq, T, Hkv, d),
                                           (Bq, T, Hkv, d)))
@@ -2862,7 +3292,14 @@ def main(argv: list) -> int:
     del g, r
     bag_launches, profile_embed, profile_ids = phase_mind(device)
     launches.update(bag_launches)
-    launches.update(phase_lm(device))
+    lm_launches, held = phase_lm(device)
+    launches.update(lm_launches)
+    # the zoo's paths: Qwen3-14B's decode (lm_prefill, after Qwen3-0.6B's
+    # prefill) and Arctic's (lm_moe), each with the counts set to 0 before
+    # its generate run
+    lm_prefill = phase_lm_prefill(device, held)
+    del held
+    lm_moe = phase_lm_moe(device)
     entries += bag_entries(device, launches, profile_embed, profile_ids)
     entries += decode_entries(device, launches)
     for entry in entries:
@@ -2870,6 +3307,8 @@ def main(argv: list) -> int:
         entry["outofcore_launches"] = outofcore.get(entry["name"], 0)
         entry["stream_launches"] = stream.get(entry["name"], 0)
         entry["shard_launches"] = shard.get(entry["name"], 0)
+        entry["lm_prefill_launches"] = lm_prefill.get(entry["name"], 0)
+        entry["lm_moe_launches"] = lm_moe.get(entry["name"], 0)
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

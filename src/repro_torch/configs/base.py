@@ -5,9 +5,7 @@ The port's copy of ``repro/configs/base.py`` for the families it runs:
 ``LMConfig`` and ``RecsysConfig`` with ``reduced()``, field for field, with
 ``dtype`` a torch dtype; ``CoreGraphConfig``, the paper's own workload,
 field for field with the port's backend names (the reference's
-``"pallas"`` is ``"cuda"``, its ``"xla"`` is ``"torch"``).  ``MoEConfig``
-and ``MLAConfig`` are copied as data only: the port's transformer refuses
-a config that sets them.
+``"pallas"`` is ``"cuda"``, its ``"xla"`` is ``"torch"``).
 """
 from __future__ import annotations
 

@@ -11,7 +11,11 @@ __all__ = ["ARCH_IDS", "PORTED", "get_config"]
 
 #: arch id -> module under repro_torch.configs
 PORTED = {
+    "yi-34b": "yi_34b",
+    "qwen3-14b": "qwen3_14b",
     "qwen3-0.6b": "qwen3_0_6b",
+    "arctic-480b": "arctic_480b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "mind": "mind",
     "semicore-webscale": "semicore_webscale",
 }
@@ -20,7 +24,7 @@ ARCH_IDS = ["yi-34b", "qwen3-14b", "qwen3-0.6b", "arctic-480b",
             "deepseek-v3-671b", "graphsage-reddit", "gcn-cora", "schnet",
             "egnn", "mind"]
 
-_NOT_PORTED = {a: "ROADMAP Queue 1 item 8" for a in ARCH_IDS if a not in PORTED}
+_NOT_PORTED = {a: "ROADMAP Queue 1 item 7.6" for a in ARCH_IDS if a not in PORTED}
 
 
 def get_config(arch_id: str):

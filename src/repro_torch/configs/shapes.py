@@ -1,16 +1,17 @@
 """Shape cells of the ported families and the inputs of each cell.
 
 The port's copy of ``repro/configs/shapes.py`` for the LM and recsys
-families: the cell tables, and :func:`recsys_specs`, the counterpart of
-``_recsys_specs``, as plain ``(shape, dtype)`` tuples.
+families: the cell tables, :func:`lm_specs` and :func:`recsys_specs`, the
+counterparts of ``_lm_specs`` and ``_recsys_specs``, as plain ``(shape,
+dtype)`` tuples.
 """
 from __future__ import annotations
 
 import torch
 
-from .base import RecsysConfig
+from .base import LMConfig, RecsysConfig
 
-__all__ = ["LM_SHAPES", "RECSYS_SHAPES", "recsys_specs"]
+__all__ = ["LM_SHAPES", "RECSYS_SHAPES", "lm_specs", "recsys_specs"]
 
 LM_SHAPES = {
     "train_4k": dict(seq_len=4096, global_batch=256, step="train"),
@@ -25,6 +26,25 @@ RECSYS_SHAPES = {
     "serve_bulk": dict(batch=262_144, step="serve"),
     "retrieval_cand": dict(batch=1, n_candidates=1_000_000, step="retrieval"),
 }
+
+
+def lm_specs(cfg: LMConfig, shape_name: str, reduced: bool = False) -> dict:
+    """Input name -> ``(shape, dtype)`` of one LM cell; a decode cell's
+    ``caches`` are :func:`~repro_torch.models.transformer.make_kv_cache_specs`
+    (MLA's latent caches for an MLA config)."""
+    from ..models.transformer import make_kv_cache_specs
+
+    sh = LM_SHAPES[shape_name]
+    B, S = sh["global_batch"], sh["seq_len"]
+    if reduced:
+        B, S = min(B, 2), min(S, 64)
+    i32 = torch.int32
+    if sh["step"] == "train":
+        return {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
+    if sh["step"] == "prefill":
+        return {"tokens": ((B, S), i32)}
+    # decode: one new token against a cache of length seq_len
+    return {"tokens": ((B, 1), i32), "caches": make_kv_cache_specs(cfg, B, S)}
 
 
 def recsys_specs(cfg: RecsysConfig, shape_name: str,

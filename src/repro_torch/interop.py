@@ -135,8 +135,9 @@ def mind_params_from(arrays, cfg, device=None):
 
 
 def lm_params_from(arrays, cfg, device=None):
-    """The dense LM's parameters
-    (:func:`repro_torch.models.transformer.lm_param_specs`) from the
+    """The LM's parameters
+    (:func:`repro_torch.models.transformer.lm_param_specs`: dense, MoE and
+    MLA layer groups and the multi-token-prediction tree) from the
     reference's tree."""
     from .models.transformer import lm_param_specs
 

@@ -26,8 +26,9 @@ tolerances (rtol, atol) of the reference's kernel tests.
 The embedding bag is checked over ``BAG_CASES`` (the reference's sweep,
 ``(N, D, B, L)``) x ``BAG_MODES`` x ``BAG_DTYPES``, with and without
 weights (:func:`bag_case`: a quarter of the slots masked); the flash decode
-over ``DECODE_CASES`` (the reference's sweep, ``(Hkv, G, S, d)``, batched
-over ``DECODE_BATCH`` rows at the model layout) x ``DECODE_DTYPES`` x
+over ``DECODE_CASES`` (the reference's sweep, ``(Hkv, G, S, d)``, then
+the served head groups of Qwen3-14B, G = 5, and of Yi-34B and Arctic,
+G = 7, at d = 128; batched over ``DECODE_BATCH`` rows at the model layout) x ``DECODE_DTYPES`` x
 :func:`decode_lens` (:func:`decode_case`), the lengths at the boundaries
 of the kernel's split rule.  ``BAG_TOL`` and ``DECODE_TOL``
 hold (rtol, atol) of kernel against plain version.
@@ -66,7 +67,7 @@ BAG_DTYPES = ("float32", "bfloat16")
 BAG_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
 
 DECODE_CASES = ((2, 4, 1024, 64), (8, 1, 512, 128), (1, 8, 2048, 64),
-                (4, 7, 512, 32))
+                (4, 7, 512, 32), (8, 5, 512, 128), (8, 7, 512, 128))
 DECODE_BATCH = 2
 DECODE_DTYPES = ("float32", "bfloat16")
 #: (rtol, atol): float32 at the reference's kernel tolerance; a bfloat16

@@ -1,2 +1,3 @@
-"""Models of the port: parameter trees, MIND serving and the dense GQA
-transformer's decode path."""
+"""Models of the port: parameter trees, MIND serving and the LM
+transformer's serving half (GQA and MLA attention, MoE layers, prefill and
+decode)."""

@@ -1,12 +1,13 @@
-"""Shared neural layers of the decode path: RMSNorm, RoPE, SwiGLU and the
-one-token decode attention.
+"""Shared neural layers: RMSNorm, RoPE, SwiGLU, the chunked attention of
+the cache-free forward and the one-token decode attention.
 
 The port's copy of ``repro/models/layers.py`` (``rms_norm``, ``rope``,
-``swiglu``, ``decode_attention``).  ``decode_attention`` on CUDA tensors
-runs the hand-written flash-decode kernels (``kernels/flash_decode.py``),
-the single-chip form the reference names for it; on CPU tensors it runs
-the reference's einsum form.  ``chunked_attention`` (training and prefill)
-is not ported yet.
+``swiglu``, ``chunked_attention``, ``decode_attention``).
+``decode_attention`` on CUDA tensors runs the hand-written flash-decode
+kernels (``kernels/flash_decode.py``), the single-chip form the reference
+names for it; on CPU tensors it runs the reference's einsum form.
+``chunked_attention`` is plain torch, as the reference's is plain jnp: a
+Python loop over KV chunks in place of ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -14,7 +15,10 @@ import torch
 
 from ..kernels import flash_decode as fd
 
-__all__ = ["rms_norm", "rope", "swiglu", "decode_attention"]
+__all__ = ["NEG_INF", "rms_norm", "rope", "swiglu", "chunked_attention",
+           "decode_attention"]
+
+NEG_INF = -1e30
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -41,6 +45,85 @@ def rope(x, positions, theta: float = 10_000.0):
 def swiglu(x, w_gate, w_up, w_down):
     h = torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def _live_rows(nchunks: int, chunk: int, S: int, causal: bool, q_offset: int,
+               valid_len: int) -> list:
+    """``(chunk index, first row)`` of each KV chunk that some query row
+    attends to, with the rows before ``first row`` wholly masked in it.
+
+    Every row attends to key 0 when ``valid_len >= 1`` and (causal) no
+    row lies before it; its running max is then finite after chunk 0, and
+    a chunk masked for it leaves its (m, l, acc) unchanged bit for bit
+    (weights exp(-1e30 - m) = 0, alpha = 1).  Those chunks and rows are
+    skipped.  Otherwise every chunk runs on every row, as the reference's
+    scan does."""
+    if valid_len < 1 or (causal and q_offset < 0):
+        return [(ci, 0) for ci in range(nchunks)]
+    out = []
+    for ci in range(nchunks):
+        base = ci * chunk
+        r0 = max(0, base - q_offset) if causal else 0
+        if base < valid_len and r0 < S:
+            out.append((ci, r0))
+    return out
+
+
+def chunked_attention(q, k, v, *, chunk: int = 1024, causal: bool = True,
+                      q_offset: int = 0, kv_len=None):
+    """Flash-style streaming attention: an online softmax over KV chunks
+    that never forms the (S, T) score matrix, one (S, chunk) block at a
+    time.
+
+    q (B, S, H, d); k (B, T, Hkv, d), v (B, T, Hkv, dv) with GQA groups
+    G = H // Hkv (MLA: ``dv != d``); query row s sits at position
+    ``q_offset + s``; keys at or past ``kv_len`` (default T) are masked.
+    Scores, softmax and the value product run in float32 on the operands
+    upcast (the reference's ``preferred_element_type=float32``); the
+    result is in q's dtype.  Chunks and leading rows that a chunk masks
+    wholly are skipped (:func:`_live_rows`)."""
+    B, S, H, d = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    G = H // Hkv
+    scale = 1.0 / (d ** 0.5)
+    nchunks = -(-T // chunk)
+    Tp = nchunks * chunk
+    if Tp != T:  # padded keys are masked (kpos >= valid_len)
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, Tp - T))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, Tp - T))
+    valid_len = T if kv_len is None else int(kv_len)
+    dev = q.device
+    # (B, Hkv, S, G, d): a run of rows s.. is one (rows * G, d) matrix
+    qg = q.float().reshape(B, S, Hkv, G, d).permute(0, 2, 1, 3, 4).contiguous()
+    m = torch.full((B, Hkv, S, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, S, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, S, G, dv), dtype=torch.float32, device=dev)
+    q_pos = torch.arange(S, device=dev) + q_offset
+    for ci, r0 in _live_rows(nchunks, chunk, S, causal, q_offset, valid_len):
+        base = ci * chunk
+        rows = S - r0
+        kb = k[:, base:base + chunk].float().permute(0, 2, 3, 1)   # (B,Hkv,d,c)
+        vb = v[:, base:base + chunk].float().transpose(1, 2)       # (B,Hkv,c,dv)
+        s = torch.matmul(qg[:, :, r0:].reshape(B, Hkv, rows * G, d), kb)
+        s = s.mul_(scale).view(B, Hkv, rows, G, chunk)
+        if base + chunk > valid_len or (causal and
+                                        base + chunk - 1 > q_offset + r0):
+            kpos = base + torch.arange(chunk, device=dev)
+            mask = (kpos < valid_len)[None, :]
+            if causal:
+                mask = mask & (kpos[None, :] <= q_pos[r0:, None])
+            s.masked_fill_(~mask[:, None, :], NEG_INF)
+        m_old = m[:, :, r0:]
+        m_new = torch.maximum(m_old, s.amax(-1))
+        alpha = torch.exp(m_old - m_new)
+        p = s.sub_(m_new[..., None]).exp_()
+        l[:, :, r0:].mul_(alpha).add_(p.sum(-1))
+        pv = torch.matmul(p.view(B, Hkv, rows * G, chunk), vb)
+        acc[:, :, r0:].mul_(alpha[..., None]).add_(pv.view(B, Hkv, rows, G, dv))
+        m_old.copy_(m_new)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 2, 1, 3, 4).reshape(B, S, H, dv).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len):

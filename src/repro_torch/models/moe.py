@@ -1,0 +1,108 @@
+"""Mixture-of-Experts layer: top-k routing with sort-based capacity dispatch.
+
+The port's copy of ``repro/models/moe.py``.  Dispatch is the production
+"dropping" scheme: flatten the (token, k) assignments, sort them by expert
+(a stable sort: among equal experts the earlier assignment keeps its
+place), keep the first C of each expert (the capacity factor), scatter the
+kept tokens into an (experts, C, E) buffer and run the expert FFNs as one
+batched product over the expert axis.  Dropped assignments are aimed at a
+dummy expert row X with gate 0.  DeepSeek's shared experts and Arctic's
+parallel dense residual MLP are added on top.  Plain torch, as the
+reference's is plain jnp.
+"""
+from __future__ import annotations
+
+import torch
+
+from .params import Spec
+
+__all__ = ["moe_param_specs", "moe_capacity", "moe_apply"]
+
+F32 = torch.float32
+
+
+def moe_param_specs(cfg, L: int) -> dict:
+    m, E, dt = cfg.moe, cfg.d_model, cfg.dtype
+    X, F = m.num_experts, m.d_ff_expert
+    sp = {
+        "router": Spec((L, E, X), F32, (None, "embed", None)),
+        "w_gate": Spec((L, X, E, F), dt, (None, "expert", "expert_embed", None)),
+        "w_up": Spec((L, X, E, F), dt, (None, "expert", "expert_embed", None)),
+        "w_down": Spec((L, X, F, E), dt, (None, "expert", None, "expert_embed")),
+    }
+    if m.num_shared:
+        Fs = F * m.num_shared
+        sp["shared"] = {
+            "w_gate": Spec((L, E, Fs), dt, (None, "embed", "mlp")),
+            "w_up": Spec((L, E, Fs), dt, (None, "embed", "mlp")),
+            "w_down": Spec((L, Fs, E), dt, (None, "mlp", "embed")),
+        }
+    if m.dense_parallel:
+        sp["dense"] = {
+            "w_gate": Spec((L, E, cfg.d_ff), dt, (None, "embed", "mlp")),
+            "w_up": Spec((L, E, cfg.d_ff), dt, (None, "embed", "mlp")),
+            "w_down": Spec((L, cfg.d_ff, E), dt, (None, "mlp", "embed")),
+        }
+    return sp
+
+
+def moe_capacity(m, T: int) -> int:
+    """Slots of each expert for ``T`` tokens: ``max(8, int(T * k / X *
+    capacity_factor))``, in Python floats as the reference computes it."""
+    return max(8, int(T * m.top_k / m.num_experts * m.capacity_factor))
+
+
+def _swiglu(x, g, u, d):
+    return (torch.nn.functional.silu(x @ g) * (x @ u)) @ d
+
+
+def moe_apply(p, cfg, x, layer_idx=None, aux=None):
+    """x (B, S, E) -> (B, S, E).  Dropping top-k dispatch (see module doc);
+    ``aux``, a dict, receives the Switch load-balance term."""
+    m = cfg.moe
+    B, S, E = x.shape
+    T = B * S
+    X, k = m.num_experts, m.top_k
+    xt = x.reshape(T, E)
+
+    logits = xt.to(F32) @ p["router"].to(F32)                  # (T, X)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, k, dim=-1)                # (T, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    C = moe_capacity(m, T)
+    flat_e = top_e.reshape(-1)                                 # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    start = torch.searchsorted(sorted_e, torch.arange(X, device=x.device))
+    pos = torch.arange(T * k, device=x.device) - start[sorted_e]
+    keep = pos < C
+    slot_e = torch.where(keep, sorted_e, X)                    # drop -> dummy
+    slot_p = torch.where(keep, pos, 0)
+    tok = order // k
+
+    buf = torch.zeros((X + 1, C, E), dtype=x.dtype, device=x.device)
+    buf[slot_e, slot_p] = xt[tok]
+    h = buf[:X]                                                # (X, C, E)
+    h = torch.nn.functional.silu(torch.bmm(h, p["w_gate"])) * torch.bmm(
+        h, p["w_up"])
+    out_buf = torch.bmm(h, p["w_down"])                        # (X, C, E)
+
+    gathered = out_buf[torch.clamp(slot_e, max=X - 1), slot_p]  # (T*k, E)
+    gate = top_p.reshape(-1)[order] * keep
+    y = torch.zeros((T, E), dtype=x.dtype, device=x.device).index_add_(
+        0, tok, (gathered.to(F32) * gate[:, None]).to(x.dtype))
+
+    if m.num_shared:
+        s = p["shared"]
+        y = y + _swiglu(xt, s["w_gate"], s["w_up"], s["w_down"])
+    if m.dense_parallel:
+        d = p["dense"]
+        y = y + _swiglu(xt, d["w_gate"], d["w_up"], d["w_down"])
+    if aux is not None:
+        # Switch-style load-balance loss terms
+        me = probs.mean(dim=0)
+        ce = torch.zeros(X, dtype=F32, device=x.device).index_add_(
+            0, flat_e, torch.ones(T * k, dtype=F32, device=x.device)) / (T * k)
+        aux["load_balance"] = X * torch.sum(me * ce)
+    return y.reshape(B, S, E)

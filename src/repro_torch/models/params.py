@@ -65,21 +65,42 @@ def tree_leaves(spec_tree, prefix: str = ""):
             yield f"{prefix}{name}", value
 
 
+#: elements of a normal leaf drawn at once: a larger leaf is drawn slice by
+#: slice along its leading axes, so the float32 draw stays ~256 MB beside
+#: the leaf (DeepSeek-V3's stacked expert leaf is 15 GB in bfloat16)
+DRAW_ELEMENTS = 1 << 26
+
+
+def _draw(out: torch.Tensor, s: Spec, generator: torch.Generator) -> None:
+    n = out.numel()
+    if n <= DRAW_ELEMENTS or out.dim() == 1:
+        x = torch.randn(out.shape, generator=generator, dtype=torch.float32,
+                        device=out.device)
+        out.copy_(x.mul_(s.scale))
+    elif out.shape[0] == 1:
+        _draw(out[0], s, generator)
+    else:
+        step = max(1, DRAW_ELEMENTS // (n // out.shape[0]))
+        for i in range(0, out.shape[0], step):
+            _draw(out[i:i + step], s, generator)
+
+
 def _init_leaf(s: Spec, generator: torch.Generator) -> torch.Tensor:
     dev = generator.device
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=s.dtype, device=dev)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=s.dtype, device=dev)
-    x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
-                    device=dev)
-    return x.mul_(s.scale).to(s.dtype)
+    out = torch.empty(s.shape, dtype=s.dtype, device=dev)
+    _draw(out, s, generator)
+    return out
 
 
 def tree_init(spec_tree, generator: torch.Generator) -> ParamTree:
     """Materialize the parameters on ``generator.device``: normal leaves
     are ``N(0, 1) * scale`` drawn in float32 and cast to the leaf's dtype,
-    leaf after leaf in sorted key order from ``generator``."""
+    leaf after leaf in sorted key order from ``generator`` (a leaf past
+    :data:`DRAW_ELEMENTS` slice after slice along its leading axes)."""
     def build(tree):
         return {k: build(v) if isinstance(v, dict) else _init_leaf(v, generator)
                 for k, v in sorted(tree.items())}

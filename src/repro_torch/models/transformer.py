@@ -1,50 +1,62 @@
-"""LM transformer, the dense GQA (+qk_norm) decode path.
+"""LM transformer: GQA (+qk_norm), MLA (DeepSeek) and MoE, the serving half.
 
 The port's copy of the serving half of ``repro/models/transformer.py``:
-the parameter specs of a dense GQA model (stacked per layer group, under
-the reference's names and shapes), ``lm_forward`` with KV caches, logits,
-the cache specs and one ``serve_decode`` step.  A Python loop over layers
-takes the place of ``lax.scan``.  Caches keep the reference's layout
-``(L, B, T, Hkv, dh)`` and are updated in place where the reference's
-``dynamic_update_slice`` returns new arrays; ``len`` stays a device int32
-scalar, so a decode step does not wait on the host.  The attention is
-``layers.decode_attention``: the hand-written flash-decode kernels on CUDA
-tensors, the reference's einsum form on CPU tensors.
+the parameter specs (stacked per layer group, under the reference's names
+and shapes, DeepSeek's dense prefix group and the multi-token-prediction
+specs included), ``lm_forward`` without caches (prefill, through
+``chunked_attention``) and with them, logits, the cache specs,
+``serve_prefill`` and one ``serve_decode`` step.  A Python loop over layers
+takes the place of ``lax.scan``.  GQA caches keep the reference's layout
+``(L, B, T, Hkv, dh)``, MLA's the compressed latent ``(L, B, T, kv_lora)``
+and ``(L, B, T, dh_rope)``; both are updated in place where the
+reference's ``dynamic_update_slice`` returns new arrays, and ``len`` stays
+a device int32 scalar, so a decode step does not wait on the host.  GQA
+decode runs ``layers.decode_attention``: the hand-written flash-decode
+kernels on CUDA tensors, the reference's einsum form on CPU tensors.  MLA
+decode is the reference's weight-absorbed einsum form, plain torch.
 
-Not ported yet (ROADMAP Queue 1 item 9): MLA, MoE and multi-token
-prediction configs (they raise), and the cache-free forward (training and
-prefill through ``chunked_attention``).
+Not ported yet (ROADMAP Queue 1 item 7.3): training, ``lm_loss``,
+``softmax_xent`` and the multi-token-prediction loss (they raise).
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import LMConfig
-from .layers import decode_attention, rms_norm, rope, swiglu
+from .layers import (NEG_INF, chunked_attention, decode_attention, rms_norm,
+                     rope, swiglu)
+from .moe import moe_apply, moe_param_specs
 from .params import Spec, tree_init
 
-__all__ = ["check_ported", "lm_param_specs", "lm_init", "layer_groups",
-           "attention_block", "lm_forward", "lm_logits",
-           "make_kv_cache_specs", "make_kv_caches", "serve_decode"]
+__all__ = ["lm_param_specs", "lm_init", "layer_groups", "attention_block",
+           "lm_forward", "lm_logits", "make_kv_cache_specs",
+           "make_kv_caches", "serve_prefill", "serve_decode", "softmax_xent",
+           "lm_loss"]
 
 F32 = torch.float32
-_QUEUE = "ROADMAP Queue 1 item 9"
-
-
-def check_ported(cfg: LMConfig) -> None:
-    """Refuse what the port does not run yet: no silent dense stand-in."""
-    for what, present in (("MLA attention", cfg.mla is not None),
-                          ("MoE layers", cfg.moe is not None),
-                          ("multi-token prediction", cfg.mtp_depth > 0)):
-        if present:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet ({_QUEUE})")
+_TRAINING = "ROADMAP Queue 1 item 7.3"
 
 
 # ---------------------------------------------------------------- param specs
 def _attn_specs(cfg: LMConfig, L: int) -> dict:
     E, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     dt = cfg.dtype
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "wq_a": Spec((L, E, m.q_lora), dt, (None, "embed", None)),
+            "q_norm": Spec((L, m.q_lora), F32, (None, None), init="ones"),
+            "wq_b": Spec((L, m.q_lora, H * (m.dh_nope + m.dh_rope)), dt,
+                         (None, None, "heads")),
+            "wkv_a": Spec((L, E, m.kv_lora + m.dh_rope), dt,
+                          (None, "embed", None)),
+            "kv_norm": Spec((L, m.kv_lora), F32, (None, None), init="ones"),
+            "wk_b": Spec((L, m.kv_lora, H * m.dh_nope), dt,
+                         (None, None, "heads")),
+            "wv_b": Spec((L, m.kv_lora, H * m.dh_v), dt,
+                         (None, None, "heads")),
+            "wo": Spec((L, H * m.dh_v, E), dt, (None, "heads", "embed")),
+        }
     sp = {
         "wq": Spec((L, E, H * dh), dt, (None, "embed", "heads")),
         "wk": Spec((L, E, Hkv * dh), dt, (None, "embed", "kv_heads")),
@@ -66,20 +78,28 @@ def _dense_mlp_specs(cfg: LMConfig, L: int) -> dict:
     }
 
 
-def _layer_group_specs(cfg: LMConfig, L: int) -> dict:
+def _layer_group_specs(cfg: LMConfig, L: int, use_moe: bool) -> dict:
     E = cfg.d_model
-    return {
+    g = {
         "attn": _attn_specs(cfg, L),
         "ln_attn": Spec((L, E), F32, (None, "embed"), init="ones"),
         "ln_mlp": Spec((L, E), F32, (None, "embed"), init="ones"),
-        "mlp": _dense_mlp_specs(cfg, L),
     }
+    if use_moe:
+        g["moe"] = moe_param_specs(cfg, L)
+    else:
+        g["mlp"] = _dense_mlp_specs(cfg, L)
+    return g
 
 
-def layer_groups(cfg: LMConfig) -> list[tuple[str, int]]:
-    """[(group name, depth)]: one dense group."""
-    check_ported(cfg)
-    return [("layers", cfg.n_layers)]
+def layer_groups(cfg: LMConfig) -> list[tuple[str, int, bool]]:
+    """[(group name, depth, uses_moe)]; DeepSeek has a dense prefix group."""
+    kd = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    groups = []
+    if kd:
+        groups.append(("layers0", kd, False))
+    groups.append(("layers", cfg.n_layers - kd, cfg.moe is not None))
+    return groups
 
 
 def lm_param_specs(cfg: LMConfig) -> dict:
@@ -89,8 +109,16 @@ def lm_param_specs(cfg: LMConfig) -> dict:
         "ln_f": Spec((E,), F32, ("embed",), init="ones"),
         "lm_head": Spec((E, cfg.vocab), dt, ("embed", "vocab")),
     }
-    for name, depth in layer_groups(cfg):
-        specs[name] = _layer_group_specs(cfg, depth)
+    for name, depth, use_moe in layer_groups(cfg):
+        specs[name] = _layer_group_specs(cfg, depth, use_moe)
+    if cfg.mtp_depth > 0:
+        D = cfg.mtp_depth
+        specs["mtp"] = {
+            "proj": Spec((D, 2 * E, E), dt, (None, "embed", None)),
+            "ln_in": Spec((D, E), F32, (None, "embed"), init="ones"),
+            "ln_prev": Spec((D, E), F32, (None, "embed"), init="ones"),
+            "mlp": _dense_mlp_specs(cfg, D),
+        }
     return specs
 
 
@@ -114,12 +142,82 @@ def _gqa_qkv(p, cfg: LMConfig, x, positions):
     return q, k, v
 
 
-def attention_block(p, cfg: LMConfig, x, positions, cache):
-    """Writes this step's k, v into the layer's caches in place and
-    returns the attention output.  ``cache`` is ``(k_cache, v_cache,
-    len)`` with caches (B, T, Hkv, dh) and ``len`` a device int32 scalar."""
+def _mla_qkv_full(p, cfg: LMConfig, x, positions):
+    """MLA decompressed form (prefill: full per-head k, v; the rope key,
+    one for all heads, broadcast)."""
+    m = cfg.mla
     B, S, _ = x.shape
-    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    H = cfg.n_heads
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"])
+    q = (cq @ p["wq_b"]).reshape(B, S, H, m.dh_nope + m.dh_rope)
+    q_nope, q_rope = q[..., :m.dh_nope], q[..., m.dh_nope:]
+    kv_a = x @ p["wkv_a"]
+    c_kv = rms_norm(kv_a[..., :m.kv_lora], p["kv_norm"])
+    k_rope = kv_a[..., m.kv_lora:][:, :, None, :]
+    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, m.dh_nope)
+    v = (c_kv @ p["wv_b"]).reshape(B, S, H, m.dh_v)
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    k_rope = rope(k_rope, positions, cfg.rope_theta)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, m.dh_rope)], dim=-1)
+    return q, k, v
+
+
+def _mla_decode(p, cfg: LMConfig, x, positions, cache):
+    """Latent-cache decode with weight absorption: writes this step's
+    latent ``c_kv`` and rope key into the caches ``(B, T, kv_lora)`` and
+    ``(B, T, dh_rope)`` in place; the scores and the latent context in
+    float32."""
+    m = cfg.mla
+    B, S, _ = x.shape            # S == new tokens (1 for decode)
+    H = cfg.n_heads
+    ckv_c, kr_c, length = cache
+    T = ckv_c.shape[1]
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"])
+    q = (cq @ p["wq_b"]).reshape(B, S, H, m.dh_nope + m.dh_rope)
+    q_nope, q_rope = q[..., :m.dh_nope], q[..., m.dh_nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    kv_a = x @ p["wkv_a"]
+    c_kv = rms_norm(kv_a[..., :m.kv_lora], p["kv_norm"])       # (B,S,kvl)
+    k_rope = rope(kv_a[:, :, None, m.kv_lora:], positions,
+                  cfg.rope_theta)[:, :, 0]
+    # in place of dynamic_update_slice: positions len .. len+S-1
+    pos = (length + torch.arange(S, device=x.device)).long()
+    ckv_c.index_copy_(1, pos, c_kv.to(ckv_c.dtype))
+    kr_c.index_copy_(1, pos, k_rope.to(kr_c.dtype))
+    # absorb wk_b into q: q_abs (B,S,H,kvl)
+    wk = p["wk_b"].reshape(m.kv_lora, H, m.dh_nope)
+    q_abs = torch.einsum("bshn,khn->bshk", q_nope, wk)
+    scale = 1.0 / ((m.dh_nope + m.dh_rope) ** 0.5)
+    ckv32 = ckv_c.to(F32)
+    s = (torch.einsum("bshk,btk->bhst", q_abs.to(F32), ckv32)
+         + torch.einsum("bshr,btr->bhst", q_rope.to(F32),
+                        kr_c.to(F32))) * scale
+    mask = torch.arange(T, device=x.device) < (length + S)
+    s = torch.where(mask, s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhst,btk->bshk", pr, ckv32)            # latent context
+    wv = p["wv_b"].reshape(m.kv_lora, H, m.dh_v)
+    out = torch.einsum("bshk,khv->bshv", ctx, wv.to(F32))
+    out = out.reshape(B, S, H * m.dh_v).to(x.dtype)
+    return out @ p["wo"]
+
+
+def attention_block(p, cfg: LMConfig, x, positions, cache=None):
+    """The attention output.  Without ``cache``: the cache-free form over
+    the whole sequence (``chunked_attention``, causal).  With it: ``cache``
+    is the layer's caches in :func:`make_kv_cache_specs` order and ``len``,
+    a device int32 scalar (GQA ``(k_cache, v_cache, len)``, caches (B, T,
+    Hkv, dh); MLA ``(ckv_cache, kr_cache, len)``); this step's entries are
+    written into them in place."""
+    B, S, _ = x.shape
+    if cache is not None and cfg.mla is not None:
+        return _mla_decode(p, cfg, x, positions, cache)
+    qkv = _mla_qkv_full if cfg.mla is not None else _gqa_qkv
+    q, k, v = qkv(p, cfg, x, positions)
+    if cache is None:
+        out = chunked_attention(q, k, v, causal=True)
+        return out.reshape(B, S, -1) @ p["wo"]
     k_cache, v_cache, length = cache
     # in place of dynamic_update_slice: positions len .. len+S-1
     pos = (length + torch.arange(S, device=x.device)).long()
@@ -140,34 +238,36 @@ def _layer_slice(gp, i: int) -> dict:
             for k, v in ((k, gp[k]) for k in gp.keys())}
 
 
-def _layer(cfg: LMConfig, x, lp, positions, cache):
+def _layer(cfg: LMConfig, x, lp, positions, use_moe: bool, cache=None):
     a = attention_block(lp["attn"], cfg, rms_norm(x, lp["ln_attn"]), positions,
                         cache)
     x = x + a
     h = rms_norm(x, lp["ln_mlp"])
-    return x + _dense_mlp(lp["mlp"], h)
+    f = moe_apply(lp["moe"], cfg, h) if use_moe else _dense_mlp(lp["mlp"], h)
+    return x + f
 
 
 def lm_forward(params, cfg: LMConfig, tokens, positions=None, caches=None):
-    """tokens (B, S) -> (hidden (B, S, E), caches).  Needs ``caches`` (the
-    decode path); their k, v are written in place and ``len`` advanced."""
-    if caches is None:
-        raise NotImplementedError(
-            f"the cache-free forward (chunked_attention: training and prefill)"
-            f" is not ported yet ({_QUEUE})")
+    """tokens (B, S) -> (hidden (B, S, E), caches).  Without ``caches`` the
+    cache-free forward (prefill), returning ``None`` for them; with them
+    (:func:`make_kv_caches`, under any keys beside ``len``) each layer's
+    entries are written in place and ``len`` advanced."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = params["embed"][tokens.long()].to(cfg.dtype)
-    length = caches["len"]
+    length = None if caches is None else caches["len"]
+    cache_keys = [] if caches is None else [k for k in caches if k != "len"]
     offset = 0
-    for name, depth in layer_groups(cfg):
+    for name, depth, use_moe in layer_groups(cfg):
         gp = params[name]
         for i in range(depth):
-            cache = (caches["k"][offset + i], caches["v"][offset + i], length)
-            x = _layer(cfg, x, _layer_slice(gp, i), positions, cache)
+            cache = None if caches is None else (
+                *(caches[k][offset + i] for k in cache_keys), length)
+            x = _layer(cfg, x, _layer_slice(gp, i), positions, use_moe, cache)
         offset += depth
-    caches["len"] = length + S
+    if caches is not None:
+        caches["len"] = length + S
     return rms_norm(x, params["ln_f"]), caches
 
 
@@ -175,10 +275,32 @@ def lm_logits(params, cfg: LMConfig, hidden):
     return hidden @ params["lm_head"]
 
 
+# ---------------------------------------------------------------------- steps
+def softmax_xent(logits, labels):
+    raise NotImplementedError(f"softmax_xent (training) is not ported yet "
+                              f"({_TRAINING})")
+
+
+def lm_loss(params, cfg: LMConfig, tokens, labels):
+    raise NotImplementedError(f"lm_loss (training) is not ported yet "
+                              f"({_TRAINING})")
+
+
+def _mtp_loss(params, cfg: LMConfig, hidden, tokens, labels):
+    raise NotImplementedError(f"_mtp_loss (multi-token prediction, training)"
+                              f" is not ported yet ({_TRAINING})")
+
+
 def make_kv_cache_specs(cfg: LMConfig, batch: int, max_len: int) -> dict:
-    """Decode-cache ``(shape, dtype)`` of each entry."""
-    check_ported(cfg)
-    kv = ((cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim), cfg.dtype)
+    """Decode-cache ``(shape, dtype)`` of each entry; MLA uses the
+    compressed latent cache."""
+    L = cfg.n_layers
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": ((L, batch, max_len, m.kv_lora), cfg.dtype),
+                "kr": ((L, batch, max_len, m.dh_rope), cfg.dtype),
+                "len": ((), torch.int32)}
+    kv = ((L, batch, max_len, cfg.n_kv, cfg.head_dim), cfg.dtype)
     return {"k": kv, "v": kv, "len": ((), torch.int32)}
 
 
@@ -187,6 +309,13 @@ def make_kv_caches(cfg: LMConfig, batch: int, max_len: int, device) -> dict:
     return {k: torch.zeros(shape, dtype=dtype, device=device)
             for k, (shape, dtype) in
             make_kv_cache_specs(cfg, batch, max_len).items()}
+
+
+def serve_prefill(params, cfg: LMConfig, tokens):
+    """The prefill cell's step: tokens (B, S) -> the last position's
+    logits (B, 1, vocab), through the cache-free forward."""
+    hidden, _ = lm_forward(params, cfg, tokens)
+    return lm_logits(params, cfg, hidden[:, -1:, :])
 
 
 def serve_decode(params, cfg: LMConfig, tokens, caches):

@@ -2,7 +2,9 @@
 
 The port's copy of ``repro/serve/engine.py``: fixed request slots sharing
 one cache length ``len``; prefill runs the prompt through one decode step
-per token; ``generate`` decodes greedily.  The caches live on ``device``
+per token; ``generate`` decodes greedily.  The caches are those of
+``make_kv_caches``: GQA's k and v, or MLA's compressed latent caches.
+They live on ``device``
 (default ``cuda:0``; ``device="cpu"`` runs the plain versions) and are
 updated in place; every step runs under ``torch.inference_mode()``.
 Unlike the reference, which clamps a write past the cache, a request

@@ -1168,6 +1168,116 @@ def test_lm_serving_on_the_card_matches_plain(dev, dtype, monkeypatch):
         _close(kernel.caches["k"], plain.caches["k"], tol, "k caches")
 
 
+@pytest.mark.parametrize("G", [5, 7])
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
+def test_flash_decode_at_the_served_head_groups(dev, dtype, G):
+    """(Hkv, G, d) = (8, 5, 128), Qwen3-14B's heads, and (8, 7, 128),
+    Yi-34B's and Arctic's, on 8 rows as served: every length 1 .. 80 the
+    MoE and Qwen3-14B phases of chip_smoke.py reach, and each boundary of
+    the split rule up to T, one either side."""
+    B, Hkv, d, S = 8, 8, 128, 2048
+    q, k, v = (torch.as_tensor(a, device=dev).to(getattr(torch, dtype))
+               for a in decode_case(np.random.default_rng(G), B, Hkv, G, S,
+                                    d))
+    bounds = fdk.split_boundaries(S, B, Hkv, G)
+    lens = sorted({*range(1, 81), S,
+                   *(x for b in bounds for x in (b - 1, b, b + 1) if x <= S)})
+    for n in lens:
+        _hold_pair(q, k, v, torch.tensor(n, dtype=torch.int32, device=dev),
+                   dtype, f"{dtype} G={G} {n}")
+
+
+def _cpu_and_card(tree, dev):
+    return {k: _cpu_and_card(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "arctic-480b"])
+def test_moe_apply_on_the_card_matches_cpu(dev, arch):
+    """The reduced MoE layer at a capacity that drops (cf 0.5), float32,
+    on the card against the same call on the CPU."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_init
+    from repro_torch.models.transformer import _layer_slice
+
+    cfg = get_config(arch).reduced()
+    cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=0.5))
+    p = _layer_slice(tree_init(moe.moe_param_specs(cfg, 1),
+                               torch.Generator().manual_seed(0)), 0)
+    x = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(2, 64, cfg.d_model)).astype(np.float32))
+    aux_cpu, aux_dev = {}, {}
+    want = moe.moe_apply(p, cfg, x, aux=aux_cpu)
+    got = moe.moe_apply(_cpu_and_card(p, dev), cfg, x.to(dev), aux=aux_dev)
+    _close(got.cpu(), want, (2e-5, 2e-5), f"{arch} moe_apply")
+    _close(aux_dev["load_balance"].cpu(), aux_cpu["load_balance"],
+           (2e-5, 2e-5), f"{arch} load balance")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G,d,dv", [(1, 192, 128), (2, 128, 128),
+                                    (7, 128, 128)])
+def test_chunked_attention_on_the_card_matches_cpu(dev, G, d, dv, causal):
+    """Several chunks, a ragged last one, queries at an offset: float32
+    on the card against the CPU, and bfloat16 operands within one bf16
+    step of their float32 result."""
+    from repro_torch.models.layers import chunked_attention
+
+    rng = np.random.default_rng(G)
+    B, S, T, Hkv = 2, 300, 700, 2
+    q, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+               for shape in ((B, S, Hkv * G, d), (B, T, Hkv, d),
+                             (B, T, Hkv, dv)))
+    kw = dict(chunk=128, causal=causal, q_offset=T - S)
+    want = chunked_attention(q, k, v, **kw)
+    got = chunked_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
+    _close(got.cpu(), want, (2e-5, 2e-5), "chunked_attention float32")
+    qb, kb, vb = (t.to(dev).bfloat16() for t in (q, k, v))
+    b16 = chunked_attention(qb, kb, vb, **kw)
+    f32 = chunked_attention(qb.float(), kb.float(), vb.float(), **kw)
+    assert b16.dtype == torch.bfloat16
+    _close(b16.float(), f32, (2 ** -7, 2 ** -7), "chunked_attention bf16")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "arctic-480b",
+                                  "deepseek-v3-671b"])
+def test_lm_serving_of_every_family_on_the_card_matches_cpu(dev, arch):
+    """The reduced configs, float32: serve_prefill, the engine's prefill,
+    decode steps and greedy tokens on the card (flash decode for GQA,
+    the latent-cache einsum form for MLA) against the CPU on the same
+    weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenSource
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(arch).reduced()
+    params = tfm.lm_init(cfg, torch.Generator().manual_seed(0))
+    on_dev = tfm.lm_init(cfg, torch.Generator(dev).manual_seed(0))
+    on_dev.load_state_dict(params.state_dict())
+    prompts = TokenSource(4, 12, cfg.vocab, seed=0)(0)["tokens"]
+    tol = (2e-4, 2e-4)
+    _close(tfm.serve_prefill(on_dev, cfg, torch.as_tensor(
+        prompts, device=dev)).cpu(),
+        tfm.serve_prefill(params, cfg, torch.as_tensor(prompts)), tol,
+        f"{arch} serve_prefill")
+    fdk.reset_launch_counts()
+    card = ServeEngine(on_dev, cfg, 4, 40, device=dev)
+    host = ServeEngine(params, cfg, 4, 40, device="cpu")
+    _close(card.prefill(prompts).cpu(), host.prefill(prompts), tol,
+           f"{arch} prefill logits")
+    gqa = cfg.mla is None
+    assert fdk.LAUNCHES["flash_decode"] == (12 * cfg.n_layers if gqa else 0)
+    np.testing.assert_array_equal(card.generate(prompts[:, :4], 6),
+                                  host.generate(prompts[:, :4], 6))
+    for name in host.caches:
+        _close(card.caches[name].cpu(), host.caches[name], tol,
+               f"{arch} cache {name}")
+
+
 # ----------------------------------------------------- the streaming service
 def _stream_run(root, place):
     """A writer and a replica through ingest, snapshot, bootstrap, tail and

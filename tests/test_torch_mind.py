@@ -46,7 +46,8 @@ def _jax(batch):
     return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
-@pytest.mark.parametrize("arch", ["mind", "qwen3-0.6b"])
+@pytest.mark.parametrize("arch", ["mind", "qwen3-0.6b", "qwen3-14b", "yi-34b",
+                                  "arctic-480b", "deepseek-v3-671b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_match_reference(arch, reduced):
     want, got = jget(arch), get_config(arch)
@@ -59,8 +60,8 @@ def test_configs_match_reference(arch, reduced):
 
 def test_registry_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError,
-                       match="not ported yet.*Queue 1 item 8"):
-        get_config("deepseek-v3-671b")
+                       match="not ported yet.*Queue 1 item 7.6"):
+        get_config("graphsage-reddit")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-9")
 
