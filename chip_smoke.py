@@ -134,6 +134,21 @@ Phases, each printing one JSON line:
              counted), then serve_prefill at B = 1, S = 4,096 (cut from
              32 x 32,768), timed, with the share of assignments dropped
              at the published capacity factor
+  train      training at full width through the port's train step
+             (launch/steps.py: autograd then AdamW): MIND's train_batch
+             (65,536 users, five steps; step 0's loss and every gradient
+             leaf held to the same step with the plain bag, profile_embed's
+             gradient non-zero, the bag kernel launched once a step's
+             forward), the bag's forward and backward timed at that shape;
+             Qwen3-0.6B's train_4k with the batch cut from 256 to 8 (4
+             microbatches of 2), three steps, step 0's loss held to the
+             no-grad forward and the repeated batch's loss falling;
+             DeepSeek-V3 cut to its dense layer and MTP module, 1 x 4,096,
+             int8 moments, two steps; a reduced Qwen3-0.6B TrainLoop
+             crashed after 6 steps and resumed for 4 from its checkpoint,
+             its losses equal to an uninterrupted run's.  Each prints ms a
+             step, tokens or users a second, peak device memory and the
+             loss curve
 
 The parity phase also holds the embedding-bag and flash-decode kernels to
 their plain versions over the reference's sweeps (kernels/cases.py), flash
@@ -143,8 +158,9 @@ then the kernels line (launches on each kernel's path, on the
 maintain path (``maintain_launches``), on the out-of-core path
 (``outofcore_launches``), on the stream path (``stream_launches``),
 on the shard path (``shard_launches``, its runs but the timing reruns),
-on Qwen3-14B's decode (``lm_prefill_launches``) and on Arctic's
-(``lm_moe_launches``),
+on Qwen3-14B's decode (``lm_prefill_launches``), on Arctic's
+(``lm_moe_launches``) and on MIND's train steps (``train_launches``;
+the bag's figures at the train shape under ``train_batch``),
 error against the plain version,
 times and bounds; the superstep pair and the segment sums
 also at the state entering pass 20; the embedding bag also bit for bit
@@ -269,6 +285,35 @@ ZOO_DECODE_SHAPES = (
 #: 256 and 257, the last step; held on the decode_32k cache with one below
 #: and at each boundary of the kernel's split rule up to the last step
 DECODE_HELD_LENS = (1, 256, 257, 544)
+#: the train phase.  MIND's train_batch at full width (65,536 users), five
+#: steps of AdamW at TRAIN_LR on RecsysSource batches; Qwen3-0.6B's
+#: train_4k at full width with the batch cut from 256 to 8 (the 8,192-token
+#: microbatch budget gives 4 microbatches of 2; 256 would take ~2 min a
+#: step), three steps on batches 0, 0 (the repeated batch, whose loss must
+#: fall) and 1; DeepSeek-V3 at full width cut to its dense prefix layer and
+#: its MTP module (61 layers and first_k_dense 3 cut to 1; ~3.0e9
+#: parameters), B x S cut from 256 x 4,096 to 1 x 4,096, int8 moments (as
+#: build_step picks them for d_model >= 7000) and build_step's default
+#: AdamW (lr 1e-4: at TRAIN_LR the first step moves each bf16 weight of
+#: scale 0.02 by 15%), two steps; a reduced
+#: Qwen3-0.6B TrainLoop crashed after TRAIN_RESUME[0] steps and resumed for
+#: TRAIN_RESUME[1]
+TRAIN_LR = 3e-3
+TRAIN_MIND_STEPS = 5
+TRAIN_LM = (8, 4096)
+TRAIN_LM_BATCHES = (0, 0, 1)
+TRAIN_DSV3 = (1, 4096)
+TRAIN_DSV3_STEPS = 2
+TRAIN_RESUME = (6, 4)
+#: a train step's loss against the same batch's cache-free forward under
+#: no_grad (the same bf16 products, the attention's in-place form against
+#: its out-of-place one): relative; Qwen3-0.6B and DeepSeek-V3 read 0 on
+#: an H100
+TRAIN_LOSS_REL = 1e-6
+#: the resumed TrainLoop's losses against the uninterrupted run's
+#: (float32, the card's atomics reorder sums between runs): relative to
+#: max(1, |loss|)
+TRAIN_RESUME_TOL = 1e-5
 #: the maintain phase: edges deleted and re-inserted in the round trip
 #: (and the light batch's deletes and inserts), updates of the mixed batch (deletes at repro/stream/workload.py's odds;
 #: 300, not 10,000: the parallel plan of 10,000 takes ~290 s on the host,
@@ -3035,6 +3080,248 @@ def phase_lm_moe(device) -> dict:
     return arctic
 
 
+def train_grads_hold(got, want, what: str) -> float:
+    """Each gradient leaf within 1e-4 x max|want| + 1e-6 (float32, the
+    tolerance of the CPU tests against the JAX package); returns the
+    largest error as a share of its limit."""
+    worst = 0.0
+    for (name, g), w in zip(got, want):
+        lim = 1e-4 * float(w.abs().max()) + 1e-6 if w.numel() else 1.0
+        err = float((g.float() - w.float()).abs().max()) if w.numel() else 0
+        check(err <= lim, f"{what}: gradient {name} off by {err} > {lim}")
+        worst = max(worst, err / lim)
+    return worst
+
+
+def timed_train_steps(device, fn, params, state, batches) -> tuple:
+    """``fn`` over ``batches`` (argument tuples), each step ending in a
+    sync: (params, state, losses, ms a step, peak device memory)."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, ms = [], []
+    for args in batches:
+        t = time.perf_counter()
+        params, state, loss = fn(params, state, *args)
+        torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]), f"train: loss {losses[-1]}")
+    return params, state, losses, ms, torch.cuda.max_memory_allocated(device)
+
+
+def lm_xent_no_grad(params, cfg, tokens, labels, accum: int) -> float:
+    """The mean over ``accum`` microbatches of ``lm_loss`` under no_grad
+    (the cache-free forward, its attention in place)."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    with torch.no_grad():
+        return float(sum(tfm.lm_loss(params, cfg, t, lab) for t, lab in zip(
+            tokens.chunk(accum), labels.chunk(accum))) / accum)
+
+
+def train_lm(device, arch: str, cfg, shape: tuple, batches, opt) -> dict:
+    """``cfg`` at ``shape`` = (B, S) through the port's ``_build_lm`` on
+    the cut avals: the steps on ``batches`` (TokenSource steps), timed,
+    step 0's loss held to the no-grad forward of its batch."""
+    import torch
+
+    from repro_torch.configs.shapes import lm_specs
+    from repro_torch.data import TokenSource
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import tree_num_params
+    from repro_torch.optim import adamw_init
+
+    B, S = shape
+    full = lm_specs(cfg, "train_4k")["tokens"][0]
+    avals = {k: ((B, S), torch.int32) for k in ("tokens", "labels")}
+    bundle = steps._build_lm(cfg, "train_4k", "train", avals, None, opt,
+                             False)
+    accum = bundle.static["accum"]
+    t = time.perf_counter()
+    params = tfm.lm_init(cfg, torch.Generator(device).manual_seed(0))
+    state = adamw_init(params, opt)
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t
+    src = TokenSource(B, S, cfg.vocab, seed=0)
+    args = [tuple(torch.as_tensor(src(i)[k], device=device)
+                  for k in ("tokens", "labels")) for i in batches]
+    want = lm_xent_no_grad(params, cfg, *args[0], accum)
+    params, state, losses, ms, peak = timed_train_steps(
+        device, bundle.fn, params, state, args)
+    rel = abs(losses[0] - want) / abs(want)
+    check(rel <= TRAIN_LOSS_REL, f"train {arch}: step 0 loss {losses[0]} "
+          f"against the no-grad forward's {want}")
+    if batches[1] == batches[0]:
+        check(losses[1] < losses[0], f"train {arch}: the repeated batch's "
+              f"loss {losses[1]} did not fall below {losses[0]}")
+    steady = ms[1:] if len(ms) > 1 else ms
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "params": tree_num_params(tfm.lm_param_specs(cfg)),
+           "init_s": init_s, "B": B, "S": S, "accum": accum,
+           "microbatch": B // accum, "quantize_moments":
+           opt.quantize_moments, "lr": opt.lr, "batches": list(batches),
+           "losses": losses, "no_grad_loss": want, "loss_rel": rel,
+           "ms_per_step": ms, "steady_ms": float(np.mean(steady)),
+           "tokens_per_s": B * S / (np.mean(steady) / 1e3),
+           "max_memory_allocated": peak,
+           "reduced": {"train_4k (B, S)": [list(full), [B, S]]}}
+    del params, state, args
+    free_card(device)
+    return rec
+
+
+def phase_train(device) -> tuple:
+    """Training at full width: MIND's train_batch (the bag kernel forward
+    under autograd), Qwen3-0.6B's train_4k and DeepSeek-V3 cut to one
+    layer and its MTP module (int8 moments), each through the port's
+    train step; a reduced TrainLoop crashed and resumed from its
+    checkpoint.  Returns the MIND path's launches (counts set to 0 before
+    its steps and read after them) and the bag's figures at the train
+    shape for the kernels line."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.data import RecsysSource
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys as rec
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainLoop
+
+    # ---- MIND train_batch at full width
+    cfg = get_config("mind")
+    B = RECSYS_SHAPES["train_batch"]["batch"]
+    bundle = steps.build_step("mind", "train_batch", opt=steps.default_opt(
+        cfg, lr=TRAIN_LR))
+    params = rec.mind_init(cfg, torch.Generator(device).manual_seed(0))
+    state = adamw_init(params, bundle.static["opt"])
+    src = RecsysSource(cfg, B, seed=0)
+    batches = [({k: torch.as_tensor(v, device=device)
+                 for k, v in src(i).items()},)
+               for i in range(TRAIN_MIND_STEPS)]
+    names = [n for n, _ in tree_leaves(params)]
+    loss_k, grads_k = steps.value_and_grad(rec.mind_train_loss, params, cfg,
+                                           *batches[0])
+    with plain_serving():  # the same step with the bag's plain version
+        loss_p, grads_p = steps.value_and_grad(rec.mind_train_loss, params,
+                                               cfg, *batches[0])
+    loss_err = abs(float(loss_k) - float(loss_p))
+    check(loss_err <= 1e-5 * max(1.0, abs(float(loss_p))),
+          f"train mind: loss {float(loss_k)} against the plain bag's "
+          f"{float(loss_p)}")
+    worst = train_grads_hold(list(zip(names, grads_k)), grads_p, "train mind")
+    profile_grad = float(grads_k[names.index("profile_embed")].abs().sum())
+    check(profile_grad > 0, "train mind: profile_embed got no gradient")
+    del grads_k, grads_p
+    reset_launch_counts()
+    params, state, losses, ms, peak = timed_train_steps(
+        device, bundle.fn, params, state, batches)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    check(launches.get("embedding_bag") == TRAIN_MIND_STEPS,
+          f"train mind: {launches} launches, want {TRAIN_MIND_STEPS} of "
+          "embedding_bag (one a step's forward)")
+    steady = float(np.mean(ms[1:]))
+    mind = {"B": B, "steps": TRAIN_MIND_STEPS, "lr": TRAIN_LR,
+            "losses": losses, "ms_per_step": ms, "steady_ms": steady,
+            "users_per_s": B / (steady / 1e3),
+            "max_memory_allocated": peak, "launches": launches,
+            "hold": {"loss": float(loss_k), "plain_loss": float(loss_p),
+                     "loss_err": loss_err, "worst_grad_share": worst,
+                     "profile_embed_grad_abs_sum": profile_grad}}
+    # ---- the bag at the train shape: forward kernel, backward plain torch
+    table = params["profile_embed"].detach()
+    idx = batches[0][0]["profile_ids"].reshape(
+        -1, cfg.profile_bag).contiguous()
+    Nt, D = table.shape
+    Bt, L = idx.shape
+    got = ebk.launch_bag(table, idx, None, "mean")
+    want = ebk.bag_plain(table, idx, None, "mean")
+    err = _close(got, want, (1e-5, 1e-5), "embedding_bag at train_batch")
+    g = torch.randn((Bt, D), generator=torch.Generator(device).manual_seed(3),
+                    device=device)
+    nbytes = 4 * Bt * L + 4 * Bt * D + 4 * Nt * D
+    bms, by = bound(nbytes, 2 * Bt * L * D, F32_OPS_PER_S)
+    table_r = table.clone().requires_grad_(True)
+
+    def library_fwd_bwd():
+        return torch.autograd.grad(F.embedding_bag(idx, table_r, mode="mean"),
+                                   table_r, g)
+
+    def port_fwd_bwd():
+        return torch.autograd.grad(ebk.embedding_bag(table_r, idx,
+                                                     mode="mean"), table_r, g)
+
+    bag_train = {
+        "launches": launches.get("embedding_bag", 0), "max_abs_err": err,
+        "ms": cuda_ms(lambda: ebk.launch_bag(table, idx, None, "mean"), 20,
+                      device),
+        "plain_ms": cuda_ms(lambda: ebk.bag_plain(table, idx, None, "mean"),
+                            3, device),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(lambda: F.embedding_bag(idx, table,
+                                                      mode="mean"), 20,
+                              device),
+        "backward_ms": cuda_ms(lambda: ebk.bag_backward(
+            g, table, idx, None, "mean", False), 5, device),
+        "backward_bound_ms": bound(nbytes, 2 * Bt * L * D,
+                                   F32_OPS_PER_S)[0],
+        "fwd_bwd_ms": cuda_ms(port_fwd_bwd, 5, device),
+        "library_fwd_bwd_ms": cuda_ms(library_fwd_bwd, 5, device),
+        "shape": {"bags": Bt, "slots": L, "D": D, "rows": Nt,
+                  "dtype": "float32", "mode": "mean", "bytes": nbytes}}
+    mind["bag_ms"], mind["bag_backward_ms"] = bag_train["ms"], \
+        bag_train["backward_ms"]
+    del params, state, batches, table, table_r, idx, got, want, g
+    free_card(device)
+    # ---- Qwen3-0.6B train_4k, batch cut
+    cfg = get_config("qwen3-0.6b")
+    lm = train_lm(device, "qwen3-0.6b", cfg, TRAIN_LM, TRAIN_LM_BATCHES,
+                  steps.default_opt(cfg, lr=TRAIN_LR))
+    check(lm["accum"] == 4, f"train qwen3: accum {lm['accum']}, want 4")
+    # ---- DeepSeek-V3, its dense layer and MTP module, int8 moments
+    base = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(base, n_layers=1, moe=dataclasses.replace(
+        base.moe, first_k_dense=1))
+    opt = steps.default_opt(cfg)
+    check(opt.quantize_moments and cfg.mtp_depth == 1,
+          "train deepseek: int8 moments and the MTP module")
+    ds = train_lm(device, "deepseek-v3-671b", cfg, TRAIN_DSV3,
+                  tuple(range(TRAIN_DSV3_STEPS)), opt)
+    ds["reduced"].update({"n_layers": [base.n_layers, cfg.n_layers],
+                          "first_k_dense": [base.moe.first_k_dense, 1]})
+    # ---- TrainLoop crash and resume (reduced Qwen3-0.6B, float32)
+    first, then = TRAIN_RESUME
+    with tempfile.TemporaryDirectory(prefix="train_") as tmp:
+        kw = dict(reduced=True, log_every=0, device=device)
+        a = TrainLoop("qwen3-0.6b", checkpoint_dir=tmp, **kw).run(
+            first, resume=False)["losses"]
+        b = TrainLoop("qwen3-0.6b", checkpoint_dir=tmp, **kw).run(then)[
+            "losses"]
+        whole = TrainLoop("qwen3-0.6b", **kw).run(first + then,
+                                                  resume=False)["losses"]
+    diff = float(np.max(np.abs(np.array(a + b) - whole)))
+    check(diff <= TRAIN_RESUME_TOL * max(1.0, float(np.abs(whole).max())),
+          f"train: resumed losses {a + b} against {whole}")
+    emit({"phase": "train", "mind": mind, "qwen3_0_6b": lm,
+          "deepseek_v3": ds,
+          "resume": {"steps": [first, then], "losses": a + b,
+                     "uninterrupted": whole, "max_abs_diff": diff,
+                     "tolerance": TRAIN_RESUME_TOL},
+          "tolerances": {"loss_rel": TRAIN_LOSS_REL,
+                         "grads": "1e-4 x max|want| + 1e-6"}})
+    return launches, bag_train
+
+
 def bag_entries(device, launches, profile_embed, profile_ids) -> list:
     """The embedding bag at MIND's serve_bulk bags: held to its plain
     version and, bit for bit, to the slot-order sum; timed in turns with
@@ -3300,7 +3587,12 @@ def main(argv: list) -> int:
     lm_prefill = phase_lm_prefill(device, held)
     del held
     lm_moe = phase_lm_moe(device)
+    # the train path's launches: MIND's five steps, counts set to 0 before
+    # them
+    train, bag_train = phase_train(device)
     entries += bag_entries(device, launches, profile_embed, profile_ids)
+    next(e for e in entries if e["name"] == "embedding_bag")[
+        "train_batch"] = bag_train
     entries += decode_entries(device, launches)
     for entry in entries:
         entry["maintain_launches"] = maintain.get(entry["name"], 0)
@@ -3309,6 +3601,7 @@ def main(argv: list) -> int:
         entry["shard_launches"] = shard.get(entry["name"], 0)
         entry["lm_prefill_launches"] = lm_prefill.get(entry["name"], 0)
         entry["lm_moe_launches"] = lm_moe.get(entry["name"], 0)
+        entry["train_launches"] = train.get(entry["name"], 0)
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

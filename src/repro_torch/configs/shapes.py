@@ -3,7 +3,7 @@
 The port's copy of ``repro/configs/shapes.py`` for the LM and recsys
 families: the cell tables, :func:`lm_specs` and :func:`recsys_specs`, the
 counterparts of ``_lm_specs`` and ``_recsys_specs``, as plain ``(shape,
-dtype)`` tuples.
+dtype)`` tuples, and :func:`input_specs` over both.
 """
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ import torch
 
 from .base import LMConfig, RecsysConfig
 
-__all__ = ["LM_SHAPES", "RECSYS_SHAPES", "lm_specs", "recsys_specs"]
+__all__ = ["LM_SHAPES", "RECSYS_SHAPES", "lm_specs", "recsys_specs",
+           "input_specs"]
 
 LM_SHAPES = {
     "train_4k": dict(seq_len=4096, global_batch=256, step="train"),
@@ -64,3 +65,22 @@ def recsys_specs(cfg: RecsysConfig, shape_name: str,
         C = sh["n_candidates"] if not reduced else 64
         base |= {"candidate_ids": ((C,), i32)}
     return base
+
+
+def input_specs(cfg, shape_name: str, *, reduced: bool = False):
+    """``(step_kind, avals)`` of one cell of ``cfg``'s family.  The GNN
+    cells wait for ROADMAP Queue 1 item 7.6, the sharded core-graph cells
+    for ``launch/`` (item 7.7)."""
+    if cfg.kind == "lm":
+        return (LM_SHAPES[shape_name]["step"],
+                lm_specs(cfg, shape_name, reduced))
+    if cfg.kind == "recsys":
+        return (RECSYS_SHAPES[shape_name]["step"],
+                recsys_specs(cfg, shape_name, reduced))
+    if cfg.kind == "gnn":
+        raise NotImplementedError("GNN cells are not ported yet (ROADMAP "
+                                  "Queue 1 item 7.6)")
+    if cfg.kind == "coregraph":
+        raise NotImplementedError("sharded core-graph cells are not ported "
+                                  "yet (ROADMAP Queue 1 item 7.7)")
+    raise ValueError(cfg.kind)

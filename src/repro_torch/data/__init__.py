@@ -1,4 +1,4 @@
 """Host data pipelines of the port."""
-from .pipeline import RecsysSource, TokenSource
+from .pipeline import Prefetcher, RecsysSource, TokenSource
 
-__all__ = ["RecsysSource", "TokenSource"]
+__all__ = ["Prefetcher", "RecsysSource", "TokenSource"]

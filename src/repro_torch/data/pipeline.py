@@ -1,14 +1,19 @@
 """Deterministic synthetic sources: ``batch(step)`` is a pure function of
-the step.
+the step; and their bounded background prefetch.
 
-The port's copy of ``TokenSource`` and ``RecsysSource`` from
-``repro/data/pipeline.py``: numpy only, the same draws batch for batch.
+The port's copy of ``TokenSource``, ``RecsysSource`` and ``Prefetcher``
+from ``repro/data/pipeline.py``: numpy only, the same draws batch for
+batch.  Since every source is indexable by step, a resumed run regenerates
+exactly the batches a crashed one had in flight.
 """
 from __future__ import annotations
 
+import queue
+import threading
+
 import numpy as np
 
-__all__ = ["TokenSource", "RecsysSource"]
+__all__ = ["TokenSource", "RecsysSource", "Prefetcher"]
 
 
 class TokenSource:
@@ -52,3 +57,38 @@ class RecsysSource:
             "negative_ids": rng.integers(
                 0, c.n_items, (self.batch, c.num_sampled_negatives)).astype(np.int32),
         }
+
+
+class Prefetcher:
+    """Bounded background prefetch of step-indexed batches: a daemon
+    thread calls ``source(step)`` for ``start_step``, ``start_step + 1``,
+    ... and keeps at most ``depth`` batches ahead; ``next()`` gives
+    ``(step, batch)`` in step order; :meth:`close` stops the thread and
+    waits for it (its current ``source`` call, then 0.1 s at most)."""
+
+    def __init__(self, source, start_step: int = 0, depth: int = 2):
+        self.source = source
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread.start()
+
+    def _work(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = self.source(step)
+            while not self._stop.is_set():
+                try:
+                    self.q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def __next__(self):
+        return self.q.get()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join()

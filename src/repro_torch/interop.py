@@ -16,7 +16,9 @@ their numpy fields, by attribute, never by importing that implementation:
 * :func:`maintainer_state_from` — any object with a buffered graph ``bg``
   and ``core``/``cnt`` arrays (the JAX package's ``CoreMaintainer``);
 * :func:`params_from` (:func:`mind_params_from`, :func:`lm_params_from`)
-  — a parameter tree as nested dicts of numpy arrays, leaf for leaf.
+  — a parameter tree as nested dicts of numpy arrays, leaf for leaf;
+* :func:`opt_state_from` — the reference's AdamW state (plain or int8
+  moments) as nested dicts of numpy arrays, beside the port's parameters.
 
 Each returns the port's own objects (or int64 numpy arrays), so both
 implementations compute on the same inputs.
@@ -30,7 +32,7 @@ from .graph.updates import BufferedGraph
 
 __all__ = ["csr_from", "buffered_from", "warm_state",
            "update_batch_from", "maintainer_state_from", "params_from",
-           "mind_params_from", "lm_params_from"]
+           "mind_params_from", "lm_params_from", "opt_state_from"]
 
 
 def csr_from(graph) -> CSRGraph:
@@ -142,3 +144,54 @@ def lm_params_from(arrays, cfg, device=None):
     from .models.transformer import lm_param_specs
 
     return params_from(arrays, lm_param_specs(cfg), device)
+
+
+def opt_state_from(arrays, params, device=None):
+    """The port's AdamW state (:func:`repro_torch.optim.adamw_init`'s
+    layout) holding ``arrays``, the reference's ``{"step", "mu"}`` as
+    nested dicts of numpy arrays (``jax.tree.map(np.asarray, state)``),
+    beside ``params`` (the port's parameter tree): each leaf's moments
+    ``{"m", "v"}`` in float32 or ``{"m_q", "m_s", "v_q", "v_s"}`` (int8
+    blocks, float32 scales) of the shapes its parameter takes.  A missing
+    or extra leaf, or a wrong shape, raises.  ``device`` as in
+    :func:`params_from`."""
+    import torch
+
+    from .core.engine import resolve_device
+    from .models.params import tree_leaves
+    from .optim.optimizer import q8_state_specs
+
+    device = resolve_device(device)
+    plain, q8 = {"m", "v"}, {"m_q", "m_s", "v_q", "v_s"}
+    leaves = dict(tree_leaves(params))
+    got = dict(tree_leaves(arrays["mu"]))
+    names = {n.rsplit(".", 1)[0] for n in got}
+    if names != set(leaves):
+        raise ValueError(f"mu: missing leaves {sorted(set(leaves) - names)}, "
+                         f"extra leaves {sorted(names - set(leaves))}")
+    mu: dict = {}
+    for name, p in leaves.items():
+        keys = {n.rsplit(".", 1)[1] for n in got if n.rsplit(".", 1)[0] == name}
+        if keys == plain:
+            want = {"m": (tuple(p.shape), torch.float32),
+                    "v": (tuple(p.shape), torch.float32)}
+        elif keys == q8:
+            (qs, qd), (ss, sd) = q8_state_specs(tuple(p.shape))
+            want = {"m_q": (qs, qd), "m_s": (ss, sd), "v_q": (qs, qd),
+                    "v_s": (ss, sd)}
+        else:
+            raise ValueError(f"mu.{name}: moments {sorted(keys)}, expected "
+                             f"{sorted(plain)} or {sorted(q8)}")
+        node = mu
+        for part in name.split(".")[:-1]:
+            node = node.setdefault(part, {})
+        out = node[name.split(".")[-1]] = {}
+        for key, (shape, dtype) in want.items():
+            a = np.asarray(got[f"{name}.{key}"])
+            if tuple(a.shape) != shape:
+                raise ValueError(f"mu.{name}.{key}: shape {a.shape} != "
+                                 f"{shape}")
+            out[key] = torch.tensor(a).to(device=device, dtype=dtype)
+    return {"step": torch.tensor(int(np.asarray(arrays["step"])),
+                                 dtype=torch.int32, device=device),
+            "mu": mu}

@@ -24,6 +24,16 @@ loads, the lanes a bag, and whether the launch is smaller than one wave
 of the card (then the kernel keeps more row loads in flight a lane).
 ``embedding_bag_plain`` runs the plain version on any device.
 ``LAUNCHES`` counts kernel launches.
+
+:func:`embedding_bag` is differentiable (:class:`Bag`, a
+``torch.autograd.Function``): its forward is the kernel on CUDA tensors
+and the plain version on CPU tensors, as above; its backward is plain
+torch on either.  The reference has no backward kernel either: its
+training differentiates the XLA gather-and-sum (``ops.embedding_bag(
+use_pallas=False)``), whose gradient sends ``grad_out[b] * w[b,l] /
+denom[b]`` to row ``idx[b,l]`` for each unmasked slot; :func:`bag_backward`
+is that, one ``index_add_`` over the flat slots, and the weights'
+gradient when they need one.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ import ctypes
 import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "KERNEL_SOURCE", "DTYPES",
-           "plan", "card_plan", "wave_threads",
+           "plan", "card_plan", "wave_threads", "Bag", "bag_backward",
            "embedding_bag", "embedding_bag_plain", "raise_bad_index"]
 
 KERNEL_SOURCE = "embedding_bag"  # csrc/embedding_bag.cu
@@ -210,13 +220,82 @@ def embedding_bag_plain(table, indices, weights=None, *, mode: str = "sum"):
     return bag_plain(table, indices, weights, mode)
 
 
-# ----------------------------------------------------------- dispatch
-def embedding_bag(table, indices, weights=None, *, mode: str = "sum"):
-    """EmbeddingBag: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    weights = check_operands(table, indices, weights, mode)
+# ----------------------------------------------------------- autograd
+def _bag(table, indices, weights, mode: str):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if table.device.type == "cuda":
         return launch_bag(table, indices, weights, mode)
     if table.device.type == "cpu":
         return bag_plain(table, indices, weights, mode)
     raise ValueError(f"no embedding bag for device {table.device}")
+
+
+def bag_backward(grad_out, table, indices, weights, mode: str,
+                 need_weights: bool):
+    """Gradients of the bag: ``(grad_table, grad_weights or None)``.
+    ``grad_table[idx[b,l]] += grad_out[b] * w[b,l] / denom[b]`` in float32,
+    one ``index_add_`` over all ``B x L`` slots, a masked slot or one past
+    the table adding its 0 to row 0 (as the reference's autodiff adds
+    ``grad * 0`` at ``max(idx, 0)``); ``grad_weights[b,l] = (grad_out[b] .
+    row - [mean] grad_out[b] . out[b]) / denom[b]`` at the slots in range
+    and 0 elsewhere.  No host sync."""
+    N, D = table.shape
+    B, L = indices.shape
+    mask = (indices >= 0) & (indices < N)
+    w = torch.ones(indices.shape, device=table.device) if weights is None \
+        else weights.float()
+    w = torch.where(mask, w, 0.0)
+    g = grad_out.float()
+    if mode == "mean":
+        g = g / w.sum(dim=1, keepdim=True).clamp(min=1e-9)
+    rows = torch.where(mask, indices, 0).reshape(-1).long()
+    contrib = (g[:, None, :] * w[:, :, None]).reshape(B * L, D)
+    grad_table = torch.zeros((N, D), dtype=torch.float32,
+                             device=table.device).index_add_(0, rows, contrib)
+    del contrib
+    grad_w = None
+    if need_weights:
+        dot = torch.einsum("bld,bd->bl",
+                           table[rows].float().reshape(B, L, D), g)
+        if mode == "mean":
+            out = bag_plain(table, indices, weights, mode).float()
+            dot = dot - (g * out).sum(-1, keepdim=True)
+        grad_w = torch.where(mask, dot, 0.0)
+    return grad_table.to(table.dtype), grad_w
+
+
+class Bag(torch.autograd.Function):
+    """The bag under autograd: the kernel (CUDA tensors) or the plain
+    version (CPU tensors) forward, :func:`bag_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, table, indices, weights, mode):
+        ctx.mode = mode
+        ctx.save_for_backward(table, indices, weights)
+        return _bag(table, indices, weights, mode)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        table, indices, weights = ctx.saved_tensors
+        need_w = weights is not None and ctx.needs_input_grad[2]
+        grad_table, grad_w = bag_backward(grad_out, table, indices, weights,
+                                          ctx.mode, need_w)
+        if not ctx.needs_input_grad[0]:
+            grad_table = None
+        if grad_w is not None:
+            grad_w = grad_w.to(weights.dtype)
+        return grad_table, None, grad_w, None
+
+
+# ----------------------------------------------------------- dispatch
+def embedding_bag(table, indices, weights=None, *, mode: str = "sum"):
+    """EmbeddingBag: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors; differentiable in the table and the weights
+    (:class:`Bag`) when autograd asks for it.  Other calls skip
+    ``Bag.apply``: through it, MIND's serve_p99 measured slower on an
+    H100 (PERF.md, Findings)."""
+    weights = check_operands(table, indices, weights, mode)
+    if torch.is_grad_enabled() and (table.requires_grad or (
+            weights is not None and weights.requires_grad)):
+        return Bag.apply(table, indices, weights, mode)
+    return _bag(table, indices, weights, mode)

@@ -7,7 +7,8 @@ The port's copy of ``repro/models/layers.py`` (``rms_norm``, ``rope``,
 kernels (``kernels/flash_decode.py``), the single-chip form the reference
 names for it; on CPU tensors it runs the reference's einsum form.
 ``chunked_attention`` is plain torch, as the reference's is plain jnp: a
-Python loop over KV chunks in place of ``lax.scan``.
+Python loop over KV chunks in place of ``lax.scan``, in place for
+serving and out of place where autograd differentiates it (training).
 """
 from __future__ import annotations
 
@@ -81,7 +82,13 @@ def chunked_attention(q, k, v, *, chunk: int = 1024, causal: bool = True,
     Scores, softmax and the value product run in float32 on the operands
     upcast (the reference's ``preferred_element_type=float32``); the
     result is in q's dtype.  Chunks and leading rows that a chunk masks
-    wholly are skipped (:func:`_live_rows`)."""
+    wholly are skipped (:func:`_live_rows`).
+
+    Without autograd (inference mode, no grad, or no operand that
+    requires grad) the running (m, l, acc) and each chunk's scores are
+    updated in place; with it, the same arithmetic runs out of place, so
+    that autograd can differentiate it.  The two forward results are
+    equal bit for bit."""
     B, S, H, d = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -100,28 +107,53 @@ def chunked_attention(q, k, v, *, chunk: int = 1024, causal: bool = True,
     l = torch.zeros((B, Hkv, S, G), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Hkv, S, G, dv), dtype=torch.float32, device=dev)
     q_pos = torch.arange(S, device=dev) + q_offset
+    in_place = not (torch.is_grad_enabled()
+                    and (q.requires_grad or k.requires_grad
+                         or v.requires_grad))
     for ci, r0 in _live_rows(nchunks, chunk, S, causal, q_offset, valid_len):
         base = ci * chunk
         rows = S - r0
         kb = k[:, base:base + chunk].float().permute(0, 2, 3, 1)   # (B,Hkv,d,c)
         vb = v[:, base:base + chunk].float().transpose(1, 2)       # (B,Hkv,c,dv)
         s = torch.matmul(qg[:, :, r0:].reshape(B, Hkv, rows * G, d), kb)
-        s = s.mul_(scale).view(B, Hkv, rows, G, chunk)
+        s = (s.mul_(scale) if in_place else s * scale).view(
+            B, Hkv, rows, G, chunk)
+        mask = None
         if base + chunk > valid_len or (causal and
                                         base + chunk - 1 > q_offset + r0):
             kpos = base + torch.arange(chunk, device=dev)
             mask = (kpos < valid_len)[None, :]
             if causal:
                 mask = mask & (kpos[None, :] <= q_pos[r0:, None])
-            s.masked_fill_(~mask[:, None, :], NEG_INF)
+            mask = mask[:, None, :]
+        if in_place:
+            if mask is not None:
+                s.masked_fill_(~mask, NEG_INF)
+            m_old = m[:, :, r0:]
+            m_new = torch.maximum(m_old, s.amax(-1))
+            alpha = torch.exp(m_old - m_new)
+            p = s.sub_(m_new[..., None]).exp_()
+            l[:, :, r0:].mul_(alpha).add_(p.sum(-1))
+            pv = torch.matmul(p.view(B, Hkv, rows * G, chunk), vb)
+            acc[:, :, r0:].mul_(alpha[..., None]).add_(
+                pv.view(B, Hkv, rows, G, dv))
+            m_old.copy_(m_new)
+            continue
+        # the same arithmetic out of place, for autograd: rows before r0
+        # keep their (m, l, acc), the rest are replaced
+        if mask is not None:
+            s = s.masked_fill(~mask, NEG_INF)
         m_old = m[:, :, r0:]
         m_new = torch.maximum(m_old, s.amax(-1))
         alpha = torch.exp(m_old - m_new)
-        p = s.sub_(m_new[..., None]).exp_()
-        l[:, :, r0:].mul_(alpha).add_(p.sum(-1))
+        p = (s - m_new[..., None]).exp()
+        l_new = l[:, :, r0:] * alpha + p.sum(-1)
         pv = torch.matmul(p.view(B, Hkv, rows * G, chunk), vb)
-        acc[:, :, r0:].mul_(alpha[..., None]).add_(pv.view(B, Hkv, rows, G, dv))
-        m_old.copy_(m_new)
+        acc_new = acc[:, :, r0:] * alpha[..., None] + pv.view(
+            B, Hkv, rows, G, dv)
+        m, l, acc = (torch.cat([old[:, :, :r0], new], dim=2) if r0 else new
+                     for old, new in ((m, m_new), (l, l_new),
+                                      (acc, acc_new)))
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.permute(0, 2, 1, 3, 4).reshape(B, S, H, dv).to(q.dtype)
 

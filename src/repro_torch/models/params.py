@@ -1,11 +1,13 @@
 """Parameter spec trees and the module that holds them.
 
-The port's copy of ``repro/models/params.py`` for what serving needs: a
-model's parameters are declared once as a nested dict of :class:`Spec`
-leaves (shape, torch dtype, logical axes, init), and :func:`tree_init`
-materializes them as a :class:`ParamTree`, an ``nn.Module`` whose nesting
-and leaf names are the reference's, so ``params["mlp"]["w1"]`` reads the
-same in both packages.
+The port's copy of ``repro/models/params.py``: a model's parameters are
+declared once as a nested dict of :class:`Spec` leaves (shape, torch
+dtype, logical axes, init), and :func:`tree_init` materializes them as a
+:class:`ParamTree`, an ``nn.Module`` whose nesting and leaf names are the
+reference's, so ``params["mlp"]["w1"]`` reads the same in both packages.
+Its leaves do not require grad (serving); a train step turns
+``requires_grad`` on for them (:func:`requires_grad`) and takes them in
+the reference's flatten order, sorted dict keys (:func:`tree_leaves`).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from torch import nn
 
 __all__ = ["Spec", "ParamTree", "tree_init", "tree_num_params",
-           "tree_leaves"]
+           "tree_leaves", "tree_map", "requires_grad"]
 
 
 @dataclass(frozen=True)
@@ -35,8 +37,9 @@ class Spec:
 
 class ParamTree(nn.Module):
     """Nested parameters under the reference's names: a leaf is an
-    ``nn.Parameter`` (no gradient: the port serves), a branch another
-    ``ParamTree``.  ``tree[name]`` reads a child."""
+    ``nn.Parameter`` (no gradient until a train step asks for one,
+    :func:`requires_grad`), a branch another ``ParamTree``.
+    ``tree[name]`` reads a child."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -55,14 +58,38 @@ class ParamTree(nn.Module):
         return sorted([*self._parameters, *self._modules])
 
 
-def tree_leaves(spec_tree, prefix: str = ""):
-    """``(dotted name, Spec)`` of every leaf, in sorted key order."""
-    for name in sorted(spec_tree):
-        value = spec_tree[name]
-        if isinstance(value, dict):
-            yield from tree_leaves(value, f"{prefix}{name}.")
+def _branch(x) -> bool:
+    return isinstance(x, (dict, ParamTree))
+
+
+def tree_map(fn, tree) -> dict:
+    """``fn`` over every leaf of a nested dict or :class:`ParamTree`, as
+    nested dicts under the same names."""
+    return {k: tree_map(fn, tree[k]) if _branch(tree[k]) else fn(tree[k])
+            for k in sorted(tree.keys())}
+
+
+def requires_grad(tree) -> list:
+    """Turn ``requires_grad`` on for every leaf of ``tree``; returns the
+    leaves in :func:`tree_leaves` order."""
+    leaves = [t for _, t in tree_leaves(tree)]
+    for t in leaves:
+        t.requires_grad_(True)
+    return leaves
+
+
+def tree_leaves(tree, prefix: str = "") -> list:
+    """``(dotted name, leaf)`` of every leaf of a nested dict or
+    :class:`ParamTree` (of specs, tensors or arrays), in the
+    reference's flatten order: sorted keys."""
+    out = []
+    for name in sorted(tree.keys()):
+        value = tree[name]
+        if _branch(value):
+            out += tree_leaves(value, f"{prefix}{name}.")
         else:
-            yield f"{prefix}{name}", value
+            out.append((f"{prefix}{name}", value))
+    return out
 
 
 #: elements of a normal leaf drawn at once: a larger leaf is drawn slice by

@@ -1,11 +1,11 @@
-"""MIND: Multi-Interest Network with Dynamic Routing (Li et al., CIKM'19),
-serving.
+"""MIND: Multi-Interest Network with Dynamic Routing (Li et al., CIKM'19).
 
-The port's copy of ``repro/models/recsys.py`` for serving: user behavior
+The port's copy of ``repro/models/recsys.py``: user behavior
 sequence -> B2I dynamic-routing capsules (n_interests), the profile's
 multi-hot fields through the EmbeddingBag kernel (``kernels/
 embedding_bag.py``), an MLP per interest; retrieval scores candidates by
-max-over-interests dot product + top-k.  The public functions keep the
+max-over-interests dot product + top-k; training is the label-aware
+attention's sampled softmax (:func:`mind_train_loss`).  The public functions keep the
 reference's signatures and layouts (``hist_ids (B, hist_len)``,
 ``profile_ids (B, fields, bag)``, interests ``(B, K, D)``); ``params`` is
 the :class:`~repro_torch.models.params.ParamTree` of
@@ -32,7 +32,8 @@ from ..kernels import embedding_bag as ebk
 from .params import Spec, tree_init
 
 __all__ = ["mind_param_specs", "mind_init", "dynamic_routing",
-           "user_interests", "label_aware_attention", "mind_serve",
+           "user_interests", "label_aware_attention", "mind_train_loss",
+           "mind_serve",
            "mind_retrieval", "serve_step", "retrieval_step"]
 
 F32 = torch.float32
@@ -103,6 +104,20 @@ def label_aware_attention(caps, target_e, p: float = 2.0):
     s = torch.einsum("bkd,bd->bk", caps, target_e)
     w = torch.softmax((s.abs() + 1e-9) ** p * torch.sign(s), dim=-1)
     return torch.einsum("bk,bkd->bd", w, caps)
+
+
+def mind_train_loss(params, cfg: RecsysConfig, batch: dict):
+    """Sampled softmax: target vs `num_sampled_negatives` uniform negatives."""
+    caps = user_interests(params, cfg, batch["hist_ids"], batch["profile_ids"])
+    table = params["item_embed"]
+    tgt = table[batch["target_id"].long()]                        # (B, D)
+    user = label_aware_attention(caps, tgt)
+    negs = table[batch["negative_ids"].long()]                    # (B, M, D)
+    pos_logit = torch.einsum("bd,bd->b", user, tgt)[:, None]
+    neg_logit = torch.einsum("bd,bmd->bm", user, negs)
+    logits = torch.cat([pos_logit, neg_logit], dim=1)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp[:, 0].mean()
 
 
 def mind_serve(params, cfg: RecsysConfig, batch: dict):

@@ -1,12 +1,19 @@
-"""LM transformer: GQA (+qk_norm), MLA (DeepSeek) and MoE, the serving half.
+"""LM transformer: GQA (+qk_norm), MLA (DeepSeek), MoE, MTP; train & serve.
 
-The port's copy of the serving half of ``repro/models/transformer.py``:
-the parameter specs (stacked per layer group, under the reference's names
-and shapes, DeepSeek's dense prefix group and the multi-token-prediction
-specs included), ``lm_forward`` without caches (prefill, through
+The port's copy of ``repro/models/transformer.py``: the parameter specs
+(stacked per layer group, under the reference's names and shapes,
+DeepSeek's dense prefix group and the multi-token-prediction specs
+included), ``lm_forward`` without caches (prefill and training, through
 ``chunked_attention``) and with them, logits, the cache specs,
-``serve_prefill`` and one ``serve_decode`` step.  A Python loop over layers
-takes the place of ``lax.scan``.  GQA caches keep the reference's layout
+``serve_prefill``, one ``serve_decode`` step and the training losses
+(``softmax_xent``, ``lm_loss`` and DeepSeek-V3's multi-token prediction).
+A Python loop over layers takes the place of ``lax.scan``; where the
+reference runs each layer under ``jax.checkpoint``, the cache-free
+forward with grad enabled runs each layer under
+``torch.utils.checkpoint`` (non-reentrant), so only layer inputs are kept
+and each layer is recomputed in the backward.  The recompute routes MoE
+tokens as the first pass did: the dispatch's stable sort makes its order
+a function of the input alone.  GQA caches keep the reference's layout
 ``(L, B, T, Hkv, dh)``, MLA's the compressed latent ``(L, B, T, kv_lora)``
 and ``(L, B, T, dh_rope)``; both are updated in place where the
 reference's ``dynamic_update_slice`` returns new arrays, and ``len`` stays
@@ -14,19 +21,17 @@ a device int32 scalar, so a decode step does not wait on the host.  GQA
 decode runs ``layers.decode_attention``: the hand-written flash-decode
 kernels on CUDA tensors, the reference's einsum form on CPU tensors.  MLA
 decode is the reference's weight-absorbed einsum form, plain torch.
-
-Not ported yet (ROADMAP Queue 1 item 7.3): training, ``lm_loss``,
-``softmax_xent`` and the multi-token-prediction loss (they raise).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
 from .layers import (NEG_INF, chunked_attention, decode_attention, rms_norm,
                      rope, swiglu)
 from .moe import moe_apply, moe_param_specs
-from .params import Spec, tree_init
+from .params import Spec, tree_leaves, tree_init
 
 __all__ = ["lm_param_specs", "lm_init", "layer_groups", "attention_block",
            "lm_forward", "lm_logits", "make_kv_cache_specs",
@@ -34,7 +39,6 @@ __all__ = ["lm_param_specs", "lm_init", "layer_groups", "attention_block",
            "lm_loss"]
 
 F32 = torch.float32
-_TRAINING = "ROADMAP Queue 1 item 7.3"
 
 
 # ---------------------------------------------------------------- param specs
@@ -249,9 +253,10 @@ def _layer(cfg: LMConfig, x, lp, positions, use_moe: bool, cache=None):
 
 def lm_forward(params, cfg: LMConfig, tokens, positions=None, caches=None):
     """tokens (B, S) -> (hidden (B, S, E), caches).  Without ``caches`` the
-    cache-free forward (prefill), returning ``None`` for them; with them
-    (:func:`make_kv_caches`, under any keys beside ``len``) each layer's
-    entries are written in place and ``len`` advanced."""
+    cache-free forward (prefill, training), returning ``None`` for them,
+    each layer under activation checkpointing when grad is enabled; with
+    them (:func:`make_kv_caches`, under any keys beside ``len``) each
+    layer's entries are written in place and ``len`` advanced."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -261,7 +266,13 @@ def lm_forward(params, cfg: LMConfig, tokens, positions=None, caches=None):
     offset = 0
     for name, depth, use_moe in layer_groups(cfg):
         gp = params[name]
+        remat = caches is None and torch.is_grad_enabled() and any(
+            t.requires_grad for _, t in tree_leaves(gp))
         for i in range(depth):
+            if remat:
+                x = checkpoint(_layer, cfg, x, _layer_slice(gp, i),
+                               positions, use_moe, use_reentrant=False)
+                continue
             cache = None if caches is None else (
                 *(caches[k][offset + i] for k in cache_keys), length)
             x = _layer(cfg, x, _layer_slice(gp, i), positions, use_moe, cache)
@@ -277,18 +288,34 @@ def lm_logits(params, cfg: LMConfig, hidden):
 
 # ---------------------------------------------------------------------- steps
 def softmax_xent(logits, labels):
-    raise NotImplementedError(f"softmax_xent (training) is not ported yet "
-                              f"({_TRAINING})")
+    """Mean next-token cross entropy, log-softmax in float32."""
+    logp = torch.log_softmax(logits.to(F32), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -ll.mean()
 
 
 def lm_loss(params, cfg: LMConfig, tokens, labels):
-    raise NotImplementedError(f"lm_loss (training) is not ported yet "
-                              f"({_TRAINING})")
+    hidden, _ = lm_forward(params, cfg, tokens)
+    loss = softmax_xent(lm_logits(params, cfg, hidden), labels)
+    if cfg.mtp_depth > 0:
+        loss = loss + 0.3 * _mtp_loss(params, cfg, hidden, tokens, labels)
+    return loss
 
 
 def _mtp_loss(params, cfg: LMConfig, hidden, tokens, labels):
-    raise NotImplementedError(f"_mtp_loss (multi-token prediction, training)"
-                              f" is not ported yet ({_TRAINING})")
+    """DeepSeek-V3 multi-token prediction: chained extra-depth predictions."""
+    mtp = params["mtp"]
+    h = hidden
+    total = 0.0
+    for d in range(cfg.mtp_depth):
+        nxt = torch.roll(tokens, -(d + 1), dims=1)
+        e = params["embed"][nxt.long()].to(cfg.dtype)
+        h = torch.cat([rms_norm(h, mtp["ln_prev"][d]),
+                       rms_norm(e, mtp["ln_in"][d])], dim=-1) @ mtp["proj"][d]
+        h = h + _dense_mlp(_layer_slice(mtp["mlp"], d), h)
+        total = total + softmax_xent(
+            lm_logits(params, cfg, h), torch.roll(labels, -(d + 1), dims=1))
+    return total / cfg.mtp_depth
 
 
 def make_kv_cache_specs(cfg: LMConfig, batch: int, max_len: int) -> dict:

@@ -1,0 +1,162 @@
+"""AdamW with optional int8-quantized moments.
+
+The port's copy of ``repro/optim/optimizer.py``: the same update, leaf
+for leaf in the reference's flatten order (sorted dict keys), the bias
+corrections ``1 - b**t`` in float32 as the reference computes them, and
+the same blockwise-absmax int8 moment store (``_BLOCK`` = 128 elements a
+block, the block count padded to a multiple of 64).  ``torch.round``
+rounds half to even as ``jnp.round`` does, so the int8 moments and their
+scales come out byte for byte the reference's on the same inputs.
+
+The state is ``{"step": int32 scalar, "mu": tree}`` where ``mu`` mirrors
+the parameter tree as nested dicts, each leaf ``{"m", "v"}`` (float32) or
+``{"m_q", "m_s", "v_q", "v_s"}`` (int8 blocks and float32 scales).
+:func:`adamw_update` writes the new parameters and moments into the
+given tensors (the reference donates both) and returns them.
+
+``compress_psum``, the int8 all-reduce of data-parallel training, is a
+collective and waits for ``launch/`` on ``torch.distributed`` (ROADMAP
+Queue 1 item 7.7).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..models.params import tree_leaves, tree_map
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_state_specs",
+           "q8_encode", "q8_decode", "q8_state_specs", "compress_psum"]
+
+F32 = torch.float32
+_BLOCK = 128
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 1e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    quantize_moments: bool = False  # int8 m/v with per-block scales
+
+
+# ----------------------------------------------------- int8 moment codecs
+def _q8_shapes(shape):
+    n = 1
+    for s in shape:
+        n *= s
+    blocks = -(-n // _BLOCK)
+    blocks = -(-blocks // 64) * 64  # the reference shards blocks over 64
+    return n, blocks
+
+
+def q8_encode(x):
+    """``(q, scale)``: int8 blocks ``(blocks, 128)`` and float32 scales
+    ``(blocks,)`` of ``x``, zero-padded to whole blocks."""
+    n, blocks = _q8_shapes(x.shape)
+    flat = torch.nn.functional.pad(x.reshape(-1).to(F32),
+                                   (0, blocks * _BLOCK - n))
+    flat = flat.reshape(blocks, _BLOCK)
+    scale = flat.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(flat / scale), -127, 127).to(torch.int8)
+    return q, scale[:, 0].to(F32)
+
+
+def q8_decode(q, scale, shape):
+    n, _ = _q8_shapes(shape)
+    flat = q.to(F32) * scale[:, None]
+    return flat.reshape(-1)[:n].reshape(shape)
+
+
+def q8_state_specs(shape):
+    """``(shape, dtype)`` of ``(q, scale)`` for a parameter of ``shape``."""
+    _, blocks = _q8_shapes(shape)
+    return ((blocks, _BLOCK), torch.int8), ((blocks,), F32)
+
+
+# ------------------------------------------------------------------ AdamW
+def adamw_init(params, cfg: AdamWConfig):
+    """Zero moments beside each leaf of ``params``, on its device."""
+    def one(p):
+        if cfg.quantize_moments:
+            q, s = q8_encode(torch.zeros(p.shape, dtype=F32, device=p.device))
+            return {"m_q": q, "m_s": s, "v_q": q.clone(), "v_s": s.clone()}
+        return {"m": torch.zeros(p.shape, dtype=F32, device=p.device),
+                "v": torch.zeros(p.shape, dtype=F32, device=p.device)}
+
+    device = next(t for _, t in tree_leaves(params)).device
+    return {"step": torch.zeros((), dtype=torch.int32, device=device),
+            "mu": tree_map(one, params)}
+
+
+def _leaf_state(mu, name: str) -> dict:
+    for part in name.split("."):
+        mu = mu[part]
+    return mu
+
+
+@torch.no_grad()
+def adamw_update(params, grads, state, cfg: AdamWConfig):
+    """One AdamW step.  ``grads``: the gradients in ``tree_leaves(params)``
+    order (a list), or a tree of the parameters' shape.  Writes the new
+    parameters (cast back to each leaf's dtype) and moments in place and
+    returns ``(params, state)``."""
+    leaves = tree_leaves(params)
+    if not isinstance(grads, (list, tuple)):
+        grads = [t for _, t in tree_leaves(grads)]
+    if len(grads) != len(leaves):
+        raise ValueError(f"{len(grads)} gradients for {len(leaves)} leaves")
+    step = state["step"] + 1
+    t = step.to(F32)
+    bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=F32, device=t.device), t)
+    bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=F32, device=t.device), t)
+    for (name, p), g in zip(leaves, grads):
+        mu = _leaf_state(state["mu"], name)
+        g = g.to(F32)
+        if cfg.quantize_moments:
+            m = q8_decode(mu["m_q"], mu["m_s"], p.shape)
+            v = q8_decode(mu["v_q"], mu["v_s"], p.shape)
+        else:
+            m, v = mu["m"], mu["v"]
+        m = cfg.b1 * m + (1 - cfg.b1) * g
+        v = cfg.b2 * v + (1 - cfg.b2) * g * g
+        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        pf = p.to(F32)
+        p.copy_(pf - cfg.lr * (upd + cfg.weight_decay * pf))
+        del upd, pf
+        if cfg.quantize_moments:
+            for key, x in (("m", m), ("v", v)):
+                q, s = q8_encode(x)
+                mu[key + "_q"].copy_(q)
+                mu[key + "_s"].copy_(s)
+        else:
+            mu["m"].copy_(m)
+            mu["v"].copy_(v)
+    state["step"].copy_(step)
+    return params, state
+
+
+def adamw_state_specs(param_specs, cfg: AdamWConfig):
+    """The ``(shape, dtype)`` tree of :func:`adamw_init`'s state for
+    parameters given as a tree of ``(shape, dtype)`` pairs or ``Spec``s."""
+    def one(p):
+        shape = tuple(p.shape if hasattr(p, "shape") else p[0])
+        if cfg.quantize_moments:
+            q, s = q8_state_specs(shape)
+            return {"m_q": q, "m_s": s, "v_q": q, "v_s": s}
+        return {"m": (shape, F32), "v": (shape, F32)}
+
+    return {"step": ((), torch.int32), "mu": tree_map(one, param_specs)}
+
+
+# -------------------------------------------------- gradient compression
+def compress_psum(grads, axis_name: str):
+    """The int8 all-reduce of data-parallel training: a collective, not
+    ported yet (ROADMAP Queue 1 item 7.7, ``launch/`` on
+    ``torch.distributed``)."""
+    raise NotImplementedError("compress_psum (an int8 all-reduce across "
+                              "devices) is not ported yet (ROADMAP Queue 1 "
+                              "item 7.7)")

@@ -1505,3 +1505,176 @@ def test_differential_sweep_on_the_card(dev, tmp_path, family, algorithm,
                               backend=_shards(dev, got.num_shards,
                                               plain=True))
             _same(got, plain, what + " plain", fields)
+
+
+# ----------------------------------------------------------------- training
+def _hold_grads(got, want, what):
+    """Each gradient leaf within 1e-4 x max|want| + 1e-6 (float32; the
+    card sums in another order, the bag's backward with atomics)."""
+    assert len(got) == len(want), what
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        lim = 1e-4 * float(w.abs().max()) + 1e-6 if w.numel() else 0.0
+        err = float((g - w).abs().max()) if w.numel() else 0.0
+        assert err <= lim, (what, i, err, lim)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_autograd_on_the_card_matches_plain(dev, mode, weighted):
+    """The bag under autograd on the card: the kernel's forward (one
+    launch), the table's and the weights' gradients, against the plain
+    version's on the same inputs, masked slots and slots past the table
+    included (those read and receive nothing)."""
+    rng = np.random.default_rng(9)
+    N, D, B, L = 300, 20, 257, 7
+    table = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(-1, N + 5, (B, L)).astype(np.int32))
+    idx[0] = -1
+    w = torch.as_tensor(rng.uniform(0.5, 2.0, (B, L)).astype(np.float32))
+    cot = torch.as_tensor(rng.normal(size=(B, D)).astype(np.float32))
+    t = table.to(dev).requires_grad_(True)
+    tw = w.to(dev).requires_grad_(True) if weighted else None
+    ebk.reset_launch_counts()
+    out = ebk.embedding_bag(t, idx.to(dev), tw, mode=mode)
+    assert ebk.LAUNCHES["embedding_bag"] == 1 and out.grad_fn is not None
+    (out * cot.to(dev)).sum().backward()
+    with pytest.raises(IndexError, match="index"):
+        ebk.raise_bad_index(dev)
+    want = ebk.bag_plain(table, idx, w if weighted else None, mode)
+    _close(out.detach().cpu(), want, (1e-5, 1e-6), "bag forward")
+    gt, gw = ebk.bag_backward(cot, table, idx, w if weighted else None,
+                              mode, weighted)
+    _close(t.grad.cpu(), gt, (1e-5, 1e-6), "bag table gradient")
+    if weighted:
+        _close(tw.grad.cpu(), gw, (1e-5, 1e-6), "bag weights gradient")
+    masked = idx.reshape(-1)[(idx.reshape(-1) >= N) | (idx.reshape(-1) < 0)]
+    assert masked.numel() > 0
+
+
+@pytest.mark.parametrize("arch", ["mind", "qwen3-0.6b", "arctic-480b"])
+def test_reduced_train_step_on_the_card_matches_cpu(dev, arch):
+    """One train step of the reduced cell on the card against the same
+    step on the CPU from the same weights: loss, every gradient leaf,
+    the next step's loss; MIND's bag runs the kernel forward, Arctic's
+    MoE (top-2 of 8) its checkpointed backward.  Arctic's step-0 routing
+    has no near-tie: its 2nd and 3rd router probabilities lie >= 2e-5
+    apart on every token, against ~1e-7 between the two devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.data import RecsysSource, TokenSource
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys, transformer
+    from repro_torch.models.params import tree_leaves, tree_init
+    from repro_torch.optim import adamw_init
+
+    b = steps.build_step(arch, "train_batch" if arch == "mind"
+                         else "train_4k", reduced=True,
+                         opt=steps.default_opt(get_config(arch), lr=3e-3))
+    cfg, specs = b.static["cfg"], b.static["pspecs"]
+    host = tree_init(specs, torch.Generator().manual_seed(0))
+    card = tree_init(specs, torch.Generator(dev).manual_seed(0))
+    card.load_state_dict(host.state_dict())
+    if arch == "mind":
+        src = RecsysSource(cfg, 64, seed=1)
+        loss_fn = recsys.mind_train_loss
+
+        def args(step, device):
+            return ({k: torch.as_tensor(v, device=device)
+                     for k, v in src(step).items()},)
+    else:
+        B, S = input_specs(cfg, "train_4k", reduced=True)[1]["tokens"][0]
+        src = TokenSource(B, S, cfg.vocab)
+        loss_fn = transformer.lm_loss
+
+        def args(step, device):
+            batch = src(step)
+            return (torch.as_tensor(batch["tokens"], device=device),
+                    torch.as_tensor(batch["labels"], device=device))
+
+    ebk.reset_launch_counts()
+    lc, gc = steps.value_and_grad(loss_fn, card, cfg, *args(0, dev))
+    lh, gh = steps.value_and_grad(loss_fn, host, cfg, *args(0, "cpu"))
+    assert ebk.LAUNCHES["embedding_bag"] == (1 if arch == "mind" else 0)
+    _close(lc.cpu(), lh, (1e-5, 1e-6), f"{arch} loss")
+    _hold_grads(gc, gh, arch)
+    if arch == "mind":
+        grads = dict(zip([n for n, _ in tree_leaves(card)], gc))
+        assert float(grads["profile_embed"].abs().sum()) > 0
+    out = []
+    for params in (card, host):
+        device = next(params.parameters()).device
+        state = adamw_init(params, b.static["opt"])
+        losses = [float(b.fn(params, state, *args(s, device))[2])
+                  for s in (0, 1)]
+        out.append(losses)
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-3)
+
+
+def test_moe_recompute_routes_as_the_first_pass_on_the_card(dev,
+                                                            monkeypatch):
+    """Reduced Arctic (top-2 of 8) on the card: each MoE layer's
+    checkpointed recompute routes its tokens as its first pass did, and
+    the gradients hold to the same step's without checkpointing (a
+    recompute that routed otherwise would give wrong gradients with no
+    error: non-reentrant checkpointing checks only tensor metadata)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.data import TokenSource
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.models.params import tree_init
+
+    cfg = get_config("arctic-480b").reduced()
+    params = tree_init(transformer.lm_param_specs(cfg),
+                       torch.Generator(dev).manual_seed(0))
+    B, S = input_specs(cfg, "train_4k", reduced=True)[1]["tokens"][0]
+    batch = TokenSource(B, S, cfg.vocab)(0)
+    args = [torch.as_tensor(batch[k], device=dev) for k in ("tokens",
+                                                           "labels")]
+    seen, inner = [], transformer.moe_apply
+
+    def recording(p, cfg, x, *a, **kw):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ p["router"].float(), dim=-1)
+        seen.append(torch.topk(probs, cfg.moe.top_k).indices.sort(-1).values)
+        return inner(p, cfg, x, *a, **kw)
+
+    monkeypatch.setattr(transformer, "moe_apply", recording)
+    loss, grads = steps.value_and_grad(transformer.lm_loss, params, cfg,
+                                       *args)
+    n = cfg.n_layers
+    assert len(seen) == 2 * n  # n first passes, then n recomputes
+    for first, again in zip(seen[:n], reversed(seen[n:])):
+        assert torch.equal(first, again)
+    monkeypatch.setattr(transformer, "checkpoint",
+                        lambda fn, *a, use_reentrant: fn(*a))
+    plain_loss, plain = steps.value_and_grad(transformer.lm_loss, params,
+                                             cfg, *args)
+    assert abs(float(loss) - float(plain_loss)) <= 1e-6 * abs(float(loss))
+    _hold_grads(grads, plain, "arctic without checkpointing")
+
+
+@pytest.mark.parametrize("G,causal", [(1, True), (2, True), (7, False)])
+def test_chunked_attention_gradients_on_the_card_match_cpu(dev, G, causal):
+    """The out-of-place form's forward and gradients on the card against
+    the CPU (float32, several chunks, a ragged last one, an offset)."""
+    from repro_torch.models.layers import chunked_attention
+
+    rng = np.random.default_rng(G)
+    B, S, T, Hkv, d, dv = 2, 200, 330, 2, 64, 48
+    host = [torch.as_tensor(rng.normal(size=s).astype(np.float32))
+            .requires_grad_(True) for s in ((B, S, Hkv * G, d),
+                                            (B, T, Hkv, d), (B, T, Hkv, dv))]
+    card = [x.detach().to(dev).requires_grad_(True) for x in host]
+    cot = torch.as_tensor(rng.normal(size=(B, S, Hkv * G, dv))
+                          .astype(np.float32))
+    kw = dict(chunk=64, causal=causal, q_offset=T - S)
+    want = chunked_attention(*host, **kw)
+    got = chunked_attention(*card, **kw)
+    _close(got.detach().cpu(), want.detach(), (2e-5, 2e-5),
+           "chunked_attention forward")
+    (want * cot).sum().backward()
+    (got * cot.to(dev)).sum().backward()
+    for h, c, name in zip(host, card, "qkv"):
+        _close(c.grad.cpu(), h.grad, (1e-4, 1e-5), f"d{name}")

@@ -52,14 +52,17 @@ WALKED = ["repro_torch.configs.registry", "repro_torch.configs.shapes",
           "repro_torch.stream.integrity", "repro_torch.stream.replica",
           "repro_torch.stream.service", "repro_torch.stream.wal",
           "repro_torch.stream.workload", "repro_torch.core.distributed",
-          "repro_torch.graph.differential_cases"]
+          "repro_torch.graph.differential_cases",
+          "repro_torch.optim.optimizer", "repro_torch.launch.steps",
+          "repro_torch.train.checkpoint", "repro_torch.train.trainer"]
 
 
 def test_ast_walk_covers_every_subpackage():
     """The import check below parses every module of every subpackage."""
     subpackages = {p.parent.name for p in SOURCES if p.name == "__init__.py"}
     assert {"configs", "core", "data", "faults", "graph", "kernels",
-            "models", "obs", "serve", "stream"} <= subpackages
+            "launch", "models", "obs", "optim", "serve", "stream",
+            "train"} <= subpackages
 
 
 # ------------------------------------------------------------- isolation

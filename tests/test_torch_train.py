@@ -1,0 +1,563 @@
+"""Training on the port against the JAX package: the losses and their
+gradients, AdamW (plain and int8 moments), ``chunked_attention``'s two
+forms, the bag under autograd, checkpoints across the two packages, the
+train steps and ``TrainLoop`` resuming the reference's checkpoints.
+
+Inputs come from numpy (seeded) and the reference's own initialisers;
+weights and optimizer state are carried by ``repro_torch.interop``.
+Tolerances: a loss within 1e-5 x max(1, |loss|); every gradient leaf
+within 1e-4 x max|want| + 1e-6 (float32 reduced configs: the two sum in
+other orders); AdamW's parameters and float moments within 1e-6 and its
+int8 moments and scales byte for byte; a resumed ``TrainLoop``'s losses
+within 1e-3 relative of the reference's continuing (eight steps of
+drift at lr 3e-3).
+"""
+import os
+import shutil
+import threading
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.registry import get_config as jget  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.launch.mesh import make_host_mesh, use_mesh  # noqa: E402
+from repro.launch.steps import build_step as jbuild_step  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models import recsys as jrec  # noqa: E402
+from repro.models import transformer as jtfm  # noqa: E402
+from repro.models.params import tree_init as jinit  # noqa: E402
+from repro.optim import optimizer as jopt  # noqa: E402
+from repro.train import TrainLoop as JTrainLoop  # noqa: E402
+from repro.train import checkpoint as jckpt  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.shapes import input_specs  # noqa: E402
+from repro_torch.data import Prefetcher, RecsysSource, TokenSource  # noqa: E402
+from repro_torch.interop import (lm_params_from, mind_params_from,  # noqa: E402
+                                 opt_state_from, params_from)
+from repro_torch.kernels import embedding_bag as ebk  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import recsys as rec  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.params import (Spec, tree_leaves,  # noqa: E402
+                                       requires_grad)
+from repro_torch.optim import optimizer as opt  # noqa: E402
+from repro_torch.train import TrainLoop, checkpoint as ckpt  # noqa: E402
+
+LM_IDS = ("qwen3-0.6b", "qwen3-14b", "yi-34b", "arctic-480b",
+          "deepseek-v3-671b")
+#: seeds of the weights and batch; for the MoE ids chosen so that no
+#: token's k-th and (k+1)-th router probabilities lie within ROUTING_GAP
+#: (checked in the test; the two packages' probabilities differ by ~1e-8):
+#: a near-tie could route differently in the two packages and move the
+#: loss by a whole expert's output.  Arctic's reduced router (top-2 of 8
+#: over 128 tokens) has least gaps 2e-5 to 9e-5 over seeds 0-7; seed 0's
+#: is 3.8e-5.  DeepSeek's reduced config routes each token to all 8 of
+#: its experts, so it has no near-tie to avoid.
+SEEDS = {"qwen3-0.6b": 0, "qwen3-14b": 0, "yi-34b": 0, "arctic-480b": 0,
+         "deepseek-v3-671b": 0}
+ROUTING_GAP = 1e-5
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _hold_loss(got, want):
+    got, want = float(got.detach()), float(want)
+    assert abs(got - want) <= 1e-5 * max(1.0, abs(want)), (got, want)
+
+
+def _jflat(tree) -> dict:
+    """keystr -> numpy leaf of a JAX tree."""
+    return {jax.tree_util.keystr(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _key(name: str) -> str:
+    """The keystr of a dotted ``tree_leaves`` name."""
+    return "".join(f"[{part!r}]" for part in name.split("."))
+
+
+def _hold_grads(grads, want_tree, names):
+    flat = _jflat(want_tree)
+    assert len(flat) == len(grads) == len(names)
+    for name, g in zip(names, grads):
+        w = flat[_key(name)].astype(np.float32)
+        lim = 1e-4 * float(np.abs(w).max(initial=0.0)) + 1e-6
+        err = float(np.abs(g.detach().float().numpy() - w).max(initial=0.0))
+        assert err <= lim, (name, err, lim)
+
+
+# ---------------------------------------------------------------- losses
+def test_softmax_xent_matches_jax():
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=(3, 7, 50)).astype(np.float32) * 4
+    labels = rng.integers(0, 50, (3, 7)).astype(np.int32)
+    want, jg = jax.value_and_grad(jtfm.softmax_xent)(jnp.asarray(logits),
+                                                     jnp.asarray(labels))
+    x = torch.tensor(logits, requires_grad=True)
+    got = tfm.softmax_xent(x, torch.tensor(labels))
+    got.backward()
+    _hold_loss(got, want)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg), rtol=1e-5,
+                               atol=1e-7)
+
+
+def _routing_gaps(monkeypatch):
+    """Record, for each MoE call, the least gap between a token's k-th and
+    (k+1)-th router probability."""
+    gaps, inner = [], tfm.moe_apply
+
+    def recording(p, cfg, x, *args, **kw):
+        k = cfg.moe.top_k
+        if k < cfg.moe.num_experts:  # else every expert is routed to
+            with torch.no_grad():
+                probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                      @ p["router"].float(), dim=-1)
+                top = torch.topk(probs, k + 1).values
+                gaps.append(float((top[:, -2] - top[:, -1]).min()))
+        return inner(p, cfg, x, *args, **kw)
+
+    monkeypatch.setattr(tfm, "moe_apply", recording)
+    return gaps
+
+
+@pytest.mark.parametrize("arch", LM_IDS)
+def test_lm_loss_and_grads_match_jax(arch, monkeypatch):
+    """``lm_loss`` (DeepSeek with its MTP module) at the reduced
+    ``train_4k`` cell: the loss and every gradient leaf against
+    ``jax.value_and_grad``."""
+    seed = SEEDS[arch]
+    jcfg, cfg = jget(arch).reduced(), get_config(arch).reduced()
+    jp = jinit(jtfm.lm_param_specs(jcfg), jax.random.PRNGKey(seed))
+    pp = lm_params_from(_np(jp), cfg, device="cpu")
+    _, avals = input_specs(cfg, "train_4k", reduced=True)
+    B, S = avals["tokens"][0]
+    batch = TokenSource(B, S, cfg.vocab, seed=seed)(0)
+    want, jg = jax.value_and_grad(jtfm.lm_loss)(
+        jp, jcfg, jnp.asarray(batch["tokens"]), jnp.asarray(batch["labels"]))
+    gaps = _routing_gaps(monkeypatch)
+    got, grads = steps.value_and_grad(
+        tfm.lm_loss, pp, cfg, torch.as_tensor(batch["tokens"]),
+        torch.as_tensor(batch["labels"]))
+    if cfg.moe is not None and cfg.moe.top_k < cfg.moe.num_experts:
+        assert gaps and min(gaps) > ROUTING_GAP, gaps
+    if cfg.mtp_depth:
+        assert "mtp.proj" in [n for n, _ in tree_leaves(pp)]
+    _hold_loss(got, want)
+    _hold_grads(grads, jg, [n for n, _ in tree_leaves(pp)])
+
+
+@pytest.mark.parametrize("B", [4, 16])
+def test_mind_train_loss_and_grads_match_jax(B):
+    jcfg, cfg = jget("mind").reduced(), get_config("mind").reduced()
+    jp = jinit(jrec.mind_param_specs(jcfg), jax.random.PRNGKey(1))
+    pp = mind_params_from(_np(jp), cfg, device="cpu")
+    batch = RecsysSource(cfg, B, seed=4)(2)
+    want, jg = jax.value_and_grad(jrec.mind_train_loss)(
+        jp, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    got, grads = steps.value_and_grad(
+        rec.mind_train_loss, pp, cfg,
+        {k: torch.as_tensor(v) for k, v in batch.items()})
+    _hold_loss(got, want)
+    _hold_grads(grads, jg, [n for n, _ in tree_leaves(pp)])
+    profile = dict(zip([n for n, _ in tree_leaves(pp)], grads))
+    assert float(profile["profile_embed"].abs().sum()) > 0
+
+
+# -------------------------------------------------------------- the bag
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_gradients_match_jax(mode, weighted):
+    """``Bag``'s table and weight gradients against JAX's autodiff of the
+    reference's XLA bag, masked slots included."""
+    rng = np.random.default_rng(3)
+    N, D, B, L = 40, 6, 9, 5
+    table = rng.normal(size=(N, D)).astype(np.float32)
+    idx = rng.integers(-1, N, (B, L)).astype(np.int32)
+    idx[0] = -1  # an all-masked bag
+    w = rng.uniform(0.5, 2.0, (B, L)).astype(np.float32)
+    cot = rng.normal(size=(B, D)).astype(np.float32)
+
+    def jloss(t, ww):
+        return jnp.sum(jref.embedding_bag_ref(t, jnp.asarray(idx), ww, mode)
+                       * cot)
+
+    jw = jnp.asarray(w if weighted else np.ones_like(w))
+    jgt, jgw = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(table), jw)
+    t = torch.tensor(table, requires_grad=True)
+    tw = torch.tensor(w, requires_grad=True) if weighted else None
+    out = ebk.embedding_bag(t, torch.tensor(idx), tw, mode=mode)
+    assert out.grad_fn is not None
+    (out * torch.tensor(cot)).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(jgt), rtol=1e-5,
+                               atol=1e-6)
+    if weighted:
+        np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jgw),
+                                   rtol=1e-5, atol=1e-6)
+    # without autograd the bag is the plain version, no graph
+    with torch.no_grad():
+        plain = ebk.embedding_bag(t, torch.tensor(idx), tw, mode=mode)
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+
+
+def test_bag_backward_skips_slots_past_the_table():
+    """Slots past the table (the kernel reads none on the card) get no
+    gradient, like masked ones; the CPU entry refuses them, so the
+    backward is called directly."""
+    table = torch.arange(12.0).reshape(4, 3)
+    idx = torch.tensor([[0, 4, -1, 2]], dtype=torch.int32)
+    w = torch.tensor([[1.0, 5.0, 7.0, 2.0]])
+    g = torch.ones(1, 3)
+    gt, gw = ebk.bag_backward(g, table, idx, w, "sum", True)
+    assert torch.equal(gt, torch.tensor([[1.0] * 3, [0.0] * 3, [2.0] * 3,
+                                         [0.0] * 3]))
+    assert torch.equal(gw, torch.tensor([[3.0, 0.0, 0.0, 21.0]]))
+
+
+# ------------------------------------------------------- chunked attention
+SHAPES = [  # (S, T, q_offset, kv_len, H, Hkv, d, dv, chunk, causal)
+    (37, 37, 0, None, 4, 2, 8, 8, 16, True),
+    (20, 50, 30, None, 4, 4, 8, 8, 16, True),
+    (33, 33, 0, 21, 7, 1, 8, 6, 8, True),
+    (16, 40, 0, None, 4, 2, 8, 8, 16, False),
+    (5, 64, -3, None, 2, 1, 4, 4, 16, True),
+]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_chunked_attention_in_place_equals_out_of_place(shape):
+    S, T, off, kv_len, H, Hkv, d, dv, chunk, causal = shape
+    rng = np.random.default_rng(S * T)
+    q, k, v = (torch.tensor(rng.normal(size=s).astype(np.float32)) for s in
+               ((2, S, H, d), (2, T, Hkv, d), (2, T, Hkv, dv)))
+    kw = dict(chunk=chunk, causal=causal, q_offset=off, kv_len=kv_len)
+    with torch.no_grad():
+        inplace = layers.chunked_attention(q, k, v, **kw)
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    out = layers.chunked_attention(qg, kg, vg, **kw)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), inplace)
+    # and the gradients against JAX's autodiff of its scan
+    cot = rng.normal(size=out.shape).astype(np.float32)
+    (out * torch.tensor(cot)).sum().backward()
+
+    def jloss(a, b, c):
+        return jnp.sum(jlayers.chunked_attention(a, b, c, **kw) * cot)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x.numpy())
+                                               for x in (q, k, v)))
+    for got, w in zip((qg.grad, kg.grad, vg.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5)
+
+
+# ------------------------------------------------------------------ AdamW
+def _opt_inputs(quantize):
+    rng = np.random.default_rng(7)
+    shapes = {"a": (3, 50), "b": {"c": (7,), "d": (130, 3)}, "e": (300,)}
+    params = jax.tree.map(
+        lambda s: rng.normal(size=s).astype(np.float32), shapes,
+        is_leaf=lambda x: isinstance(x, tuple))
+    grads = [jax.tree.map(lambda p: (rng.normal(size=p.shape) * 0.1).astype(
+        np.float32), params) for _ in range(3)]
+    cfg = dict(lr=1e-2, weight_decay=0.01, quantize_moments=quantize)
+    return params, grads, cfg
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_adamw_update_matches_jax(quantize):
+    params, grads, kw = _opt_inputs(quantize)
+    jcfg, cfg = jopt.AdamWConfig(**kw), opt.AdamWConfig(**kw)
+    jp = jax.tree.map(jnp.asarray, params)
+    js = jopt.adamw_init(jp, jcfg)
+    specs = jax.tree.map(lambda a: Spec(a.shape), params)
+    pp = params_from(params, specs, device="cpu")
+    ps = opt_state_from(_np(js), pp, device="cpu")
+    fresh = opt.adamw_init(pp, cfg)
+    for (_, a), (_, b) in zip(tree_leaves(fresh["mu"]),
+                              tree_leaves(ps["mu"])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for g in grads:
+        jp, js = jopt.adamw_update(jp, jax.tree.map(jnp.asarray, g), js, jcfg)
+        pp, ps = opt.adamw_update(pp, params_from(g, specs, device="cpu"),
+                                  ps, cfg)
+    assert int(ps["step"]) == int(js["step"]) == 3
+    want_p = _jflat(jp)
+    for name, p in tree_leaves(pp):
+        np.testing.assert_allclose(p.detach().numpy(), want_p[_key(name)],
+                                   rtol=1e-6, atol=1e-6)
+    want_mu = _jflat(js["mu"])
+    for name, t in tree_leaves(ps["mu"]):
+        w = want_mu[_key(name)]
+        if name.endswith(("_q", "_s")):
+            assert t.dtype == (torch.int8 if name.endswith("_q")
+                               else torch.float32)
+            assert t.numpy().tobytes() == w.tobytes(), name
+        else:
+            np.testing.assert_allclose(t.numpy(), w, rtol=1e-6, atol=1e-9)
+
+
+def test_q8_codec_and_specs_match_jax():
+    rng = np.random.default_rng(2)
+    for shape in [(1,), (127,), (128,), (3, 50), (64 * 128 + 1,)]:
+        x = (rng.normal(size=shape) * 10).astype(np.float32)
+        x.flat[0] = 0.5 * (x.flat[0] > 0)  # a value that rounds at a half
+        jq, js = jopt.q8_encode(jnp.asarray(x))
+        q, s = opt.q8_encode(torch.tensor(x))
+        assert q.numpy().tobytes() == np.asarray(jq).tobytes()
+        assert s.numpy().tobytes() == np.asarray(js).tobytes()
+        np.testing.assert_array_equal(
+            opt.q8_decode(q, s, shape).numpy(),
+            np.asarray(jopt.q8_decode(jq, js, shape)))
+        (qs, qd), (ss, sd) = opt.q8_state_specs(shape)
+        jqs, jss = jopt.q8_state_specs(shape)
+        assert (qs, ss) == (jqs.shape, jss.shape)
+        assert (qd, sd) == (torch.int8, torch.float32)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_adamw_state_specs_match_jax_avals(quantize):
+    cfg = get_config("deepseek-v3-671b").reduced()
+    specs = tfm.lm_param_specs(cfg)
+    got = opt.adamw_state_specs(specs, opt.AdamWConfig(
+        quantize_moments=quantize))
+    jcfg = jget("deepseek-v3-671b").reduced()
+    from repro.models.params import tree_avals
+    want = jopt.adamw_state_avals(tree_avals(jtfm.lm_param_specs(jcfg)),
+                                  jopt.AdamWConfig(quantize_moments=quantize))
+    flat = {jax.tree_util.keystr(k): v for k, v in
+            jax.tree_util.tree_flatten_with_path(want)[0]}
+    got_flat = {"['step']": got["step"]}
+    got_flat.update({"['mu']" + _key(n): v
+                     for n, v in tree_leaves(got["mu"])})
+    assert sorted(got_flat) == sorted(flat)
+    for key, (shape, dtype) in got_flat.items():
+        assert tuple(shape) == flat[key].shape, key
+        assert str(dtype).split(".")[-1] == str(flat[key].dtype), key
+
+
+def test_compress_psum_waits_for_launch():
+    with pytest.raises(NotImplementedError, match="7.7"):
+        opt.compress_psum({"a": torch.zeros(3)}, "data")
+
+
+# ------------------------------------------------------------ checkpoints
+def _ckpt_trees():
+    """A JAX (params, int8 AdamW state) with bfloat16 leaves and the port's
+    like tree of the same structure."""
+    rng = np.random.default_rng(11)
+    params = {"embed": jnp.asarray(rng.normal(size=(9, 4)), jnp.bfloat16),
+              "ln": jnp.asarray(rng.normal(size=(4,)), jnp.float32),
+              "blk": {"w": jnp.asarray(rng.normal(size=(4, 130)),
+                                       jnp.bfloat16)}}
+    cfg = jopt.AdamWConfig(quantize_moments=True)
+    state = jopt.adamw_init(params, cfg)
+    grads = jax.tree.map(lambda p: jnp.asarray(
+        rng.normal(size=p.shape), jnp.float32), params)
+    params, state = jopt.adamw_update(params, grads, state, cfg)
+    specs = {"embed": Spec((9, 4), torch.bfloat16),
+             "ln": Spec((4,), torch.float32),
+             "blk": {"w": Spec((4, 130), torch.bfloat16)}}
+    like_p = params_from(jax.tree.map(lambda a: np.zeros(a.shape, np.float32),
+                                      params), specs, device="cpu")
+    like_s = opt.adamw_init(like_p, opt.AdamWConfig(quantize_moments=True))
+    return (params, state), (like_p, like_s)
+
+
+def _same_tree(port_tree, jax_tree):
+    want = _jflat(jax_tree)
+    got = dict(ckpt._flatten(port_tree))
+    assert sorted(got) == sorted(want)
+    for key, t in got.items():
+        w = want[key]
+        if t.dtype == torch.bfloat16:
+            assert str(w.dtype) == "bfloat16", key
+            assert np.array_equal(t.float().numpy(), w.astype(np.float32))
+        else:
+            assert t.numpy().dtype == w.dtype, key
+            assert t.numpy().tobytes() == w.tobytes(), key
+
+
+def test_jax_checkpoint_restores_in_the_port(tmp_path):
+    jtree, like = _ckpt_trees()
+    jckpt.save(str(tmp_path), 7, jtree)
+    tree, step = ckpt.restore(str(tmp_path), like)
+    assert step == 7 and ckpt.latest_step(str(tmp_path)) == 7
+    assert type(tree[0]).__name__ == "ParamTree"
+    assert tree[0]["blk"]["w"].dtype == torch.bfloat16
+    _same_tree(tree, jtree)
+
+
+def test_port_checkpoint_restores_in_jax(tmp_path):
+    jtree, like = _ckpt_trees()
+    jckpt.save(str(tmp_path / "j"), 3, jtree)
+    tree, _ = ckpt.restore(str(tmp_path / "j"), like)
+    ckpt.save(str(tmp_path / "p"), 3, tree)
+    got, step = jckpt.restore(str(tmp_path / "p"), jtree)
+    assert step == 3
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(jtree)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    # the two packages write the same keys and manifest
+    for name in ("manifest.json",):
+        assert (tmp_path / "p" / "step_00000003" / name).read_text() == \
+            (tmp_path / "j" / "step_00000003" / name).read_text()
+
+
+def test_checkpoint_manager_keeps_the_last_and_raises_late(tmp_path):
+    m = ckpt.CheckpointManager(str(tmp_path), keep=2, async_save=True)
+    for s in range(5):
+        m.save(s, {"x": torch.full((4,), float(s))})
+    m.wait()
+    assert sorted(os.listdir(tmp_path)) == ["step_00000003", "step_00000004"]
+    got, step = m.restore_latest({"x": torch.zeros(4)})
+    assert step == 4 and float(got["x"][0]) == 4
+    with pytest.raises(FileNotFoundError):
+        ckpt.restore(str(tmp_path / "none"), {"x": torch.zeros(4)})
+    bad = ckpt.CheckpointManager(str(tmp_path / "f"), async_save=True)
+    (tmp_path / "f").write_text("a file where the directory should be")
+    bad.save(0, {"x": torch.zeros(1)})
+    with pytest.raises(OSError):
+        bad.wait()
+
+
+# ------------------------------------------------------------- the steps
+def test_lm_train_step_accumulates_like_jax(monkeypatch):
+    """``build_step``'s LM train step with two microbatches (the token
+    budget cut to 64): loss, parameters and moments after one step."""
+    monkeypatch.setenv("REPRO_ACCUM_TOKENS", "64")
+    monkeypatch.setenv("REPRO_TORCH_ACCUM_TOKENS", "64")
+    mesh = make_host_mesh()
+    jb = jbuild_step("qwen3-0.6b", "train_4k", mesh, reduced=True,
+                     opt=jopt.AdamWConfig(lr=3e-3))
+    b = steps.build_step("qwen3-0.6b", "train_4k", reduced=True,
+                         opt=opt.AdamWConfig(lr=3e-3))
+    assert b.static["accum"] == jb.static["accum"] == 2
+    jcfg, cfg = jb.static["cfg"], b.static["cfg"]
+    jp = jinit(jtfm.lm_param_specs(jcfg), jax.random.PRNGKey(0))
+    js = jopt.adamw_init(jp, jb.static["opt"])
+    pp = lm_params_from(_np(jp), cfg, device="cpu")
+    ps = opt_state_from(_np(js), pp, device="cpu")
+    batch = TokenSource(2, 64, cfg.vocab)(0)
+    with use_mesh(mesh):
+        jp, js, jl = jax.jit(jb.fn)(jp, js, jnp.asarray(batch["tokens"]),
+                                    jnp.asarray(batch["labels"]))
+    pp, ps, loss = b.fn(pp, ps, torch.as_tensor(batch["tokens"]),
+                        torch.as_tensor(batch["labels"]))
+    _hold_loss(loss, jl)
+    # one Adam step moves each weight by ~lr; hold it to a thousandth
+    _hold_grads([p for _, p in tree_leaves(pp)], jp,
+                [n for n, _ in tree_leaves(pp)])
+    assert int(ps["step"]) == 1
+
+
+def test_build_step_cells_and_refusals():
+    b = steps.build_step("deepseek-v3-671b", "train_4k", reduced=True)
+    assert b.name == "train_step" and not b.static["opt"].quantize_moments
+    big = steps.build_step("deepseek-v3-671b", "train_4k", reduced=True,
+                           quantize_moments=True, depth_override=3)
+    assert big.static["opt"].quantize_moments
+    assert big.static["cfg"].n_layers == 3
+    assert steps.build_step("yi-34b", "prefill_32k").name == "serve_prefill"
+    assert steps.build_step("mind", "retrieval_cand").name == \
+        "retrieval_step"
+    assert steps.build_step("mind", "serve_p99").name == "serve_step"
+    full = steps.build_step("qwen3-14b", "decode_32k")
+    assert full.name == "serve_decode"
+    assert full.num_params == jbuild_step("qwen3-14b", "decode_32k",
+                                          make_host_mesh()).num_params
+    assert steps.accum_steps(256, 4096) == 128
+    assert steps.accum_steps(8, 4096) == 4 and steps.accum_steps(1, 4096) == 1
+    # int8 moments from d_model 7000 up, as the reference picks them
+    assert steps.build_step("deepseek-v3-671b", "train_4k").static[
+        "opt"].quantize_moments
+    with pytest.raises(NotImplementedError, match="7.7"):
+        steps.build_step("qwen3-0.6b", "train_4k", mesh=object())
+    with pytest.raises(NotImplementedError, match="7.7"):
+        steps.build_step("semicore-webscale", "x")
+    with pytest.raises(NotImplementedError, match="7.6"):
+        steps.build_step("gcn-cora", "full_graph_sm")
+    with pytest.raises(NotImplementedError, match="7.6"):
+        steps._build_gnn(None, None, None, None, None, None, None)
+
+
+def test_serve_steps_run_under_inference_mode():
+    b = steps.build_step("mind", "serve_p99", reduced=True)
+    cfg = get_config("mind").reduced()
+    pp = rec.mind_init(cfg, torch.Generator().manual_seed(0))
+    requires_grad(pp)
+    batch = {k: torch.as_tensor(v) for k, v in
+             RecsysSource(cfg, 3)(0).items()}
+    out = b.fn(pp, batch)
+    assert out.shape == (3, cfg.n_interests, cfg.embed_dim)
+    assert out.is_inference()
+
+
+# -------------------------------------------------------------- TrainLoop
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mind"])
+def test_trainloop_resumes_a_jax_checkpoint(arch, tmp_path):
+    """The reference's TrainLoop checkpoints at step 4; the port's resumes
+    it for 4 steps on the CPU, as the reference's own loop continues."""
+    d = tmp_path / "ckpt"
+    JTrainLoop(arch, reduced=True, checkpoint_dir=str(d),
+               checkpoint_every=1000, log_every=0).run(5, resume=False)
+    assert jckpt.latest_step(str(d)) == 4
+    shutil.copytree(d, tmp_path / "jax")
+    want = JTrainLoop(arch, reduced=True, checkpoint_dir=str(tmp_path / "jax"),
+                      log_every=0).run(4)["losses"]
+    got = TrainLoop(arch, reduced=True, checkpoint_dir=str(d), log_every=0,
+                    device="cpu").run(4)
+    assert len(got["losses"]) == 4
+    np.testing.assert_allclose(got["losses"], want, rtol=1e-3)
+    assert ckpt.latest_step(str(d)) == 8
+    # and the port's step-8 checkpoint restores in the reference
+    (params, state), step = jckpt.restore(
+        str(d), JTrainLoop(arch, reduced=True, log_every=0)._init_state())
+    assert step == 8 and int(state["step"]) == 9
+
+
+def test_trainloop_prints_the_reference_lines_and_needs_a_device(
+        capsys, monkeypatch):
+    r = TrainLoop("mind", log_every=2, device="cpu").run(4, resume=False)
+    assert capsys.readouterr().out.splitlines() == [
+        f"step {i}: loss {r['losses'][i - 1]:.4f}" for i in (2, 4)]
+    assert set(r) == {"losses", "steps_per_s", "final_loss"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainLoop("mind")
+    with pytest.raises(ValueError, match="train cell"):
+        TrainLoop("mind", shape="serve_p99", device="cpu")
+    with pytest.raises(NotImplementedError, match="7.6"):
+        TrainLoop("gcn-cora", device="cpu")
+
+
+# ------------------------------------------------------------- Prefetcher
+def test_prefetcher_gives_steps_in_order_and_closes():
+    calls = []
+
+    def source(step):
+        calls.append(step)
+        return {"x": np.full(2, step)}
+
+    pf = Prefetcher(source, start_step=5, depth=2)
+    got = [next(pf) for _ in range(4)]
+    assert [s for s, _ in got] == [5, 6, 7, 8]
+    assert all(int(b["x"][0]) == s for s, b in got)
+    time.sleep(0.05)
+    assert len(calls) <= 4 + 2 + 1  # bounded: depth ahead, one in hand
+    pf.close()
+    assert not pf._thread.is_alive()
+    assert calls == list(range(5, 5 + len(calls)))
+    n = threading.active_count()
+    Prefetcher(source).close()
+    assert threading.active_count() == n
