@@ -149,6 +149,22 @@ Phases, each printing one JSON line:
              its losses equal to an uninterrupted run's.  Each prints ms a
              step, tokens or users a second, peak device memory and the
              loss curve
+  gnn        the GNN zoo at full width through build_step and make_source
+             (the reference's cells, uncut; plain torch, no kernel): GCN
+             on full_graph_sm (Cora's 2,708 nodes, 1,433 features),
+             GraphSAGE on minibatch_lg (1,024 seeds, fanout 15-10, steps
+             0-2 of the sampler) and on ogb_products (2,449,030 nodes,
+             80,408,244 directed edges; its source drawn by a child
+             process, this script with --gnn-source-child, started before
+             the mind phase), SchNet and EGNN on molecule (128 x 30
+             atoms), three steps each; step 0's loss and every gradient
+             leaf held to the same step on the CPU (ogb_products: 64 rows'
+             logits to a float64 host forward over their two-hop balls),
+             the repeated batch's loss falling; a TrainLoop("gcn-cora",
+             reduced=False) crashed after 6 steps and resumed for 4, equal
+             to an uninterrupted run.  Each run prints ms a step, edges a
+             second, peak device memory, the source's host seconds and the
+             losses
 
 The parity phase also holds the embedding-bag and flash-decode kernels to
 their plain versions over the reference's sweeps (kernels/cases.py), flash
@@ -159,8 +175,9 @@ maintain path (``maintain_launches``), on the out-of-core path
 (``outofcore_launches``), on the stream path (``stream_launches``),
 on the shard path (``shard_launches``, its runs but the timing reruns),
 on Qwen3-14B's decode (``lm_prefill_launches``), on Arctic's
-(``lm_moe_launches``) and on MIND's train steps (``train_launches``;
-the bag's figures at the train shape under ``train_batch``),
+(``lm_moe_launches``), on MIND's train steps (``train_launches``;
+the bag's figures at the train shape under ``train_batch``) and on the
+GNN runs (``gnn_launches``, 0: the GNN path has no kernel),
 error against the plain version,
 times and bounds; the superstep pair and the segment sums
 also at the state entering pass 20; the embedding bag also bit for bit
@@ -314,6 +331,35 @@ TRAIN_LOSS_REL = 1e-6
 #: (float32, the card's atomics reorder sums between runs): relative to
 #: max(1, |loss|)
 TRAIN_RESUME_TOL = 1e-5
+#: the gnn phase: (run, arch, cell, the source's steps of its three train
+#: steps) at full width, build_step(..., reduced=False) on make_source's
+#: batches (the reference's cells, uncut), AdamW at TRAIN_LR
+GNN_RUNS = (("a", "gcn-cora", "full_graph_sm", (0, 0, 0)),
+            ("b", "graphsage-reddit", "minibatch_lg", (0, 1, 2)),
+            ("c", "graphsage-reddit", "ogb_products", (0, 0, 0)),
+            ("d", "schnet", "molecule", (0, 0, 0)),
+            ("e", "egnn", "molecule", (0, 0, 0)))
+#: a run's step-0 loss against the port's plain CPU run of the same cell,
+#: weights and batch (float32; index_add sums with atomics on the card):
+#: relative to max(1, |loss|); each gradient leaf as train_grads_hold
+GNN_LOSS_REL = 1e-5
+#: run c is too large for a CPU run: the logits of GNN_BALL_SEEDS rows whose
+#: two-hop in-neighbourhood has at most GNN_BALL_EDGES edges, recomputed in
+#: float64 on the host from the CSR, within GNN_LOGIT_REL of the largest
+#: |logit| of those rows
+GNN_BALL_SEEDS = 64
+GNN_BALL_EDGES = 20_000
+GNN_LOGIT_REL = 1e-4
+#: the gnn phase's TrainLoop("gcn-cora", reduced=False): crashed after
+#: GNN_RESUME[0] steps and resumed for GNN_RESUME[1]
+GNN_RESUME = (6, 4)
+#: run c's source (make_source of ogb_products: chung_lu of 2.45 M nodes,
+#: 80.4 M directed edges, and 245 M float32 features; 126-141 s of host
+#: numpy beside an H100) is drawn in a child process started before the
+#: mind phase, beside the serving and train phases; the phase waits for
+#: it at most this long
+GNN_SOURCE_CELL = ("graphsage-reddit", "ogb_products")
+GNN_SOURCE_TIMEOUT_S = 900
 #: the maintain phase: edges deleted and re-inserted in the round trip
 #: (and the light batch's deletes and inserts), updates of the mixed batch (deletes at repro/stream/workload.py's odds;
 #: 300, not 10,000: the parallel plan of 10,000 takes ~290 s on the host,
@@ -1263,6 +1309,78 @@ def ooc_build_child(out_dir: str, relabel: str, n: str, m: str) -> int:
         np.save(out_dir + ".perm.npy", stats.perm)
     emit({"wall_s": wall, **stats.to_json(), **rss})
     return 0
+
+
+def gnn_source_child(out_dir: str, arch: str, shape: str) -> int:
+    """``python3 chip_smoke.py --gnn-source-child OUT_DIR ARCH CELL``:
+    ``make_source`` of that full-width cell; its step-0 batch and its graph
+    saved as ``.npy`` files under ``out_dir``.  Prints the draw's and the
+    save's walls as one JSON line."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import make_source
+
+    t = time.perf_counter()
+    src = make_source(get_config(arch), shape, False)
+    batch = src(0)
+    source_s = time.perf_counter() - t
+    t = time.perf_counter()
+    arrays = {**{f"batch.{k}": v for k, v in batch.items()},
+              "indptr": src.graph.indptr, "adj": src.graph.adj}
+    for name, a in arrays.items():
+        np.save(os.path.join(out_dir, name + ".npy"), a)
+    emit({"source_s": source_s, "save_s": time.perf_counter() - t,
+          "keys": sorted(batch)})
+    return 0
+
+
+class ChildSource:
+    """A full-width GNN cell's source drawn by :func:`gnn_source_child` in
+    a process of its own, started here; :meth:`result` waits for it and
+    loads what it saved, :meth:`close` (or leaving a ``with`` block) stops
+    it and removes its files."""
+
+    def __init__(self, arch: str, shape: str):
+        self.cell = (arch, shape)
+        self.tmp = tempfile.TemporaryDirectory(prefix="gnn_source_")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--gnn-source-child", self.tmp.name, arch, shape],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(self) -> tuple:
+        """``(graph, step-0 batch, record)``: the record has the child's
+        draw and save walls, the parent's wait and load seconds."""
+        from repro_torch.graph import CSRGraph
+
+        t = time.perf_counter()
+        out, err = self.proc.communicate(timeout=GNN_SOURCE_TIMEOUT_S)
+        wait_s = time.perf_counter() - t
+        check(self.proc.returncode == 0,
+              f"gnn source {self.cell} failed: {err[-4000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        t = time.perf_counter()
+
+        def load(name):
+            return np.load(os.path.join(self.tmp.name, name + ".npy"))
+
+        batch = {k: load(f"batch.{k}") for k in rec.pop("keys")}
+        graph = CSRGraph(indptr=load("indptr"), adj=load("adj"))
+        rec.update({"child_wall_s": time.perf_counter() - self.t0,
+                    "wait_s": wait_s, "load_s": time.perf_counter() - t})
+        return graph, batch, rec
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        self.tmp.cleanup()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def build_out_of_core(out_dir: str, relabel: str, shape: tuple) -> dict:
@@ -3322,6 +3440,218 @@ def phase_train(device) -> tuple:
     return launches, bag_train
 
 
+def sage_ball_seeds(graph, count: int, max_edges: int) -> np.ndarray:
+    """``count`` nodes (seeded draw, sorted) with at least one neighbour
+    whose two-hop in-neighbourhood (the edges into the node and into each
+    of its neighbours) has at most ``max_edges`` edges."""
+    deg = np.diff(graph.indptr)
+    nbr_deg = np.concatenate([[0], np.cumsum(deg[graph.adj])])
+    ball = deg + nbr_deg[graph.indptr[1:]] - nbr_deg[graph.indptr[:-1]]
+    cand = np.flatnonzero((deg > 0) & (ball <= max_edges))
+    check(len(cand) >= count, f"gnn: {len(cand)} rows with a ball of at "
+          f"most {max_edges} edges")
+    return np.sort(np.random.default_rng(0).choice(cand, count,
+                                                   replace=False))
+
+
+def sage_logits_f64(params, cfg, graph, x, seeds) -> np.ndarray:
+    """GraphSAGE's logits of ``seeds`` in float64 on the host from the CSR
+    (mean over each row's neighbours, the layers of ``graphsage_forward``):
+    the rows depend only on their two-hop in-neighbourhoods."""
+    P = {k: v.detach().double().cpu().numpy()
+         for k, v in params.state_dict().items()}
+    indptr, adj = graph.indptr, graph.adj
+
+    def layer(i, h_self, h_rows, lens):
+        starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        agg = np.add.reduceat(h_rows, starts, axis=0) / lens[:, None]
+        return np.maximum(h_self @ P[f"l{i}.w_self"]
+                          + agg @ P[f"l{i}.w_nbr"] + P[f"l{i}.b"], 0.0)
+
+    def h1(nodes):
+        nb = [adj[indptr[u]:indptr[u + 1]] for u in nodes]
+        return layer(0, x[nodes].astype(np.float64),
+                     x[np.concatenate(nb)].astype(np.float64),
+                     np.array([len(a) for a in nb]))
+
+    out = []
+    for v in seeds:
+        nb = adj[indptr[v]:indptr[v + 1]]
+        h = h1(np.concatenate([[v], nb]))
+        out.append(layer(1, h[:1], h[1:], np.array([len(nb)])))
+    return np.concatenate(out) @ P["head"]
+
+
+class LoadedSource:
+    """The step-0 batch and graph a :class:`ChildSource` drew, as a
+    full-graph source: the same batch every step."""
+
+    def __init__(self, graph, batch: dict):
+        self.graph, self.batch = graph, batch
+
+    def __call__(self, step: int) -> dict:
+        return self.batch
+
+
+def gnn_run(device, run: str, arch: str, shape: str, steps_at,
+            drawn: ChildSource | None = None) -> dict:
+    """One arch and cell at full width: ``make_source`` (timed: graph draw
+    and features; sampling a step; or the child process ``drawn`` of this
+    full-graph cell, waited for), ``build_step``'s train step over the
+    source's batches at ``steps_at``, each step ending in a sync; step 0's
+    loss and gradients held to the same step on the CPU, or, for
+    ogb_products, the logits of rows held to a float64 host forward."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    from repro_torch.models.params import tree_init, tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_source
+
+    cfg = get_config(arch)
+    bundle = steps.build_step(arch, shape, opt=steps.default_opt(
+        cfg, lr=TRAIN_LR))
+    N, specs = bundle.static["num_nodes"], bundle.static["pspecs"]
+    if drawn is None:
+        t = time.perf_counter()
+        src = make_source(cfg, shape, False)
+        source = {"source_s": time.perf_counter() - t}
+    else:
+        check(drawn.cell == (arch, shape) and len(set(steps_at)) == 1,
+              f"gnn {run}: the child drew {drawn.cell}")
+        graph, batch, source = drawn.result()
+        src = LoadedSource(graph, batch)
+    host, sample_s = {}, []
+    for i in steps_at:
+        t = time.perf_counter()
+        if i not in host:
+            host[i] = src(i)
+        sample_s.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    dev = {i: {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+           for i, b in host.items()}
+    torch.cuda.synchronize(device)
+    upload_s = time.perf_counter() - t
+    params = tree_init(specs, torch.Generator(device).manual_seed(0))
+    state = adamw_init(params, bundle.static["opt"])
+    b0 = host[steps_at[0]]
+    E = int(len(b0["src"]))
+
+    def loss_fn(p, batch):
+        return gnn.gnn_loss(p, cfg, {**batch, "num_nodes": N})
+
+    rec = {"run": run, "arch": arch, "cell": shape, "num_nodes": N,
+           "edges": E, "params": bundle.num_params, "source_steps":
+           list(steps_at), **source, "sample_s": sample_s,
+           "upload_s": upload_s, "lr": TRAIN_LR}
+    if shape == "ogb_products":
+        seeds = sage_ball_seeds(src.graph, GNN_BALL_SEEDS, GNN_BALL_EDGES)
+        d0 = dev[steps_at[0]]
+        t = time.perf_counter()
+        with torch.no_grad():
+            got = gnn.graphsage_forward(params, cfg, d0["x"], d0["src"],
+                                        d0["dst"], N)[torch.as_tensor(
+                                            seeds, device=device)]
+        torch.cuda.synchronize(device)
+        fwd_s = time.perf_counter() - t
+        got = got.double().cpu().numpy()
+        want = sage_logits_f64(params, cfg, src.graph, b0["x"], seeds)
+        err = float(np.abs(got - want).max())
+        lim = GNN_LOGIT_REL * float(np.abs(want).max())
+        check(err <= lim, f"gnn {run}: logits of {len(seeds)} rows off the "
+              f"float64 host forward by {err} > {lim}")
+        deg = np.diff(src.graph.indptr)
+        rec["hold"] = {"rows": len(seeds), "max_abs_err": err, "limit": lim,
+                       "max_abs_logit": float(np.abs(want).max()),
+                       "row_degrees": [int(deg[seeds].min()),
+                                       int(deg[seeds].max())],
+                       "forward_s": fwd_s}
+        del got
+    else:
+        names = [n for n, _ in tree_leaves(params)]
+        loss_k, grads_k = steps.value_and_grad(loss_fn, params,
+                                               dev[steps_at[0]])
+        cpu = tree_init(specs, torch.Generator().manual_seed(0))
+        cpu.load_state_dict(params.state_dict())
+        loss_p, grads_p = steps.value_and_grad(
+            loss_fn, cpu, {k: torch.as_tensor(v) for k, v in b0.items()})
+        rel = abs(float(loss_k) - float(loss_p)) / max(1.0,
+                                                       abs(float(loss_p)))
+        check(rel <= GNN_LOSS_REL, f"gnn {run}: loss {float(loss_k)} "
+              f"against the CPU's {float(loss_p)}")
+        worst = train_grads_hold(
+            list(zip(names, [g.cpu() for g in grads_k])), grads_p,
+            f"gnn {run}")
+        rec["hold"] = {"loss": float(loss_k), "cpu_loss": float(loss_p),
+                       "loss_rel": rel, "worst_grad_share": worst}
+        del grads_k, grads_p, cpu
+    reset_launch_counts()
+    params, state, losses, ms, peak = timed_train_steps(
+        device, bundle.fn, params, state,
+        [(dev[i],) for i in steps_at])
+    launched = {k: v for k, v in launch_counts().items() if v}
+    check(not launched, f"gnn {run}: kernels launched {launched}")
+    if steps_at[0] == steps_at[-1]:
+        check(losses[-1] < losses[0], f"gnn {run}: the repeated batch's "
+              f"loss {losses[-1]} did not fall below {losses[0]}")
+    steady = float(np.mean(ms[1:]))
+    rec.update({"losses": losses, "ms_per_step": ms, "steady_ms": steady,
+                "edges_per_s": E / (steady / 1e3),
+                "max_memory_allocated": peak, "kernels": []})
+    del params, state, dev, host, src
+    free_card(device)
+    return rec
+
+
+def phase_gnn(device, drawn: ChildSource | None = None) -> dict:
+    """The GNN zoo at full width (GNN_RUNS) through build_step and
+    make_source (``drawn``: the child drawing GNN_SOURCE_CELL's source;
+    None draws it here), then a TrainLoop("gcn-cora", reduced=False)
+    crashed and resumed from its checkpoint.  No run launches one of the
+    kernels (the reference's GNN reaches no pallas_call): the counts, set
+    to 0 before each run's steps, must read 0 after them.  Returns the
+    phase's launches (an empty dict)."""
+    from repro_torch.train import TrainLoop
+
+    free_card(device)
+    t0 = time.perf_counter()
+    runs = {}
+    for run, arch, shape, steps_at in GNN_RUNS:
+        child = drawn if (arch, shape) == GNN_SOURCE_CELL else None
+        runs[run] = gnn_run(device, run, arch, shape, steps_at, child)
+        emit({"phase": "gnn", **runs[run]})
+    first, then = GNN_RESUME
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="gnn_") as tmp:
+        kw = dict(reduced=False, log_every=0, device=device)
+        a = TrainLoop("gcn-cora", checkpoint_dir=tmp, **kw).run(
+            first, resume=False)["losses"]
+        b = TrainLoop("gcn-cora", checkpoint_dir=tmp, **kw).run(then)[
+            "losses"]
+        whole = TrainLoop("gcn-cora", **kw).run(first + then,
+                                                resume=False)["losses"]
+    launched = {k: v for k, v in launch_counts().items() if v}
+    check(not launched, f"gnn TrainLoop: kernels launched {launched}")
+    diff = float(np.max(np.abs(np.array(a + b) - whole)))
+    check(diff <= TRAIN_RESUME_TOL * max(1.0, float(np.abs(whole).max())),
+          f"gnn: resumed losses {a + b} against {whole}")
+    emit({"phase": "gnn", "wall_s": time.perf_counter() - t0,
+          "summary": {r: {k: v[k] for k in ("steady_ms", "edges_per_s",
+                                             "max_memory_allocated",
+                                             "source_s")}
+                      for r, v in runs.items()},
+          "resume": {"arch": "gcn-cora", "steps": [first, then],
+                     "losses": a + b, "uninterrupted": whole,
+                     "max_abs_diff": diff, "tolerance": TRAIN_RESUME_TOL},
+          "tolerances": {"loss_rel": GNN_LOSS_REL,
+                         "grads": "1e-4 x max|cpu| + 1e-6",
+                         "logits": f"{GNN_LOGIT_REL} x max|logit| of "
+                                   f"{GNN_BALL_SEEDS} rows"}})
+    return {}
+
+
 def bag_entries(device, launches, profile_embed, profile_ids) -> list:
     """The embedding bag at MIND's serve_bulk bags: held to its plain
     version and, bit for bit, to the slot-order sum; timed in turns with
@@ -3537,6 +3867,9 @@ def main(argv: list) -> int:
     if argv[:1] == ["--ooc-build-child"]:
         sys.path.insert(0, str(ROOT / "src"))
         return ooc_build_child(*argv[1:])
+    if argv[:1] == ["--gnn-source-child"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        return gnn_source_child(*argv[1:])
     import torch
 
     if not torch.cuda.is_available():
@@ -3577,19 +3910,24 @@ def main(argv: list) -> int:
     # read after it, summed over the phase
     shard = phase_shard(device, g, r)
     del g, r
-    bag_launches, profile_embed, profile_ids = phase_mind(device)
-    launches.update(bag_launches)
-    lm_launches, held = phase_lm(device)
-    launches.update(lm_launches)
-    # the zoo's paths: Qwen3-14B's decode (lm_prefill, after Qwen3-0.6B's
-    # prefill) and Arctic's (lm_moe), each with the counts set to 0 before
-    # its generate run
-    lm_prefill = phase_lm_prefill(device, held)
-    del held
-    lm_moe = phase_lm_moe(device)
-    # the train path's launches: MIND's five steps, counts set to 0 before
-    # them
-    train, bag_train = phase_train(device)
+    # run c of the gnn phase draws its source on the host meanwhile
+    with ChildSource(*GNN_SOURCE_CELL) as drawn:
+        bag_launches, profile_embed, profile_ids = phase_mind(device)
+        launches.update(bag_launches)
+        lm_launches, held = phase_lm(device)
+        launches.update(lm_launches)
+        # the zoo's paths: Qwen3-14B's decode (lm_prefill, after
+        # Qwen3-0.6B's prefill) and Arctic's (lm_moe), each with the counts
+        # set to 0 before its generate run
+        lm_prefill = phase_lm_prefill(device, held)
+        del held
+        lm_moe = phase_lm_moe(device)
+        # the train path's launches: MIND's five steps, counts set to 0
+        # before them
+        train, bag_train = phase_train(device)
+        # the GNN zoo's runs: counts set to 0 before each run's steps, none
+        # of the kernels on its path
+        gnn = phase_gnn(device, drawn)
     entries += bag_entries(device, launches, profile_embed, profile_ids)
     next(e for e in entries if e["name"] == "embedding_bag")[
         "train_batch"] = bag_train
@@ -3602,6 +3940,7 @@ def main(argv: list) -> int:
         entry["lm_prefill_launches"] = lm_prefill.get(entry["name"], 0)
         entry["lm_moe_launches"] = lm_moe.get(entry["name"], 0)
         entry["train_launches"] = train.get(entry["name"], 0)
+        entry["gnn_launches"] = gnn.get(entry["name"], 0)
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,9 @@
-"""Config dataclasses of the LM, recsys and core-graph families (+ reduced
-smoke configs).
+"""Config dataclasses of the LM, GNN, recsys and core-graph families (+
+reduced smoke configs).
 
-The port's copy of ``repro/configs/base.py`` for the families it runs:
-``LMConfig`` and ``RecsysConfig`` with ``reduced()``, field for field, with
-``dtype`` a torch dtype; ``CoreGraphConfig``, the paper's own workload,
+The port's copy of ``repro/configs/base.py``: ``LMConfig``, ``GNNConfig``
+and ``RecsysConfig`` with ``reduced()``, field for field, with ``dtype`` a
+torch dtype; ``CoreGraphConfig``, the paper's own workload,
 field for field with the port's backend names (the reference's
 ``"pallas"`` is ``"cuda"``, its ``"xla"`` is ``"torch"``).
 """
@@ -14,7 +14,7 @@ from typing import Any
 
 import torch
 
-__all__ = ["MoEConfig", "MLAConfig", "LMConfig", "RecsysConfig",
+__all__ = ["MoEConfig", "MLAConfig", "LMConfig", "GNNConfig", "RecsysConfig",
            "CoreGraphConfig"]
 
 
@@ -74,6 +74,27 @@ class LMConfig:
             n_heads=4, n_kv=2, d_head=16, d_ff=128, vocab=256,
             moe=moe, mla=mla, mtp_depth=min(self.mtp_depth, 1), dtype=torch.float32,
         )
+
+
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    arch: str                   # graphsage | gcn | schnet | egnn
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "mean"
+    sample_sizes: tuple = ()
+    norm: str | None = None     # gcn: "sym"
+    n_rbf: int = 0              # schnet
+    cutoff: float = 0.0         # schnet
+    equivariance: str | None = None  # egnn: "E(n)"
+    num_classes: int = 16
+    dtype: Any = torch.float32
+    kind: str = "gnn"
+
+    def reduced(self) -> "GNNConfig":
+        return replace(self, d_hidden=min(self.d_hidden, 16),
+                       n_rbf=min(self.n_rbf, 16) if self.n_rbf else 0)
 
 
 @dataclass(frozen=True)

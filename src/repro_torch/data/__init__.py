@@ -1,4 +1,6 @@
 """Host data pipelines of the port."""
-from .pipeline import Prefetcher, RecsysSource, TokenSource
+from .pipeline import (GNNFullGraphSource, Prefetcher, RecsysSource,
+                       SampledGraphSource, TokenSource)
 
-__all__ = ["Prefetcher", "RecsysSource", "TokenSource"]
+__all__ = ["TokenSource", "GNNFullGraphSource", "SampledGraphSource",
+           "RecsysSource", "Prefetcher"]

@@ -5,6 +5,7 @@ from .generators import (
 )
 from .updates import BufferedGraph
 from .build import build_csr, BuildStats, edge_chunks_from_npy, edge_chunks_from_text
+from .sampler import NeighborSampler, SampledBlock
 
 __all__ = [
     "CSRGraph", "BlockReader", "paper_example_graph", "DEFAULT_BLOCK_EDGES",
@@ -12,4 +13,5 @@ __all__ = [
     "rmat_chunks", "powerlaw_chunks", "uniform_chunks",
     "BufferedGraph", "build_csr", "BuildStats",
     "edge_chunks_from_npy", "edge_chunks_from_text",
+    "NeighborSampler", "SampledBlock",
 ]

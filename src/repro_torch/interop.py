@@ -15,8 +15,9 @@ their numpy fields, by attribute, never by importing that implementation:
   "-") and ``u``/``v`` fields (the JAX package's ``UpdateBatch``);
 * :func:`maintainer_state_from` — any object with a buffered graph ``bg``
   and ``core``/``cnt`` arrays (the JAX package's ``CoreMaintainer``);
-* :func:`params_from` (:func:`mind_params_from`, :func:`lm_params_from`)
-  — a parameter tree as nested dicts of numpy arrays, leaf for leaf;
+* :func:`params_from` (:func:`mind_params_from`, :func:`lm_params_from`,
+  :func:`gnn_params_from`) — a parameter tree as nested dicts of numpy
+  arrays, leaf for leaf;
 * :func:`opt_state_from` — the reference's AdamW state (plain or int8
   moments) as nested dicts of numpy arrays, beside the port's parameters.
 
@@ -32,7 +33,8 @@ from .graph.updates import BufferedGraph
 
 __all__ = ["csr_from", "buffered_from", "warm_state",
            "update_batch_from", "maintainer_state_from", "params_from",
-           "mind_params_from", "lm_params_from", "opt_state_from"]
+           "mind_params_from", "lm_params_from", "gnn_params_from",
+           "opt_state_from"]
 
 
 def csr_from(graph) -> CSRGraph:
@@ -144,6 +146,15 @@ def lm_params_from(arrays, cfg, device=None):
     from .models.transformer import lm_param_specs
 
     return params_from(arrays, lm_param_specs(cfg), device)
+
+
+def gnn_params_from(arrays, cfg, d_in: int, device=None):
+    """A GNN's parameters (:func:`repro_torch.models.gnn.gnn_param_specs`
+    of ``cfg`` over ``d_in`` input features; SchNet ignores ``d_in``) from
+    the reference's tree."""
+    from .models.gnn import gnn_param_specs
+
+    return params_from(arrays, gnn_param_specs(cfg, d_in), device)
 
 
 def opt_state_from(arrays, params, device=None):

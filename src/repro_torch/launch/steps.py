@@ -4,21 +4,20 @@
 The port's copy of ``repro/launch/steps.py`` without meshes: each
 ``_build_*`` function returns a :class:`StepBundle` whose ``fn`` runs
 eagerly on the tensors it is given (on their device).  The train steps
-are the reference's: ``value_and_grad`` of ``lm_loss`` /
-``mind_train_loss`` (here
-``torch.autograd.grad`` over the parameters' leaves in the reference's
-flatten order, :func:`value_and_grad`) then ``adamw_update``, which writes
-the new parameters and moments into the given tensors (the reference
-donates both).  The LM step accumulates gradients over microbatches of at
-most ``REPRO_TORCH_ACCUM_TOKENS`` tokens (8,192 by default; the reference's
-``REPRO_ACCUM_TOKENS``), summed in float32 and divided by the count, as
-the reference does.  The serve steps wrap ``serve_prefill`` /
-``serve_decode`` / ``mind_serve`` / ``mind_retrieval`` under
-``torch.inference_mode()``.
+are the reference's: ``value_and_grad`` of ``lm_loss`` / ``gnn_loss`` /
+``mind_train_loss`` (here ``torch.autograd.grad`` over the parameters'
+leaves in the reference's flatten order, :func:`value_and_grad`) then
+``adamw_update``, which writes the new parameters and moments into the
+given tensors (the reference donates both).  The LM step accumulates
+gradients over microbatches of at most ``REPRO_TORCH_ACCUM_TOKENS`` tokens
+(8,192 by default; the reference's ``REPRO_ACCUM_TOKENS``), summed in
+float32 and divided by the count, as the reference does.  The GNN step adds the cell's ``num_nodes`` to the
+batch it is given, as the reference's does.  The serve steps wrap
+``serve_prefill`` / ``serve_decode`` / ``mind_serve`` / ``mind_retrieval``
+under ``torch.inference_mode()``.
 
 Meshes, shardings and the core-graph cell (``_build_coregraph``) wait for
-``launch/`` on ``torch.distributed`` (ROADMAP Queue 1 item 7.7);
-``_build_gnn`` waits for the GNN models (item 7.6).
+``launch/`` on ``torch.distributed`` (ROADMAP Queue 1 item 7.7).
 """
 from __future__ import annotations
 
@@ -29,8 +28,9 @@ from typing import Any, Callable
 import torch
 
 from ..configs import get_config
-from ..configs.base import LMConfig, RecsysConfig
+from ..configs.base import GNNConfig, LMConfig, RecsysConfig
 from ..configs.shapes import input_specs
+from ..models import gnn as gnn_m
 from ..models import recsys as rec_m
 from ..models import transformer as tfm
 from ..models.params import requires_grad, tree_map, tree_num_params
@@ -151,9 +151,29 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
 
 
 # ===================================================================== GNN
-def _build_gnn(cfg, shape_name, step_kind, avals, mesh, opt, reduced):
-    raise NotImplementedError("the GNN train step is not ported yet "
-                              "(ROADMAP Queue 1 item 7.6)")
+def _build_gnn(cfg: GNNConfig, shape_name, step_kind, avals, mesh, opt,
+               reduced):
+    _no_mesh(mesh)
+    batch_avals = avals["batch"]
+    N = avals["num_nodes"]
+    d_in = batch_avals["x"][0][-1] if "x" in batch_avals else 0
+    pspecs = gnn_m.gnn_param_specs(cfg, d_in)
+    p_avals = _avals(pspecs)
+    o_avals = adamw_state_specs(pspecs, opt)
+
+    def loss_fn(params, batch):
+        return gnn_m.gnn_loss(params, cfg, {**batch, "num_nodes": N})
+
+    def step(params, opt_state, batch):
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        params, opt_state = adamw_update(params, grads, opt_state, opt)
+        return params, opt_state, loss
+
+    return StepBundle(name="train_step", fn=step,
+                      args=(p_avals, o_avals, batch_avals),
+                      num_params=tree_num_params(pspecs),
+                      static={"opt": opt, "cfg": cfg, "pspecs": pspecs,
+                              "num_nodes": N})
 
 
 # ================================================================== recsys

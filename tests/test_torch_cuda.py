@@ -1678,3 +1678,72 @@ def test_chunked_attention_gradients_on_the_card_match_cpu(dev, G, causal):
     (got * cot.to(dev)).sum().backward()
     for h, c, name in zip(host, card, "qkv"):
         _close(c.grad.cpu(), h.grad, (1e-4, 1e-5), f"d{name}")
+
+
+GNN_CELLS = [(a, s) for a in ("graphsage-reddit", "gcn-cora", "schnet",
+                              "egnn")
+             for s in ("full_graph_sm", "minibatch_lg", "ogb_products",
+                       "molecule")]
+
+
+def _gnn_batch(cfg, shape):
+    """The reduced cell's batch: its source's (make_source) where the
+    source fits the arch, else drawn from its specs with numpy (the
+    sampled cell gives the regression archs no z / pos / y)."""
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.train import make_source
+
+    _, av = input_specs(cfg, shape, reduced=True)
+    batch = make_source(cfg, shape, True)(0)
+    if set(batch) == set(av["batch"]):
+        return batch
+    N, rng = av["num_nodes"], np.random.default_rng(14)
+    out = {}
+    for k, (shp, dtype) in av["batch"].items():
+        if k in ("src", "dst"):
+            out[k] = rng.integers(0, N, shp).astype(np.int32)
+        elif k == "z":
+            out[k] = rng.integers(1, 90, shp).astype(np.int32)
+        else:
+            out[k] = rng.normal(size=shp).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("arch,shape", GNN_CELLS)
+def test_reduced_gnn_train_step_on_the_card_matches_cpu(dev, arch, shape):
+    """The GNN train step of every reduced cell on the card against the
+    same step on the CPU from the same weights and batch: the loss
+    (``index_add`` sums with atomics on the card), every gradient leaf and
+    the next step's loss."""
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    from repro_torch.models.params import tree_init
+    from repro_torch.optim import adamw_init
+
+    from repro_torch.configs import get_config
+
+    b = steps.build_step(arch, shape, reduced=True,
+                         opt=steps.default_opt(get_config(arch), lr=3e-3))
+    cfg, specs, N = b.static["cfg"], b.static["pspecs"], \
+        b.static["num_nodes"]
+    host = tree_init(specs, torch.Generator().manual_seed(0))
+    card = tree_init(specs, torch.Generator(dev).manual_seed(0))
+    card.load_state_dict(host.state_dict())
+    batch = _gnn_batch(cfg, shape)
+
+    def on(device):
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+    def loss_fn(p, bt):
+        return gnn.gnn_loss(p, cfg, {**bt, "num_nodes": N})
+
+    lc, gc = steps.value_and_grad(loss_fn, card, on(dev))
+    lh, gh = steps.value_and_grad(loss_fn, host, on("cpu"))
+    _close(lc.cpu(), lh, (1e-5, 1e-6), f"{arch}/{shape} loss")
+    _hold_grads(gc, gh, f"{arch}/{shape}")
+    out = []
+    for params, device in ((card, dev), (host, "cpu")):
+        state = adamw_init(params, b.static["opt"])
+        out.append([float(b.fn(params, state, on(device))[2])
+                    for _ in range(2)])
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-3)

@@ -59,9 +59,8 @@ def test_configs_match_reference(arch, reduced):
 
 
 def test_registry_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet.*Queue 1 item 7.6"):
-        get_config("graphsage-reddit")
+    """Every id of the reference's registry loads; an unknown id raises."""
+    assert get_config("graphsage-reddit").name == "graphsage-reddit"
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-9")
 

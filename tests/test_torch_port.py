@@ -33,7 +33,8 @@ from repro_torch.obs import metrics, trace  # noqa: E402
 
 PKG = Path(repro_torch.__file__).resolve().parent
 ROOT = PKG.parents[1]
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "examples").glob("torch_*.py")))
 WALKED = ["repro_torch.configs.registry", "repro_torch.configs.shapes",
           "repro_torch.configs.mind", "repro_torch.configs.qwen3_0_6b",
           "repro_torch.data.pipeline", "repro_torch.models.params",
@@ -54,7 +55,11 @@ WALKED = ["repro_torch.configs.registry", "repro_torch.configs.shapes",
           "repro_torch.stream.workload", "repro_torch.core.distributed",
           "repro_torch.graph.differential_cases",
           "repro_torch.optim.optimizer", "repro_torch.launch.steps",
-          "repro_torch.train.checkpoint", "repro_torch.train.trainer"]
+          "repro_torch.train.checkpoint", "repro_torch.train.trainer",
+          "repro_torch.models.gnn", "repro_torch.graph.sampler",
+          "repro_torch.configs.gcn_cora", "repro_torch.configs.egnn",
+          "repro_torch.configs.graphsage_reddit",
+          "repro_torch.configs.schnet"]
 
 
 def test_ast_walk_covers_every_subpackage():

@@ -485,10 +485,12 @@ def test_build_step_cells_and_refusals():
         steps.build_step("qwen3-0.6b", "train_4k", mesh=object())
     with pytest.raises(NotImplementedError, match="7.7"):
         steps.build_step("semicore-webscale", "x")
-    with pytest.raises(NotImplementedError, match="7.6"):
-        steps.build_step("gcn-cora", "full_graph_sm")
-    with pytest.raises(NotImplementedError, match="7.6"):
-        steps._build_gnn(None, None, None, None, None, None, None)
+    gnn = steps.build_step("gcn-cora", "full_graph_sm")
+    assert gnn.name == "train_step" and gnn.static["num_nodes"] == 2709
+    assert gnn.num_params == jbuild_step("gcn-cora", "full_graph_sm",
+                                         make_host_mesh()).num_params
+    with pytest.raises(NotImplementedError, match="7.7"):
+        steps.build_step("gcn-cora", "full_graph_sm", mesh=object())
 
 
 def test_serve_steps_run_under_inference_mode():
@@ -537,8 +539,7 @@ def test_trainloop_prints_the_reference_lines_and_needs_a_device(
         TrainLoop("mind")
     with pytest.raises(ValueError, match="train cell"):
         TrainLoop("mind", shape="serve_p99", device="cpu")
-    with pytest.raises(NotImplementedError, match="7.6"):
-        TrainLoop("gcn-cora", device="cpu")
+    assert TrainLoop("gcn-cora", device="cpu").shape == "full_graph_sm"
 
 
 # ------------------------------------------------------------- Prefetcher
