@@ -56,7 +56,7 @@ Phases, each printing one JSON line:
              the main path's result exactly; a batch of no-ops that
              rebuilds no structure; a light batch (100 deletes, 100
              inserts whose candidate sets stay under the group cap) and a
-             mixed batch of 300 updates (45% deletes), each applied in
+             mixed batch of 100 updates (45% deletes), each applied in
              parallel on "cuda", serially on "cuda" (one warm_settle) and
              in parallel per probe, the three equal and equal to a fresh
              decompose of the materialised graph.  The light batch's
@@ -104,6 +104,18 @@ Phases, each printing one JSON line:
              (CUDA events around the backend's superstep and gather), the
              host split by span, per-shard edges, shard_pad_edges and peak
              device memory
+  dist       the shard backend over a torch.distributed process group at
+             full width on the main path's graph, saved once as CSR files:
+             one NCCL rank on cuda:0, then 4 gloo ranks sharing it (NCCL
+             refuses two ranks on one device), each rank its own process
+             (repro_torch.launch.ranks, this script's dist_rank) that
+             memmaps the files and reads only its node range's adjacency;
+             decompose(..., "semicore*") on ShardedBackend(group=...),
+             distributed_decompose on the group's mesh and a warm_settle,
+             every rank equal to the main path's result (the settle to
+             "torch"'s) in every field the shard phase holds, every rank
+             launching both kernels.  Prints each rank's walls, supersteps,
+             the gather's device and host ms a superstep and peak memory
   mind       full-width MIND (configs/mind.py, seeded weights, item table
              256 MB) serving the three recsys cells of configs/shapes.py
              (serve_p99: 512 users, 100 requests; serve_bulk: 262,144 users;
@@ -174,6 +186,7 @@ then the kernels line (launches on each kernel's path, on the
 maintain path (``maintain_launches``), on the out-of-core path
 (``outofcore_launches``), on the stream path (``stream_launches``),
 on the shard path (``shard_launches``, its runs but the timing reruns),
+on the process-group path (``dist_launches``, every rank's runs),
 on Qwen3-14B's decode (``lm_prefill_launches``), on Arctic's
 (``lm_moe_launches``), on MIND's train steps (``train_launches``;
 the bag's figures at the train shape under ``train_batch``) and on the
@@ -383,6 +396,17 @@ STREAM_SEED = 23
 # and push passes, the gather and the sums take the host up to ~1 ms)
 SHARD_COUNT = 4
 SHARD_QUEUE_CYCLES = 10_000_000
+# the dist phase: the shard backend over a process group, one NCCL rank on
+# cuda:0 and DIST_GLOO_RANKS gloo ranks sharing it (NCCL refuses two ranks
+# on one device); this script stops the ranks at DIST_TIMEOUT_S
+DIST_GLOO_RANKS = 4
+DIST_LAYOUTS = (("nccl_1", "nccl", 1),
+                (f"gloo_{DIST_GLOO_RANKS}", "gloo", DIST_GLOO_RANKS))
+DIST_TIMEOUT_S = 300
+#: the DecompResult fields the dist phase holds (phase_shard's)
+DIST_FIELDS = ("iterations", "node_computations", "edge_block_reads",
+               "node_table_reads", "updates_per_iter",
+               "computations_per_iter")
 #: the outofcore phase's builds run in a child process of their own (its
 #: peak RSS is the build's), which this script stops at this limit
 OOC_BUILD_TIMEOUT_S = 600
@@ -2010,6 +2034,44 @@ def phase_stream(device, g, r) -> dict:
     return total
 
 
+def time_backend(be, card: bool = True, queue_cycles: int = 0) -> tuple:
+    """Wrap the shard backend ``be``'s ``superstep`` and ``gather`` so that
+    each call is timed by CUDA events around it (``card``) and by the host
+    clock; with ``queue_cycles`` each superstep is queued behind a device
+    busy-wait that long, so that its events time its kernels alone.
+    Returns the two lists the calls fill, of (event pair or None, host
+    seconds); ``del be.superstep, be.gather`` gives back the class's
+    methods."""
+    import torch
+
+    def timed(store, call, queue=0):
+        def wrapped(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(2)] if card else None
+            if queue:
+                torch.cuda._sleep(queue)
+            if card:
+                ev[0].record()
+            h = time.perf_counter()
+            res = call(*a, **kw)
+            h = time.perf_counter() - h
+            if card:
+                ev[1].record()
+            store.append((ev, h))
+            return res
+        return wrapped
+
+    steps, gathers = [], []
+    be.superstep = timed(steps, be.superstep, queue_cycles)
+    be.gather = timed(gathers, be.gather)
+    return steps, gathers
+
+
+def event_ms(store) -> list:
+    """The event times (ms) of the calls :func:`time_backend` recorded."""
+    return [ev[0].elapsed_time(ev[1]) for ev, _ in store if ev is not None]
+
+
 def shard_run(device, be, fn, queue_cycles: int = 0) -> tuple:
     """``fn()`` (a run on the shard backend ``be``) traced with the counts
     at 0: returns (its result, its record: wall, supersteps, their summed
@@ -2023,23 +2085,7 @@ def shard_run(device, be, fn, queue_cycles: int = 0) -> tuple:
 
     from repro_torch.obs import trace
 
-    steps, gathers = [], []
-
-    def timed(store, call, queue=0):
-        def wrapped(*a, **kw):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            if queue:
-                torch.cuda._sleep(queue)
-            s.record()
-            res = call(*a, **kw)
-            e.record()
-            store.append((s, e))
-            return res
-        return wrapped
-
-    be.superstep = timed(steps, be.superstep, queue_cycles)
-    be.gather = timed(gathers, be.gather)
+    steps, gathers = time_backend(be, queue_cycles=queue_cycles)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     allocated = torch.cuda.memory_allocated(device)
@@ -2057,11 +2103,11 @@ def shard_run(device, be, fn, queue_cycles: int = 0) -> tuple:
     for e in trace.get_collector().to_chrome()["traceEvents"]:
         if e.get("ph") == "X":
             spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
-    gather_ms = [a.elapsed_time(b) for a, b in gathers]
+    gather_ms = event_ms(gathers)
     return res, {
         "wall_s": wall, "supersteps": getattr(res, "iterations", None),
         "supersteps_launched": len(steps),
-        "superstep_ms_total": sum(a.elapsed_time(b) for a, b in steps),
+        "superstep_ms_total": sum(event_ms(steps)),
         "queue_cycles": queue_cycles,
         "gather_ms_per_superstep": sum(gather_ms) / max(1, len(gather_ms)),
         "host_split_s": {k: spans.get(k, 0.0) for k in (
@@ -2208,6 +2254,182 @@ def phase_shard(device, g, r) -> dict:
           "shard: warm settle != the delete batch's state")
     out["launches"] = dict(total)
     torch.cuda.empty_cache()
+    emit(out)
+    return total
+
+
+def dist_rank(out_dir: str, graph_dir: str, warm_inserts: str,
+              device_type: str) -> None:
+    """One rank of the dist phase (started by ``run_ranks``): the graph
+    memmapped from ``graph_dir``; ``decompose(..., "semicore*")`` on the
+    shard backend over the process group (one shard this rank, on
+    ``cuda:(rank % visible cards)``, or the CPU for a rehearsal), its
+    supersteps and gathers timed (CUDA events on the card), the kernels'
+    launches counted from 0 around it; ``distributed_decompose`` on the
+    group's mesh; a ``warm_settle`` from the result plus
+    ``warm_inserts``.  Writes ``rank<r>.npz`` (the results' arrays) and
+    ``rank<r>.json`` (their fields, walls, launches, timings, peak
+    memory)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import HostEngine, ShardedBackend, decompose, \
+        warm_settle
+    from repro_torch.core.distributed import distributed_decompose
+    from repro_torch.graph import CSRGraph
+    from repro_torch.kernels import fused_superstep as fsk
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rank = dist.get_rank()
+    card = device_type == "cuda"
+    device = torch.device("cuda", rank % torch.cuda.device_count()) \
+        if card else torch.device("cpu")
+    if card:
+        torch.cuda.set_device(device)
+    t = time.perf_counter()
+    g = CSRGraph.load(graph_dir)
+    mesh = make_host_mesh(max_data=None, device=device)
+    group = mesh.get_group(mesh.axis_names)
+    rec = {"rank": rank, "world": dist.get_world_size(),
+           "backend": dist.get_backend(group), "device": str(device),
+           "load_s": time.perf_counter() - t}
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(device)
+
+    def timed_run(fn, be):
+        steps, gathers = time_backend(be, card=card)
+        sync()
+        if card:
+            torch.cuda.reset_peak_memory_stats(device)
+        fsk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(fsk.LAUNCHES)
+        del be.superstep, be.gather  # back to the class's methods
+        gather_ms = event_ms(gathers)
+        return res, {
+            "wall_s": wall, "launches": launches,
+            "supersteps": len(steps),
+            "superstep_ms_total": sum(event_ms(steps)),
+            "gather_ms_per_superstep": sum(gather_ms) / max(1, len(
+                gather_ms)),
+            "gather_host_ms_per_superstep": 1e3 * sum(h for _, h in gathers)
+            / max(1, len(gathers)),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(device)
+            if card else None}
+
+    be = ShardedBackend(group=group, device=device)
+    be.retain_structure = True  # read its tables after the run
+    r, rec["decompose"] = timed_run(
+        lambda: decompose(g, "semicore*", backend=be), be)
+    ss = be._resident
+    rec["decompose"].update(
+        shard_edges=int(sum(t.nbr.shape[0] for t in ss.shards)),
+        bounds=[int(x) for x in ss.bounds])
+    be.retain_structure = False
+    be.unbind()
+    t0 = time.perf_counter()
+    core, iters = distributed_decompose(g, mesh=mesh)
+    sync()
+    rec["distributed_decompose"] = {"wall_s": time.perf_counter() - t0,
+                                    "iterations": iters}
+    wbe = ShardedBackend(group=group, device=device)
+    w, rec["warm_settle"] = timed_run(
+        lambda: warm_settle(HostEngine(g), r.core, int(warm_inserts), wbe),
+        wbe)
+    arrays = {"dd_core": core}
+    for tag, res in (("cold", r), ("warm", w)):
+        arrays[f"{tag}_core"] = res.core
+        arrays[f"{tag}_cnt"] = res.cnt
+        rec[tag] = _fields(res)
+    rec["num_shards"] = int(r.num_shards)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _fields(res) -> dict:
+    """A DecompResult's ``DIST_FIELDS`` as plain ints and lists."""
+    out = {}
+    for f in DIST_FIELDS:
+        v = getattr(res, f)
+        out[f] = [int(x) for x in v] if isinstance(v, list) else int(v)
+    return out
+
+
+def phase_dist(device, g, r) -> dict:
+    """The shard backend over a ``torch.distributed`` process group at full
+    width, on the main path's graph ``g`` saved once as CSR files: one
+    NCCL rank on cuda:0, then ``DIST_GLOO_RANKS`` gloo ranks sharing it
+    (each its own process, started by ``repro_torch.launch.ranks``, each
+    memmapping the files and reading only its node range's adjacency).
+    Every rank's cold decompose equals the main path's result ``r`` in
+    every field ``phase_shard`` holds; ``distributed_decompose`` its core
+    and supersteps; its ``warm_settle`` (from ``r``'s core + 1) equals
+    the same settle on "torch" (which counts updates as the shard does).
+    Every rank must launch both kernels.  Returns the kernels' launches
+    summed over every rank's runs."""
+    import torch
+
+    from repro_torch.core import HostEngine, TorchBackend, warm_settle
+    from repro_torch.launch.ranks import run_ranks
+
+    out = {"phase": "dist", "n": g.n, "directed_edges": g.num_directed}
+    total: dict = {}
+    t = time.perf_counter()
+    want_w = warm_settle(HostEngine(g), r.core, 1, TorchBackend(device=device))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    out["warm_settle_torch_wall_s"] = time.perf_counter() - t
+    want_r, want_wf = _fields(r), _fields(want_w)
+    with tempfile.TemporaryDirectory() as tmp:
+        graph_dir = os.path.join(tmp, "graph")
+        t = time.perf_counter()
+        g.save(graph_dir)
+        out["save_s"] = time.perf_counter() - t
+        for label, backend, world in DIST_LAYOUTS:
+            run_dir = os.path.join(tmp, label)
+            os.makedirs(run_dir)
+            t = time.perf_counter()
+            run_ranks("chip_smoke:dist_rank", world, backend=backend,
+                      args=[run_dir, graph_dir, 1, device.type],
+                      paths=[ROOT],
+                      timeout=DIST_TIMEOUT_S, store_dir=tmp)
+            ranks = []
+            for rank in range(world):
+                with open(os.path.join(run_dir, f"rank{rank}.json")) as f:
+                    rec = json.load(f)
+                with np.load(os.path.join(run_dir, f"rank{rank}.npz")) as z:
+                    arrays = {k: z[k] for k in z.files}
+                what = f"dist {label} rank {rank}"
+                check(rec["backend"] == backend, f"{what}: backend")
+                check(np.array_equal(arrays["cold_core"], r.core)
+                      and np.array_equal(arrays["cold_cnt"], r.cnt),
+                      f"{what}: (core, cnt) != the main path's")
+                check(rec["cold"] == want_r, f"{what}: a field != the main "
+                      f"path's: {rec['cold']} vs {want_r}")
+                check(np.array_equal(arrays["dd_core"], r.core)
+                      and rec["distributed_decompose"]["iterations"]
+                      == r.iterations, f"{what}: distributed_decompose")
+                check(np.array_equal(arrays["warm_core"], want_w.core)
+                      and np.array_equal(arrays["warm_cnt"], want_w.cnt),
+                      f"{what}: warm settle (core, cnt) != torch's")
+                check(rec["warm"] == want_wf,
+                      f"{what}: warm settle fields != torch's")
+                check(rec["num_shards"] == world, f"{what}: num_shards")
+                for run in ("decompose", "warm_settle"):
+                    for name in ("row_pass", "push_pass"):
+                        n = rec[run]["launches"].get(name, 0)
+                        check(n > 0, f"{what}: {name} never launched in "
+                              f"the {run}")
+                        total[name] = total.get(name, 0) + n
+                ranks.append(rec)
+            out[label] = {"wall_s": time.perf_counter() - t, "ranks": ranks}
+    out["launches"] = dict(total)
     emit(out)
     return total
 
@@ -3909,6 +4131,9 @@ def main(argv: list) -> int:
     # the shard path's launches: counts set to 0 before each shard run and
     # read after it, summed over the phase
     shard = phase_shard(device, g, r)
+    # the process-group path's launches: counts set to 0 in every rank
+    # before each of its runs and read after it, summed over the ranks
+    dist_launches = phase_dist(device, g, r)
     del g, r
     # run c of the gnn phase draws its source on the host meanwhile
     with ChildSource(*GNN_SOURCE_CELL) as drawn:
@@ -3937,6 +4162,7 @@ def main(argv: list) -> int:
         entry["outofcore_launches"] = outofcore.get(entry["name"], 0)
         entry["stream_launches"] = stream.get(entry["name"], 0)
         entry["shard_launches"] = shard.get(entry["name"], 0)
+        entry["dist_launches"] = dist_launches.get(entry["name"], 0)
         entry["lm_prefill_launches"] = lm_prefill.get(entry["name"], 0)
         entry["lm_moe_launches"] = lm_moe.get(entry["name"], 0)
         entry["train_launches"] = train.get(entry["name"], 0)

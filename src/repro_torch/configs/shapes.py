@@ -1,10 +1,12 @@
 """Shape cells of the ported families and the inputs of each cell.
 
-The port's copy of ``repro/configs/shapes.py`` for the LM, GNN and recsys
-families: the cell tables, :func:`lm_specs`, :func:`gnn_specs` and
-:func:`recsys_specs`, the counterparts of ``_lm_specs``, ``_gnn_specs`` and
-``_recsys_specs``, as plain ``(shape, dtype)`` tuples, and
-:func:`input_specs` over the three.
+The port's copy of ``repro/configs/shapes.py``: the cell tables of the
+four families (``SHAPES_BY_KIND``, :func:`shape_names`), :func:`lm_specs`,
+:func:`gnn_specs` and :func:`recsys_specs`, the counterparts of
+``_lm_specs``, ``_gnn_specs`` and ``_recsys_specs``, as plain ``(shape,
+dtype)`` tuples, and :func:`input_specs` over them, the paper's own
+core-graph cell included (the stacked shard arrays of
+``core.distributed.sharded_graph_specs`` at ``num_shards``).
 """
 from __future__ import annotations
 
@@ -12,8 +14,9 @@ import torch
 
 from .base import GNNConfig, LMConfig, RecsysConfig
 
-__all__ = ["LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES", "lm_specs",
-           "gnn_specs", "recsys_specs", "input_specs"]
+__all__ = ["LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES", "COREGRAPH_SHAPES",
+           "SHAPES_BY_KIND", "shape_names", "lm_specs", "gnn_specs",
+           "recsys_specs", "input_specs"]
 
 LM_SHAPES = {
     "train_4k": dict(seq_len=4096, global_batch=256, step="train"),
@@ -40,6 +43,23 @@ RECSYS_SHAPES = {
     "serve_bulk": dict(batch=262_144, step="serve"),
     "retrieval_cand": dict(batch=1, n_candidates=1_000_000, step="retrieval"),
 }
+
+# the paper's own workload
+COREGRAPH_SHAPES = {
+    "decompose": dict(step="decompose"),
+}
+
+SHAPES_BY_KIND = {
+    "lm": LM_SHAPES,
+    "gnn": GNN_SHAPES,
+    "recsys": RECSYS_SHAPES,
+    "coregraph": COREGRAPH_SHAPES,
+}
+
+
+def shape_names(cfg) -> list:
+    """The cell names of ``cfg``'s family, in the table's order."""
+    return list(SHAPES_BY_KIND[cfg.kind])
 
 
 def lm_specs(cfg: LMConfig, shape_name: str, reduced: bool = False) -> dict:
@@ -142,11 +162,14 @@ def recsys_specs(cfg: RecsysConfig, shape_name: str,
     return base
 
 
-def input_specs(cfg, shape_name: str, *, reduced: bool = False):
+def input_specs(cfg, shape_name: str, *, num_shards: int = 1,
+                reduced: bool = False):
     """``(step_kind, avals)`` of one cell of ``cfg``'s family; a GNN cell's
-    avals are ``{"batch": ..., "num_nodes": N}`` (:func:`gnn_specs`).  The
-    sharded core-graph cells wait for ``launch/`` (ROADMAP Queue 1 item
-    7.7)."""
+    avals are ``{"batch": ..., "num_nodes": N}`` (:func:`gnn_specs`), a
+    core-graph cell's ``{"specs": ..., "num_probes": P}``: the stacked
+    shard arrays over ``num_shards`` shards
+    (``core.distributed.sharded_graph_specs``) and the starting core
+    ``core0`` (n,) int32."""
     if cfg.kind == "lm":
         return (LM_SHAPES[shape_name]["step"],
                 lm_specs(cfg, shape_name, reduced))
@@ -158,6 +181,12 @@ def input_specs(cfg, shape_name: str, *, reduced: bool = False):
         return GNN_SHAPES[shape_name]["step"], {"batch": batch,
                                                 "num_nodes": N}
     if cfg.kind == "coregraph":
-        raise NotImplementedError("sharded core-graph cells are not ported "
-                                  "yet (ROADMAP Queue 1 item 7.7)")
+        from ..core.distributed import sharded_graph_specs
+
+        if shape_name not in COREGRAPH_SHAPES:
+            raise KeyError(shape_name)
+        specs, probes, _ = sharded_graph_specs(cfg.n, cfg.m_directed,
+                                               num_shards, cfg.max_deg)
+        specs["core0"] = ((cfg.n,), torch.int32)
+        return "decompose", {"specs": specs, "num_probes": probes}
     raise ValueError(cfg.kind)

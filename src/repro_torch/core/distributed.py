@@ -204,27 +204,39 @@ def sharded_graph_specs(
 
 def distributed_decompose(
     graph: CSRGraph,
-    devices=None,
+    mesh=None,
     star_gating: bool = True,
     core0: np.ndarray | None = None,
     max_supersteps: int | None = None,
+    *,
+    devices=None,
 ):
     """Thin wrapper over the ``shard`` backend: shard, run the fixpoint,
     return (core, supersteps).
 
-    ``devices`` (the reference's ``mesh``) lists one device per shard and
-    may repeat a device; ``None`` takes every visible GPU.  With ``core0``
-    given (a checkpointed intermediate state or post-deletion upper
-    bounds), performs a warm restart: any upper-bound state is a valid
-    init, and the exact-cnt prologue re-derives cnt.  ``max_supersteps``
-    budgets the run exactly; the returned core is then a valid upper-bound
-    checkpoint rather than the fixpoint.
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) places the shards
+    as the reference's does: one a rank of its process group over all its
+    axes when it has one, else one a device of ``mesh.devices``.  Without
+    a mesh, ``devices`` lists one device per shard and may repeat a
+    device; ``None`` takes every visible GPU.  With ``core0`` given (a
+    checkpointed intermediate state or post-deletion upper bounds),
+    performs a warm restart: any upper-bound state is a valid init, and
+    the exact-cnt prologue re-derives cnt.  ``max_supersteps`` budgets the
+    run exactly; the returned core is then a valid upper-bound checkpoint
+    rather than the fixpoint.
     """
     from .engine import ShardedBackend
     from .resident import run_resident
     from .semicore import HostEngine
 
-    backend = ShardedBackend(devices=devices)
+    if mesh is not None and devices is not None:
+        raise ValueError("give a mesh or a device list, not both")
+    if mesh is not None and mesh.device_mesh is not None:
+        backend = ShardedBackend(group=mesh.get_group(mesh.axis_names),
+                                 device=mesh.device)
+    else:
+        backend = ShardedBackend(
+            devices=mesh.devices if mesh is not None else devices)
     eng = HostEngine(graph)
     if core0 is not None:
         warm = np.minimum(np.asarray(core0, dtype=np.int64),

@@ -593,9 +593,47 @@ def _indexed(device) -> torch.device:
     return d
 
 
+class _Collectives:
+    """The collectives of the shard backend over one process group: an
+    all-gather of equal-sized tensors and an all-reduce sum.  A gloo group
+    takes a CUDA tensor through the host (a copy there and back); booleans
+    travel as uint8."""
+
+    def __init__(self, group):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.via_host = dist.get_backend(group) == "gloo"
+
+    def _wire(self, x):
+        y = x.view(torch.uint8) if x.dtype == torch.bool else x
+        return (y.cpu() if self.via_host else y).contiguous()
+
+    def all_gather(self, x) -> list:
+        """Every rank's ``x``, in group-rank order, on ``x``'s device."""
+        y = self._wire(x)
+        out = [torch.empty_like(y) for _ in range(self.size)]
+        self.dist.all_gather(out, y, group=self.group)
+        out = [o.to(x.device) for o in out]
+        return [o.view(torch.bool) for o in out] if x.dtype == torch.bool \
+            else out
+
+    def all_reduce(self, x):
+        """The sum of every rank's ``x`` (a new tensor on its device)."""
+        y = self._wire(x)
+        if y.data_ptr() == x.data_ptr():
+            y = y.clone()
+        self.dist.all_reduce(y, group=self.group)
+        return y.to(x.device)
+
+
 class ShardedBackend(DeviceBackend):
     """The shard substrate: the paper's semi-external contract over a list
-    of devices (counterpart of the reference's mesh ``ShardedBackend``).
+    of devices, or over the ranks of a process group (counterpart of the
+    reference's mesh ``ShardedBackend``).
 
     Edge shards never move: ``distributed.shard_layout`` cuts the merged
     flat table into contiguous node ranges minimax-balanced by edge count,
@@ -613,13 +651,24 @@ class ShardedBackend(DeviceBackend):
     ``devices`` lists the shards' devices and may repeat one (several
     shards on one card, or on the CPU); ``None`` takes every visible GPU
     and raises without one.  ``num_shards`` (``None``: one a listed device)
-    may not exceed the list's length.  ``plain=True`` runs the fused
-    kernels' plain torch versions on the listed devices: the yardstick the
-    card's parity checks compare with.  The bound
-    :class:`~repro_torch.core.resident.ShardedStructure` is cached per
-    base-CSR version like the flat resident table.  There is no per-pass
-    host loop (``requires_resident``), and no CPU fallback: a CUDA device
-    runs the kernels or raises.
+    may not exceed the list's length.
+
+    ``group`` (a ``torch.distributed`` process group, in place of
+    ``devices``) runs one shard a rank on ``device`` (``None``: cuda:(rank
+    % visible cards), raising without a GPU): each rank builds its own
+    shard from its node range's adjacency alone
+    (``resident.build_rank_structure``), the superstep's gather is one
+    all-gather of the owned core slices padded to the layout's ``V``, the
+    frontier count one all-reduce, and the chunk's frontier record one
+    all-gather, from which every rank replays the planner, so every rank
+    returns the same result.  Its ``num_shards`` is the group's size.
+
+    ``plain=True`` runs the fused kernels' plain torch versions on the
+    listed devices: the yardstick the card's parity checks compare with.
+    The bound :class:`~repro_torch.core.resident.ShardedStructure` is
+    cached per base-CSR version like the flat resident table.  There is no
+    per-pass host loop (``requires_resident``), and no CPU fallback: a
+    CUDA device runs the kernels or raises.
     """
 
     name = "shard"
@@ -628,10 +677,22 @@ class ShardedBackend(DeviceBackend):
     requires_resident = True  # no per-pass loop exists for this one
 
     def __init__(self, num_shards: int | None = None, devices=None,
-                 plain: bool = False):
+                 plain: bool = False, *, group=None, device=None):
         from ..kernels import fused_superstep as fsk
 
-        if devices is None:
+        self.comm = None
+        if group is not None:
+            if devices is not None:
+                raise ValueError("shard backend: give a process group or a "
+                                 "device list, not both")
+            self.comm = _Collectives(group)
+            if device is None and torch.cuda.is_available():
+                import torch.distributed as dist
+
+                device = torch.device("cuda", dist.get_rank()
+                                      % torch.cuda.device_count())
+            devices = [resolve_device(device)]
+        elif devices is None:
             first = resolve_device(None)  # raises without a GPU
             devices = [torch.device("cuda", i)
                        for i in range(torch.cuda.device_count())] or [first]
@@ -650,6 +711,13 @@ class ShardedBackend(DeviceBackend):
             self.push_pass = fsk.push_pass
 
     def resolve_shards(self) -> int:
+        if self.comm is not None:
+            S = self.comm.size
+            if self.num_shards not in (None, S):
+                raise ValueError(f"shard backend: num_shards="
+                                 f"{self.num_shards} but the process group "
+                                 f"has {S} ranks (one shard a rank)")
+            return S
         avail = len(self.devices)
         S = avail if self.num_shards is None else self.num_shards
         if not 1 <= S <= avail:
@@ -661,7 +729,7 @@ class ShardedBackend(DeviceBackend):
         return S
 
     def bind_resident(self, planner: "PassPlanner"):
-        from .resident import build_sharded_structure
+        from .resident import build_rank_structure, build_sharded_structure
 
         planner.eng._sync()
         S = self.resolve_shards()
@@ -670,7 +738,11 @@ class ShardedBackend(DeviceBackend):
             return ss
         with _trace.span("resident.structure", cat="engine",
                          backend=self.name, nodes=planner.n, shards=S):
-            ss = build_sharded_structure(planner, S, self.devices[:S])
+            if self.comm is not None:
+                ss = build_rank_structure(planner, S, self.comm.rank,
+                                          self.devices[0])
+            else:
+                ss = build_sharded_structure(planner, S, self.devices[:S])
         self.structure_builds += 1
         self._resident = ss
         return ss
@@ -678,13 +750,54 @@ class ShardedBackend(DeviceBackend):
     def gather(self, ss, core2_parts) -> dict:
         """The superstep's one gather: each shard's owned slice of its
         post-update core copied into one (n,) core per distinct device
-        (a peer copy between cards, a slice copy within one)."""
+        (a peer copy between cards, a slice copy within one); over a
+        process group, one all-gather of the owned slices padded to ``V``,
+        laid out in the layout's ``owned_ids`` order."""
+        if self.comm is not None:
+            dev = ss.devices[0]
+            mine = torch.zeros(ss.V, dtype=torch.int32, device=dev)
+            for t, part in zip(ss.shards, core2_parts):
+                mine[:t.hi - t.lo] = part[t.lo:t.hi]
+            slices = self.comm.all_gather(mine)
+            b = ss.bounds
+            return {dev: torch.cat([x[:int(b[s + 1] - b[s])]
+                                    for s, x in enumerate(slices)])}
         out = {}
         for dev in ss.devices:
             full = torch.empty(ss.n, dtype=torch.int32, device=dev)
             for t, part in zip(ss.shards, core2_parts):
                 full[t.lo:t.hi].copy_(part[t.lo:t.hi])
             out[dev] = full
+        return out
+
+    def count_active(self, ss, active) -> torch.Tensor:
+        """Rows of every shard's frontier ``active`` (one (n,) mask a
+        shard), 0-dim int32 on the first device: over a process group, one
+        all-reduce (the reference's ``psum``)."""
+        d0 = ss.devices[0]
+        local = sum((a.sum(dtype=torch.int32).to(d0) for a in active),
+                    torch.zeros((), dtype=torch.int32, device=d0))
+        return local if self.comm is None else self.comm.all_reduce(local)
+
+    def owned_host(self, ss, parts, dtype, lead=()) -> np.ndarray:
+        """One host array ``lead + (n,)`` of ``dtype`` from each shard's
+        owned slice (``parts``: one ``lead + (hi - lo,)`` tensor a shard);
+        over a process group, one all-gather of the slices padded to
+        ``V``."""
+        out = np.zeros(tuple(lead) + (ss.n,), dtype=dtype)
+        if self.comm is None:
+            for t, x in zip(ss.shards, parts):
+                out[..., t.lo:t.hi] = x.cpu().numpy()
+            return out
+        tdt = torch.bool if np.dtype(dtype) == np.bool_ else torch.int32
+        mine = torch.zeros(tuple(lead) + (ss.V,), dtype=tdt,
+                           device=ss.devices[0])
+        for t, x in zip(ss.shards, parts):
+            mine[..., :t.hi - t.lo] = x
+        b = ss.bounds
+        for s, x in enumerate(self.comm.all_gather(mine)):
+            lo, hi = int(b[s]), int(b[s + 1])
+            out[..., lo:hi] = x[..., :hi - lo].cpu().numpy()
         return out
 
     def superstep(self, ss, core, cnt, active, *, algorithm, cand=None):
@@ -719,7 +832,7 @@ class ShardedBackend(DeviceBackend):
                                 plan=t.in_plan)
             active2.append(a2 & (t.owned if cand is None else cand[i]))
             cnt2.append(target if star else None)
-        nact = sum(a.sum(dtype=torch.int32).to(d0) for a in active2)
+        nact = self.count_active(ss, active2)
         return core2, cnt2 if star else cnt, active2, upd, nact
 
     def counts(self, ss, core) -> list:

@@ -652,11 +652,13 @@ class ShardedStructure:
         return self.graph is planner.eng.graph and self.version == ver
 
 
-def _shard_table(nbr_flat: np.ndarray, seg_ptr: np.ndarray, lo: int,
+def _shard_table(nbr_rows: np.ndarray, seg_ptr: np.ndarray, lo: int,
                  hi: int, device) -> ShardTable:
-    """One shard's tables on ``device``, from the host flat table: its
-    rows uploaded, their transpose built there (a stable sort of the
-    shard's edges by target), so a device holds only its shards' edges."""
+    """One shard's tables on ``device``, from its range's neighbours
+    ``nbr_rows`` (the flat table's ``[seg_ptr[lo], seg_ptr[hi])``) and the
+    global offsets: its rows uploaded, their transpose built there (a
+    stable sort of the shard's edges by target), so a device holds only
+    its shards' edges."""
     from ..kernels.fused_superstep import bin_plan
 
     n = len(seg_ptr) - 1
@@ -664,7 +666,7 @@ def _shard_table(nbr_flat: np.ndarray, seg_ptr: np.ndarray, lo: int,
     segptr = torch.as_tensor((np.clip(seg_ptr, e0, e1) - e0).astype(
         np.int32)).to(device, copy=True)
     nbr = torch.as_tensor(np.ascontiguousarray(
-        nbr_flat[e0:e1], dtype=np.int32)).to(device, copy=True)
+        nbr_rows, dtype=np.int32)).to(device, copy=True)
     if lo == 0 and hi == n:
         # every row owned: the rows are their own transpose (symmetry)
         in_segptr, in_nbr = segptr, nbr
@@ -705,8 +707,9 @@ def build_sharded_structure(planner, num_shards: int,
     bounds = lay["bounds"]
     distinct = list(dict.fromkeys(torch.device(d) for d in devices[:S]))
     seg_ptr = np.asarray(seg_ptr, dtype=np.int64)
-    shards = [_shard_table(nbr_flat, seg_ptr, int(bounds[s]),
-                           int(bounds[s + 1]), devices[s])
+    shards = [_shard_table(nbr_flat[seg_ptr[bounds[s]]:seg_ptr[bounds[s + 1]]],
+                           seg_ptr, int(bounds[s]), int(bounds[s + 1]),
+                           devices[s])
               for s in range(S) if bounds[s] < bounds[s + 1]]
     buffered = planner.eng.buffered
     return ShardedStructure(
@@ -725,6 +728,109 @@ def build_sharded_structure(planner, num_shards: int,
         devices=distinct,
         shards=shards,
     )
+
+
+def build_rank_structure(planner, num_shards: int, rank: int,
+                         device) -> ShardedStructure:
+    """The shard of ``rank`` alone, for the shard backend over a process
+    group: the cut (``distributed.shard_layout``) from the merged degree
+    array, then only this rank's node range's adjacency read (a slice of
+    the CSR, memmapped or not, with buffered deltas merged), uploaded to
+    ``device``.  No rank reads the whole edge table."""
+    from .distributed import shard_layout
+
+    planner.eng._sync()
+    n = planner.n
+    seg_ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(planner.eng.degrees(), out=seg_ptr[1:])
+    lay = shard_layout(seg_ptr, num_shards, n)
+    bounds = lay["bounds"]
+    S = int(lay["owned_ids"].shape[0])
+    lo, hi = int(bounds[rank]), int(bounds[rank + 1])
+    shards = []
+    if lo < hi:
+        g = planner.eng.graph
+        e0, e1 = int(g.indptr[lo]), int(g.indptr[hi])
+        rows = np.asarray(g.adj[e0:e1], dtype=np.int32)
+        local = np.asarray(g.indptr[lo:hi + 1], dtype=np.int64) - e0
+        rows, _ = planner._merge_buffered(np.arange(lo, hi, dtype=np.int64),
+                                          rows, local)
+        if len(rows) and (int(rows.min()) < 0 or int(rows.max()) >= n):
+            raise ValueError(f"neighbour ids must lie in [0, {n})")
+        shards.append(_shard_table(rows, seg_ptr, lo, hi, device))
+    buffered = planner.eng.buffered
+    return ShardedStructure(
+        graph=planner.eng.graph,
+        version=buffered.version if buffered is not None else 0,
+        n=n,
+        E=int(seg_ptr[-1]),
+        S=S,
+        V=int(lay["owned_ids"].shape[1]),
+        seg_ptr=seg_ptr,
+        bounds=bounds,
+        owned_ids_h=lay["owned_ids"],
+        owned_mask_h=lay["owned_mask"],
+        pad_edges=int(lay["pad_edges"]),
+        per_shard_edges=lay["per_shard_edges"],
+        devices=[torch.device(device)],
+        shards=shards,
+    )
+
+
+def shard_chunk(backend, ss, algorithm: str, steps: int, core, cnt, active,
+                nact, cand=None) -> tuple:
+    """``steps`` supersteps of the shard backend from ``(core, cnt, active,
+    nact)`` (:meth:`ShardedBackend.superstep`'s layout), gated on the
+    frontier: a superstep whose frontier is empty changes nothing.
+    Returns ``(core, cnt, active, nact, fronts, upds, ran)``: the state
+    after the chunk, each superstep's frontier (one mask a shard), its
+    updates and whether it had work (0-dim tensors, no host sync)."""
+    fronts, upds, ran = [], [], []
+    for _ in range(steps):
+        fronts.append(active)
+        ran.append(nact > 0)
+        core, cnt, active, upd, nact = backend.superstep(
+            ss, core, cnt, active, algorithm=algorithm, cand=cand)
+        upds.append(upd)
+    return core, cnt, active, nact, fronts, upds, ran
+
+
+def build_shard_chunk_fn(mesh, algorithm: str, n: int, num_probes: int,
+                         chunk: int | None = None):
+    """The chunked superstep of the shard backend over ``mesh`` (the
+    reference's ``build_shard_chunk_fn``): a function ``fn(ss, core, cnt,
+    active, nact)`` running :func:`shard_chunk` for ``chunk`` supersteps
+    (``chunk_len``) of ``algorithm``, on one shard a rank of the mesh's
+    process group over all its axes, or on the mesh's devices in one
+    process.  ``fn.backend`` binds a graph (``fn.backend.bind_resident(
+    planner)`` gives ``ss``).  ``n`` and ``num_probes`` are kept only so
+    that the signature is the reference's (they size its jit); nothing
+    here reads them.  A mesh with no
+    devices (a production mesh of the dry run) gives a function that
+    refuses to run."""
+    from .engine import ShardedBackend
+
+    if algorithm not in ("semicore+", "semicore*"):
+        raise ValueError(f"the chunk function runs a frontier algorithm "
+                         f"(semicore+ or semicore*), not {algorithm!r}")
+    steps = chunk_len(chunk)
+    if mesh.device_mesh is not None:
+        backend = ShardedBackend(group=mesh.get_group(mesh.axis_names),
+                                 device=mesh.device)
+    elif mesh.devices:
+        backend = ShardedBackend(devices=mesh.devices)
+    else:
+        backend = None
+
+    def fn(ss, core, cnt, active, nact):
+        if backend is None:
+            raise RuntimeError("this mesh has no devices (a layout for the "
+                               "dry run); make it with make_host_mesh")
+        return shard_chunk(backend, ss, algorithm, steps, core, cnt, active,
+                           nact)
+
+    fn.backend = backend
+    return fn
 
 
 def run_sharded(engine, algorithm: str, backend, *,
@@ -786,10 +892,8 @@ def run_sharded(engine, algorithm: str, backend, *,
 
     def globalize(parts) -> np.ndarray:
         """The owned slices of per-shard (n,) arrays as one host array."""
-        out = np.zeros(n, dtype=np.int64)
-        for t, x in zip(ss.shards, parts):
-            out[t.lo:t.hi] = x[t.lo:t.hi].cpu().numpy()
-        return out
+        return backend.owned_host(
+            ss, [x[t.lo:t.hi] for t, x in zip(ss.shards, parts)], np.int64)
 
     def chunk_size() -> int:
         if max_supersteps is None:
@@ -809,10 +913,9 @@ def run_sharded(engine, algorithm: str, backend, *,
         k = len(upds)
         masks = None
         if fronts:
-            masks = np.zeros((k, n), dtype=bool)
-            for i, t in enumerate(ss.shards):
-                masks[:, t.lo:t.hi] = torch.stack(
-                    [f[i][t.lo:t.hi] for f in fronts]).cpu().numpy()
+            masks = backend.owned_host(
+                ss, [torch.stack([f[i][t.lo:t.hi] for f in fronts])
+                     for i, t in enumerate(ss.shards)], bool, (k,))
         return masks, summary[:k], summary[k:2 * k].astype(bool), \
             bool(summary[-1])
 
@@ -850,19 +953,14 @@ def run_sharded(engine, algorithm: str, backend, *,
         """The chunked loop of semicore* / semicore+ from the owned
         frontier ``active_t``; returns the final (core, cnt)."""
         nonlocal iters, comp
-        nact = sum(a.sum(dtype=torch.int32).to(d0) for a in active_t)
+        nact = backend.count_active(ss, active_t)
         while True:
             with _trace.span("resident.chunk", cat="engine", algorithm=algo,
                              backend=backend.name, shards=ss.S,
                              chunk=chunk) as sp:
-                fronts, upds, ran = [], [], []
-                for _ in range(chunk_size()):
-                    fronts.append(active_t)
-                    ran.append(nact > 0)
-                    core_t, cnt_t, active_t, upd, nact = backend.superstep(
-                        ss, core_t, cnt_t, active_t, algorithm=algo,
-                        cand=cand_t)
-                    upds.append(upd)
+                core_t, cnt_t, active_t, nact, fronts, upds, ran = \
+                    shard_chunk(backend, ss, algo, chunk_size(), core_t,
+                                cnt_t, active_t, nact, cand_t)
                 masks, upds_h, ran_h, done = pull(fronts, upds, ran,
                                                   nact == 0)
                 iters, comp = _replay_chunk(

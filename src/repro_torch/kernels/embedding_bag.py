@@ -222,10 +222,11 @@ def embedding_bag_plain(table, indices, weights=None, *, mode: str = "sum"):
 
 # ----------------------------------------------------------- autograd
 def _bag(table, indices, weights, mode: str):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    """The kernel for CUDA tensors, the plain version for CPU tensors and
+    for ``meta`` ones (the dry run's shapes, which have no kernel)."""
     if table.device.type == "cuda":
         return launch_bag(table, indices, weights, mode)
-    if table.device.type == "cpu":
+    if table.device.type in ("cpu", "meta"):
         return bag_plain(table, indices, weights, mode)
     raise ValueError(f"no embedding bag for device {table.device}")
 

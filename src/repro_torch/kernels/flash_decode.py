@@ -327,9 +327,10 @@ def decode_attention_plain(q, k, v, cache_len):
 # ----------------------------------------------------------- dispatch
 def decode_attention(q, k, v, cache_len):
     """One-token GQA attention at the model's layout: the CUDA kernels for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors and for ``meta`` ones
+    (the dry run's shapes, which have no kernel)."""
     cache_len = check_operands(q, k, v, cache_len)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_plain(q, k, v, cache_len)
     if q.device.type == "cuda":
         if k.shape[1] == 0:  # no positions: the reference's empty sum

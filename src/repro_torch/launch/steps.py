@@ -1,23 +1,62 @@
-"""Cell assembly on one device: (arch x shape) -> a step function + the
-``(shape, dtype)`` of its arguments.
+"""Cell assembly: (arch x shape x mesh) -> a step function, the ``(shape,
+dtype)`` of its arguments and where each lives on the mesh.
 
-The port's copy of ``repro/launch/steps.py`` without meshes: each
-``_build_*`` function returns a :class:`StepBundle` whose ``fn`` runs
-eagerly on the tensors it is given (on their device).  The train steps
-are the reference's: ``value_and_grad`` of ``lm_loss`` / ``gnn_loss`` /
-``mind_train_loss`` (here ``torch.autograd.grad`` over the parameters'
-leaves in the reference's flatten order, :func:`value_and_grad`) then
-``adamw_update``, which writes the new parameters and moments into the
-given tensors (the reference donates both).  The LM step accumulates
+The port's copy of ``repro/launch/steps.py``.  Each ``_build_*`` returns a
+:class:`StepBundle` whose ``fn`` runs eagerly on the tensors it is given
+(on their device), and, on a mesh, the reference's placements of every
+argument and output (``in_shardings`` / ``out_shardings``:
+:class:`~repro_torch.launch.mesh.Sharding` trees) by its rules:
+
+* LM train      — batch over the batch axes (pod, data); Megatron TP over
+                  ``model`` (heads / mlp / vocab / expert); experts' embed
+                  dim over the batch axes; optimizer state mirrors the
+                  params with its embed dim over the batch axes (ZeRO-1;
+                  int8-moment blocks over them);
+* LM prefill    — batch over the batch axes, heads over ``model``;
+* LM decode_32k — cache batch over the batch axes, cache sequence over
+                  ``model``;
+* LM long_500k  — batch 1: cache sequence over every axis;
+* GNN           — edges over every axis; node state and params replicated;
+* RecSys        — embedding rows over ``model``; batch over the batch axes;
+* CoreGraph     — the shard backend: shards over every axis, core
+                  replicated.
+
+The train steps are the reference's: ``value_and_grad`` of ``lm_loss`` /
+``gnn_loss`` / ``mind_train_loss`` (``torch.autograd.grad`` over the
+parameters' leaves in the reference's flatten order, :func:`value_and_grad`)
+then ``adamw_update``, which writes the new parameters and moments into
+the given tensors (the reference donates both).  The LM step accumulates
 gradients over microbatches of at most ``REPRO_TORCH_ACCUM_TOKENS`` tokens
-(8,192 by default; the reference's ``REPRO_ACCUM_TOKENS``), summed in
-float32 and divided by the count, as the reference does.  The GNN step adds the cell's ``num_nodes`` to the
-batch it is given, as the reference's does.  The serve steps wrap
-``serve_prefill`` / ``serve_decode`` / ``mind_serve`` / ``mind_retrieval``
-under ``torch.inference_mode()``.
+a data shard (8,192 by default; the reference's ``REPRO_ACCUM_TOKENS``),
+each microbatch divisible by the data shards (:func:`accum_steps`).  The
+serve steps run under ``torch.inference_mode()``.
 
-Meshes, shardings and the core-graph cell (``_build_coregraph``) wait for
-``launch/`` on ``torch.distributed`` (ROADMAP Queue 1 item 7.7).
+**Execution.**  With no mesh, or a mesh of one rank, ``fn`` is the
+one-device step.  On a mesh whose process group spans it
+(``make_host_mesh`` in a group) and whose ``model`` axis is 1, ``fn``
+takes this rank's piece of every argument (:func:`local_args` cuts them
+from the global ones by ``in_shardings``) and returns this rank's piece of
+every output (:func:`gather_outputs` joins them):
+
+* LM and MIND train steps are data-parallel: each rank takes its batch
+  slice, the gradients are averaged over the batch axes' group before
+  ``adamw_update``, and the loss is the ranks' mean.  Parameters and
+  moments split over the batch axes (ZeRO-1, experts) are gathered whole
+  for the step and cut again after it;
+* the GNN train step splits the edges over every rank and keeps node
+  state whole (``models.gnn.edges_split``);
+* serve steps take the batch over the batch axes; ``retrieval_step`` takes
+  its single user whole on every rank and the candidates over the batch
+  axes, and merges the ranks' top k;
+* the core-graph cell is one SemiCore* superstep of the shard backend
+  over the group (``core.resident.build_shard_chunk_fn``, ``chunk=1``).
+
+A ``model`` axis wider than 1, ``long_500k`` at more than one rank and MoE
+configs at more than one data rank (the reference's capacity is global)
+raise ``NotImplementedError`` when run (ROADMAP Queue 1 item 8): the
+reference executes none of them outside the dry run's compile.  A mesh
+with no process group and more than one rank (a production mesh)
+describes placements only.
 """
 from __future__ import annotations
 
@@ -28,19 +67,22 @@ from typing import Any, Callable
 import torch
 
 from ..configs import get_config
-from ..configs.base import GNNConfig, LMConfig, RecsysConfig
+from ..configs.base import CoreGraphConfig, GNNConfig, LMConfig, RecsysConfig
 from ..configs.shapes import input_specs
 from ..models import gnn as gnn_m
 from ..models import recsys as rec_m
 from ..models import transformer as tfm
-from ..models.params import requires_grad, tree_map, tree_num_params
+from ..models.params import (requires_grad, tree_map, tree_num_params,
+                             tree_shardings)
 from ..optim import AdamWConfig, adamw_state_specs, adamw_update
+from .mesh import Mesh, Sharding
 
 __all__ = ["StepBundle", "build_step", "default_opt", "value_and_grad",
-           "accum_steps"]
+           "accum_steps", "local_args", "gather_outputs"]
 
 F32 = torch.float32
-_MESHES = "ROADMAP Queue 1 item 7.7"
+_TP = "ROADMAP Queue 1 item 8"
+_TOP_K = 100  # mind_retrieval's top_k
 
 
 @dataclass
@@ -48,15 +90,11 @@ class StepBundle:
     name: str
     fn: Callable
     args: tuple                 # (shape, dtype) trees, positional
+    in_shardings: Any = None    # Sharding trees like args (None: no mesh)
+    out_shardings: Any = None
+    donate_argnums: tuple = ()
     num_params: int = 0
     static: dict | None = None
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"meshes and shardings are not ported yet "
-                                  f"({_MESHES}); the port's steps run on "
-                                  f"one device")
 
 
 def _avals(spec_tree):
@@ -75,85 +113,315 @@ def value_and_grad(loss_fn, params, *args):
     return loss.detach(), list(grads)
 
 
-def accum_steps(B: int, S: int) -> int:
-    """The reference's microbatch count for a (B, S) batch: the largest
-    divisor of ``B`` at most ``ceil(B * S / budget)``, the budget being
+def accum_steps(B: int, S: int, data_shards: int = 1) -> int:
+    """The reference's microbatch count for a (B, S) batch over
+    ``data_shards``: the largest divisor ``k`` of ``B`` at most
+    ``ceil(B * S / data_shards / budget)`` whose microbatch ``B / k``
+    stays divisible by the data shards, the budget being
     ``REPRO_TORCH_ACCUM_TOKENS`` tokens (8,192)."""
     budget = int(os.environ.get("REPRO_TORCH_ACCUM_TOKENS", 8192))
-    want = max(1, -(-B * S // budget))
+    tokens_per_chip = B * S // max(data_shards, 1)
+    want = max(1, -(-tokens_per_chip // budget))
     for cand in range(min(want, B), 0, -1):
-        if B % cand == 0:
+        if B % cand == 0 and (B // cand) % data_shards == 0:
             return cand
     return 1
+
+
+# ================================================================= meshes
+def _batch_axes(mesh: Mesh) -> tuple:
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def _all_axes(mesh: Mesh) -> tuple:
+    return tuple(mesh.axis_names)
+
+
+def _ns(mesh, *spec) -> Sharding:
+    return Sharding(mesh, spec)
+
+
+def _ba_rule(mesh: Mesh):
+    ba = _batch_axes(mesh)
+    return ba if len(ba) > 1 else ba[0]
+
+
+def _lm_rules(mesh: Mesh) -> dict:
+    """TP over model; experts 2D (expert x embed over the batch axes);
+    weights otherwise replicated over the batch axes."""
+    return {"heads": "model", "kv_heads": "model", "mlp": "model",
+            "vocab": "model", "expert": "model", "rows": "model",
+            "embed": None, "expert_embed": _ba_rule(mesh)}
+
+
+def _zero1_rules(rules: dict, mesh: Mesh) -> dict:
+    """Optimizer-state rules: the embed dim also over the batch axes
+    (ZeRO-1)."""
+    return {**rules, "embed": _ba_rule(mesh)}
+
+
+def _opt_shardings(param_specs, mesh, rules, opt: AdamWConfig):
+    param_sh = tree_shardings(param_specs, mesh, rules)
+    if not opt.quantize_moments:
+        mu = tree_map(lambda s: {"m": s, "v": s}, param_sh)
+    else:
+        ba = _batch_axes(mesh)
+        q, s = _ns(mesh, ba, None), _ns(mesh, ba)
+        mu = tree_map(lambda _: {"m_q": q, "m_s": s, "v_q": q, "v_s": s},
+                      param_sh)
+    return {"step": _ns(mesh), "mu": mu}
+
+
+def _is_tree(x) -> bool:
+    return hasattr(x, "keys") and not isinstance(x, torch.Tensor)
+
+
+def _zip_map(fn, tree, sh):
+    """``fn(leaf, sharding)`` over a tree and its sharding tree (a single
+    Sharding applies to every leaf under it)."""
+    if _is_tree(tree):
+        return {k: _zip_map(fn, tree[k], sh if isinstance(sh, Sharding)
+                            else sh[k]) for k in sorted(tree.keys())}
+    return fn(tree, sh)
+
+
+def _piece(x, sh: Sharding):
+    """This rank's piece of a whole tensor ``x`` placed by ``sh``; a
+    dimension that its ranks do not divide is refused, as the reference's
+    ``NamedSharding`` refuses it."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    mesh = sh.mesh
+    for d in range(x.dim()):
+        axes = sh.dim_axes(d)
+        k = mesh.axis_size(axes)
+        if k > 1:
+            if x.shape[d] % k:
+                raise ValueError(
+                    f"dimension {d} of a {tuple(x.shape)} tensor does not "
+                    f"divide over the {k} ranks of {axes}")
+            size = x.shape[d] // k
+            x = x.narrow(d, mesh.axis_index(axes) * size, size)
+    return x.clone() if x.dim() and sh.frac > 1 else x
+
+
+def _whole(x, sh: Sharding):
+    """The whole tensor from every rank's piece ``x`` placed by ``sh``
+    (one all-gather a split dimension)."""
+    import torch.distributed as dist
+
+    if not isinstance(x, torch.Tensor):
+        return x
+    mesh = sh.mesh
+    for d in range(x.dim()):
+        axes = sh.dim_axes(d)
+        k = mesh.axis_size(axes)
+        if k > 1:
+            parts = [torch.empty_like(x) for _ in range(k)]
+            dist.all_gather(parts, x.contiguous(),
+                            group=mesh.get_group(axes))
+            x = torch.cat(parts, d)
+    return x
+
+
+def local_args(bundle: StepBundle, *args) -> tuple:
+    """This rank's piece of each global argument of ``bundle.fn``, cut by
+    ``bundle.in_shardings`` (the arguments themselves without a mesh)."""
+    if bundle.in_shardings is None:
+        return args
+    return tuple(_zip_map(_piece, a, sh)
+                 for a, sh in zip(args, bundle.in_shardings))
+
+
+def gather_outputs(bundle: StepBundle, out):
+    """The global outputs of ``bundle.fn`` from this rank's pieces, joined
+    by ``bundle.out_shardings`` (every rank gets them whole)."""
+    if bundle.out_shardings is None:
+        return out
+    sh = bundle.out_shardings
+    if isinstance(out, tuple):
+        return tuple(_zip_map(_whole, o, s) for o, s in zip(out, sh))
+    return _zip_map(_whole, out, sh)
+
+
+def _ranks(mesh) -> bool:
+    """Whether ``mesh`` runs over more than one rank (and may: a process
+    group spans it, its ``model`` axis is 1)."""
+    if mesh is None or mesh.size == 1:
+        return False
+    if mesh.device_mesh is None:
+        raise RuntimeError(
+            f"{mesh} has no process group: its steps describe placements "
+            "(the dry run); run them on make_host_mesh() inside a group")
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a model axis of {mesh.shape['model']} needs Megatron tensor "
+            f"parallelism, not ported ({_TP}); use make_host_mesh()")
+    return True
+
+
+def _on_mesh(mesh, one_device: Callable, ranks: Callable) -> Callable:
+    """``one_device`` without a mesh or on one rank, ``ranks`` over the
+    ranks of ``mesh`` (decided when the step runs)."""
+    if mesh is None or mesh.size == 1:
+        return one_device
+
+    def step(*args):
+        return ranks(*args) if _ranks(mesh) else one_device(*args)
+
+    return step
+
+
+def _mean_over(mesh, axes, tensors) -> None:
+    """Average ``tensors`` in place over the group of ``axes``."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axes)
+    k = mesh.axis_size(axes)
+    for t in tensors:
+        dist.all_reduce(t, group=group)
+        t.div_(k)
+
+
+def _no_moe(cfg: LMConfig, mesh) -> None:
+    if cfg.moe is not None and mesh.axis_size(_batch_axes(mesh)) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}'s MoE capacity is counted over the global batch in "
+            f"the reference; the port routes a rank's tokens alone, so MoE "
+            f"configs run on one data rank ({_TP})")
 
 
 # ===================================================================== LM
 def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
               reduced):
-    _no_mesh(mesh)
     pspecs = tfm.lm_param_specs(cfg)
     p_avals = _avals(pspecs)
     n_params = tree_num_params(pspecs)
+    if mesh is not None:
+        ba = _batch_axes(mesh)
+        rules = _lm_rules(mesh)
+        p_shard = tree_shardings(pspecs, mesh, rules)
 
     if step_kind == "train":
         o_avals = adamw_state_specs(pspecs, opt)
         B, S = avals["tokens"][0]
-        accum = accum_steps(B, S)
+        shards = 1 if mesh is None else mesh.axis_size(ba)
+        accum = accum_steps(B, S, shards)
+
+        def grads_of(params, tokens, labels):
+            b = tokens.shape[0]
+            if accum == 1:
+                return value_and_grad(tfm.lm_loss, params, cfg, tokens,
+                                      labels)
+            mb_tok = tokens.reshape(accum, b // accum, S)
+            mb_lbl = labels.reshape(accum, b // accum, S)
+            grads, loss = None, torch.zeros((), dtype=F32,
+                                            device=tokens.device)
+            for t, lab in zip(mb_tok, mb_lbl):
+                mb_loss, g = value_and_grad(tfm.lm_loss, params, cfg, t, lab)
+                if grads is None:
+                    grads = [torch.zeros(x.shape, dtype=F32, device=x.device)
+                             for x in g]
+                for acc, x in zip(grads, g):
+                    acc.add_(x)
+                del g
+                loss = loss + mb_loss
+            for acc in grads:
+                acc.div_(accum)
+            return loss / accum, grads
 
         def step(params, opt_state, tokens, labels):
-            if accum == 1:
-                loss, grads = value_and_grad(tfm.lm_loss, params, cfg,
-                                             tokens, labels)
-            else:
-                mb_tok = tokens.reshape(accum, B // accum, S)
-                mb_lbl = labels.reshape(accum, B // accum, S)
-                grads, loss = None, torch.zeros((), dtype=F32,
-                                                device=tokens.device)
-                for t, lab in zip(mb_tok, mb_lbl):
-                    mb_loss, g = value_and_grad(tfm.lm_loss, params, cfg,
-                                                t, lab)
-                    if grads is None:
-                        grads = [torch.zeros(x.shape, dtype=F32,
-                                             device=x.device) for x in g]
-                    for acc, x in zip(grads, g):
-                        acc.add_(x)
-                    del g
-                    loss = loss + mb_loss
-                for acc in grads:
-                    acc.div_(accum)
-                loss = loss / accum
+            loss, grads = grads_of(params, tokens, labels)
             params, opt_state = adamw_update(params, grads, opt_state, opt)
             return params, opt_state, loss
 
-        return StepBundle(
+        bundle = StepBundle(
             name="train_step", fn=step,
             args=(p_avals, o_avals, avals["tokens"], avals["labels"]),
-            num_params=n_params,
+            donate_argnums=(0, 1), num_params=n_params,
             static={"opt": opt, "cfg": cfg, "accum": accum,
                     "pspecs": pspecs})
+        if mesh is None:
+            return bundle
+        o_shard = _opt_shardings(pspecs, mesh, _zero1_rules(rules, mesh), opt)
+        tok_sh = _ns(mesh, ba, None)
+
+        def ranks(params, opt_state, tokens, labels):
+            _no_moe(cfg, mesh)
+            params = _zip_map(_whole, params, p_shard)
+            opt_state = _zip_map(_whole, opt_state, o_shard)
+            loss, grads = grads_of(params, tokens, labels)
+            _mean_over(mesh, ba, [loss, *grads])
+            params, opt_state = adamw_update(params, grads, opt_state, opt)
+            return (_zip_map(_piece, params, p_shard),
+                    _zip_map(_piece, opt_state, o_shard), loss)
+
+        bundle.static["rules"] = rules
+        return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+                       in_shardings=(p_shard, o_shard, tok_sh, tok_sh),
+                       out_shardings=(p_shard, o_shard, _ns(mesh)))
 
     if step_kind == "prefill":
         def step(params, tokens):
             with torch.inference_mode():
                 return tfm.serve_prefill(params, cfg, tokens)
 
-        return StepBundle(name="serve_prefill", fn=step,
-                          args=(p_avals, avals["tokens"]),
-                          num_params=n_params)
+        bundle = StepBundle(name="serve_prefill", fn=step,
+                            args=(p_avals, avals["tokens"]),
+                            num_params=n_params)
+        if mesh is None:
+            return bundle
+
+        def ranks(params, tokens):
+            _no_moe(cfg, mesh)
+            return step(_zip_map(_whole, params, p_shard), tokens)
+
+        return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+                       in_shardings=(p_shard, _ns(mesh, ba, None)),
+                       out_shardings=_ns(mesh, ba, None, "model"))
 
     def step(params, tokens, caches):
         with torch.inference_mode():
             return tfm.serve_decode(params, cfg, tokens, caches)
 
-    return StepBundle(name="serve_decode", fn=step,
-                      args=(p_avals, avals["tokens"], avals["caches"]),
-                      num_params=n_params)
+    bundle = StepBundle(name="serve_decode", fn=step,
+                        args=(p_avals, avals["tokens"], avals["caches"]),
+                        donate_argnums=(2,), num_params=n_params)
+    if mesh is None:
+        return bundle
+    long_ctx = shape_name == "long_500k"
+    if long_ctx:
+        cache_b, cache_t = None, _all_axes(mesh)
+    else:
+        cache_b, cache_t = ba, "model"
+
+    def cache_sharding(key):
+        if key == "len":
+            return _ns(mesh)
+        # (L, B, T, ...): rank 4 (MLA: ckv/kr) or 5 (k/v)
+        rank = 5 if cfg.mla is None else 4
+        return _ns(mesh, None, cache_b, cache_t, *(None,) * (rank - 3))
+
+    c_shard = {k: cache_sharding(k) for k in avals["caches"]}
+
+    def ranks(params, tokens, caches):
+        if long_ctx:
+            raise NotImplementedError(
+                f"long_500k splits its cache sequence over every axis "
+                f"({mesh.size} ranks); the flash-decode combine across "
+                f"ranks is not ported ({_TP})")
+        _no_moe(cfg, mesh)
+        return step(_zip_map(_whole, params, p_shard), tokens, caches)
+
+    return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+                   in_shardings=(p_shard, _ns(mesh, cache_b, None), c_shard),
+                   out_shardings=(_ns(mesh, cache_b, None, "model"),
+                                  dict(c_shard)))
 
 
 # ===================================================================== GNN
 def _build_gnn(cfg: GNNConfig, shape_name, step_kind, avals, mesh, opt,
                reduced):
-    _no_mesh(mesh)
     batch_avals = avals["batch"]
     N = avals["num_nodes"]
     d_in = batch_avals["x"][0][-1] if "x" in batch_avals else 0
@@ -169,20 +437,50 @@ def _build_gnn(cfg: GNNConfig, shape_name, step_kind, avals, mesh, opt,
         params, opt_state = adamw_update(params, grads, opt_state, opt)
         return params, opt_state, loss
 
-    return StepBundle(name="train_step", fn=step,
-                      args=(p_avals, o_avals, batch_avals),
-                      num_params=tree_num_params(pspecs),
-                      static={"opt": opt, "cfg": cfg, "pspecs": pspecs,
-                              "num_nodes": N})
+    bundle = StepBundle(name="train_step", fn=step,
+                        args=(p_avals, o_avals, batch_avals),
+                        donate_argnums=(0, 1),
+                        num_params=tree_num_params(pspecs),
+                        static={"opt": opt, "cfg": cfg, "pspecs": pspecs,
+                                "num_nodes": N})
+    if mesh is None:
+        return bundle
+    p_shard = tree_shardings(pspecs, mesh, {})  # replicated (small models)
+    o_shard = _opt_shardings(pspecs, mesh, {}, opt)
+    edge_sh, repl = _ns(mesh, _all_axes(mesh)), _ns(mesh)
+    b_shard = {k: edge_sh if k in ("src", "dst") else repl
+               for k in batch_avals}
+
+    def ranks(params, opt_state, batch):
+        with gnn_m.edges_split(mesh.get_group(_all_axes(mesh))):
+            return step(params, opt_state, batch)
+
+    return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+                   in_shardings=(p_shard, o_shard, b_shard),
+                   out_shardings=(p_shard, o_shard, repl))
 
 
 # ================================================================== recsys
 def _build_recsys(cfg: RecsysConfig, shape_name, step_kind, avals, mesh, opt,
                   reduced):
-    _no_mesh(mesh)
     pspecs = rec_m.mind_param_specs(cfg)
     p_avals = _avals(pspecs)
     n_params = tree_num_params(pspecs)
+    if mesh is not None:
+        ba = _batch_axes(mesh)
+        rules = {"rows": "model", "embed": None, "mlp": "model",
+                 "embed2": None}
+        p_shard = tree_shardings(pspecs, mesh, rules)
+
+        def batch_shard(k, aval):
+            shape = aval[0]
+            if k == "candidate_ids":
+                return _ns(mesh, ba)
+            if shape[0] == 1:  # retrieval: a single user, replicated
+                return _ns(mesh)
+            return _ns(mesh, ba, *([None] * (len(shape) - 1)))
+
+        b_shard = {k: batch_shard(k, v) for k, v in avals.items()}
 
     if step_kind == "train":
         o_avals = adamw_state_specs(pspecs, opt)
@@ -193,31 +491,87 @@ def _build_recsys(cfg: RecsysConfig, shape_name, step_kind, avals, mesh, opt,
             params, opt_state = adamw_update(params, grads, opt_state, opt)
             return params, opt_state, loss
 
-        return StepBundle(name="train_step", fn=step,
-                          args=(p_avals, o_avals, avals),
-                          num_params=n_params,
-                          static={"opt": opt, "cfg": cfg, "pspecs": pspecs})
+        bundle = StepBundle(name="train_step", fn=step,
+                            args=(p_avals, o_avals, avals),
+                            donate_argnums=(0, 1), num_params=n_params,
+                            static={"opt": opt, "cfg": cfg,
+                                    "pspecs": pspecs})
+        if mesh is None:
+            return bundle
+        o_shard = _opt_shardings(pspecs, mesh, rules, opt)
+
+        def ranks(params, opt_state, batch):
+            loss, grads = value_and_grad(rec_m.mind_train_loss, params, cfg,
+                                         batch)
+            _mean_over(mesh, ba, [loss, *grads])
+            params, opt_state = adamw_update(params, grads, opt_state, opt)
+            return params, opt_state, loss
+
+        return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+                       in_shardings=(p_shard, o_shard, b_shard),
+                       out_shardings=(p_shard, o_shard, _ns(mesh)))
 
     if step_kind == "serve":
         def step(params, batch):
             with torch.inference_mode():
                 return rec_m.mind_serve(params, cfg, batch)
 
-        return StepBundle(name="serve_step", fn=step, args=(p_avals, avals),
-                          num_params=n_params)
+        bundle = StepBundle(name="serve_step", fn=step, args=(p_avals, avals),
+                            num_params=n_params)
+        if mesh is None:
+            return bundle
+        return replace(bundle, fn=_on_mesh(mesh, step, step),
+                       in_shardings=(p_shard, b_shard),
+                       out_shardings=_ns(mesh, ba, None, None))
 
     def step(params, batch):
         with torch.inference_mode():
             return rec_m.mind_retrieval(params, cfg, batch)
 
-    return StepBundle(name="retrieval_step", fn=step, args=(p_avals, avals),
-                      num_params=n_params)
+    bundle = StepBundle(name="retrieval_step", fn=step, args=(p_avals, avals),
+                        num_params=n_params)
+    if mesh is None:
+        return bundle
+
+    def ranks(params, batch):
+        # each rank scores its slice of the candidates; the top k of the
+        # ranks' top k, positions offset by each slice's start
+        import torch.distributed as dist
+
+        vals, idx = step(params, batch)
+        group, k = mesh.get_group(ba), mesh.axis_size(ba)
+        idx = idx + mesh.axis_index(ba) * batch["candidate_ids"].shape[0]
+        parts_v = [torch.empty_like(vals) for _ in range(k)]
+        parts_i = [torch.empty_like(idx) for _ in range(k)]
+        dist.all_gather(parts_v, vals.contiguous(), group=group)
+        dist.all_gather(parts_i, idx.contiguous(), group=group)
+        v, i = torch.cat(parts_v, -1), torch.cat(parts_i, -1)
+        top = torch.topk(v, min(_TOP_K, v.shape[-1]), dim=-1)
+        return top.values, torch.gather(i, -1, top.indices)
+
+    return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+                   in_shardings=(p_shard, b_shard),
+                   out_shardings=(_ns(mesh), _ns(mesh)))
 
 
 # =============================================================== coregraph
-def _build_coregraph(cfg, shape_name, step_kind, avals, mesh, opt, reduced):
-    raise NotImplementedError(f"the sharded core-graph step is not ported "
-                              f"yet ({_MESHES})")
+def _build_coregraph(cfg: CoreGraphConfig, shape_name, step_kind, avals,
+                     mesh, opt, reduced):
+    """One SemiCore* superstep of the shard backend (``chunk=1``) over the
+    mesh: ``fn(ss, core, cnt, active, nact)`` of
+    ``core.resident.build_shard_chunk_fn`` (``fn.backend`` binds a graph
+    into ``ss``).  ``args`` are the reference's stacked shard arrays, for
+    sizing; their placements are the reference's (None: the chunk
+    function places its own)."""
+    from ..core.resident import build_shard_chunk_fn
+
+    specs = avals["specs"]
+    fn = build_shard_chunk_fn(mesh, "semicore*", cfg.n, avals["num_probes"],
+                              chunk=1)
+    args = (specs["core0"], specs["cnt"], specs["active"], specs["nactive"],
+            specs["dst"], specs["rows"], specs["edge_mask"],
+            specs["lsegptr"], specs["owned_ids"], specs["owned_mask"])
+    return StepBundle(name="decompose", fn=fn, args=args, num_params=0)
 
 
 def default_opt(cfg, quantize_moments: bool | None = None,
@@ -230,15 +584,15 @@ def default_opt(cfg, quantize_moments: bool | None = None,
     return AdamWConfig(quantize_moments=quantize_moments, **kw)
 
 
-def build_step(arch_id: str, shape_name: str, mesh=None, *,
+def build_step(arch_id: str, shape_name: str, mesh: Mesh | None = None, *,
                reduced: bool = False, opt: AdamWConfig | None = None,
                quantize_moments: bool | None = None,
                depth_override: int | None = None) -> StepBundle:
     """The step of one cell, as the reference's ``build_step`` assembles
-    it, on one device (``mesh`` must be None).  AdamW moments are int8
-    for LMs of ``d_model >= 7000`` unless ``quantize_moments`` or ``opt``
-    says otherwise."""
-    _no_mesh(mesh)
+    it, on ``mesh`` (None: one device, no placements; the core-graph cell
+    then takes a one-shard layout).  AdamW moments are int8 for LMs of
+    ``d_model >= 7000`` unless ``quantize_moments`` or ``opt`` says
+    otherwise."""
     cfg = get_config(arch_id)
     if reduced:
         cfg = cfg.reduced()
@@ -246,11 +600,14 @@ def build_step(arch_id: str, shape_name: str, mesh=None, *,
         cfg = replace(cfg, n_layers=depth_override)
     if opt is None:
         opt = default_opt(cfg, quantize_moments)
-    if cfg.kind == "coregraph":
-        return _build_coregraph(cfg, shape_name, None, None, mesh, opt,
-                                reduced)
-    step_kind, avals = input_specs(cfg, shape_name, reduced=reduced)
+    if cfg.kind == "coregraph" and mesh is None:
+        mesh = Mesh((1, 1), ("data", "model"))
+    num_shards = 1 if mesh is None else mesh.size
+    step_kind, avals = input_specs(cfg, shape_name, num_shards=num_shards,
+                                   reduced=reduced)
     build: dict[str, Any] = {"lm": _build_lm, "gnn": _build_gnn,
-                             "recsys": _build_recsys}
+                             "recsys": _build_recsys,
+                             "coregraph": _build_coregraph}
     return build[cfg.kind](cfg, shape_name, step_kind, avals, mesh, opt,
                            reduced)
+

@@ -12,12 +12,24 @@ subgraphs and the molecule cells disjoint unions, fed the same way.
 :func:`gnn_param_specs` (or nested dicts of tensors under the same names).
 SchNet and EGNN take positions and atomic numbers as inputs.
 
+Edges split over the ranks of a process group (:func:`edges_split`, the
+mesh step of ``launch/steps.py``): each rank holds a slice of ``(src,
+dst)`` and the whole node state.  Each sum over edges then adds the
+ranks' partial sums (an all-reduce forward, identity backward:
+:class:`_EdgeSum`), and each replicated tensor entering rank-local edge
+work (node rows gathered by an edge end, a parameter of a per-edge MLP)
+passes :class:`_Fanout` (identity forward, all-reduce backward), so every
+rank's gradient of a replicated tensor is the whole one, once.  With no
+split both are the one-device functions.
+
 One divergence from the reference: an id past ``n`` (or negative) in
 ``src``, ``dst`` or ``graph_ids`` raises on the CPU and trips a device
 assert on the card, where ``segment_sum`` drops it and ``take`` fills it.
 No source makes one: padded edges point at the sink row ``n - 1``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +39,8 @@ from .params import Spec
 
 __all__ = ["gnn_param_specs", "gnn_loss", "graphsage_forward", "gcn_forward",
            "schnet_forward", "egnn_forward", "graphsage_param_specs",
-           "gcn_param_specs", "schnet_param_specs", "egnn_param_specs"]
+           "gcn_param_specs", "schnet_param_specs", "egnn_param_specs",
+           "edges_split"]
 
 F32 = torch.float32
 
@@ -70,9 +83,85 @@ def _segsum(vals, idx, n):
     return _SegmentSum.apply(vals, idx, n)
 
 
+#: the process group the edges are split over (None: every edge here)
+_EDGE_GROUP: list = [None]
+
+
+@contextlib.contextmanager
+def edges_split(group):
+    """Within the block, the edge lists given to the forwards are this
+    rank's slice of edges split over ``group``'s ranks (node state whole
+    on each)."""
+    _EDGE_GROUP.append(group)
+    try:
+        yield
+    finally:
+        _EDGE_GROUP.pop()
+
+
+def _all_reduce(x):
+    import torch.distributed as dist
+
+    dist.all_reduce(x, group=_EDGE_GROUP[-1])
+    return x
+
+
+class _EdgeSum(torch.autograd.Function):
+    """:class:`_SegmentSum` over a rank's edges, summed over the ranks:
+    the forward all-reduces the partial sums, the backward gathers the
+    (whole, replicated) gradient's rows by this rank's ``idx``."""
+
+    @staticmethod
+    def forward(ctx, vals, idx, n):
+        ctx.save_for_backward(idx)
+        out = vals.new_zeros((n,) + tuple(vals.shape[1:]))
+        return _all_reduce(out.index_add_(0, idx, vals))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return grad.index_select(0, idx), None, None
+
+
+class _Fanout(torch.autograd.Function):
+    """A replicated tensor entering rank-local edge work: identity
+    forward, the ranks' partial gradients all-reduced backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad.contiguous().clone())
+
+
+def _edge_sum(vals, idx, n):
+    """Sum of per-edge ``vals`` into ``n`` node rows by ``idx`` (an edge
+    end), over every rank's edges when they are split."""
+    if _EDGE_GROUP[-1] is None:
+        return _SegmentSum.apply(vals, idx, n)
+    return _EdgeSum.apply(vals, idx, n)
+
+
+def _to_edges(x):
+    """A replicated tensor (or a dict of them) as rank-local edge work
+    reads it."""
+    if _EDGE_GROUP[-1] is None:
+        return x
+    if isinstance(x, torch.Tensor):
+        return _Fanout.apply(x)
+    return {k: _to_edges(x[k]) for k in x.keys()}
+
+
+def _gather(x, idx):
+    """Rows of replicated ``x`` at an edge end ``idx``."""
+    return _to_edges(x).index_select(0, idx)
+
+
 def _degree(dst, n):
-    return _segsum(torch.ones(dst.shape, dtype=F32, device=dst.device), dst,
-                   n).clamp_min(1.0)
+    return _edge_sum(torch.ones(dst.shape, dtype=F32, device=dst.device),
+                     dst, n).clamp_min(1.0)
 
 
 # ================================================================= GraphSAGE
@@ -95,7 +184,7 @@ def graphsage_forward(params, cfg: GNNConfig, x, src, dst, n):
     h = x
     for i in range(cfg.n_layers):
         p = params[f"l{i}"]
-        agg = _segsum(h.index_select(0, src), dst, n) / deg
+        agg = _edge_sum(_gather(h, src), dst, n) / deg
         h = torch.relu(h @ p["w_self"] + agg @ p["w_nbr"] + p["b"])
     return h @ params["head"]
 
@@ -115,12 +204,11 @@ def gcn_param_specs(cfg: GNNConfig, d_in: int) -> dict:
 
 def gcn_forward(params, cfg: GNNConfig, x, src, dst, n):
     deg = _degree(dst, n)
-    coef = (1.0 / torch.sqrt(deg.index_select(0, src)
-                             * deg.index_select(0, dst)))[:, None]
+    coef = (1.0 / torch.sqrt(_gather(deg, src) * _gather(deg, dst)))[:, None]
     h = x
     for i in range(cfg.n_layers):
         p = params[f"l{i}"]
-        msg = _segsum(h.index_select(0, src) * coef, dst, n)
+        msg = _edge_sum(_gather(h, src) * coef, dst, n)
         h = torch.relu(msg @ p["w"] + p["b"])
     return h @ params["head"]
 
@@ -151,12 +239,12 @@ def schnet_forward(params, cfg: GNNConfig, z, pos, src, dst, n):
     padded edge (difference 0) has a finite gradient."""
     h = params["embed"].index_select(0, z.clamp(0, 99))
     dist = torch.linalg.vector_norm(
-        pos.index_select(0, src) - pos.index_select(0, dst) + 1e-9, dim=-1)
+        _gather(pos, src) - _gather(pos, dst) + 1e-9, dim=-1)
     rbf = _rbf_expand(dist, cfg.n_rbf, cfg.cutoff)
     for i in range(cfg.n_layers):
         p = params[f"int{i}"]
-        w = _mlp(p["filter"], rbf)                 # (E, d) cfconv filter
-        msg = _segsum((h @ p["w_in"]).index_select(0, src) * w, dst, n)
+        w = _mlp(_to_edges(p["filter"]), rbf)      # (E, d) cfconv filter
+        msg = _edge_sum(_gather(h @ p["w_in"], src) * w, dst, n)
         h = h + _mlp(p["out"], msg)
     return _mlp(params["readout"], h)[:, 0]
 
@@ -183,14 +271,14 @@ def egnn_forward(params, cfg: GNNConfig, x, pos, src, dst, n):
     deg = _degree(dst, n)[:, None]
     for i in range(cfg.n_layers):
         p = params[f"l{i}"]
-        hs, hd = h.index_select(0, src), h.index_select(0, dst)
-        rel = pos.index_select(0, dst) - pos.index_select(0, src)
+        hs, hd = _gather(h, src), _gather(h, dst)
+        rel = _gather(pos, dst) - _gather(pos, src)
         d2 = torch.sum(rel * rel, dim=-1, keepdim=True)
-        m = _mlp(p["edge"], torch.cat([hd, hs, d2], dim=-1))   # (E, d)
+        m = _mlp(_to_edges(p["edge"]), torch.cat([hd, hs, d2], dim=-1))
         # E(n)-equivariant coordinate update
-        cw = _mlp(p["coord"], m)                               # (E, 1)
-        pos = pos + _segsum(rel * cw, dst, n) / deg
-        agg = _segsum(m, dst, n)
+        cw = _mlp(_to_edges(p["coord"]), m)                    # (E, 1)
+        pos = pos + _edge_sum(rel * cw, dst, n) / deg
+        agg = _edge_sum(m, dst, n)
         h = h + _mlp(p["node"], torch.cat([h, agg], dim=-1))
     return _mlp(params["head"], h)[:, 0], pos
 

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 __all__ = ["Spec", "ParamTree", "tree_init", "tree_num_params",
-           "tree_leaves", "tree_map", "requires_grad"]
+           "tree_leaves", "tree_map", "requires_grad", "tree_shardings"]
 
 
 @dataclass(frozen=True)
@@ -138,3 +138,18 @@ def tree_init(spec_tree, generator: torch.Generator) -> ParamTree:
 
 def tree_num_params(spec_tree) -> int:
     return int(sum(prod(s.shape) for _, s in tree_leaves(spec_tree)))
+
+
+def tree_shardings(spec_tree, mesh, rules: dict):
+    """Logical axis names -> mesh axes: a
+    :class:`~repro_torch.launch.mesh.Sharding` for each :class:`Spec` leaf,
+    its dimension named ``a`` split over ``rules.get(a)``; unknown and
+    None axes stay whole (the reference's ``tree_shardings``)."""
+    from ..launch.mesh import Sharding
+
+    def one(s: Spec):
+        axes = s.axes if s.axes else (None,) * len(s.shape)
+        return Sharding(mesh, [rules.get(a) if a is not None else None
+                               for a in axes])
+
+    return tree_map(one, spec_tree)

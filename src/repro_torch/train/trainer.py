@@ -2,7 +2,7 @@
 
 The port's copy of ``repro/train/trainer.py`` for the LM, GNN and recsys
 cells (reduced configs on the CPU; full width on the card), on one
-device.
+data shard: ``make_host_mesh(max_data=1)``, as the reference's loop.
 Fault tolerance: checkpoints of (params, opt_state) through the atomic
 :class:`~repro_torch.train.checkpoint.CheckpointManager`, in the
 reference's layout; resume picks up from the latest committed step and
@@ -27,6 +27,7 @@ from ..configs.shapes import GNN_SHAPES, input_specs
 from ..core.engine import resolve_device
 from ..data.pipeline import (GNNFullGraphSource, Prefetcher, RecsysSource,
                              SampledGraphSource, TokenSource)
+from ..launch.mesh import make_host_mesh, use_mesh
 from ..launch.steps import build_step
 from ..models.params import tree_init
 from ..optim import AdamWConfig, adamw_init
@@ -113,7 +114,12 @@ class TrainLoop:
         if self.shape is None:
             self.shape = {"lm": "train_4k", "gnn": "full_graph_sm",
                           "recsys": "train_batch"}[cfg.kind]
-        self.bundle = build_step(self.arch, self.shape, reduced=self.reduced,
+        # one data shard, as the reference's loop: reduced cells' batches
+        # need not divide the ranks; data parallelism goes through
+        # launch/steps.py on make_host_mesh(max_data=None)
+        self.mesh = make_host_mesh(max_data=1, device=self.device)
+        self.bundle = build_step(self.arch, self.shape, self.mesh,
+                                 reduced=self.reduced,
                                  opt=AdamWConfig(lr=self.lr))
         if self.bundle.name != "train_step":
             raise ValueError(f"TrainLoop needs a train cell, got "
@@ -145,21 +151,24 @@ class TrainLoop:
         losses = []
         t0 = time.time()
         try:
-            for i in range(start, start + num_steps):
-                _, batch = next(prefetch)
-                batch = {k: torch.as_tensor(v, device=self.device)
-                         for k, v in batch.items()}
-                if self.cfg.kind == "lm":
-                    params, opt_state, loss = self.fn(
-                        params, opt_state, batch["tokens"], batch["labels"])
-                else:
-                    params, opt_state, loss = self.fn(params, opt_state,
-                                                      batch)
-                losses.append(float(loss))
-                if self.log_every and (i + 1) % self.log_every == 0:
-                    print(f"step {i + 1}: loss {losses[-1]:.4f}", flush=True)
-                if self.ckpt and (i + 1) % self.checkpoint_every == 0:
-                    self.ckpt.save(i, (params, opt_state))
+            with use_mesh(self.mesh):
+                for i in range(start, start + num_steps):
+                    _, batch = next(prefetch)
+                    batch = {k: torch.as_tensor(v, device=self.device)
+                             for k, v in batch.items()}
+                    if self.cfg.kind == "lm":
+                        params, opt_state, loss = self.fn(
+                            params, opt_state, batch["tokens"],
+                            batch["labels"])
+                    else:
+                        params, opt_state, loss = self.fn(params, opt_state,
+                                                          batch)
+                    losses.append(float(loss))
+                    if self.log_every and (i + 1) % self.log_every == 0:
+                        print(f"step {i + 1}: loss {losses[-1]:.4f}",
+                              flush=True)
+                    if self.ckpt and (i + 1) % self.checkpoint_every == 0:
+                        self.ckpt.save(i, (params, opt_state))
         finally:
             prefetch.close()
         if self.ckpt:

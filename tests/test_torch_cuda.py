@@ -1747,3 +1747,44 @@ def test_reduced_gnn_train_step_on_the_card_matches_cpu(dev, arch, shape):
         out.append([float(b.fn(params, state, on(device))[2])
                     for _ in range(2)])
     np.testing.assert_allclose(out[0], out[1], rtol=1e-3)
+
+
+# ------------------------------------------ the shard backend over NCCL
+def test_one_nccl_rank_equals_the_one_process_shard_backend(dev, tmp_path):
+    """A one-rank NCCL group's decompose equals the device-list shard
+    backend's on the same card, field for field."""
+    from pathlib import Path
+
+    from repro_torch.core import ShardedBackend
+    from repro_torch.launch.ranks import run_ranks
+
+    tests = Path(__file__).resolve().parent
+    run_ranks("torch_pg_ranks:card_shard_case", 1, backend="nccl",
+              args=[tmp_path], paths=[tests], timeout=300)
+    g = chung_lu(3000, 20000, seed=4)
+    want = decompose(g, "semicore*", "batch", block_edges=64,
+                     backend=ShardedBackend(devices=[dev]))
+    with np.load(tmp_path / "card_0.npz") as z:
+        np.testing.assert_array_equal(z["core"], want.core)
+        np.testing.assert_array_equal(z["cnt"], want.cnt)
+        for f in ("iterations", "node_computations", "edge_block_reads",
+                  "node_table_reads", "num_shards", "shard_pad_edges"):
+            assert int(z[f]) == getattr(want, f), f
+        for f in ("updates_per_iter", "computations_per_iter"):
+            assert z[f].tolist() == getattr(want, f), f
+
+
+def test_two_nccl_ranks_on_one_card_fail_and_take_no_gloo(dev, tmp_path):
+    """NCCL refuses two ranks on one device; the failure shows (no rank
+    switches to gloo, none writes a result)."""
+    from pathlib import Path
+
+    from repro_torch.launch.ranks import run_ranks
+
+    if torch.cuda.device_count() > 1:
+        pytest.skip("two ranks would take two cards here")
+    tests = Path(__file__).resolve().parent
+    with pytest.raises(RuntimeError, match="rank"):
+        run_ranks("torch_pg_ranks:card_shard_case", 2, backend="nccl",
+                  args=[tmp_path], paths=[tests], timeout=120)
+    assert not list(tmp_path.glob("card_*.npz"))

@@ -346,11 +346,6 @@ def test_adamw_state_specs_match_jax_avals(quantize):
         assert str(dtype).split(".")[-1] == str(flat[key].dtype), key
 
 
-def test_compress_psum_waits_for_launch():
-    with pytest.raises(NotImplementedError, match="7.7"):
-        opt.compress_psum({"a": torch.zeros(3)}, "data")
-
-
 # ------------------------------------------------------------ checkpoints
 def _ckpt_trees():
     """A JAX (params, int8 AdamW state) with bfloat16 leaves and the port's
@@ -481,16 +476,22 @@ def test_build_step_cells_and_refusals():
     # int8 moments from d_model 7000 up, as the reference picks them
     assert steps.build_step("deepseek-v3-671b", "train_4k").static[
         "opt"].quantize_moments
-    with pytest.raises(NotImplementedError, match="7.7"):
-        steps.build_step("qwen3-0.6b", "train_4k", mesh=object())
-    with pytest.raises(NotImplementedError, match="7.7"):
-        steps.build_step("semicore-webscale", "x")
+    # on a mesh: the reference's placements, the one-rank step
+    from repro_torch.launch.mesh import make_host_mesh as host_mesh
+
+    on_mesh = steps.build_step("qwen3-0.6b", "train_4k",
+                               host_mesh(device="cpu"))
+    assert on_mesh.in_shardings is not None and on_mesh.static["accum"] == \
+        steps.accum_steps(256, 4096)
+    cell = steps.build_step("semicore-webscale", "decompose")
+    assert cell.name == "decompose" and cell.num_params == 0
     gnn = steps.build_step("gcn-cora", "full_graph_sm")
     assert gnn.name == "train_step" and gnn.static["num_nodes"] == 2709
     assert gnn.num_params == jbuild_step("gcn-cora", "full_graph_sm",
                                          make_host_mesh()).num_params
-    with pytest.raises(NotImplementedError, match="7.7"):
-        steps.build_step("gcn-cora", "full_graph_sm", mesh=object())
+    gnn_mesh = steps.build_step("gcn-cora", "full_graph_sm",
+                                host_mesh(device="cpu"))
+    assert gnn_mesh.in_shardings[2]["src"].spec == (("data", "model"),)
 
 
 def test_serve_steps_run_under_inference_mode():

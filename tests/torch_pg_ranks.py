@@ -1,0 +1,166 @@
+"""Rank functions of the port's process-group tests (imports no JAX).
+
+Each runs on every rank of a gloo group started by
+``repro_torch.launch.ranks.run_ranks`` on the CPU, loops over its cases
+and writes what it computed under the output directory it is given, as
+``.npz`` files named by case and rank, for the test process to hold to
+the one-process port and to the reference.
+"""
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+CPU = torch.device("cpu")
+SHARD_FAMILIES = ("powerlaw", "isolated")
+SHARD_ALGORITHMS = ("semicore", "semicore+", "semicore*")
+RESULT_FIELDS = ("iterations", "node_computations", "edge_block_reads",
+                 "node_table_reads", "updates_per_iter",
+                 "computations_per_iter", "num_shards", "shard_pad_edges")
+
+
+def warm_updates(g) -> tuple:
+    """The warm cases' updates of ``g`` (either package's CSRGraph): a
+    few seeded deletes and up to two new edges, as lists of pairs."""
+    rng = np.random.default_rng(7)
+    e = g.edge_list()
+    dels = [(int(u), int(v))
+            for u, v in e[rng.choice(len(e), min(5, len(e)), replace=False)]]
+    ins = [(u, v) for u, v in ((0, g.n - 1), (1, g.n // 2))
+           if u != v and not g.has_edge(u, v)]
+    return dels, ins
+
+
+def warm_graph(g):
+    """``g`` with :func:`warm_updates` buffered, and the inserts' count."""
+    from repro_torch.graph import BufferedGraph
+
+    dels, ins = warm_updates(g)
+    bg = BufferedGraph(g)
+    for u, v in dels:
+        bg.delete_edge(u, v)
+    for u, v in ins:
+        bg.insert_edge(u, v)
+    return bg, len(ins)
+
+
+def result_record(r) -> dict:
+    rec = {"core": np.asarray(r.core, dtype=np.int64),
+           "cnt": (np.zeros(0, np.int64) if r.cnt is None
+                   else np.asarray(r.cnt, dtype=np.int64)),
+           "has_cnt": np.asarray(r.cnt is not None)}
+    for f in RESULT_FIELDS:
+        rec[f] = np.asarray(getattr(r, f), dtype=np.int64)
+    return rec
+
+
+def shard_cases(out_dir: str) -> None:
+    """The shard backend over the group: every family x algorithm cold,
+    the warm settle of :func:`warm_graph`, ``distributed_decompose`` on a
+    mesh, and one superstep of the core-graph cell's chunk function."""
+    from repro_torch.core import (HostEngine, ShardedBackend, decompose,
+                                  warm_settle)
+    from repro_torch.core.distributed import distributed_decompose
+    from repro_torch.graph.differential_cases import FAMILIES
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.set_num_threads(1)
+    rank = dist.get_rank()
+    group = dist.group.WORLD
+    for family in SHARD_FAMILIES:
+        g = FAMILIES[family]()
+        for algo in SHARD_ALGORITHMS:
+            be = ShardedBackend(group=group, device=CPU)
+            r = decompose(g, algo, "batch", block_edges=64, backend=be)
+            np.savez(os.path.join(out_dir, f"{family}_{algo}_{rank}.npz"),
+                     **result_record(r))
+            if algo == "semicore*":
+                bg, added = warm_graph(g)
+                w = warm_settle(HostEngine(bg, block_edges=64), r.core,
+                                added, ShardedBackend(group=group,
+                                                      device=CPU))
+                np.savez(os.path.join(out_dir, f"{family}_warm_{rank}.npz"),
+                         **result_record(w))
+    # distributed_decompose over the mesh of the group, cold and warm
+    g = FAMILIES["powerlaw"]()
+    mesh = make_host_mesh(max_data=None, device=CPU)
+    core, iters = distributed_decompose(g, mesh=mesh)
+    wcore, witers = distributed_decompose(
+        g, mesh=mesh, core0=np.minimum(core + 2, g.degrees()))
+    np.savez(os.path.join(out_dir, f"dd_{rank}.npz"), core=core,
+             iters=np.asarray(iters), wcore=wcore, witers=np.asarray(witers))
+    # the core-graph cell: one superstep of its chunk function
+    from repro_torch.launch.steps import build_step
+
+    b = build_step("semicore-webscale", "decompose", mesh, reduced=True)
+    ss = b.fn.backend.bind_resident(HostEngine(g).planner)
+    deg = torch.as_tensor(g.degrees().astype(np.int32))
+    core0 = {CPU: deg.clone()}
+    cnt = [torch.zeros(g.n, dtype=torch.int32) for _ in ss.shards]
+    active = [t.owned & (deg > 0) for t in ss.shards]
+    nact = b.fn.backend.count_active(ss, active)
+    core1, cnt1, _, nact1, _, upds, ran = b.fn(ss, core0, cnt, active, nact)
+    np.savez(os.path.join(out_dir, f"cell_{rank}.npz"),
+             core=core1[CPU].numpy(), upd=upds[0].numpy(),
+             nact=nact1.numpy(), ran=ran[0].numpy())
+
+
+def train_cases(case_dir: str, out_dir: str) -> None:
+    """One data-parallel train step a case over the group: each case's
+    global params, state and batch (``case.pt`` files written by the
+    test) cut to this rank's pieces, the step run, its outputs joined
+    whole; rank 0 writes them."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (build_step, gather_outputs,
+                                          local_args)
+    from repro_torch.optim import AdamWConfig
+
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(max_data=None, device=CPU)
+    with open(os.path.join(case_dir, "cases.json")) as f:
+        cases = json.load(f)
+    for name, (arch, shape, lr) in cases.items():
+        b = build_step(arch, shape, mesh, reduced=True,
+                       opt=AdamWConfig(lr=lr))
+        args = torch.load(os.path.join(case_dir, f"{name}.pt"))
+        out = b.fn(*local_args(b, *args))
+        params, state, loss = gather_outputs(b, out)
+        if dist.get_rank() == 0:
+            torch.save({"params": params, "state": state, "loss": loss},
+                       os.path.join(out_dir, f"{name}.pt"))
+
+
+def compress_cases(case_dir: str, out_dir: str) -> None:
+    """``compress_psum`` over the mesh's data axis of each rank's
+    gradient tree (``grads_<rank>.pt``); every rank writes its sum."""
+    from repro_torch.launch.mesh import make_host_mesh, use_mesh
+    from repro_torch.optim import compress_psum
+
+    rank = dist.get_rank()
+    grads = torch.load(os.path.join(case_dir, f"grads_{rank}.pt"))
+    mesh = make_host_mesh(max_data=None, device=CPU)
+    with use_mesh(mesh):
+        out = compress_psum(grads, "data")
+    torch.save(out, os.path.join(out_dir, f"sum_{rank}.pt"))
+
+
+def card_shard_case(out_dir: str) -> None:
+    """The shard backend over an NCCL group on cuda:0 (one rank; more
+    must fail, as NCCL refuses two ranks on one device): a chung_lu
+    graph's semicore* decompose, written by every rank that gets there."""
+    from repro_torch.core import ShardedBackend, decompose
+    from repro_torch.graph import chung_lu
+
+    assert dist.get_backend() == "nccl"
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    g = chung_lu(3000, 20000, seed=4)
+    r = decompose(g, "semicore*", "batch", block_edges=64,
+                  backend=ShardedBackend(group=dist.group.WORLD,
+                                         device=device))
+    np.savez(os.path.join(out_dir, f"card_{dist.get_rank()}.npz"),
+             **result_record(r))
