@@ -137,6 +137,18 @@ Phases, each printing one JSON line:
              ServeEngine: 8 prompts of 64 tokens, 16 greedy tokens, flash
              decode under every layer, each decode step's logits held to
              the cache-free forward
+  lm_tp      Qwen3-0.6B at full width under Megatron tensor parallelism
+             over a (data, model) = (1, 2) mesh of two gloo ranks sharing
+             cuda:0 (repro_torch.launch.ranks, this script's tp_rank),
+             each holding its weight pieces and its half of a seeded
+             decode_32k cache (8 rows x 32,768 positions, 15.0 GB a rank):
+             serve_prefill at 2 x 2,048, then 8 teacher-forced decode
+             steps from len 20,000 (past the piece boundary at 16,384)
+             through build_step's steps, flash decode on each rank's piece
+             and its combine across the ranks; the joined logits held to
+             the one-rank path's on the same weights and cache within
+             LM_LOGITS_ATOL, their argmax agreement printed; each rank's
+             step ms, collectives' time and peak device memory
   lm_moe     DeepSeek-V3-671B (MLA latent caches, 256 experts top-8 and a
              shared expert; 61 layers cut to 3, the dense one and 2
              routed) and Arctic-480B (128 experts top-2 beside a dense
@@ -187,7 +199,8 @@ maintain path (``maintain_launches``), on the out-of-core path
 (``outofcore_launches``), on the stream path (``stream_launches``),
 on the shard path (``shard_launches``, its runs but the timing reruns),
 on the process-group path (``dist_launches``, every rank's runs),
-on Qwen3-14B's decode (``lm_prefill_launches``), on Arctic's
+on Qwen3-14B's decode (``lm_prefill_launches``), on the tensor-parallel
+decode (``lm_tp_launches``, both ranks' steps), on Arctic's
 (``lm_moe_launches``), on MIND's train steps (``train_launches``;
 the bag's figures at the train shape under ``train_batch``) and on the
 GNN runs (``gnn_launches``, 0: the GNN path has no kernel),
@@ -311,6 +324,19 @@ ZOO_DECODE_SHAPES = (
      ZOO_PROMPT + ZOO_GENERATE, (40, 8, 128)),
     ("served_arctic_480b", ZOO_SLOTS, ZOO_PROMPT + ZOO_GENERATE,
      ZOO_PROMPT + ZOO_GENERATE, (56, 8, 128)))
+#: lm_tp: Qwen3-0.6B at full width (28 layers) under Megatron tensor
+#: parallelism over a (data, model) = TP_MESH mesh of gloo ranks sharing
+#: cuda:0 (NCCL refuses two ranks on one card): serve_prefill at TP_PREFILL
+#: = (B, S), then TP_DECODE_STEPS teacher-forced decode steps at LM_SLOTS
+#: rows over a seeded decode_32k cache of TP_T positions from len TP_LEN0,
+#: past the piece boundary at TP_T / 2 (30.1 GB of bf16 cache whole, 15.0 GB
+#: a rank).  Each rank holds its joined logits to the one-rank path's
+#: within LM_LOGITS_ATOL
+TP_MESH = (1, 2)
+TP_PREFILL = (2, 2048)
+TP_DECODE_STEPS = 8
+TP_T, TP_LEN0 = 32768, 20_000
+TP_TIMEOUT_S = 300
 #: cache lengths the served decode reaches (1 .. 512 + 32): one position,
 #: 256 and 257, the last step; held on the decode_32k cache with one below
 #: and at each boundary of the kernel's split rule up to the last step
@@ -3353,6 +3379,294 @@ def phase_lm_prefill(device, held) -> dict:
     return launches
 
 
+def tp_cache(cfg, B: int, T: int, pieces: int, which, device) -> dict:
+    """The lm_tp phase's seeded decode cache: ``k`` and ``v`` (L, B, T /
+    pieces * len(which), Hkv, dh) in ``cfg.dtype``, the pieces ``which``
+    of ``pieces`` along the sequence side by side (every piece: the whole
+    cache).  Each (tensor, layer, piece) is its own seeded draw, so a
+    rank's piece equals that slice of the whole."""
+    import torch
+
+    Tp = T // pieces
+    out = {}
+    for i, key in enumerate(("k", "v")):
+        t = torch.empty((cfg.n_layers, B, Tp * len(which), cfg.n_kv,
+                         cfg.head_dim), dtype=cfg.dtype, device=device)
+        for layer in range(cfg.n_layers):
+            for j, p in enumerate(which):
+                g = torch.Generator(device).manual_seed(
+                    (2 * layer + i) * 1000 + p)
+                t[layer, :, j * Tp:(j + 1) * Tp] = torch.randn(
+                    (B, Tp, cfg.n_kv, cfg.head_dim), generator=g,
+                    device=device, dtype=cfg.dtype)
+        out[key] = t
+    return out
+
+
+def tp_inputs(spec: dict, device) -> tuple:
+    """``(cfg, params, prefill tokens, decode tokens)`` of the lm_tp phase
+    from its ``spec`` (the whole weights, drawn from seed 0)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenSource
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(spec["arch"])
+    if spec["reduced"]:
+        cfg = cfg.reduced()
+    params = tfm.lm_init(cfg, torch.Generator(device).manual_seed(0))
+    B, S = spec["prefill"]
+    tokens = torch.as_tensor(TokenSource(B, S, cfg.vocab, seed=1)(0)[
+        "tokens"], device=device)
+    steps = TokenSource(spec["slots"], spec["steps"], cfg.vocab, seed=2)(0)[
+        "tokens"]
+    decode = [torch.as_tensor(steps[:, i:i + 1], device=device)
+              for i in range(spec["steps"])]
+    return cfg, params, tokens, decode
+
+
+def _logits_hold(got, want) -> tuple:
+    """(max |got - want|, rows whose argmax agree, rows)."""
+    got, want = got.float()[:, -1], want.float()[:, -1]
+    return (float((got - want).abs().max()),
+            int((got.argmax(-1) == want.argmax(-1)).sum()), got.shape[0])
+
+
+def tp_rank(run_dir: str, device_type: str) -> None:
+    """One rank of the lm_tp phase (started by ``run_ranks``): the mesh
+    ``spec["mesh"]`` over the group, on ``cuda:(rank % visible cards)``
+    (or the CPU for a rehearsal); this rank's weight pieces cut from the
+    whole (``local_args``), ``serve_prefill`` and the decode steps through
+    ``build_step``'s tensor-parallel steps on its seeded cache piece, the
+    flash-decode launches counted from 0 around the decode steps, the
+    collectives timed (the card synchronised before and after each), the
+    joined logits held to the one-rank path's (``ref.pt``).  Writes
+    ``rank<r>.json``."""
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.launch.mesh import Mesh, _device_mesh
+    from repro_torch.launch.steps import build_step, gather_outputs, \
+        local_args
+
+    rank = dist.get_rank()
+    card = device_type == "cuda"
+    device = torch.device("cuda", rank % torch.cuda.device_count()) \
+        if card else torch.device("cpu")
+    if card:
+        torch.cuda.set_device(device)
+    with open(os.path.join(run_dir, "spec.json")) as f:
+        spec = json.load(f)
+    shape, axes = tuple(spec["mesh"]), ("data", "model")
+    mesh = Mesh(shape, axes, [device], _device_mesh(shape, axes, device))
+    M, index = mesh.shape["model"], mesh.axis_index("model")
+    rec = {"rank": rank, "coords": mesh.coords(),
+           "backend": dist.get_backend(), "device": str(device)}
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(device)
+
+    coll = {"calls": 0, "s": 0.0, "bytes": 0}
+
+    def timed(fn):
+        def collective(self, x):
+            sync()
+            t = time.perf_counter()
+            y = fn(self, x)
+            sync()
+            coll["s"] += time.perf_counter() - t
+            coll["calls"] += 1
+            coll["bytes"] += x.numel() * x.element_size()
+            return y
+        return collective
+
+    engine._Collectives.all_gather = timed(engine._Collectives.all_gather)
+    engine._Collectives.all_reduce = timed(engine._Collectives.all_reduce)
+
+    def collectives() -> dict:
+        out = {"calls": coll["calls"], "s": coll["s"], "bytes": coll["bytes"]}
+        coll.update(calls=0, s=0.0, bytes=0)
+        return out
+
+    ref = torch.load(os.path.join(run_dir, "ref.pt"))
+    t = time.perf_counter()
+    cfg, whole, tokens, decode = tp_inputs(spec, device)
+    pre = build_step(spec["arch"], "prefill_32k", mesh,
+                     reduced=spec["reduced"])
+    params = local_args(pre, whole)[0]
+    del whole
+    sync()
+    rec["init_s"] = time.perf_counter() - t
+    with torch.inference_mode():
+        pre.fn(params, tokens[:, :64])  # warm
+        collectives()
+        sync()
+        t = time.perf_counter()
+        logits = pre.fn(params, local_args(pre, None, tokens)[1])
+        sync()
+        wall = time.perf_counter() - t
+        c = collectives()
+        err, agree, rows = _logits_hold(gather_outputs(pre, logits),
+                                        ref["prefill"].to(device))
+        rec["prefill"] = {
+            "B": tokens.shape[0], "S": tokens.shape[1], "wall_s": wall,
+            "tokens_per_s": tokens.numel() / wall,
+            "collective_s": c["s"], "collective_share": c["s"] / wall,
+            "collective_calls": c["calls"], "collective_bytes": c["bytes"],
+            "logits_piece": list(logits.shape), "max_abs_logit_err": err,
+            "argmax_equal": agree, "rows": rows}
+        del logits
+        dec = build_step(spec["arch"], "decode_32k", mesh,
+                         reduced=spec["reduced"])
+        join = replace(dec, out_shardings=dec.out_shardings[0])
+        B, T = spec["slots"], spec["T"]
+        # warm the kernels on a short cache, then the seeded piece
+        warm = tp_cache(cfg, B, 128 * M, M, [index], device)
+        warm["len"] = torch.tensor(5, dtype=torch.int32, device=device)
+        dec.fn(params, decode[0], warm)
+        del warm
+        caches = tp_cache(cfg, B, T, M, [index], device)
+        caches["len"] = torch.tensor(spec["len0"], dtype=torch.int32,
+                                     device=device)
+        rec["cache_piece_bytes"] = 2 * caches["k"].numel() * \
+            caches["k"].element_size()
+        sync()
+        if card:
+            torch.cuda.reset_peak_memory_stats(device)
+        collectives()
+        fdk.reset_launch_counts()
+        step_ms, errs, agree, coll_s = [], [], 0, 0.0
+        for i, tok in enumerate(decode):
+            sync()
+            t = time.perf_counter()
+            logits, caches = dec.fn(params, tok, caches)
+            sync()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            coll_s += collectives()["s"]
+            e, a, _ = _logits_hold(gather_outputs(join, logits),
+                                   ref["decode"][i].to(device))
+            collectives()
+            errs.append(e)
+            agree += a
+        launches = dict(fdk.LAUNCHES)
+        rec["decode"] = {
+            "B": B, "T": T, "len0": spec["len0"], "steps": len(decode),
+            "step_ms": step_ms, "ms_per_step": float(np.mean(step_ms)),
+            "collective_ms_per_step": 1e3 * coll_s / len(decode),
+            "collective_share": 1e3 * coll_s / sum(step_ms),
+            "logits_piece": list(logits.shape), "max_abs_logit_err": errs,
+            "argmax_equal": agree, "rows": B * len(decode),
+            "len_after": int(caches["len"]), "launches": launches}
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            device) if card else None
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase_lm_tp(device, spec: dict | None = None) -> dict:
+    """Qwen3-0.6B under Megatron tensor parallelism at full width: the
+    one-rank path first (``serve_prefill`` at :data:`TP_PREFILL`, then the
+    decode steps on the whole seeded cache, each timed), its logits saved;
+    then :data:`TP_MESH`'s ranks (:func:`tp_rank`, gloo, sharing the
+    card), each holding its joined logits to those within
+    :data:`LM_LOGITS_ATOL` and launching both flash-decode kernels once a
+    layer a step.  Returns the kernels' launches summed over the ranks'
+    decode steps."""
+    import torch
+
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.launch.steps import build_step
+
+    spec = spec or {"arch": "qwen3-0.6b", "reduced": False,
+                    "mesh": list(TP_MESH), "prefill": list(TP_PREFILL),
+                    "slots": LM_SLOTS, "T": TP_T, "len0": TP_LEN0,
+                    "steps": TP_DECODE_STEPS}
+    card = device.type == "cuda"
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(device)
+
+    if card:
+        free_card(device)
+    out = {"phase": "lm_tp", **spec, "logits_atol": LM_LOGITS_ATOL,
+           "reduced": {"prefill_32k": {"batch": [32, spec["prefill"][0]],
+                                       "seq": [32768, spec["prefill"][1]]},
+                       "decode_32k_batch": [128, spec["slots"]],
+                       "decode_steps": spec["steps"]}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        with torch.inference_mode():
+            cfg, params, tokens, decode = tp_inputs(spec, device)
+            pre = build_step(spec["arch"], "prefill_32k",
+                             reduced=spec["reduced"])
+            dec = build_step(spec["arch"], "decode_32k",
+                             reduced=spec["reduced"])
+            pre.fn(params, tokens[:, :64])  # warm
+            sync()
+            t0 = time.perf_counter()
+            ref = {"prefill": pre.fn(params, tokens).cpu()}
+            one = {"prefill_wall_s": time.perf_counter() - t0}
+            M = spec["mesh"][1]
+            caches = tp_cache(cfg, spec["slots"], spec["T"], M, range(M),
+                              device)
+            caches["len"] = torch.tensor(spec["len0"], dtype=torch.int32,
+                                         device=device)
+            ref["decode"], step_ms = [], []
+            for tok in decode:
+                sync()
+                t0 = time.perf_counter()
+                logits, caches = dec.fn(params, tok, caches)
+                sync()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                ref["decode"].append(logits.cpu())
+            one.update(decode_step_ms=step_ms,
+                       decode_ms_per_step=float(np.mean(step_ms)))
+            del params, caches, logits
+        torch.save(ref, os.path.join(tmp, "ref.pt"))
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        if card:
+            free_card(device)
+        out["one_rank"] = {**one, "wall_s": time.perf_counter() - t}
+        world = spec["mesh"][0] * spec["mesh"][1]
+        t = time.perf_counter()
+        run_ranks("chip_smoke:tp_rank", world, backend="gloo",
+                  args=[tmp, device.type], paths=[ROOT],
+                  timeout=TP_TIMEOUT_S, store_dir=tmp)
+        out["ranks_wall_s"] = time.perf_counter() - t
+        ranks, total = [], {}
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                rec = json.load(f)
+            what = f"lm_tp rank {rank}"
+            check(rec["backend"] == "gloo", f"{what}: backend")
+            for cell in ("prefill", "decode"):
+                err = rec[cell]["max_abs_logit_err"]
+                worst = max(err) if isinstance(err, list) else err
+                check(worst <= LM_LOGITS_ATOL, f"{what}: {cell} logits "
+                      f"differ from the one-rank path's by {worst} > "
+                      f"{LM_LOGITS_ATOL}")
+            check(rec["decode"]["len_after"] == spec["len0"] + spec["steps"],
+                  f"{what}: len")
+            for name in ("flash_decode", "flash_decode_combine"):
+                n = rec["decode"]["launches"].get(name, 0)
+                check(n == spec["steps"] * cfg.n_layers,
+                      f"{what}: {name} launched {n} times, not "
+                      f"{spec['steps']} steps x {cfg.n_layers} layers")
+                total[name] = total.get(name, 0) + n
+            ranks.append(rec)
+    out.update(ranks=ranks, launches=total)
+    emit(out)
+    return total
+
+
 def phase_lm_moe(device) -> dict:
     """DeepSeek-V3-671B (MLA, the latent-cache decode) and Arctic-480B
     (flash decode, G = 7) at full width, depth cut (:data:`ZOO_DEPTH`):
@@ -3982,6 +4296,138 @@ def device_ms(fn, reps: int, device) -> float:
     return start.elapsed_time(end) / reps
 
 
+def piece_entries(device) -> tuple:
+    """Kernel #5 in the lm_tp phase's modes at its shape: Qwen3-0.6B's
+    bf16 caches (:data:`DECODE_HEADS`) of :data:`LM_SLOTS` rows over
+    :data:`TP_T` positions cut into ``TP_MESH[1]`` pieces.  At cache_len 0,
+    1, one below, at and one above each piece boundary, :data:`TP_LEN0`
+    and TP_T: the split kernel on each piece at its offset held to
+    :func:`split_plain` (m, l and acc of the splits the piece's plan
+    gives), and the combine over the stacked pieces held to
+    :func:`combine_plain` on the kernel's partials and to the whole cache's
+    plain attention, each to :func:`bf16_hold`'s limit; where the last
+    piece holds at least an eighth of the positions attended, that limit
+    rejects the merge with the last piece's partial dropped (l = acc = 0)
+    or weighted twice.  Timed at TP_LEN0.  Returns the split's and the
+    combine's records."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fdk
+
+    H, Hkv, d = DECODE_HEADS
+    G, P, B = H // Hkv, TP_MESH[1], LM_SLOTS
+    Tp = TP_T // P
+    gen = torch.Generator(device).manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(
+        torch.bfloat16) for shape in ((B, H, d), (B, TP_T, Hkv, d),
+                                      (B, TP_T, Hkv, d)))
+    pieces = [(k[:, p * Tp:(p + 1) * Tp], v[:, p * Tp:(p + 1) * Tp])
+              for p in range(P)]
+    lens_held = sorted({0, 1, TP_LEN0, TP_T,
+                        *(x for p in range(1, P)
+                          for x in (p * Tp - 1, p * Tp, p * Tp + 1))})
+    held = []
+    for n in lens_held:
+        lens = torch.tensor(n, dtype=torch.int32, device=device)
+        parts, rec = [], {"cache_len": n, "split_err": [], "splits": []}
+        covered = []
+        for p, (kp, vp) in enumerate(pieces):
+            ml, acc = fdk.launch_split(q, kp, vp, lens, p * Tp)
+            ml_p, acc_p = fdk.split_plain(q, kp, vp, lens, p * Tp)
+            ns = fdk.piece_plan(n, p * Tp, Tp, B, Hkv, G)[2]
+            check(ns == 0 if 0 < n <= p * Tp else ns >= 1,
+                  f"piece {p} at cache_len {n}: {ns} splits")
+            errs = {}
+            for what, got, want in (
+                    ("m", ml[:, :, :ns, :, 0], ml_p[:, :, :ns, :, 0]),
+                    ("l", ml[:, :, :ns, :, 1], ml_p[:, :, :ns, :, 1]),
+                    ("acc", acc[:, :, :ns], acc_p[:, :, :ns])):
+                if ns:
+                    err, lim = bf16_hold(got, want)
+                    check(err <= lim, f"split piece {p} {what} at cache_len "
+                          f"{n}: error {err} > limit {lim}")
+                    errs[what] = [err, lim]
+            rec["split_err"].append(errs)
+            rec["splits"].append(ns)
+            covered.append(fdk.piece_plan(n, p * Tp, Tp, B, Hkv, G)[0]
+                           if ns else 0)
+            parts.append((ml, acc))
+        ml, acc = (torch.stack(t) for t in zip(*parts))
+        got = fdk.launch_combine(ml, acc, lens, Tp, q.dtype)
+        want = fdk.combine_plain(ml, acc, lens, Tp, q.dtype)
+        err, lim = bf16_hold(got, want)
+        check(err <= lim, f"combine of {P} pieces at cache_len {n}: error "
+              f"{err} > limit {lim}")
+        whole = fdk.decode_attention_plain(q, k, v, lens)
+        werr, wlim = bf16_hold(got, whole)
+        check(werr <= wlim, f"{P} pieces against the whole cache at "
+              f"cache_len {n}: error {werr} > limit {wlim}")
+        rec.update(combine_err=err, combine_limit=lim, whole_err=werr)
+        if 8 * covered[-1] >= sum(covered):
+            planted = {}
+            for name, scale in (("last_piece_dropped", 0.0),
+                                ("last_piece_twice", 2.0)):
+                ml_, acc_ = ml.clone(), acc.clone()
+                ml_[-1, ..., 1] *= scale
+                acc_[-1] *= scale
+                planted[name] = bf16_hold(fdk.combine_plain(
+                    ml_, acc_, lens, Tp, q.dtype), whole)[0]
+                check(planted[name] > wlim, f"cache_len {n}: the limit "
+                      f"{wlim} does not reject the planted fault {name}")
+            rec["planted_err"] = planted
+        held.append(rec)
+    # timed at TP_LEN0, where the lm_tp phase's decode steps run
+    n = TP_LEN0
+    lens = torch.tensor(n, dtype=torch.int32, device=device)
+    parts = [fdk.launch_split(q, kp, vp, lens, p * Tp)
+             for p, (kp, vp) in enumerate(pieces)]
+    ml, acc = (torch.stack(t) for t in zip(*parts))
+    rec = next(h for h in held if h["cache_len"] == n)
+    counts = rec["splits"]
+    covered = [fdk.piece_plan(n, p * Tp, Tp, B, Hkv, G)[0] if counts[p]
+               else 0 for p in range(P)]
+    piece_ms, piece_plain_ms = [], []
+    for p, (kp, vp) in enumerate(pieces):
+        piece_ms.append(device_ms(
+            lambda: fdk.launch_split(q, kp, vp, lens, p * Tp), 50, device))
+        piece_plain_ms.append(cuda_ms(
+            lambda: fdk.split_plain(q, kp, vp, lens, p * Tp), 3, device))
+    # each piece's k and v below cache_len and q read once, its partials
+    # written once
+    nbytes = 2 * 2 * B * sum(covered) * Hkv * d + P * 2 * B * H * d + \
+        4 * B * Hkv * sum(counts) * G * (d + 2)
+    bms, by = bound(nbytes, 4 * B * H * sum(covered) * d, BF16_OPS_PER_S)
+    shape = {"B": B, "T": TP_T, "pieces": P, "T_piece": Tp, "cache_len": n,
+             "H": H, "Hkv": Hkv, "d": d, "dtype": "bfloat16",
+             "covered": covered, "splits": counts}
+    split = {
+        "max_abs_err": max(e[0] for errs in rec["split_err"]
+                           for e in errs.values()),
+        "ms": sum(piece_ms), "piece_ms": piece_ms,
+        "plain_ms": sum(piece_plain_ms), "piece_plain_ms": piece_plain_ms,
+        "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+        "library_ms": None,
+        "tolerance": "2**-7 * max|want| (m, l, acc each)",
+        "held": held, "shape": shape,
+        "note": "each piece's split at its offset (each rank of lm_tp runs "
+                "one); ms, plain_ms, bound_ms summed over the pieces"}
+    ns = fdk.max_splits(Tp, B, Hkv, G)
+    cbytes = 4 * B * Hkv * sum(counts) * G * (d + 2) + 4 + 2 * B * H * d
+    cbms, cby = bound(cbytes, 3 * B * Hkv * sum(counts) * G * d,
+                      F32_OPS_PER_S)
+    combine = {
+        "max_abs_err": rec["combine_err"], "limit": rec["combine_limit"],
+        "ms": device_ms(lambda: fdk.launch_combine(ml, acc, lens, Tp,
+                                                   q.dtype), 50, device),
+        "plain_ms": cuda_ms(lambda: fdk.combine_plain(ml, acc, lens, Tp,
+                                                      q.dtype), 3, device),
+        "bound_ms": cbms, "bound_by": cby, "library_ms": None,
+        "bytes": cbytes, "shape": {**shape, "max_splits": ns},
+        "note": f"the {P} pieces' partials stacked, every query head"}
+    del q, k, v, pieces, parts, ml, acc
+    return split, combine
+
+
 def decode_entries(device, launches) -> list:
     """The flash-decode kernels on bf16 caches of Qwen3-0.6B's attention,
     (H, Hkv, d) = (16, 8, 128): at the served shape (one layer of the
@@ -4064,6 +4510,7 @@ def decode_entries(device, launches) -> list:
         timed[label]["combine_ms"] = combine[label]["ms"]
         del q, k, v, kt, vt, ml, acc, want
     served = timed.pop("served")
+    timed["lm_tp_pieces"], combine["lm_tp_pieces"] = piece_entries(device)
     return [{
         "name": "flash_decode", "route": "cuda", "source": DECODE_SOURCE,
         "replaces": DECODE_REPLACES, "launches": launches["flash_decode"],
@@ -4146,6 +4593,9 @@ def main(argv: list) -> int:
         # set to 0 before its generate run
         lm_prefill = phase_lm_prefill(device, held)
         del held
+        # Megatron TP over two gloo ranks sharing the card: counts set to
+        # 0 in every rank before its decode steps, summed over the ranks
+        lm_tp = phase_lm_tp(device)
         lm_moe = phase_lm_moe(device)
         # the train path's launches: MIND's five steps, counts set to 0
         # before them
@@ -4164,6 +4614,7 @@ def main(argv: list) -> int:
         entry["shard_launches"] = shard.get(entry["name"], 0)
         entry["dist_launches"] = dist_launches.get(entry["name"], 0)
         entry["lm_prefill_launches"] = lm_prefill.get(entry["name"], 0)
+        entry["lm_tp_launches"] = lm_tp.get(entry["name"], 0)
         entry["lm_moe_launches"] = lm_moe.get(entry["name"], 0)
         entry["train_launches"] = train.get(entry["name"], 0)
         entry["gnn_launches"] = gnn.get(entry["name"], 0)

@@ -54,6 +54,16 @@
 // count from the same rule and merges the partials: the global max M,
 // L = sum_s l_s exp(m_s - M), out = sum_s acc_s exp(m_s - M) / L.
 //
+// A sequence cut into pieces (tensor parallelism: rank r holds positions
+// [r * T, (r + 1) * T) of every kv head): fd_split runs on one piece at its
+// offset, covering the piece's positions below cache_len; a piece wholly
+// past cache_len has no split, the neutral partial (m = -inf, l = 0,
+// acc = 0).  cache_len <= 0 covers every piece whole with zero scores, so
+// the merge is still the mean of V over all positions.  fd_combine takes
+// the P pieces' partials stacked (P, B, Hkv, NS, G, ...), each piece's
+// split count from its own plan (combine_pieces_kernel); one piece runs
+// the uncut cache's combine_kernel.
+//
 // cache_len is read on the device (an int32 scalar, or one per batch row),
 // so a decode step never waits on the host for it; positions at or past it
 // are never read, and any T works.  cache_len <= 0 gives the reference's
@@ -107,6 +117,18 @@ __host__ __device__ __forceinline__ Plan split_plan(int cache_len, int T, int ca
   const int tiles = (L + kTile - 1) / kTile;
   const int per = (tiles + cap - 1) / cap;
   return {L, per * kTile, (tiles + per - 1) / per};
+}
+
+// The plan of the piece of T positions at `offset` of a longer sequence:
+// the positions below cache_len, none past it (n = 0), or every position
+// with zero scores for cache_len <= 0.  offset 0 with T the whole length is
+// split_plan.
+__host__ __device__ __forceinline__ Plan piece_plan(int cache_len, long long offset, int T,
+                                                   int cap) {
+  if (cache_len <= 0) return split_plan(cache_len, T, cap);
+  const long long local = (long long)cache_len - offset;
+  if (local <= 0) return {0, kTile, 0};
+  return split_plan(local > T ? T : (int)local, T, cap);
 }
 
 __host__ __device__ __forceinline__ int max_splits(int T, int cap) {
@@ -223,7 +245,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, MinBlocks<T>::value) split_kernel(
     const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strides ks,
     const T* __restrict__ v, Strides vs, const int* __restrict__ lens, int len_stride,
-    int T_, int Hkv, int G, int groups, int cap, float* __restrict__ part_ml,
+    long long offset, int T_, int Hkv, int G, int groups, int cap, float* __restrict__ part_ml,
     float* __restrict__ part_acc) {
   using TL = Tile<T, D>;
   constexpr bool kBf16 = sizeof(T) == 2;
@@ -233,7 +255,7 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<T>::value) split_kernel(
   const int h = blockIdx.y / groups, g0 = (blockIdx.y - h * groups) * kHeads;
   const int GG = min(kHeads, G - g0);
   const int len = lens[(long long)b * len_stride];
-  const Plan plan = split_plan(len, T_, cap);
+  const Plan plan = piece_plan(len, offset, T_, cap);
   if (s >= plan.n) return;  // the whole block: nothing read, nothing written
   const bool uniform = len <= 0;
   const int start = s * plan.span;
@@ -493,6 +515,7 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<T>::value) split_kernel(
 }
 
 // ------------------------------------------------------------ the combine
+// grid (H, B): block (hq, b) merges query head hq of row b over its splits.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) combine_kernel(
     const float* __restrict__ part_ml, const float* __restrict__ part_acc,
@@ -530,11 +553,66 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(
   }
 }
 
+// combine_kernel over the P pieces' partials stacked, piece p's splits at
+// p * piece: each piece's count from its own plan (splits past it are left
+// unwritten by fd_split and never read), the weights in dynamic shared
+// memory at p * NS + s.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) combine_pieces_kernel(
+    const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+    const int* __restrict__ lens, int len_stride, int T_, int B, int Hkv, int G, int d, int NS,
+    int cap, int P, T* __restrict__ out) {
+  extern __shared__ float w_s[];
+  __shared__ float inv_s;
+  const int hq = blockIdx.x, b = blockIdx.y;
+  const int h = hq / G, g = hq - h * G;
+  const int len = lens[(long long)b * len_stride];
+  const long long piece = (long long)B * Hkv * NS * G;           // slots a piece
+  const long long base = (long long)(b * Hkv + h) * NS * G + g;  // split s at base + s*G
+
+  if (threadIdx.x < 32) {
+    float M = -INFINITY;
+    for (int p = 0; p < P; ++p) {
+      const int n = piece_plan(len, (long long)p * T_, T_, cap).n;
+      const float* ml = part_ml + (p * piece + base) * 2;
+      for (int s = threadIdx.x; s < n; s += 32) M = fmaxf(M, ml[(long long)s * G * 2]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(kFull, M, o));
+    float L = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const int n = piece_plan(len, (long long)p * T_, T_, cap).n;
+      const float* ml = part_ml + (p * piece + base) * 2;
+      for (int s = threadIdx.x; s < n; s += 32) {
+        const long long i = (long long)s * G * 2;
+        const float w = expf(ml[i] - M);
+        w_s[p * NS + s] = w;
+        L = fmaf(ml[i + 1], w, L);
+      }
+    }
+    L = warp_sum(L);
+    if (threadIdx.x == 0) inv_s = 1.f / L;
+  }
+  __syncthreads();
+  const float inv = inv_s;
+  T* o = out + ((long long)b * Hkv * G + hq) * d;
+  for (int j = threadIdx.x; j < d; j += kThreads) {
+    float acc = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const int n = piece_plan(len, (long long)p * T_, T_, cap).n;
+      const float* a = part_acc + (p * piece + base) * d + j;
+      for (int s = 0; s < n; ++s) acc = fmaf(w_s[p * NS + s], a[(long long)s * G * d], acc);
+    }
+    o[j] = from_f32<T>(acc * inv);
+  }
+}
+
 // ------------------------------------------------------------ launches
 template <typename T, int D>
 int launch_split(const void* q, Strides qs, const void* k, Strides ks, const void* v,
-                 Strides vs, const int* lens, int len_stride, int B, int T_, int Hkv, int G,
-                 int groups, int cap, int NS, float* ml, float* acc, cudaStream_t s) {
+                 Strides vs, const int* lens, int len_stride, long long offset, int B, int T_,
+                 int Hkv, int G, int groups, int cap, int NS, float* ml, float* acc,
+                 cudaStream_t s) {
   constexpr int smem = split_smem<T, D>();
   static bool ready[64] = {false};  // the attribute, set once per device
   int dev = 0;
@@ -549,28 +627,29 @@ int launch_split(const void* q, Strides qs, const void* k, Strides ks, const voi
   }
   const dim3 grid(NS, Hkv * groups, B);
   split_kernel<T, D><<<grid, kThreads, smem, s>>>((const T*)q, qs, (const T*)k, ks, (const T*)v,
-                                                  vs, lens, len_stride, T_, Hkv, G, groups, cap,
-                                                  ml, acc);
+                                                  vs, lens, len_stride, offset, T_, Hkv, G,
+                                                  groups, cap, ml, acc);
   return 0;
 }
 
 template <typename T>
 int split_by_d(int d, const void* q, Strides qs, const void* k, Strides ks, const void* v,
-               Strides vs, const int* lens, int len_stride, int B, int T_, int Hkv, int G,
-               int groups, int cap, int NS, float* ml, float* acc, cudaStream_t s) {
+               Strides vs, const int* lens, int len_stride, long long offset, int B, int T_,
+               int Hkv, int G, int groups, int cap, int NS, float* ml, float* acc,
+               cudaStream_t s) {
   switch (d) {
     case 16:
-      return launch_split<T, 16>(q, qs, k, ks, v, vs, lens, len_stride, B, T_, Hkv, G, groups,
-                                 cap, NS, ml, acc, s);
+      return launch_split<T, 16>(q, qs, k, ks, v, vs, lens, len_stride, offset, B, T_, Hkv,
+                                 G, groups, cap, NS, ml, acc, s);
     case 32:
-      return launch_split<T, 32>(q, qs, k, ks, v, vs, lens, len_stride, B, T_, Hkv, G, groups,
-                                 cap, NS, ml, acc, s);
+      return launch_split<T, 32>(q, qs, k, ks, v, vs, lens, len_stride, offset, B, T_, Hkv,
+                                 G, groups, cap, NS, ml, acc, s);
     case 64:
-      return launch_split<T, 64>(q, qs, k, ks, v, vs, lens, len_stride, B, T_, Hkv, G, groups,
-                                 cap, NS, ml, acc, s);
+      return launch_split<T, 64>(q, qs, k, ks, v, vs, lens, len_stride, offset, B, T_, Hkv,
+                                 G, groups, cap, NS, ml, acc, s);
     case 128:
-      return launch_split<T, 128>(q, qs, k, ks, v, vs, lens, len_stride, B, T_, Hkv, G, groups,
-                                  cap, NS, ml, acc, s);
+      return launch_split<T, 128>(q, qs, k, ks, v, vs, lens, len_stride, offset, B, T_, Hkv,
+                                  G, groups, cap, NS, ml, acc, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -589,17 +668,20 @@ extern "C" int fd_head_group() { return kHeads; }
 extern "C" int fd_target() { return kTarget; }
 
 // q (B, H, d) with strides q_sb, q_sh; k, v (B, T, Hkv, d) with strides
-// (*_sb, *_st, *_sh), 16-byte aligned; lens int32 with len_stride 0 (one
-// scalar) or 1 (per row).  H = Hkv * G, d in {16, 32, 64, 128}.  The
-// partials are float32 (B, Hkv, NS, G, 2) and (B, Hkv, NS, G, d) with
-// NS = max_splits(T, split_cap(B, Hkv, groups)), the wrapper's max_splits;
+// (*_sb, *_st, *_sh), 16-byte aligned: the piece of T positions that starts
+// at position `offset` of the sequence (0: the whole cache); lens int32
+// with len_stride 0 (one scalar) or 1 (per row), lengths of the whole
+// sequence.  H = Hkv * G, d in {16, 32, 64, 128}.  The partials are
+// float32 (B, Hkv, NS, G, 2) and (B, Hkv, NS, G, d) with NS =
+// max_splits(T, split_cap(B, Hkv, groups)), the wrapper's max_splits;
 // splits past a row's count stay unwritten.
 extern "C" int fd_split(const void* q, long long q_sb, long long q_sh, const void* k,
                         long long k_sb, long long k_st, long long k_sh, const void* v,
                         long long v_sb, long long v_st, long long v_sh, const void* lens,
-                        int len_stride, int B, int T, int Hkv, int G, int d, int dtype,
-                        int NS, void* part_ml, void* part_acc, void* stream) {
+                        int len_stride, long long offset, int B, int T, int Hkv, int G, int d,
+                        int dtype, int NS, void* part_ml, void* part_acc, void* stream) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || G <= 0 || d <= 0) return (int)cudaGetLastError();
+  if (offset < 0) return (int)cudaErrorInvalidValue;
   const int groups = (G + kHeads - 1) / kHeads;
   const int cap = split_cap(B, Hkv, groups);
   if (NS != max_splits(T, cap)) return (int)cudaErrorInvalidValue;
@@ -613,11 +695,11 @@ extern "C" int fd_split(const void* q, long long q_sb, long long q_sh, const voi
   float* acc = (float*)part_acc;
   int e = 0;
   if (dtype == DT_FLOAT32) {
-    e = split_by_d<float>(d, q, qs, k, ks, v, vs, ln, len_stride, B, T, Hkv, G, groups, cap, NS,
-                          ml, acc, s);
+    e = split_by_d<float>(d, q, qs, k, ks, v, vs, ln, len_stride, offset, B, T, Hkv, G, groups,
+                          cap, NS, ml, acc, s);
   } else if (dtype == DT_BFLOAT16) {
-    e = split_by_d<__nv_bfloat16>(d, q, qs, k, ks, v, vs, ln, len_stride, B, T, Hkv, G, groups,
-                                  cap, NS, ml, acc, s);
+    e = split_by_d<__nv_bfloat16>(d, q, qs, k, ks, v, vs, ln, len_stride, offset, B, T, Hkv, G,
+                                  groups, cap, NS, ml, acc, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -625,24 +707,40 @@ extern "C" int fd_split(const void* q, long long q_sb, long long q_sh, const voi
   return (int)cudaGetLastError();
 }
 
-// out (B, H, d) contiguous in `dtype`.
+// The partials of P pieces of T positions each (piece p at offset p * T)
+// stacked: (P, B, Hkv, NS, G, 2) and (P, B, Hkv, NS, G, d); P = 1 is one
+// cache.  out (B, H, d) contiguous in `dtype`.
+template <typename T>
+void launch_combine(const float* ml, const float* acc, const int* lens, int len_stride, int B,
+                    int T_, int Hkv, int G, int d, int NS, int cap, int P, T* out,
+                    cudaStream_t s) {
+  const dim3 grid(Hkv * G, B);
+  if (P == 1) {
+    combine_kernel<T><<<grid, kThreads, 0, s>>>(ml, acc, lens, len_stride, T_, Hkv, G, d, NS, cap,
+                                               out);
+  } else {
+    const size_t smem = sizeof(float) * (size_t)P * NS;
+    combine_pieces_kernel<T><<<grid, kThreads, smem, s>>>(ml, acc, lens, len_stride, T_, B, Hkv,
+                                                          G, d, NS, cap, P, out);
+  }
+}
+
 extern "C" int fd_combine(const void* part_ml, const void* part_acc, const void* lens,
                           int len_stride, int B, int T, int Hkv, int G, int d, int dtype,
-                          int NS, void* out, void* stream) {
+                          int NS, int P, void* out, void* stream) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || G <= 0 || d <= 0) return (int)cudaGetLastError();
   const int cap = split_cap(B, Hkv, (G + kHeads - 1) / kHeads);
-  if (NS != max_splits(T, cap)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hkv * G, B);
+  if (NS != max_splits(T, cap) || P <= 0 || sizeof(float) * (size_t)P * NS > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* ml = (const float*)part_ml;
   const float* acc = (const float*)part_acc;
   const int* ln = (const int*)lens;
   if (dtype == DT_FLOAT32) {
-    combine_kernel<float><<<grid, kThreads, 0, s>>>(ml, acc, ln, len_stride, T, Hkv, G, d, NS,
-                                                    cap, (float*)out);
+    launch_combine<float>(ml, acc, ln, len_stride, B, T, Hkv, G, d, NS, cap, P, (float*)out, s);
   } else if (dtype == DT_BFLOAT16) {
-    combine_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(ml, acc, ln, len_stride, T, Hkv, G,
-                                                            d, NS, cap, (__nv_bfloat16*)out);
+    launch_combine<__nv_bfloat16>(ml, acc, ln, len_stride, B, T, Hkv, G, d, NS, cap, P,
+                                  (__nv_bfloat16*)out, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -27,6 +27,15 @@ it runs the plain version, the reference's einsum form
 :func:`split_plain` and :func:`combine_plain` are the plain versions of
 the two kernels on the same partition, and compose to the same function.
 ``LAUNCHES`` counts each kernel's launches.
+
+A cache whose sequence is cut into P pieces of T positions (tensor
+parallelism, ``models.layers.decode_attention_split``): :func:`decode_piece`
+runs the split on one piece at its ``offset``, by :func:`piece_plan` (a
+piece wholly past ``cache_len`` has no split: the neutral partial m = -inf,
+l = 0, acc = 0; ``cache_len <= 0`` covers every piece whole with zero
+scores), and :func:`combine_pieces` merges the P pieces' partials stacked
+on a leading axis, each piece's split count its own.  Both launch the
+kernels on CUDA tensors and run the plain versions on CPU ones.
 """
 from __future__ import annotations
 
@@ -36,9 +45,10 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "KERNEL_SOURCE", "DTYPES",
            "TILE", "HEAD_GROUP", "TARGET_BLOCKS", "KERNEL_DIMS", "split_cap",
-           "split_plan", "max_splits", "split_boundaries",
+           "split_plan", "piece_plan", "max_splits", "split_boundaries",
            "partials_shape", "decode_attention", "decode_attention_plain",
-           "flash_decode", "split_plain", "combine_plain"]
+           "flash_decode", "split_plain", "combine_plain", "decode_piece",
+           "combine_pieces"]
 
 KERNEL_SOURCE = "flash_decode"  # csrc/flash_decode.cu
 
@@ -85,6 +95,21 @@ def split_plan(cache_len: int, T: int, B: int, Hkv: int, G: int) -> tuple:
     tiles = -(-covered // TILE)
     per = max(1, -(-tiles // split_cap(B, Hkv, G)))
     return covered, per * TILE, -(-tiles // per)
+
+
+def piece_plan(cache_len: int, offset: int, T: int, B: int, Hkv: int,
+               G: int) -> tuple:
+    """:func:`split_plan` of the piece of ``T`` positions that starts at
+    position ``offset`` of a longer sequence: its positions below
+    ``cache_len`` (``n = 0`` where the piece lies wholly past it), or all
+    ``T`` with zero scores for ``cache_len <= 0``.  The source's
+    ``piece_plan``; offset 0 of the whole sequence is ``split_plan``."""
+    if cache_len <= 0:
+        return split_plan(cache_len, T, B, Hkv, G)
+    local = cache_len - offset
+    if local <= 0:
+        return 0, TILE, 0
+    return split_plan(min(local, T), T, B, Hkv, G)
 
 
 def max_splits(T: int, B: int, Hkv: int, G: int) -> int:
@@ -158,10 +183,10 @@ def _lib():
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         lib.fd_split.argtypes = [vp, ll, ll, vp, ll, ll, ll, vp, ll, ll, ll,
-                                 vp, i, i, i, i, i, i, i, i, vp, vp, vp]
+                                 vp, i, ll, i, i, i, i, i, i, i, vp, vp, vp]
         lib.fd_split.restype = i
-        lib.fd_combine.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i, vp,
-                                   vp]
+        lib.fd_combine.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i, i,
+                                   vp, vp]
         lib.fd_combine.restype = i
         got = (lib.fd_tile(), lib.fd_head_group(), lib.fd_target())
         if got != (TILE, HEAD_GROUP, TARGET_BLOCKS):
@@ -201,9 +226,11 @@ def _kernel_shape(q, k, v, cache_len) -> tuple:
     return B, T, Hkv, G, d, int(cache_len.numel() > 1)
 
 
-def launch_split(q, k, v, cache_len):
-    """One ``fd_split`` launch on checked CUDA operands; returns the
-    partials ``(ml, acc)`` (splits past a row's count left unwritten)."""
+def launch_split(q, k, v, cache_len, offset: int = 0):
+    """One ``fd_split`` launch on checked CUDA operands, the caches being
+    the piece at ``offset`` of the sequence (0: the whole cache); returns
+    the partials ``(ml, acc)`` (splits past a row's count left
+    unwritten)."""
     B, T, Hkv, G, d, len_stride = _kernel_shape(q, k, v, cache_len)
     ml_shape, acc_shape = partials_shape(B, T, Hkv, G, d)
     ml = torch.empty(ml_shape, dtype=torch.float32, device=q.device)
@@ -216,19 +243,32 @@ def launch_split(q, k, v, cache_len):
                 q.data_ptr(), q.stride(0), q.stride(1),
                 k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
                 v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
-                cache_len.data_ptr(), len_stride, B, T, Hkv, G, d,
-                DTYPES[q.dtype], ml_shape[2], ml.data_ptr(), acc.data_ptr(),
-                stream)
+                cache_len.data_ptr(), len_stride, int(offset), B, T, Hkv, G,
+                d, DTYPES[q.dtype], ml_shape[2], ml.data_ptr(),
+                acc.data_ptr(), stream)
         LAUNCHES["flash_decode"] += 1
         if err:
             raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
     return ml, acc
 
 
+def _pieces(ml, acc) -> tuple:
+    """``(ml, acc)`` with a leading pieces axis (one piece where they have
+    none) and their (P, B, Hkv, ns, G, d)."""
+    if acc.dim() == 5:
+        ml, acc = ml[None], acc[None]
+    return ml, acc, acc.shape
+
+
 def launch_combine(ml, acc, cache_len, T: int, dtype):
-    """One ``fd_combine`` launch over a split's partials; returns
-    ``(B, H, d)`` in ``dtype``."""
-    B, Hkv, ns, G, d = acc.shape
+    """One ``fd_combine`` launch over the partials of a cache, or of the P
+    pieces of ``T`` positions each stacked on a leading axis (piece p at
+    offset ``p * T``); returns ``(B, H, d)`` in ``dtype``."""
+    ml, acc, (P, B, Hkv, ns, G, d) = _pieces(ml, acc)
+    if 4 * P * ns > 48 * 1024:
+        raise ValueError(f"{P} pieces x {ns} splits: the combine's weights "
+                         "exceed 48 KB of shared memory")
+    ml, acc = ml.contiguous(), acc.contiguous()
     out = torch.empty((B, Hkv * G, d), dtype=dtype, device=acc.device)
     if out.numel() and T:
         lib = _lib()
@@ -237,7 +277,7 @@ def launch_combine(ml, acc, cache_len, T: int, dtype):
             err = lib.fd_combine(
                 ml.data_ptr(), acc.data_ptr(), cache_len.data_ptr(),
                 int(cache_len.numel() > 1), B, T, Hkv, G, d, DTYPES[dtype], ns,
-                out.data_ptr(), stream)
+                P, out.data_ptr(), stream)
         LAUNCHES["flash_decode_combine"] += 1
         if err:
             raise RuntimeError(f"flash_decode_combine launch failed: CUDA "
@@ -264,13 +304,15 @@ def _row_lens(cache_len, B: int) -> list:
     return [int(n) for n in cache_len.reshape(-1).expand(B).tolist()]
 
 
-def split_plain(q, k, v, cache_len):
+def split_plain(q, k, v, cache_len, offset: int = 0):
     """``fd_split``'s partials in torch ops, on the partition of
-    :func:`split_plan`: per split and query head, the max m of the scaled
-    scores, l = Σ exp(s - m) and acc = Σ exp(s - m)·v over the split's
-    positions (every score 0 where ``cache_len <= 0``); splits past a
-    row's count hold m = -inf, l = 0, acc = 0 (the kernel leaves them
-    unwritten).  Reads the lengths on the host: a reference, not a decode
+    :func:`piece_plan` (the caches the piece at ``offset``; 0 with the
+    whole cache is :func:`split_plan`'s): per split and query head, the
+    max m of the scaled scores, l = Σ exp(s - m) and acc = Σ exp(s - m)·v
+    over the split's positions (every score 0 where ``cache_len <= 0``);
+    splits past a row's count hold m = -inf, l = 0, acc = 0 (the kernel
+    leaves them unwritten), so a piece wholly past ``cache_len`` is all
+    neutral.  Reads the lengths on the host: a reference, not a decode
     step."""
     cache_len = check_operands(q, k, v, cache_len)
     B, H, d = q.shape
@@ -282,7 +324,9 @@ def split_plain(q, k, v, cache_len):
     acc = torch.zeros(acc_shape, device=q.device)
     qs = q.reshape(B, Hkv, G, d).float() * (1.0 / (d ** 0.5))
     for b, n in enumerate(_row_lens(cache_len, B)):
-        covered, span, ns = split_plan(n, T, B, Hkv, G)
+        covered, span, ns = piece_plan(n, offset, T, B, Hkv, G)
+        if ns == 0:
+            continue
         kb, vb = k[b, :covered].float(), v[b, :covered].float()
         s = torch.einsum("hgd,thd->hgt", qs[b], kb)
         if n <= 0:
@@ -303,13 +347,19 @@ def split_plain(q, k, v, cache_len):
 
 def combine_plain(ml, acc, cache_len, T: int, dtype):
     """``fd_combine`` in torch ops: merge each row's splits (the count
-    from :func:`split_plan`)."""
-    B, Hkv, ns, G, d = acc.shape
-    counts = torch.tensor([split_plan(n, T, B, Hkv, G)[2]
+    from :func:`split_plan`), or those of P pieces of ``T`` positions
+    stacked on a leading axis (each piece's count from
+    :func:`piece_plan`)."""
+    ml, acc, (P, B, Hkv, ns, G, d) = _pieces(ml, acc)
+    counts = torch.tensor([[piece_plan(n, p * T, T, B, Hkv, G)[2]
+                            for p in range(P)]
                            for n in _row_lens(cache_len, B)],
-                          device=acc.device)
-    below = torch.arange(ns, device=acc.device)[None] < counts[:, None]
-    below = below[:, None, :, None]                            # (B,1,ns,1)
+                          device=acc.device)                   # (B, P)
+    # the pieces' splits side by side: (B, Hkv, P * ns, G, ...)
+    ml = ml.permute(1, 2, 0, 3, 4, 5).reshape(B, Hkv, P * ns, G, 2)
+    acc = acc.permute(1, 2, 0, 3, 4, 5).reshape(B, Hkv, P * ns, G, d)
+    below = torch.arange(ns, device=acc.device)[None, None] < counts[..., None]
+    below = below.reshape(B, P * ns)[:, None, :, None]         # (B,1,P*ns,1)
     m = torch.where(below, ml[..., 0], -torch.inf)
     M = m.amax(dim=2, keepdim=True)
     scale = torch.where(below, torch.exp(m - M), 0.0)           # (B,Hkv,ns,G)
@@ -339,6 +389,31 @@ def decode_attention(q, k, v, cache_len):
         ml, acc = launch_split(q, k, v, cache_len)
         return launch_combine(ml, acc, cache_len, k.shape[1], q.dtype)
     raise ValueError(f"no flash decode for device {q.device}")
+
+
+def decode_piece(q, k, v, cache_len, offset: int):
+    """The partials ``(ml, acc)`` of one piece of a sequence-split cache:
+    q ``(B, H, d)`` every query head, k, v ``(B, T, Hkv, d)`` the piece at
+    ``offset``, ``cache_len`` the whole sequence's length (on the device).
+    The split kernel for CUDA tensors, :func:`split_plain` for CPU ones."""
+    cache_len = check_operands(q, k, v, cache_len)
+    if q.device.type == "cpu":
+        return split_plain(q, k, v, cache_len, offset)
+    if q.device.type == "cuda":
+        return launch_split(q, k, v, cache_len, offset)
+    raise ValueError(f"no flash decode for device {q.device}")
+
+
+def combine_pieces(ml, acc, cache_len, T: int, dtype):
+    """The attention of every query head from the P pieces' partials
+    stacked ``(P, B, Hkv, ns, G, ...)``, each piece ``T`` positions:
+    ``(B, H, d)`` in ``dtype``.  The combine kernel for CUDA tensors,
+    :func:`combine_plain` for CPU ones."""
+    if acc.device.type == "cpu":
+        return combine_plain(ml, acc, cache_len, T, dtype)
+    if acc.device.type == "cuda":
+        return launch_combine(ml, acc, cache_len, T, dtype)
+    raise ValueError(f"no flash decode for device {acc.device}")
 
 
 def flash_decode(q, k, v, cache_len):

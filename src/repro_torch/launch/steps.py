@@ -33,10 +33,13 @@ serve steps run under ``torch.inference_mode()``.
 
 **Execution.**  With no mesh, or a mesh of one rank, ``fn`` is the
 one-device step.  On a mesh whose process group spans it
-(``make_host_mesh`` in a group) and whose ``model`` axis is 1, ``fn``
-takes this rank's piece of every argument (:func:`local_args` cuts them
-from the global ones by ``in_shardings``) and returns this rank's piece of
-every output (:func:`gather_outputs` joins them):
+(``make_host_mesh`` in a group, or a ``Mesh`` of any ``(data, model)``
+shape over a ``DeviceMesh`` of the group), ``fn`` takes this rank's piece
+of every argument (:func:`local_args` cuts them from the global ones by
+``in_shardings``) and returns this rank's piece of every output
+(:func:`gather_outputs` joins them).  Collectives run over the axes'
+groups (``Mesh.get_group``); a gloo group takes CUDA tensors through the
+host.  With a ``model`` axis of 1:
 
 * LM and MIND train steps are data-parallel: each rank takes its batch
   slice, the gradients are averaged over the batch axes' group before
@@ -51,12 +54,22 @@ every output (:func:`gather_outputs` joins them):
 * the core-graph cell is one SemiCore* superstep of the shard backend
   over the group (``core.resident.build_shard_chunk_fn``, ``chunk=1``).
 
-A ``model`` axis wider than 1, ``long_500k`` at more than one rank and MoE
-configs at more than one data rank (the reference's capacity is global)
-raise ``NotImplementedError`` when run (ROADMAP Queue 1 item 8): the
-reference executes none of them outside the dry run's compile.  A mesh
-with no process group and more than one rank (a production mesh)
-describes placements only.
+With a ``model`` axis of M > 1, the dense GQA LMs' ``prefill_32k`` and
+``decode_32k`` run Megatron tensor parallelism on the weight pieces
+(``models.transformer``, a ``layers.TensorParallel`` over the ``model``
+group; no weight split over ``model`` is gathered whole), the batch over
+the batch axes at the same time: prefill attends each rank's ``H / M``
+query heads; decode holds positions ``[r * T / M, (r + 1) * T / M)`` of the
+cache on model rank r, writes the token's k and v on the rank that holds
+``len`` and merges the ranks' flash-decode partials (kernel #5 on each
+piece, its combine across the ranks).  The logits come out cut by vocab.
+
+Still raising ``NotImplementedError`` when run (ROADMAP Queue 1 item 8):
+MoE and MLA configs over M > 1, M not dividing ``n_heads``, the LM train
+step, MIND's and the GNN cells over M > 1, ``long_500k`` at more than one
+rank and MoE configs at more than one data rank (the reference's capacity
+is global).  A mesh with no process group and more than one rank (a
+production mesh) describes placements only.
 """
 from __future__ import annotations
 
@@ -72,6 +85,7 @@ from ..configs.shapes import input_specs
 from ..models import gnn as gnn_m
 from ..models import recsys as rec_m
 from ..models import transformer as tfm
+from ..models.layers import TensorParallel
 from ..models.params import (requires_grad, tree_map, tree_num_params,
                              tree_shardings)
 from ..optim import AdamWConfig, adamw_state_specs, adamw_update
@@ -205,22 +219,24 @@ def _piece(x, sh: Sharding):
     return x.clone() if x.dim() and sh.frac > 1 else x
 
 
+def _comm(mesh: Mesh, axes):
+    """The collectives over the group of ``axes`` (the shard backend's: a
+    gloo group takes CUDA tensors through the host)."""
+    from ..core.engine import _Collectives
+
+    return _Collectives(mesh.get_group(axes))
+
+
 def _whole(x, sh: Sharding):
     """The whole tensor from every rank's piece ``x`` placed by ``sh``
     (one all-gather a split dimension)."""
-    import torch.distributed as dist
-
     if not isinstance(x, torch.Tensor):
         return x
     mesh = sh.mesh
     for d in range(x.dim()):
         axes = sh.dim_axes(d)
-        k = mesh.axis_size(axes)
-        if k > 1:
-            parts = [torch.empty_like(x) for _ in range(k)]
-            dist.all_gather(parts, x.contiguous(),
-                            group=mesh.get_group(axes))
-            x = torch.cat(parts, d)
+        if mesh.axis_size(axes) > 1:
+            x = torch.cat(_comm(mesh, axes).all_gather(x), d)
     return x
 
 
@@ -244,43 +260,43 @@ def gather_outputs(bundle: StepBundle, out):
     return _zip_map(_whole, out, sh)
 
 
-def _ranks(mesh) -> bool:
+def _ranks(mesh, no_tp: str | None) -> bool:
     """Whether ``mesh`` runs over more than one rank (and may: a process
-    group spans it, its ``model`` axis is 1)."""
+    group spans it; a ``model`` axis wider than 1 raises where ``no_tp``
+    names the step, which has no tensor-parallel form)."""
     if mesh is None or mesh.size == 1:
         return False
     if mesh.device_mesh is None:
         raise RuntimeError(
             f"{mesh} has no process group: its steps describe placements "
             "(the dry run); run them on make_host_mesh() inside a group")
-    if mesh.shape.get("model", 1) > 1:
+    M = mesh.shape.get("model", 1)
+    if M > 1 and no_tp is not None:
         raise NotImplementedError(
-            f"a model axis of {mesh.shape['model']} needs Megatron tensor "
-            f"parallelism, not ported ({_TP}); use make_host_mesh()")
+            f"{no_tp} over a model axis of {M} is not ported ({_TP}); "
+            "use make_host_mesh()")
     return True
 
 
-def _on_mesh(mesh, one_device: Callable, ranks: Callable) -> Callable:
+def _on_mesh(mesh, one_device: Callable, ranks: Callable,
+             no_tp: str | None) -> Callable:
     """``one_device`` without a mesh or on one rank, ``ranks`` over the
-    ranks of ``mesh`` (decided when the step runs)."""
+    ranks of ``mesh`` (decided when the step runs; see :func:`_ranks` for
+    ``no_tp``)."""
     if mesh is None or mesh.size == 1:
         return one_device
 
     def step(*args):
-        return ranks(*args) if _ranks(mesh) else one_device(*args)
+        return ranks(*args) if _ranks(mesh, no_tp) else one_device(*args)
 
     return step
 
 
 def _mean_over(mesh, axes, tensors) -> None:
     """Average ``tensors`` in place over the group of ``axes``."""
-    import torch.distributed as dist
-
-    group = mesh.get_group(axes)
-    k = mesh.axis_size(axes)
+    comm, k = _comm(mesh, axes), mesh.axis_size(axes)
     for t in tensors:
-        dist.all_reduce(t, group=group)
-        t.div_(k)
+        t.copy_(comm.all_reduce(t)).div_(k)
 
 
 def _no_moe(cfg: LMConfig, mesh) -> None:
@@ -289,6 +305,25 @@ def _no_moe(cfg: LMConfig, mesh) -> None:
             f"{cfg.name}'s MoE capacity is counted over the global batch in "
             f"the reference; the port routes a rank's tokens alone, so MoE "
             f"configs run on one data rank ({_TP})")
+
+
+def _tp_of(cfg: LMConfig, mesh) -> TensorParallel | None:
+    """Tensor parallelism over ``mesh``'s model axis for a serving step
+    (None for an axis of 1); raises where the port has none: MoE experts
+    and MLA's latent cache over ``model``, an axis that does not divide
+    the query heads."""
+    M = mesh.shape.get("model", 1)
+    if M == 1:
+        return None
+    if cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name} over a model axis of {M}: MoE experts and MLA's "
+            f"latent cache over model are not ported ({_TP})")
+    if cfg.n_heads % M:
+        raise NotImplementedError(
+            f"a model axis of {M} does not divide {cfg.name}'s "
+            f"{cfg.n_heads} query heads ({_TP})")
+    return TensorParallel(_comm(mesh, "model"), M, mesh.axis_index("model"))
 
 
 # ===================================================================== LM
@@ -357,7 +392,8 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
                     _zip_map(_piece, opt_state, o_shard), loss)
 
         bundle.static["rules"] = rules
-        return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+        return replace(bundle, fn=_on_mesh(
+            mesh, step, ranks, "the LM train step (serving comes first)"),
                        in_shardings=(p_shard, o_shard, tok_sh, tok_sh),
                        out_shardings=(p_shard, o_shard, _ns(mesh)))
 
@@ -374,9 +410,13 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
 
         def ranks(params, tokens):
             _no_moe(cfg, mesh)
-            return step(_zip_map(_whole, params, p_shard), tokens)
+            tp = _tp_of(cfg, mesh)
+            if tp is None:
+                return step(_zip_map(_whole, params, p_shard), tokens)
+            with torch.inference_mode():
+                return tfm.serve_prefill(params, cfg, tokens, tp)
 
-        return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+        return replace(bundle, fn=_on_mesh(mesh, step, ranks, None),
                        in_shardings=(p_shard, _ns(mesh, ba, None)),
                        out_shardings=_ns(mesh, ba, None, "model"))
 
@@ -411,9 +451,13 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
                 f"({mesh.size} ranks); the flash-decode combine across "
                 f"ranks is not ported ({_TP})")
         _no_moe(cfg, mesh)
-        return step(_zip_map(_whole, params, p_shard), tokens, caches)
+        tp = _tp_of(cfg, mesh)
+        if tp is None:
+            return step(_zip_map(_whole, params, p_shard), tokens, caches)
+        with torch.inference_mode():
+            return tfm.serve_decode(params, cfg, tokens, caches, tp)
 
-    return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+    return replace(bundle, fn=_on_mesh(mesh, step, ranks, None),
                    in_shardings=(p_shard, _ns(mesh, cache_b, None), c_shard),
                    out_shardings=(_ns(mesh, cache_b, None, "model"),
                                   dict(c_shard)))
@@ -455,7 +499,8 @@ def _build_gnn(cfg: GNNConfig, shape_name, step_kind, avals, mesh, opt,
         with gnn_m.edges_split(mesh.get_group(_all_axes(mesh))):
             return step(params, opt_state, batch)
 
-    return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+    return replace(bundle, fn=_on_mesh(mesh, step, ranks,
+                                       "the GNN train step"),
                    in_shardings=(p_shard, o_shard, b_shard),
                    out_shardings=(p_shard, o_shard, repl))
 
@@ -507,7 +552,8 @@ def _build_recsys(cfg: RecsysConfig, shape_name, step_kind, avals, mesh, opt,
             params, opt_state = adamw_update(params, grads, opt_state, opt)
             return params, opt_state, loss
 
-        return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+        return replace(bundle, fn=_on_mesh(
+            mesh, step, ranks, "MIND's train step (its rows over model)"),
                        in_shardings=(p_shard, o_shard, b_shard),
                        out_shardings=(p_shard, o_shard, _ns(mesh)))
 
@@ -520,7 +566,8 @@ def _build_recsys(cfg: RecsysConfig, shape_name, step_kind, avals, mesh, opt,
                             num_params=n_params)
         if mesh is None:
             return bundle
-        return replace(bundle, fn=_on_mesh(mesh, step, step),
+        return replace(bundle, fn=_on_mesh(
+            mesh, step, step, "MIND's serve step (its rows over model)"),
                        in_shardings=(p_shard, b_shard),
                        out_shardings=_ns(mesh, ba, None, None))
 
@@ -536,20 +583,16 @@ def _build_recsys(cfg: RecsysConfig, shape_name, step_kind, avals, mesh, opt,
     def ranks(params, batch):
         # each rank scores its slice of the candidates; the top k of the
         # ranks' top k, positions offset by each slice's start
-        import torch.distributed as dist
-
         vals, idx = step(params, batch)
-        group, k = mesh.get_group(ba), mesh.axis_size(ba)
+        comm = _comm(mesh, ba)
         idx = idx + mesh.axis_index(ba) * batch["candidate_ids"].shape[0]
-        parts_v = [torch.empty_like(vals) for _ in range(k)]
-        parts_i = [torch.empty_like(idx) for _ in range(k)]
-        dist.all_gather(parts_v, vals.contiguous(), group=group)
-        dist.all_gather(parts_i, idx.contiguous(), group=group)
-        v, i = torch.cat(parts_v, -1), torch.cat(parts_i, -1)
+        v = torch.cat(comm.all_gather(vals), -1)
+        i = torch.cat(comm.all_gather(idx), -1)
         top = torch.topk(v, min(_TOP_K, v.shape[-1]), dim=-1)
         return top.values, torch.gather(i, -1, top.indices)
 
-    return replace(bundle, fn=_on_mesh(mesh, step, ranks),
+    return replace(bundle, fn=_on_mesh(
+        mesh, step, ranks, "MIND's retrieval step (its rows over model)"),
                    in_shardings=(p_shard, b_shard),
                    out_shardings=(_ns(mesh), _ns(mesh)))
 

@@ -9,17 +9,48 @@ names for it; on CPU tensors it runs the reference's einsum form.
 ``chunked_attention`` is plain torch, as the reference's is plain jnp: a
 Python loop over KV chunks in place of ``lax.scan``, in place for
 serving and out of place where autograd differentiates it (training).
+
+Under tensor parallelism (:class:`TensorParallel`, the ``model`` axis of a
+mesh) ``decode_attention_split`` is the decode attention over a cache
+whose sequence is cut over the axis's ranks: the flash-combine the
+reference's ``decode_attention`` leaves to XLA on a sequence-sharded
+cache, on the same two kernels.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
 
 import torch
 
 from ..kernels import flash_decode as fd
 
-__all__ = ["NEG_INF", "rms_norm", "rope", "swiglu", "chunked_attention",
-           "decode_attention"]
+__all__ = ["NEG_INF", "TensorParallel", "rms_norm", "rope", "swiglu",
+           "swiglu_hidden", "chunked_attention", "decode_attention", "decode_attention_split"]
 
 NEG_INF = -1e30
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """Megatron tensor parallelism over one mesh axis: ``comm`` holds the
+    axis group's collectives (``all_gather(x)`` -> every rank's ``x`` in
+    rank order, ``all_reduce(x)`` -> their sum, each a new tensor on
+    ``x``'s device), ``size`` the axis's ranks M and ``index`` this rank's
+    place on it."""
+
+    comm: Any
+    size: int
+    index: int
+
+    def gather(self, x):
+        """Every rank's ``x`` joined along the last dimension, in rank
+        order."""
+        return torch.cat(self.comm.all_gather(x), dim=-1)
+
+    def reduce(self, x):
+        """The sum of every rank's ``x``."""
+        return self.comm.all_reduce(x)
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -43,9 +74,13 @@ def rope(x, positions, theta: float = 10_000.0):
     return out.to(x.dtype)
 
 
+def swiglu_hidden(x, w_gate, w_up):
+    """The gated hidden of :func:`swiglu`, before ``w_down``."""
+    return torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
+
+
 def swiglu(x, w_gate, w_up, w_down):
-    h = torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    return swiglu_hidden(x, w_gate, w_up) @ w_down
 
 
 def _live_rows(nchunks: int, chunk: int, S: int, causal: bool, q_offset: int,
@@ -164,3 +199,25 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     B, _, H, d = q.shape
     return fd.decode_attention(q[:, 0], k_cache, v_cache,
                                cache_len).reshape(B, 1, H, d)
+
+
+def decode_attention_split(q, k_piece, v_piece, cache_len,
+                           tp: TensorParallel):
+    """One-token attention over a cache whose sequence is cut over the
+    ranks of ``tp``: q (B, 1, H, d) every query head; this rank's piece
+    (B, T, Hkv, d) holds positions ``[index * T, (index + 1) * T)``; the
+    first ``cache_len`` positions of the whole sequence valid (a device
+    scalar, which the kernels read on the device).  Each rank's split runs
+    on its piece at its offset, the pieces' float32 partials are gathered
+    over the axis, and each rank combines them for every head and keeps
+    its own ``H / M``: returns (B, 1, H / M, d), heads ``[index * H / M, ...)``."""
+    B, _, H, d = q.shape
+    T = k_piece.shape[1]
+    ml, acc = fd.decode_piece(q[:, 0], k_piece, v_piece, cache_len,
+                              tp.index * T)
+    # one gather: (P, B, Hkv, ns, G, 2 + d), each piece's (m, l) then acc
+    parts = torch.stack(tp.comm.all_gather(torch.cat([ml, acc], dim=-1)))
+    ml, acc = parts[..., :2], parts[..., 2:]
+    nh = H // tp.size
+    out = fd.combine_pieces(ml, acc, cache_len, T, q.dtype)
+    return out[:, tp.index * nh:(tp.index + 1) * nh].reshape(B, 1, nh, d)

@@ -21,6 +21,21 @@ a device int32 scalar, so a decode step does not wait on the host.  GQA
 decode runs ``layers.decode_attention``: the hand-written flash-decode
 kernels on CUDA tensors, the reference's einsum form on CPU tensors.  MLA
 decode is the reference's weight-absorbed einsum form, plain torch.
+
+Megatron tensor parallelism (``tp``, a ``layers.TensorParallel`` over the
+mesh's ``model`` axis; dense GQA serving only): every weight is this
+rank's piece by the reference's rules.  The embedding table is
+vocab-parallel (this rank's rows looked up, the rest zero, one all-reduce:
+a sum with one non-zero term, exact); ``wq``/``wk``/``wv`` and
+``w_gate``/``w_up`` are column-parallel; ``wo`` and ``w_down`` are
+row-parallel, their partial products summed in float32 by one all-reduce
+and rounded once to the model's dtype; ``lm_head`` is column-parallel and
+the logits stay cut by vocab.  The cache-free forward attends this rank's
+``H / M`` query heads (``k``/``v`` gathered whole first where M does not
+divide ``n_kv``, so a rank's columns cut a head).  Decode gathers this
+token's q, k and v, writes k and v on the rank whose sequence piece holds
+position ``len`` (a masked write on the device on every rank), and runs
+``layers.decode_attention_split``.  Without ``tp`` nothing changes.
 """
 from __future__ import annotations
 
@@ -28,8 +43,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
-from .layers import (NEG_INF, chunked_attention, decode_attention, rms_norm,
-                     rope, swiglu)
+from .layers import (NEG_INF, TensorParallel, chunked_attention,
+                     decode_attention, decode_attention_split, rms_norm,
+                     rope, swiglu, swiglu_hidden)
 from .moe import moe_apply, moe_param_specs
 from .params import Spec, tree_leaves, tree_init
 
@@ -138,12 +154,19 @@ def _gqa_qkv(p, cfg: LMConfig, x, positions):
     q = (x @ p["wq"]).reshape(B, S, H, dh)
     k = (x @ p["wk"]).reshape(B, S, Hkv, dh)
     v = (x @ p["wv"]).reshape(B, S, Hkv, dh)
+    q, k = _qk_rope(p, cfg, q, k, positions)
+    return q, k, v
+
+
+def _qk_rope(p, cfg: LMConfig, q, k, positions):
+    """qk_norm (per head) and RoPE on q (B, S, h, dh) and k (B, S, hkv,
+    dh)."""
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k
 
 
 def _mla_qkv_full(p, cfg: LMConfig, x, positions):
@@ -207,13 +230,15 @@ def _mla_decode(p, cfg: LMConfig, x, positions, cache):
     return out @ p["wo"]
 
 
-def attention_block(p, cfg: LMConfig, x, positions, cache=None):
+def attention_block(p, cfg: LMConfig, x, positions, cache=None, tp=None):
     """The attention output.  Without ``cache``: the cache-free form over
     the whole sequence (``chunked_attention``, causal).  With it: ``cache``
     is the layer's caches in :func:`make_kv_cache_specs` order and ``len``,
     a device int32 scalar (GQA ``(k_cache, v_cache, len)``, caches (B, T,
     Hkv, dh); MLA ``(ckv_cache, kr_cache, len)``); this step's entries are
-    written into them in place."""
+    written into them in place.  With ``tp``: :func:`_attention_tp`."""
+    if tp is not None:
+        return _attention_tp(p, cfg, x, positions, cache, tp)
     B, S, _ = x.shape
     if cache is not None and cfg.mla is not None:
         return _mla_decode(p, cfg, x, positions, cache)
@@ -231,9 +256,112 @@ def attention_block(p, cfg: LMConfig, x, positions, cache=None):
     return out.reshape(B, S, -1) @ p["wo"]
 
 
+# ------------------------------------------------------ tensor parallelism
+def _row_parallel(h, w, tp: TensorParallel):
+    """``h @ w`` for a row-parallel ``w``: this rank's partial product in
+    float32, summed over the ranks by one all-reduce, rounded once to
+    ``h``'s dtype.  On the card the product takes ``h`` and ``w`` as they
+    are (bf16 on the tensor cores) and writes float32; on the CPU it runs
+    in float32."""
+    if h.is_cuda:
+        part = torch.mm(h.reshape(-1, h.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(*h.shape[:-1], -1)
+    else:
+        part = h.float() @ w.float()
+    return tp.reduce(part).to(h.dtype)
+
+
+def _kv_of_heads(k, v, heads: list):
+    """k, v (B, S, n, dh) narrowed to the kv heads of the query heads
+    ``heads`` (indices into n, in query-head order): a run of whole GQA
+    groups where they form one, else one kv head a query head."""
+    nh, first = len(heads), heads[0]
+    n = heads[-1] - first + 1
+    if nh % n == 0 and heads == [first + j // (nh // n) for j in range(nh)]:
+        return k[:, :, first:first + n], v[:, :, first:first + n]
+    return k[:, :, heads], v[:, :, heads]
+
+
+def _write_owned(cache, new, length, tp: TensorParallel) -> None:
+    """Write ``new`` (B, 1, Hkv, dh) at position ``length`` of the
+    sequence into this rank's piece ``cache`` (B, T, Hkv, dh), which holds
+    positions ``[index * T, (index + 1) * T)``: a masked write on the
+    device (a clamped local index; the old entry written back where the
+    position is not this rank's), so no rank reads ``length`` on the
+    host."""
+    T = cache.shape[1]
+    local = length.long() - tp.index * T
+    own = (local >= 0) & (local < T)
+    idx = local.clamp(0, T - 1).reshape(1)
+    cache.index_copy_(1, idx, torch.where(own, new.to(cache.dtype),
+                                          cache.index_select(1, idx)))
+
+
+def _attention_tp(p, cfg: LMConfig, x, positions, cache, tp: TensorParallel):
+    """GQA attention with this rank's weight pieces: column-parallel
+    ``wq``/``wk``/``wv``, row-parallel ``wo``.  Without ``cache``, the
+    causal ``chunked_attention`` of this rank's ``H / M`` query heads.
+    With it (one token), every head's q, k, v gathered, k and v written
+    on the rank that holds position ``len``, and the split attention over
+    the cache pieces (:func:`layers.decode_attention_split`)."""
+    if cfg.mla is not None:
+        raise NotImplementedError("MLA under tensor parallelism")
+    B, S, _ = x.shape
+    H, Hkv, dh, M = cfg.n_heads, cfg.n_kv, cfg.head_dim, tp.size
+    nh = H // M
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cache is not None:
+        if S != 1:
+            raise ValueError(f"tensor-parallel decode takes one token a "
+                             f"step, got {S}")
+        # one gather: every rank's q, k and v columns side by side
+        nq, nk = q.shape[-1], k.shape[-1]
+        parts = tp.comm.all_gather(torch.cat([q, k, v], dim=-1))
+        q, k, v = (torch.cat([part[..., a:b] for part in parts], dim=-1)
+                   for a, b in ((0, nq), (nq, nq + nk), (nq + nk, None)))
+        q, k = _qk_rope(p, cfg, q.reshape(B, S, H, dh),
+                        k.reshape(B, S, Hkv, dh), positions)
+        v = v.reshape(B, S, Hkv, dh)
+        k_cache, v_cache, length = cache
+        _write_owned(k_cache, k, length, tp)
+        _write_owned(v_cache, v, length, tp)
+        out = decode_attention_split(q, k_cache, v_cache, length + S, tp)
+    else:
+        if Hkv % M:  # this rank's columns cut a kv head: k, v whole
+            k, v = tp.gather(k), tp.gather(v)
+            kv0 = 0
+        else:
+            kv0 = tp.index * (Hkv // M)
+        q, k = _qk_rope(p, cfg, q.reshape(B, S, nh, dh),
+                        k.reshape(B, S, -1, dh), positions)
+        v = v.reshape(B, S, -1, dh)
+        G = H // Hkv
+        k, v = _kv_of_heads(k, v, [(tp.index * nh + j) // G - kv0
+                                   for j in range(nh)])
+        out = chunked_attention(q, k, v, causal=True)
+    return _row_parallel(out.reshape(B, S, -1), p["wo"], tp)
+
+
+def _embed(params, cfg: LMConfig, tokens, tp=None):
+    """The tokens' embeddings; with ``tp`` from this rank's rows of the
+    vocab-parallel table, summed over the ranks."""
+    if tp is None:
+        return params["embed"][tokens.long()].to(cfg.dtype)
+    table = params["embed"]
+    rows = table.shape[0]
+    ids = tokens.long() - tp.index * rows
+    mine = (ids >= 0) & (ids < rows)
+    x = torch.where(mine[..., None], table[ids.clamp(0, rows - 1)].float(),
+                    0.0)
+    return tp.reduce(x).to(cfg.dtype)
+
+
 # ------------------------------------------------------------------- layers
-def _dense_mlp(p, x):
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+def _dense_mlp(p, x, tp=None):
+    if tp is None:
+        return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    return _row_parallel(swiglu_hidden(x, p["w_gate"], p["w_up"]),
+                         p["w_down"], tp)
 
 
 def _layer_slice(gp, i: int) -> dict:
@@ -242,25 +370,32 @@ def _layer_slice(gp, i: int) -> dict:
             for k, v in ((k, gp[k]) for k in gp.keys())}
 
 
-def _layer(cfg: LMConfig, x, lp, positions, use_moe: bool, cache=None):
+def _layer(cfg: LMConfig, x, lp, positions, use_moe: bool, cache=None,
+           tp=None):
     a = attention_block(lp["attn"], cfg, rms_norm(x, lp["ln_attn"]), positions,
-                        cache)
+                        cache, tp)
     x = x + a
     h = rms_norm(x, lp["ln_mlp"])
-    f = moe_apply(lp["moe"], cfg, h) if use_moe else _dense_mlp(lp["mlp"], h)
+    if use_moe and tp is not None:
+        raise NotImplementedError("MoE under tensor parallelism")
+    f = moe_apply(lp["moe"], cfg, h) if use_moe else \
+        _dense_mlp(lp["mlp"], h, tp)
     return x + f
 
 
-def lm_forward(params, cfg: LMConfig, tokens, positions=None, caches=None):
+def lm_forward(params, cfg: LMConfig, tokens, positions=None, caches=None,
+               tp=None):
     """tokens (B, S) -> (hidden (B, S, E), caches).  Without ``caches`` the
     cache-free forward (prefill, training), returning ``None`` for them,
     each layer under activation checkpointing when grad is enabled; with
     them (:func:`make_kv_caches`, under any keys beside ``len``) each
-    layer's entries are written in place and ``len`` advanced."""
+    layer's entries are written in place and ``len`` advanced.  With
+    ``tp`` the params and caches are this rank's pieces (module
+    docstring)."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = _embed(params, cfg, tokens, tp)
     length = None if caches is None else caches["len"]
     cache_keys = [] if caches is None else [k for k in caches if k != "len"]
     offset = 0
@@ -271,11 +406,13 @@ def lm_forward(params, cfg: LMConfig, tokens, positions=None, caches=None):
         for i in range(depth):
             if remat:
                 x = checkpoint(_layer, cfg, x, _layer_slice(gp, i),
-                               positions, use_moe, use_reentrant=False)
+                               positions, use_moe, None, tp,
+                               use_reentrant=False)
                 continue
             cache = None if caches is None else (
                 *(caches[k][offset + i] for k in cache_keys), length)
-            x = _layer(cfg, x, _layer_slice(gp, i), positions, use_moe, cache)
+            x = _layer(cfg, x, _layer_slice(gp, i), positions, use_moe, cache,
+                       tp)
         offset += depth
     if caches is not None:
         caches["len"] = length + S
@@ -338,17 +475,19 @@ def make_kv_caches(cfg: LMConfig, batch: int, max_len: int, device) -> dict:
             make_kv_cache_specs(cfg, batch, max_len).items()}
 
 
-def serve_prefill(params, cfg: LMConfig, tokens):
+def serve_prefill(params, cfg: LMConfig, tokens, tp=None):
     """The prefill cell's step: tokens (B, S) -> the last position's
-    logits (B, 1, vocab), through the cache-free forward."""
-    hidden, _ = lm_forward(params, cfg, tokens)
+    logits (B, 1, vocab), through the cache-free forward (with ``tp``:
+    this rank's vocab columns)."""
+    hidden, _ = lm_forward(params, cfg, tokens, tp=tp)
     return lm_logits(params, cfg, hidden[:, -1:, :])
 
 
-def serve_decode(params, cfg: LMConfig, tokens, caches):
+def serve_decode(params, cfg: LMConfig, tokens, caches, tp=None):
     """One decode step: tokens (B, 1) + caches -> (logits, caches), the
-    caches updated in place."""
+    caches updated in place (with ``tp``: this rank's cache pieces and
+    vocab columns)."""
     B = tokens.shape[0]
     positions = caches["len"].reshape(1, 1).expand(B, 1)
-    hidden, caches = lm_forward(params, cfg, tokens, positions, caches)
+    hidden, caches = lm_forward(params, cfg, tokens, positions, caches, tp)
     return lm_logits(params, cfg, hidden), caches

@@ -1111,6 +1111,93 @@ def test_flash_decode_refuses_caches_the_copies_cannot_stage(dev):
     assert fdk.LAUNCHES["flash_decode"] == 1
 
 
+def _hold_pieces(q, k, v, lens, P, dtype, what):
+    """The cache cut into P pieces along the sequence (tensor
+    parallelism's layout): the split kernel on each piece at its offset
+    against ``split_plain`` on the splits the piece's plan gives each row;
+    the combine kernel over the stacked pieces against ``combine_plain``
+    on the kernel's own partials and against the whole cache's plain
+    attention."""
+    B, T, Hkv = k.shape[:3]
+    H = q.shape[1]
+    G, Tp = H // Hkv, T // P
+    mls, accs = [], []
+    for p in range(P):
+        kp, vp = k[:, p * Tp:(p + 1) * Tp], v[:, p * Tp:(p + 1) * Tp]
+        ml, acc = fdk.launch_split(q, kp, vp, lens, p * Tp)
+        ml_p, acc_p = fdk.split_plain(q, kp, vp, lens, p * Tp)
+        for b, n in enumerate(lens.reshape(-1).expand(B).tolist()):
+            ns = fdk.piece_plan(n, p * Tp, Tp, B, Hkv, G)[2]
+            if n > 0:
+                assert (ns == 0) == (n <= p * Tp), (what, p, n)
+            _close(ml[b, :, :ns], ml_p[b, :, :ns], (2e-4, 2e-4),
+                   f"{what} piece {p} m, l")
+            _close(acc[b, :, :ns], acc_p[b, :, :ns], (2e-4, 2e-4),
+                   f"{what} piece {p} acc")
+        mls.append(ml)
+        accs.append(acc)
+    ml, acc = torch.stack(mls), torch.stack(accs)
+    got = fdk.launch_combine(ml, acc, lens, Tp, q.dtype)
+    _close(got, fdk.combine_plain(ml, acc, lens, Tp, q.dtype),
+           DECODE_TOL[dtype], f"{what} combine")
+    _close(got, fdk.decode_attention_plain(q, k, v, lens), DECODE_TOL[dtype],
+           f"{what} pieces against the whole cache")
+
+
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
+@pytest.mark.parametrize("shape", [(2, 1024, 8, 2, 128, 2),
+                                   (2, 512, 2, 5, 64, 4),
+                                   (8, 2048, 8, 2, 128, 2)])
+def test_flash_decode_on_sequence_pieces_matches_plain(dev, dtype, shape):
+    """``(B, T, Hkv, G, d, P)``: at cache_len <= 0 (every piece covers its
+    positions whole: the mean of V), 1, inside the first piece (the rest
+    empty: neutral, never written), one below, at and one above each
+    piece boundary, T - 1, T and past T, and per-row lengths drawn from
+    those."""
+    B, T, Hkv, G, d, P = shape
+    q, k, v = (torch.as_tensor(a, device=dev).to(getattr(torch, dtype))
+               for a in decode_case(np.random.default_rng(T + G), B, Hkv, G,
+                                    T, d))
+    Tp = T // P
+    lens = sorted({-3, 0, 1, Tp // 2, T - 1, T, T + 5,
+                   *(x for p in range(1, P)
+                     for x in (p * Tp - 1, p * Tp, p * Tp + 1))})
+    fdk.reset_launch_counts()
+    for n in lens:
+        _hold_pieces(q, k, v, torch.tensor(n, dtype=torch.int32, device=dev),
+                     P, dtype, f"{dtype} {shape} {n}")
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        per_row = torch.as_tensor(rng.choice(lens, B).astype(np.int32),
+                                  device=dev)
+        _hold_pieces(q, k, v, per_row, P, dtype, f"{dtype} {shape} {per_row}")
+    torch.cuda.synchronize(dev)
+    calls = len(lens) + 3
+    assert fdk.LAUNCHES["flash_decode"] == P * calls
+    assert fdk.LAUNCHES["flash_decode_combine"] == calls
+
+
+def test_flash_decode_pieces_read_no_position_past_cache_len(dev):
+    """Positions at or past cache_len, in every piece, hold NaN: the
+    pieces' merge stays finite and equal to the plain attention."""
+    q, k, v = (torch.as_tensor(a, device=dev) for a in
+               decode_case(np.random.default_rng(9), 3, 2, 4, 1024, 64))
+    lens = torch.tensor([1000, 300, 1], dtype=torch.int32, device=dev)
+    want = fdk.decode_attention_plain(q, k, v, lens)
+    for b, n in enumerate((1000, 300, 1)):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    P, Tp = 4, 256
+    parts = [fdk.launch_split(q, k[:, p * Tp:(p + 1) * Tp],
+                              v[:, p * Tp:(p + 1) * Tp], lens, p * Tp)
+             for p in range(P)]
+    got = fdk.launch_combine(torch.stack([m for m, _ in parts]),
+                             torch.stack([a for _, a in parts]), lens, Tp,
+                             q.dtype)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want, DECODE_TOL["float32"], "pieces, per-row lengths")
+
+
 # ----------------------------------------------------------------- serving
 def test_mind_serving_on_the_card_matches_plain(dev, monkeypatch):
     from repro_torch.configs import get_config

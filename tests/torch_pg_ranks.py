@@ -164,3 +164,88 @@ def card_shard_case(out_dir: str) -> None:
                                          device=device))
     np.savez(os.path.join(out_dir, f"card_{dist.get_rank()}.npz"),
              **result_record(r))
+
+
+def _param_storages(tree) -> set:
+    from repro_torch.models.params import tree_leaves
+
+    return {t.untyped_storage().data_ptr() for _, t in tree_leaves(tree)}
+
+
+class _GatherSpy:
+    """Counts ``all_gather`` calls and those whose input shares storage
+    with a tensor of ``storages`` (a weight gathered as it is)."""
+
+    def __init__(self, storages: set):
+        self.storages, self.calls, self.of_weights = storages, 0, 0
+        self._orig = dist.all_gather
+
+    def __enter__(self):
+        def spy(out, x, *a, **kw):
+            self.calls += 1
+            self.of_weights += x.untyped_storage().data_ptr() in self.storages
+            return self._orig(out, x, *a, **kw)
+
+        dist.all_gather = spy
+        return self
+
+    def __exit__(self, *exc):
+        dist.all_gather = self._orig
+
+
+def tp_cases(case_dir: str, params_dir: str, out_dir: str, data: str,
+             model: str) -> None:
+    """Tensor-parallel LM serving over a ``(data, model)`` mesh of the
+    group: each case's global params, tokens and caches
+    (``<params_dir>/<arch>.pt``, ``<case_dir>/<case>.pt`` written by the
+    test) cut to this rank's pieces, the
+    prefill or every decode step run; every rank writes its pieces, the
+    logits joined whole and the gathers it made (``<case>_<rank>.pt``).
+    Then the weights gathered as they are, once, to show the spy sees
+    it."""
+    from repro_torch.launch.mesh import Mesh, _device_mesh
+    from repro_torch.launch.steps import (_whole, _zip_map, build_step,
+                                          gather_outputs, local_args)
+
+    torch.set_num_threads(1)
+    shape, axes = (int(data), int(model)), ("data", "model")
+    mesh = Mesh(shape, axes, [CPU], _device_mesh(shape, axes, CPU))
+    rank = dist.get_rank()
+    with open(os.path.join(case_dir, "cases.json")) as f:
+        cases = json.load(f)
+    params_of = {}
+    for name, case in cases.items():
+        arch, cell = case["arch"], case["shape"]
+        b = build_step(arch, cell, mesh, reduced=True)
+        if arch not in params_of:
+            whole = torch.load(os.path.join(params_dir, f"{arch}.pt"))
+            params_of[arch] = local_args(b, whole)[0]
+        params = params_of[arch]
+        args = torch.load(os.path.join(case_dir, f"{name}.pt"))
+        rec = {"coords": mesh.coords()}
+        with _GatherSpy(_param_storages(params)) as spy:
+            if cell == "prefill_32k":
+                _, tokens = local_args(b, None, args["tokens"])
+                logits = b.fn(params, tokens)
+                rec["logits_piece"] = logits
+                rec["logits"] = [gather_outputs(b, logits)]
+            else:
+                _, _, caches = local_args(b, None, None, args["caches"])
+                rec["logits"], rec["logits_pieces"] = [], []
+                for tok in args["tokens"]:
+                    _, tokens, _ = local_args(b, None, tok, None)
+                    logits, caches = b.fn(params, tokens, caches)
+                    rec["logits_pieces"].append(logits)
+                    rec["logits"].append(
+                        _whole(logits, b.out_shardings[0]))
+                rec["caches"] = caches
+        rec["gathers"], rec["weight_gathers"] = spy.calls, spy.of_weights
+        torch.save(rec, os.path.join(out_dir, f"{name}_{rank}.pt"))
+    # the spy's control: the weights gathered whole as they are
+    b = build_step(cases[next(iter(cases))]["arch"], "prefill_32k", mesh,
+                   reduced=True)
+    params = next(iter(params_of.values()))
+    with _GatherSpy(_param_storages(params)) as spy:
+        _zip_map(_whole, params, b.in_shardings[0])
+    torch.save({"gathers": spy.calls, "weight_gathers": spy.of_weights},
+               os.path.join(out_dir, f"control_{rank}.pt"))
