@@ -149,6 +149,19 @@ Phases, each printing one JSON line:
              the one-rank path's on the same weights and cache within
              LM_LOGITS_ATOL, their argmax agreement printed; each rank's
              step ms, collectives' time and peak device memory
+  tp_serve   four gloo ranks sharing the card on a (data, model) = (2, 2)
+             mesh, in one start: long_500k on Qwen3-0.6B at full width
+             (28 layers cut to 4), its seeded cache of 524,288 positions
+             in four pieces of 131,072 (one a rank: the sequence over
+             every axis), three decode steps from len 131,070 across the
+             first piece boundary; then MIND at full width with its item
+             and profile rows over model: serve_p99 (512 users),
+             retrieval_cand (one user against 1,000,000 items, top 100)
+             and serve_bulk (262,144 users cut to 16,384).  Each rank's
+             joined outputs held to a one-device control run first
+             (LM_LOGITS_ATOL; MIND_TOL, retrieval indices where the
+             scores are apart); each rank's ms a step or a call, its
+             collectives' share, peak device memory and kernel launches
   lm_moe     DeepSeek-V3-671B (MLA latent caches, 256 experts top-8 and a
              shared expert; 61 layers cut to 3, the dense one and 2
              routed) and Arctic-480B (128 experts top-2 beside a dense
@@ -200,7 +213,11 @@ maintain path (``maintain_launches``), on the out-of-core path
 on the shard path (``shard_launches``, its runs but the timing reruns),
 on the process-group path (``dist_launches``, every rank's runs),
 on Qwen3-14B's decode (``lm_prefill_launches``), on the tensor-parallel
-decode (``lm_tp_launches``, both ranks' steps), on Arctic's
+decode (``lm_tp_launches``, both ranks' steps), on the tp_serve
+phase's ranks (``tp_serve_launches``: kernel #5 in long_500k's steps,
+kernel #4 in MIND's cells; kernel #5 also timed at one 131,072-position
+piece a rank and its combine over four under ``tp_serve_pieces``, kernel
+#4 at a model rank's row piece under ``tp_serve_local``), on Arctic's
 (``lm_moe_launches``), on MIND's train steps (``train_launches``;
 the bag's figures at the train shape under ``train_batch``) and on the
 GNN runs (``gnn_launches``, 0: the GNN path has no kernel),
@@ -337,6 +354,29 @@ TP_PREFILL = (2, 2048)
 TP_DECODE_STEPS = 8
 TP_T, TP_LEN0 = 32768, 20_000
 TP_TIMEOUT_S = 300
+#: tp_serve: four gloo ranks sharing cuda:0 on a (data, model) =
+#: TP_SERVE_MESH mesh.  long_500k on Qwen3-0.6B at full width, depth cut
+#: from 28 layers to TP_SERVE_LAYERS (its whole bf16 cache is ~60 GB at 28,
+#: and the phase holds a one-device control beside the ranks), its seeded
+#: cache of LONG_T positions in four pieces of 131,072 (one a rank),
+#: TP_SERVE_STEPS decode steps from len TP_SERVE_LEN0, so they write on
+#: both sides of the first piece boundary; then MIND at full width with its
+#: rows over model: serve_p99 (512 users), retrieval_cand (one user, every
+#: item, top 100) and serve_bulk cut from 262,144 users to TP_SERVE_BULK
+#: (its history's all-reduce over model goes through the host)
+TP_SERVE_MESH = (2, 2)
+TP_SERVE_LAYERS = 4
+LONG_T = 524_288
+TP_SERVE_LEN0 = 131_070
+TP_SERVE_STEPS = 3
+TP_SERVE_BULK = 16_384
+#: the one-device control's retrieval keeps one more than the top 100, so
+#: that _retrieval_agrees can tell which neighbours are apart
+_TOP_K_HELD = 101
+#: kernel #4 timed alone at a model rank's serve_p99 bags: 4,096 bags of
+#: 16 slots on one of two row pieces of the profile table (about half the
+#: slots masked there)
+TP_SERVE_BAGS = (4096, 16, 2)
 #: cache lengths the served decode reaches (1 .. 512 + 32): one position,
 #: 256 and 257, the last step; held on the decode_32k cache with one below
 #: and at each boundary of the kernel's split rule up to the last step
@@ -3433,44 +3473,12 @@ def _logits_hold(got, want) -> tuple:
             int((got.argmax(-1) == want.argmax(-1)).sum()), got.shape[0])
 
 
-def tp_rank(run_dir: str, device_type: str) -> None:
-    """One rank of the lm_tp phase (started by ``run_ranks``): the mesh
-    ``spec["mesh"]`` over the group, on ``cuda:(rank % visible cards)``
-    (or the CPU for a rehearsal); this rank's weight pieces cut from the
-    whole (``local_args``), ``serve_prefill`` and the decode steps through
-    ``build_step``'s tensor-parallel steps on its seeded cache piece, the
-    flash-decode launches counted from 0 around the decode steps, the
-    collectives timed (the card synchronised before and after each), the
-    joined logits held to the one-rank path's (``ref.pt``).  Writes
-    ``rank<r>.json``."""
-    from dataclasses import replace
-
-    import torch
-    import torch.distributed as dist
-
+def timed_collectives(sync):
+    """Time every collective of the port's process-group paths in this
+    process (``engine._Collectives``, the card synchronised by ``sync``
+    before and after each); returns a function that gives ``{"calls",
+    "s", "bytes"}`` since its last call and starts them again."""
     from repro_torch.core import engine
-    from repro_torch.kernels import flash_decode as fdk
-    from repro_torch.launch.mesh import Mesh, _device_mesh
-    from repro_torch.launch.steps import build_step, gather_outputs, \
-        local_args
-
-    rank = dist.get_rank()
-    card = device_type == "cuda"
-    device = torch.device("cuda", rank % torch.cuda.device_count()) \
-        if card else torch.device("cpu")
-    if card:
-        torch.cuda.set_device(device)
-    with open(os.path.join(run_dir, "spec.json")) as f:
-        spec = json.load(f)
-    shape, axes = tuple(spec["mesh"]), ("data", "model")
-    mesh = Mesh(shape, axes, [device], _device_mesh(shape, axes, device))
-    M, index = mesh.shape["model"], mesh.axis_index("model")
-    rec = {"rank": rank, "coords": mesh.coords(),
-           "backend": dist.get_backend(), "device": str(device)}
-
-    def sync():
-        if card:
-            torch.cuda.synchronize(device)
 
     coll = {"calls": 0, "s": 0.0, "bytes": 0}
 
@@ -3494,6 +3502,48 @@ def tp_rank(run_dir: str, device_type: str) -> None:
         coll.update(calls=0, s=0.0, bytes=0)
         return out
 
+    return collectives
+
+
+def tp_rank(run_dir: str, device_type: str) -> None:
+    """One rank of the lm_tp phase (started by ``run_ranks``): the mesh
+    ``spec["mesh"]`` over the group, on ``cuda:(rank % visible cards)``
+    (or the CPU for a rehearsal); this rank's weight pieces cut from the
+    whole (``local_args``), ``serve_prefill`` and the decode steps through
+    ``build_step``'s tensor-parallel steps on its seeded cache piece, the
+    flash-decode launches counted from 0 around the decode steps, the
+    collectives timed (the card synchronised before and after each), the
+    joined logits held to the one-rank path's (``ref.pt``).  Writes
+    ``rank<r>.json``."""
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.launch.mesh import Mesh, _device_mesh
+    from repro_torch.launch.steps import build_step, gather_outputs, \
+        local_args
+
+    rank = dist.get_rank()
+    card = device_type == "cuda"
+    device = torch.device("cuda", rank % torch.cuda.device_count()) \
+        if card else torch.device("cpu")
+    if card:
+        torch.cuda.set_device(device)
+    with open(os.path.join(run_dir, "spec.json")) as f:
+        spec = json.load(f)
+    shape, axes = tuple(spec["mesh"]), ("data", "model")
+    mesh = Mesh(shape, axes, [device], _device_mesh(shape, axes, device))
+    M, index = mesh.shape["model"], mesh.axis_index("model")
+    rec = {"rank": rank, "coords": mesh.coords(),
+           "backend": dist.get_backend(), "device": str(device)}
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(device)
+
+    collectives = timed_collectives(sync)
     ref = torch.load(os.path.join(run_dir, "ref.pt"))
     t = time.perf_counter()
     cfg, whole, tokens, decode = tp_inputs(spec, device)
@@ -3666,6 +3716,333 @@ def phase_lm_tp(device, spec: dict | None = None) -> dict:
     emit(out)
     return total
 
+
+def tp_serve_lm(spec: dict, device) -> tuple:
+    """``(cfg, whole params, decode tokens, step builder)`` of the
+    tp_serve phase's long_500k run (the weights drawn from seed 0)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenSource
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(spec["arch"])
+    if spec["reduced"]:
+        cfg = cfg.reduced()
+    if spec["layers"]:
+        cfg = replace(cfg, n_layers=spec["layers"])
+    params = tfm.lm_init(cfg, torch.Generator(device).manual_seed(0))
+    steps = TokenSource(1, spec["steps"], cfg.vocab, seed=4)(0)["tokens"]
+    decode = [torch.as_tensor(steps[:, i:i + 1], device=device)
+              for i in range(spec["steps"])]
+
+    def build(mesh=None):
+        return build_step(spec["arch"], "long_500k", mesh,
+                          reduced=spec["reduced"],
+                          depth_override=spec["layers"])
+
+    return cfg, params, decode, build
+
+
+def tp_serve_mind(spec: dict, device) -> tuple:
+    """``(cfg, whole params, batches)`` of the tp_serve phase's MIND cells
+    (the weights drawn from seed 0, the batches host tensors; retrieval's
+    users as many as its cell's specs give, its candidates every item)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.data import RecsysSource
+    from repro_torch.models import recsys as rec
+
+    cfg = get_config("mind")
+    if spec["reduced"]:
+        cfg = cfg.reduced()
+    params = rec.mind_init(cfg, torch.Generator(device).manual_seed(0))
+    _, av = input_specs(cfg, "retrieval_cand", reduced=spec["reduced"])
+    batches = {}
+    for cell, users, seed in (("serve_p99", spec["p99"], 1),
+                              ("serve_bulk", spec["bulk"], 3),
+                              ("retrieval_cand", av["hist_ids"][0][0], 5)):
+        b = RecsysSource(cfg, users, seed=seed)(0)
+        b = {k: torch.as_tensor(b[k]) for k in ("hist_ids", "profile_ids")}
+        if cell == "retrieval_cand":
+            b["candidate_ids"] = torch.arange(cfg.n_items, dtype=torch.int32)
+        batches[cell] = b
+    return cfg, params, batches
+
+
+def tp_serve_rank(run_dir: str, device_type: str) -> None:
+    """One rank of the tp_serve phase (started by ``run_ranks``): the mesh
+    ``spec["mesh"]`` over the group on ``cuda:(rank % visible cards)`` (or
+    the CPU for a rehearsal).  long_500k: this rank's weight pieces cut
+    from the whole, its seeded piece of the cache's sequence (piece
+    ``axis_index(("data", "model"))``), the decode steps through
+    ``build_step``'s step, each timed, their joined logits held to the
+    one-device control's (``ref.pt``).  MIND: its rows over model, each
+    cell's batch cut to this rank's, the step timed and its joined output
+    held to the control's.  The kernels' launches counted from 0 around
+    each run, the collectives timed.  Writes ``rank<r>.json``."""
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.launch.mesh import Mesh, _device_mesh
+    from repro_torch.launch.steps import build_step, gather_outputs, \
+        local_args
+
+    rank = dist.get_rank()
+    card = device_type == "cuda"
+    device = torch.device("cuda", rank % torch.cuda.device_count()) \
+        if card else torch.device("cpu")
+    if card:
+        torch.cuda.set_device(device)
+    with open(os.path.join(run_dir, "spec.json")) as f:
+        spec = json.load(f)
+    shape, axes = tuple(spec["mesh"]), ("data", "model")
+    mesh = Mesh(shape, axes, [device], _device_mesh(shape, axes, device))
+    P, piece = mesh.size, mesh.axis_index(axes)
+    rec = {"rank": rank, "coords": mesh.coords(), "piece": piece,
+           "backend": dist.get_backend(), "device": str(device)}
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(device)
+
+    collectives = timed_collectives(sync)
+    ref = torch.load(os.path.join(run_dir, "ref.pt"))
+    with torch.inference_mode():
+        # ---- long_500k: the cache sequence over all P ranks
+        t = time.perf_counter()
+        cfg, whole, decode, build = tp_serve_lm(spec, device)
+        dec = build(mesh)
+        join = replace(dec, out_shardings=dec.out_shardings[0])
+        params = local_args(dec, whole)[0]
+        del whole
+        warm = tp_cache(cfg, 1, 128 * P, P, [piece], device)
+        warm["len"] = torch.tensor(5, dtype=torch.int32, device=device)
+        dec.fn(params, decode[0], warm)
+        del warm
+        caches = tp_cache(cfg, 1, spec["T"], P, [piece], device)
+        caches["len"] = torch.tensor(spec["len0"], dtype=torch.int32,
+                                     device=device)
+        sync()
+        rec["init_s"] = time.perf_counter() - t
+        rec["cache_piece_bytes"] = 2 * caches["k"].numel() * \
+            caches["k"].element_size()
+        if card:
+            torch.cuda.reset_peak_memory_stats(device)
+        collectives()
+        fdk.reset_launch_counts()
+        step_ms, errs, agree, coll_s = [], [], 0, 0.0
+        for i, tok in enumerate(decode):
+            sync()
+            t = time.perf_counter()
+            logits, caches = dec.fn(params, tok, caches)
+            sync()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            coll_s += collectives()["s"]
+            e, a, _ = _logits_hold(gather_outputs(join, logits),
+                                   ref["long_500k"][i].to(device))
+            collectives()
+            errs.append(e)
+            agree += a
+        rec["long_500k"] = {
+            "T": spec["T"], "T_piece": caches["k"].shape[2],
+            "len0": spec["len0"], "layers": cfg.n_layers,
+            "steps": len(decode), "step_ms": step_ms,
+            "ms_per_step": float(np.mean(step_ms)),
+            "collective_ms_per_step": 1e3 * coll_s / len(decode),
+            "collective_share": 1e3 * coll_s / sum(step_ms),
+            "logits_piece": list(logits.shape), "max_abs_logit_err": errs,
+            "argmax_equal": agree, "rows": len(decode),
+            "len_after": int(caches["len"]), "launches": dict(fdk.LAUNCHES),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(device)
+            if card else None}
+        del params, caches, logits
+        if card:
+            free_card(device)
+        # ---- MIND: item and profile rows over model
+        t = time.perf_counter()
+        mcfg, whole, batches = tp_serve_mind(spec, device)
+        cells = {c: build_step("mind", c, mesh, reduced=spec["reduced"])
+                 for c in batches}
+        params = local_args(cells["serve_p99"], whole)[0]
+        del whole
+        local = {c: local_args(cells[c], None, {
+            k: v.to(device) for k, v in batches[c].items()})[1]
+            for c in batches}
+        for cell, b in cells.items():  # warm
+            b.fn(params, local[cell])
+        sync()
+        rec["mind_init_s"] = time.perf_counter() - t
+        if card:
+            torch.cuda.reset_peak_memory_stats(device)
+        rec["mind"] = {}
+        for cell in ("serve_p99", "retrieval_cand", "serve_bulk"):
+            b = cells[cell]
+            collectives()
+            ebk.reset_launch_counts()
+            sync()
+            t = time.perf_counter()
+            out = b.fn(params, local[cell])
+            sync()
+            wall = time.perf_counter() - t
+            c = collectives()
+            r = {"users": batches[cell]["hist_ids"].shape[0],
+                 "wall_ms": 1e3 * wall, "collective_ms": 1e3 * c["s"],
+                 "collective_share": c["s"] / wall,
+                 "collective_calls": c["calls"],
+                 "collective_bytes": c["bytes"],
+                 "launches": dict(ebk.LAUNCHES)}
+            if cell == "retrieval_cand":
+                vals, idx = out
+                want_v, want_i = (x.to(device) for x in ref[cell])
+                r["indices_held_equal"] = _retrieval_agrees(
+                    vals, idx, want_v, want_i, MIND_TOL)
+                r["max_abs_err"] = float(
+                    (vals - want_v[..., :vals.shape[-1]]).abs().max())
+            else:
+                got = gather_outputs(b, out)
+                r["max_abs_err"] = _close(got, ref[cell].to(device),
+                                          MIND_TOL, f"tp_serve {cell} "
+                                          f"rank {rank}")
+                r["out_piece"] = list(out.shape)
+            collectives()
+            rec["mind"][cell] = r
+        ebk.raise_bad_index(device)
+        rec["mind_max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            device) if card else None
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase_tp_serve(device, spec: dict | None = None) -> dict:
+    """Serving across ranks, part 2: the one-device control first
+    (long_500k's decode steps on the whole seeded cache, then MIND's three
+    cells), its outputs saved; then :data:`TP_SERVE_MESH`'s four ranks
+    (:func:`tp_serve_rank`, gloo, sharing the card) in one start, each
+    holding its joined long_500k logits to the control's within
+    :data:`LM_LOGITS_ATOL`, its MIND outputs within :data:`MIND_TOL`
+    (retrieval by :func:`_retrieval_agrees`), launching both flash-decode
+    kernels once a layer a step and the bag in every MIND cell.  Returns
+    the kernels' launches summed over the ranks."""
+    import torch
+
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import recsys as rec
+
+    spec = spec or {"arch": "qwen3-0.6b", "reduced": False,
+                    "layers": TP_SERVE_LAYERS, "mesh": list(TP_SERVE_MESH),
+                    "T": LONG_T, "len0": TP_SERVE_LEN0,
+                    "steps": TP_SERVE_STEPS, "p99": 512,
+                    "bulk": TP_SERVE_BULK}
+    card = device.type == "cuda"
+    P = spec["mesh"][0] * spec["mesh"][1]
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(device)
+
+    if card:
+        free_card(device)
+    out = {"phase": "tp_serve", **spec, "logits_atol": LM_LOGITS_ATOL,
+           "mind_tolerance": list(MIND_TOL),
+           "reduced": {"long_500k_layers": [28, spec["layers"]],
+                       "serve_bulk_users": [262_144, spec["bulk"]],
+                       "decode_steps": spec["steps"]}}
+    t = time.perf_counter()
+    ref, one = {}, {}
+    with torch.inference_mode():
+        cfg, params, decode, build = tp_serve_lm(spec, device)
+        dec = build()
+        warm = tp_cache(cfg, 1, 128 * P, P, range(P), device)
+        warm["len"] = torch.tensor(5, dtype=torch.int32, device=device)
+        dec.fn(params, decode[0], warm)
+        del warm
+        caches = tp_cache(cfg, 1, spec["T"], P, range(P), device)
+        caches["len"] = torch.tensor(spec["len0"], dtype=torch.int32,
+                                     device=device)
+        ref["long_500k"], step_ms = [], []
+        for tok in decode:
+            sync()
+            t0 = time.perf_counter()
+            logits, caches = dec.fn(params, tok, caches)
+            sync()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            ref["long_500k"].append(logits.cpu())
+        one["long_500k"] = {"step_ms": step_ms,
+                            "ms_per_step": float(np.mean(step_ms)),
+                            "cache_bytes": 2 * caches["k"].numel()
+                            * caches["k"].element_size()}
+        del params, caches, logits
+        if card:
+            free_card(device)
+        mcfg, mparams, batches = tp_serve_mind(spec, device)
+        on = {c: {k: v.to(device) for k, v in b.items()}
+              for c, b in batches.items()}
+        rec.mind_serve(mparams, mcfg, on["serve_p99"])  # warm
+        rec.mind_retrieval(mparams, mcfg, on["retrieval_cand"])
+        for cell in ("serve_p99", "serve_bulk"):
+            sync()
+            t0 = time.perf_counter()
+            ref[cell] = rec.mind_serve(mparams, mcfg, on[cell])
+            sync()
+            one[cell] = {"wall_ms": 1e3 * (time.perf_counter() - t0)}
+            ref[cell] = ref[cell].cpu()
+        sync()
+        t0 = time.perf_counter()
+        vals, idx = rec.mind_retrieval(mparams, mcfg, on["retrieval_cand"],
+                                       top_k=_TOP_K_HELD)
+        sync()
+        one["retrieval_cand"] = {"wall_ms": 1e3 * (time.perf_counter() - t0)}
+        ref["retrieval_cand"] = (vals.cpu(), idx.cpu())
+        del mparams, on, vals, idx
+    if card:
+        free_card(device)
+    out["one_device"] = {**one, "wall_s": time.perf_counter() - t}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(ref, os.path.join(tmp, "ref.pt"))
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t = time.perf_counter()
+        run_ranks("chip_smoke:tp_serve_rank", P, backend="gloo",
+                  args=[tmp, device.type], paths=[ROOT],
+                  timeout=TP_TIMEOUT_S, store_dir=tmp)
+        out["ranks_wall_s"] = time.perf_counter() - t
+        ranks, total = [], {}
+        for rank in range(P):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                r = json.load(f)
+            what = f"tp_serve rank {rank}"
+            check(r["backend"] == "gloo", f"{what}: backend")
+            long = r["long_500k"]
+            worst = max(long["max_abs_logit_err"])
+            check(worst <= LM_LOGITS_ATOL, f"{what}: long_500k logits "
+                  f"differ from the one-device control's by {worst} > "
+                  f"{LM_LOGITS_ATOL}")
+            check(long["len_after"] == spec["len0"] + spec["steps"],
+                  f"{what}: len")
+            for name in ("flash_decode", "flash_decode_combine"):
+                n = long["launches"].get(name, 0)
+                check(n == spec["steps"] * long["layers"],
+                      f"{what}: {name} launched {n} times, not "
+                      f"{spec['steps']} steps x {long['layers']} layers")
+                total[name] = total.get(name, 0) + n
+            for cell, c in r["mind"].items():
+                n = c["launches"].get("embedding_bag", 0)
+                check(n == 1, f"{what}: {cell} launched the bag {n} times")
+                total["embedding_bag"] = total.get("embedding_bag", 0) + n
+            ranks.append(r)
+    out.update(ranks=ranks, launches=total)
+    emit(out)
+    return total
 
 def phase_lm_moe(device) -> dict:
     """DeepSeek-V3-671B (MLA, the latent-cache decode) and Arctic-480B
@@ -4276,6 +4653,59 @@ def bag_entries(device, launches, profile_embed, profile_ids) -> list:
     return entries
 
 
+def local_bag_entry(device, profile_embed) -> dict:
+    """Kernel #4 in the tp_serve phase's mode, timed alone: a model rank's
+    ``sum`` bags over its row piece (the first of ``TP_SERVE_BAGS[2]``) of
+    MIND's profile table, at :data:`TP_SERVE_BAGS` bags x slots of
+    serve_p99's seeded ids with those the rank does not hold masked; held
+    to its plain version and, bit for bit, to the slot-order sum; its
+    bound by the bytes it must move (the ids, the bags and each distinct
+    row it reads, once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.kernels.ref import embedding_bag_slot_order
+
+    B, L, M = TP_SERVE_BAGS
+    N, D = profile_embed.shape
+    rows = N // M
+    table = profile_embed[:rows]
+    ids = torch.as_tensor(np.random.default_rng(7).integers(
+        0, N, (B, L)).astype(np.int32), device=device)
+    idx = torch.where(ids < rows, ids, -1).contiguous()
+    valid = int((idx >= 0).sum())
+    got = ebk.embedding_bag(table, idx, mode="sum")
+    want = ebk.bag_plain(table, idx, None, "sum")
+    err = _close(got, want, (1e-5, 1e-5), "embedding_bag on a row piece")
+    check(torch.equal(got, embedding_bag_slot_order(table, idx, "sum")),
+          "embedding_bag on a row piece != the slot-order sum bit for bit")
+    weights = (idx >= 0).float()
+
+    def library():  # one PyTorch call: masked slots weighted 0
+        return F.embedding_bag(idx.clamp(min=0), table, mode="sum",
+                               per_sample_weights=weights)
+
+    _close(library(), want, (1e-5, 1e-5), "F.embedding_bag on a row piece")
+    distinct = int(torch.unique(idx[idx >= 0]).numel())
+    nbytes = 4 * B * L + 4 * B * D + 4 * distinct * D
+    bms, by = bound(nbytes, valid * D, F32_OPS_PER_S)
+    return {"max_abs_err": err, "ms": device_ms(
+        lambda: ebk.embedding_bag(table, idx, mode="sum"), 200, device),
+        "plain_ms": cuda_ms(lambda: ebk.bag_plain(table, idx, None, "sum"),
+                            3, device),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": device_ms(library, 200, device),
+        "tolerance": [1e-5, 1e-5],
+        "parity": "bit-identical to the slot-order sum",
+        "plan": ebk.card_plan(table, idx),
+        "shape": {"bags": B, "slots": L, "D": D, "rows": rows,
+                  "of_rows": N, "pieces": M, "valid_slots": valid,
+                  "masked_share": 1 - valid / (B * L),
+                  "distinct_rows": distinct, "mode": "sum",
+                  "dtype": "float32", "bytes": nbytes}}
+
+
 def device_ms(fn, reps: int, device) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
     events), with the calls queued behind a busy wait on the device first:
@@ -4296,34 +4726,36 @@ def device_ms(fn, reps: int, device) -> float:
     return start.elapsed_time(end) / reps
 
 
-def piece_entries(device) -> tuple:
-    """Kernel #5 in the lm_tp phase's modes at its shape: Qwen3-0.6B's
-    bf16 caches (:data:`DECODE_HEADS`) of :data:`LM_SLOTS` rows over
-    :data:`TP_T` positions cut into ``TP_MESH[1]`` pieces.  At cache_len 0,
-    1, one below, at and one above each piece boundary, :data:`TP_LEN0`
-    and TP_T: the split kernel on each piece at its offset held to
+def piece_entries(device, B: int, T: int, P: int, len0: int,
+                  phase: str) -> tuple:
+    """Kernel #5 in a sequence-split phase's modes at its shape:
+    Qwen3-0.6B's bf16 caches (:data:`DECODE_HEADS`) of ``B`` rows over
+    ``T`` positions cut into ``P`` pieces (lm_tp: :data:`LM_SLOTS` x
+    :data:`TP_T` in ``TP_MESH[1]``; tp_serve: 1 x :data:`LONG_T` in four).
+    At cache_len 0, 1, one below, at and one above each piece boundary,
+    ``len0`` and T: the split kernel on each piece at its offset held to
     :func:`split_plain` (m, l and acc of the splits the piece's plan
     gives), and the combine over the stacked pieces held to
     :func:`combine_plain` on the kernel's partials and to the whole cache's
     plain attention, each to :func:`bf16_hold`'s limit; where the last
     piece holds at least an eighth of the positions attended, that limit
     rejects the merge with the last piece's partial dropped (l = acc = 0)
-    or weighted twice.  Timed at TP_LEN0.  Returns the split's and the
-    combine's records."""
+    or weighted twice.  Timed at ``len0``, where ``phase``'s decode steps
+    start.  Returns the split's and the combine's records."""
     import torch
 
     from repro_torch.kernels import flash_decode as fdk
 
     H, Hkv, d = DECODE_HEADS
-    G, P, B = H // Hkv, TP_MESH[1], LM_SLOTS
-    Tp = TP_T // P
+    G = H // Hkv
+    Tp = T // P
     gen = torch.Generator(device).manual_seed(11)
     q, k, v = (torch.randn(shape, generator=gen, device=device).to(
-        torch.bfloat16) for shape in ((B, H, d), (B, TP_T, Hkv, d),
-                                      (B, TP_T, Hkv, d)))
+        torch.bfloat16) for shape in ((B, H, d), (B, T, Hkv, d),
+                                      (B, T, Hkv, d)))
     pieces = [(k[:, p * Tp:(p + 1) * Tp], v[:, p * Tp:(p + 1) * Tp])
               for p in range(P)]
-    lens_held = sorted({0, 1, TP_LEN0, TP_T,
+    lens_held = sorted({0, 1, len0, T,
                         *(x for p in range(1, P)
                           for x in (p * Tp - 1, p * Tp, p * Tp + 1))})
     held = []
@@ -4376,8 +4808,8 @@ def piece_entries(device) -> tuple:
                       f"{wlim} does not reject the planted fault {name}")
             rec["planted_err"] = planted
         held.append(rec)
-    # timed at TP_LEN0, where the lm_tp phase's decode steps run
-    n = TP_LEN0
+    # timed at len0, where the phase's decode steps run
+    n = len0
     lens = torch.tensor(n, dtype=torch.int32, device=device)
     parts = [fdk.launch_split(q, kp, vp, lens, p * Tp)
              for p, (kp, vp) in enumerate(pieces)]
@@ -4397,7 +4829,7 @@ def piece_entries(device) -> tuple:
     nbytes = 2 * 2 * B * sum(covered) * Hkv * d + P * 2 * B * H * d + \
         4 * B * Hkv * sum(counts) * G * (d + 2)
     bms, by = bound(nbytes, 4 * B * H * sum(covered) * d, BF16_OPS_PER_S)
-    shape = {"B": B, "T": TP_T, "pieces": P, "T_piece": Tp, "cache_len": n,
+    shape = {"B": B, "T": T, "pieces": P, "T_piece": Tp, "cache_len": n,
              "H": H, "Hkv": Hkv, "d": d, "dtype": "bfloat16",
              "covered": covered, "splits": counts}
     split = {
@@ -4409,8 +4841,8 @@ def piece_entries(device) -> tuple:
         "library_ms": None,
         "tolerance": "2**-7 * max|want| (m, l, acc each)",
         "held": held, "shape": shape,
-        "note": "each piece's split at its offset (each rank of lm_tp runs "
-                "one); ms, plain_ms, bound_ms summed over the pieces"}
+        "note": f"each piece's split at its offset (each rank of {phase} "
+                "runs one); ms, plain_ms, bound_ms summed over the pieces"}
     ns = fdk.max_splits(Tp, B, Hkv, G)
     cbytes = 4 * B * Hkv * sum(counts) * G * (d + 2) + 4 + 2 * B * H * d
     cbms, cby = bound(cbytes, 3 * B * Hkv * sum(counts) * G * d,
@@ -4510,7 +4942,11 @@ def decode_entries(device, launches) -> list:
         timed[label]["combine_ms"] = combine[label]["ms"]
         del q, k, v, kt, vt, ml, acc, want
     served = timed.pop("served")
-    timed["lm_tp_pieces"], combine["lm_tp_pieces"] = piece_entries(device)
+    timed["lm_tp_pieces"], combine["lm_tp_pieces"] = piece_entries(
+        device, LM_SLOTS, TP_T, TP_MESH[1], TP_LEN0, "lm_tp")
+    timed["tp_serve_pieces"], combine["tp_serve_pieces"] = piece_entries(
+        device, 1, LONG_T, TP_SERVE_MESH[0] * TP_SERVE_MESH[1],
+        TP_SERVE_LEN0, "tp_serve")
     return [{
         "name": "flash_decode", "route": "cuda", "source": DECODE_SOURCE,
         "replaces": DECODE_REPLACES, "launches": launches["flash_decode"],
@@ -4596,6 +5032,10 @@ def main(argv: list) -> int:
         # Megatron TP over two gloo ranks sharing the card: counts set to
         # 0 in every rank before its decode steps, summed over the ranks
         lm_tp = phase_lm_tp(device)
+        # long_500k's sequence over four gloo ranks and MIND's rows over
+        # model, one start: counts set to 0 in every rank before each
+        # run, summed over the ranks
+        tp_serve = phase_tp_serve(device)
         lm_moe = phase_lm_moe(device)
         # the train path's launches: MIND's five steps, counts set to 0
         # before them
@@ -4604,8 +5044,9 @@ def main(argv: list) -> int:
         # of the kernels on its path
         gnn = phase_gnn(device, drawn)
     entries += bag_entries(device, launches, profile_embed, profile_ids)
-    next(e for e in entries if e["name"] == "embedding_bag")[
-        "train_batch"] = bag_train
+    bag = next(e for e in entries if e["name"] == "embedding_bag")
+    bag["train_batch"] = bag_train
+    bag["tp_serve_local"] = local_bag_entry(device, profile_embed)
     entries += decode_entries(device, launches)
     for entry in entries:
         entry["maintain_launches"] = maintain.get(entry["name"], 0)
@@ -4615,6 +5056,7 @@ def main(argv: list) -> int:
         entry["dist_launches"] = dist_launches.get(entry["name"], 0)
         entry["lm_prefill_launches"] = lm_prefill.get(entry["name"], 0)
         entry["lm_tp_launches"] = lm_tp.get(entry["name"], 0)
+        entry["tp_serve_launches"] = tp_serve.get(entry["name"], 0)
         entry["lm_moe_launches"] = lm_moe.get(entry["name"], 0)
         entry["train_launches"] = train.get(entry["name"], 0)
         entry["gnn_launches"] = gnn.get(entry["name"], 0)

@@ -99,8 +99,9 @@ class Mesh:
             return dist.group.WORLD
         if len(names) == 1:
             return self.device_mesh.get_group(names[0])
-        if not names:  # a single rank: this one's axis group of size 1
-            return self.device_mesh.get_group(self.axis_names[-1])
+        if not names:  # a single rank: this one's group along an axis of 1
+            return self.device_mesh.get_group(next(
+                a for a in self.axis_names if self.shape[a] == 1))
         if names not in self._groups:
             self._groups[names] = self.device_mesh[names]._flatten() \
                 .get_group()

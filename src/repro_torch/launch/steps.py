@@ -49,8 +49,8 @@ host.  With a ``model`` axis of 1:
 * the GNN train step splits the edges over every rank and keeps node
   state whole (``models.gnn.edges_split``);
 * serve steps take the batch over the batch axes; ``retrieval_step`` takes
-  its single user whole on every rank and the candidates over the batch
-  axes, and merges the ranks' top k;
+  its users whole on every rank and the candidates over the batch axes,
+  and merges the ranks' top k;
 * the core-graph cell is one SemiCore* superstep of the shard backend
   over the group (``core.resident.build_shard_chunk_fn``, ``chunk=1``).
 
@@ -63,11 +63,20 @@ query heads; decode holds positions ``[r * T / M, (r + 1) * T / M)`` of the
 cache on model rank r, writes the token's k and v on the rank that holds
 ``len`` and merges the ranks' flash-decode partials (kernel #5 on each
 piece, its combine across the ranks).  The logits come out cut by vocab.
+``long_500k`` (batch 1, whole on every rank) cuts its cache sequence over
+every axis, data-major (a ``layers.SequenceSplit`` over the group of all
+axes, beside the tensor parallelism over ``model`` where M > 1): the
+token's k and v are written on the one rank of all D * M that holds
+``len``, and each rank combines the D * M pieces' partials.  MIND's
+serve and retrieval steps hold ``item_embed`` and ``profile_embed`` as
+row pieces over ``model`` and the MLP Megatron-split
+(``models.recsys``, ``tp``); the GNN train step splits its edges over
+every axis whatever the mesh's shape.
 
 Still raising ``NotImplementedError`` when run (ROADMAP Queue 1 item 8):
-MoE and MLA configs over M > 1, M not dividing ``n_heads``, the LM train
-step, MIND's and the GNN cells over M > 1, ``long_500k`` at more than one
-rank and MoE configs at more than one data rank (the reference's capacity
+MoE and MLA configs over M > 1, M not dividing ``n_heads``, the LM and
+MIND train steps over M > 1 and MoE configs (DeepSeek-V3, the one MLA
+config, among them) at more than one data rank (the reference's capacity
 is global).  A mesh with no process group and more than one rank (a
 production mesh) describes placements only.
 """
@@ -85,7 +94,7 @@ from ..configs.shapes import input_specs
 from ..models import gnn as gnn_m
 from ..models import recsys as rec_m
 from ..models import transformer as tfm
-from ..models.layers import TensorParallel
+from ..models.layers import SequenceSplit, TensorParallel
 from ..models.params import (requires_grad, tree_map, tree_num_params,
                              tree_shardings)
 from ..optim import AdamWConfig, adamw_state_specs, adamw_update
@@ -323,6 +332,15 @@ def _tp_of(cfg: LMConfig, mesh) -> TensorParallel | None:
         raise NotImplementedError(
             f"a model axis of {M} does not divide {cfg.name}'s "
             f"{cfg.n_heads} query heads ({_TP})")
+    return _model_tp(mesh)
+
+
+def _model_tp(mesh) -> TensorParallel | None:
+    """Tensor parallelism over ``mesh``'s model axis (None for an axis of
+    1)."""
+    M = mesh.shape.get("model", 1)
+    if M == 1:
+        return None
     return TensorParallel(_comm(mesh, "model"), M, mesh.axis_index("model"))
 
 
@@ -445,17 +463,16 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
     c_shard = {k: cache_sharding(k) for k in avals["caches"]}
 
     def ranks(params, tokens, caches):
-        if long_ctx:
-            raise NotImplementedError(
-                f"long_500k splits its cache sequence over every axis "
-                f"({mesh.size} ranks); the flash-decode combine across "
-                f"ranks is not ported ({_TP})")
         _no_moe(cfg, mesh)
         tp = _tp_of(cfg, mesh)
+        seq = None
+        if long_ctx:  # the sequence over every rank, data-major
+            seq = SequenceSplit(_comm(mesh, cache_t), mesh.axis_size(cache_t),
+                                mesh.axis_index(cache_t))
         if tp is None:
-            return step(_zip_map(_whole, params, p_shard), tokens, caches)
+            params = _zip_map(_whole, params, p_shard)
         with torch.inference_mode():
-            return tfm.serve_decode(params, cfg, tokens, caches, tp)
+            return tfm.serve_decode(params, cfg, tokens, caches, tp, seq)
 
     return replace(bundle, fn=_on_mesh(mesh, step, ranks, None),
                    in_shardings=(p_shard, _ns(mesh, cache_b, None), c_shard),
@@ -499,8 +516,7 @@ def _build_gnn(cfg: GNNConfig, shape_name, step_kind, avals, mesh, opt,
         with gnn_m.edges_split(mesh.get_group(_all_axes(mesh))):
             return step(params, opt_state, batch)
 
-    return replace(bundle, fn=_on_mesh(mesh, step, ranks,
-                                       "the GNN train step"),
+    return replace(bundle, fn=_on_mesh(mesh, step, ranks, None),
                    in_shardings=(p_shard, o_shard, b_shard),
                    out_shardings=(p_shard, o_shard, repl))
 
@@ -566,8 +582,12 @@ def _build_recsys(cfg: RecsysConfig, shape_name, step_kind, avals, mesh, opt,
                             num_params=n_params)
         if mesh is None:
             return bundle
-        return replace(bundle, fn=_on_mesh(
-            mesh, step, step, "MIND's serve step (its rows over model)"),
+
+        def ranks(params, batch):
+            with torch.inference_mode():
+                return rec_m.mind_serve(params, cfg, batch, _model_tp(mesh))
+
+        return replace(bundle, fn=_on_mesh(mesh, step, ranks, None),
                        in_shardings=(p_shard, b_shard),
                        out_shardings=_ns(mesh, ba, None, None))
 
@@ -581,9 +601,14 @@ def _build_recsys(cfg: RecsysConfig, shape_name, step_kind, avals, mesh, opt,
         return bundle
 
     def ranks(params, batch):
-        # each rank scores its slice of the candidates; the top k of the
-        # ranks' top k, positions offset by each slice's start
-        vals, idx = step(params, batch)
+        # each rank scores its slice of the candidates for every user (a
+        # batch cut over the batch axes is gathered whole first); the top
+        # k of the ranks' top k, positions offset by each slice's start
+        batch = {k: v if k == "candidate_ids" else _whole(v, b_shard[k])
+                 for k, v in batch.items()}
+        with torch.inference_mode():
+            vals, idx = rec_m.mind_retrieval(params, cfg, batch, _TOP_K,
+                                             _model_tp(mesh))
         comm = _comm(mesh, ba)
         idx = idx + mesh.axis_index(ba) * batch["candidate_ids"].shape[0]
         v = torch.cat(comm.all_gather(vals), -1)
@@ -591,8 +616,7 @@ def _build_recsys(cfg: RecsysConfig, shape_name, step_kind, avals, mesh, opt,
         top = torch.topk(v, min(_TOP_K, v.shape[-1]), dim=-1)
         return top.values, torch.gather(i, -1, top.indices)
 
-    return replace(bundle, fn=_on_mesh(
-        mesh, step, ranks, "MIND's retrieval step (its rows over model)"),
+    return replace(bundle, fn=_on_mesh(mesh, step, ranks, None),
                    in_shardings=(p_shard, b_shard),
                    out_shardings=(_ns(mesh), _ns(mesh)))
 

@@ -10,11 +10,13 @@ names for it; on CPU tensors it runs the reference's einsum form.
 Python loop over KV chunks in place of ``lax.scan``, in place for
 serving and out of place where autograd differentiates it (training).
 
-Under tensor parallelism (:class:`TensorParallel`, the ``model`` axis of a
-mesh) ``decode_attention_split`` is the decode attention over a cache
-whose sequence is cut over the axis's ranks: the flash-combine the
-reference's ``decode_attention`` leaves to XLA on a sequence-sharded
-cache, on the same two kernels.
+``decode_attention_split`` is the decode attention over a cache whose
+sequence is cut over the ranks of a :class:`SequenceSplit` (the
+``model`` axis of a mesh for ``decode_32k``, every axis for
+``long_500k``): the flash-combine the reference's ``decode_attention``
+leaves to XLA on a sequence-sharded cache, on the same two kernels.
+Under tensor parallelism (:class:`TensorParallel`, the ``model`` axis)
+each rank keeps its own query heads of the result.
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ import torch
 
 from ..kernels import flash_decode as fd
 
-__all__ = ["NEG_INF", "TensorParallel", "rms_norm", "rope", "swiglu",
-           "swiglu_hidden", "chunked_attention", "decode_attention", "decode_attention_split"]
+__all__ = ["NEG_INF", "TensorParallel", "SequenceSplit", "rms_norm", "rope",
+           "swiglu", "swiglu_hidden", "chunked_attention", "decode_attention",
+           "decode_attention_split"]
 
 NEG_INF = -1e30
 
@@ -51,6 +54,18 @@ class TensorParallel:
     def reduce(self, x):
         """The sum of every rank's ``x``."""
         return self.comm.all_reduce(x)
+
+
+@dataclass(frozen=True)
+class SequenceSplit:
+    """A decode cache's sequence cut into ``size`` equal pieces over the
+    ranks of one group: ``comm`` the group's collectives (as
+    :class:`TensorParallel`'s), ``index`` the piece this rank holds,
+    positions ``[index * T, (index + 1) * T)`` of a piece of T."""
+
+    comm: Any
+    size: int
+    index: int
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -202,22 +217,26 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 
 
 def decode_attention_split(q, k_piece, v_piece, cache_len,
-                           tp: TensorParallel):
+                           seq: SequenceSplit,
+                           tp: TensorParallel | None = None):
     """One-token attention over a cache whose sequence is cut over the
-    ranks of ``tp``: q (B, 1, H, d) every query head; this rank's piece
-    (B, T, Hkv, d) holds positions ``[index * T, (index + 1) * T)``; the
-    first ``cache_len`` positions of the whole sequence valid (a device
-    scalar, which the kernels read on the device).  Each rank's split runs
-    on its piece at its offset, the pieces' float32 partials are gathered
-    over the axis, and each rank combines them for every head and keeps
-    its own ``H / M``: returns (B, 1, H / M, d), heads ``[index * H / M, ...)``."""
+    ranks of ``seq``: q (B, 1, H, d) every query head; this rank's piece
+    (B, T, Hkv, d) holds positions ``[seq.index * T, (seq.index + 1) *
+    T)``; the first ``cache_len`` positions of the whole sequence valid (a
+    device scalar, which the kernels read on the device).  Each rank's
+    split runs on its piece at its offset, the pieces' float32 partials
+    are gathered over ``seq``'s group, and each rank combines the
+    ``seq.size`` pieces for every head.  Returns (B, 1, H, d), or with
+    ``tp`` this rank's ``H / M`` heads ``[tp.index * H / M, ...)``."""
     B, _, H, d = q.shape
     T = k_piece.shape[1]
     ml, acc = fd.decode_piece(q[:, 0], k_piece, v_piece, cache_len,
-                              tp.index * T)
+                              seq.index * T)
     # one gather: (P, B, Hkv, ns, G, 2 + d), each piece's (m, l) then acc
-    parts = torch.stack(tp.comm.all_gather(torch.cat([ml, acc], dim=-1)))
+    parts = torch.stack(seq.comm.all_gather(torch.cat([ml, acc], dim=-1)))
     ml, acc = parts[..., :2], parts[..., 2:]
-    nh = H // tp.size
     out = fd.combine_pieces(ml, acc, cache_len, T, q.dtype)
-    return out[:, tp.index * nh:(tp.index + 1) * nh].reshape(B, 1, nh, d)
+    if tp is not None:
+        nh = H // tp.size
+        out = out[:, tp.index * nh:(tp.index + 1) * nh]
+    return out.reshape(B, 1, -1, d)

@@ -12,7 +12,20 @@ the :class:`~repro_torch.models.params.ParamTree` of
 :func:`mind_param_specs` (or nested dicts of tensors under the same
 names).  On CUDA tensors the profile bags run the hand-written kernel.
 Item gathers and the matrix products stay torch ops, as the reference
-leaves them to XLA.  ``mind_train_loss`` is not ported yet.
+leaves them to XLA.
+
+With ``tp`` (a ``layers.TensorParallel`` over the mesh's ``model`` axis;
+serving only) ``params`` are this rank's pieces by the reference's rules:
+``item_embed`` and ``profile_embed`` rows ``[index * R, (index + 1) * R)``
+of R a rank, the MLP's ``w1`` columns and ``b1`` in pieces, ``w2``'s rows,
+``bilinear``, ``profile_proj`` and ``b2`` whole.  The history gather reads
+the ids a rank owns, zeros elsewhere, and sums over the ranks (one
+non-zero term an element: exact).  The profile bags run the kernel in
+``sum`` mode on a rank's rows, the ids it does not own masked, and the
+partial bags are summed over the ranks and divided by the global count of
+valid slots.  Retrieval scores the candidates a rank owns, 0 elsewhere,
+and sums the scores over the ranks.  The MLP's second product is summed
+over the ranks before ``b2``.
 
 :func:`serve_step` and :func:`retrieval_step` are the entry points of the
 reference's recsys serve and retrieval steps (``launch/steps.py``), on one
@@ -81,22 +94,67 @@ def dynamic_routing(e, mask, n_interests: int, iters: int):
     return caps
 
 
-def user_interests(params, cfg: RecsysConfig, hist_ids, profile_ids):
-    """(B, hist_len) history + (B, fields, bag) profile -> (B, K, D)."""
+def _owned(ids, rows: int, tp):
+    """``(local, mine)``: ``ids`` (int) as indices into this rank's piece
+    of ``rows`` rows of a table cut by rows over ``tp``'s ranks, and where
+    this rank holds them.  CPU ids at or past the whole table raise, as
+    the one-device gather does."""
+    if ids.device.type == "cpu" and ids.numel() \
+            and int(ids.max()) >= rows * tp.size:
+        raise IndexError(f"an id is >= the table's {rows * tp.size} rows")
+    local = ids.long() - tp.index * rows
+    return local, (local >= 0) & (local < rows)
+
+
+def _gather_rows(table, ids, tp=None):
+    """``table[ids]``; with ``tp``, from this rank's row piece, the rows it
+    does not hold zero, summed over the ranks (exact: one non-zero term)."""
+    if tp is None:
+        return table[ids.long()]
+    rows = table.shape[0]
+    local, mine = _owned(ids, rows, tp)
+    part = torch.where(mine[..., None], table[local.clamp(0, rows - 1)], 0.0)
+    return tp.reduce(part)
+
+
+def _profile_bags(table, flat, tp=None):
+    """The mean bags of ``flat`` (bags, slots) over the profile table; with
+    ``tp``, the kernel's ``sum`` bags of the ids this rank holds (the rest
+    masked; an id past the whole table kept past the piece, so it is
+    refused as it is on one device), summed over the ranks and divided by
+    the global count of valid slots, at least 1e-9 (``kernels/ref.py``)."""
+    if tp is None:
+        return ebk.embedding_bag(table, flat, mode="mean")
+    rows = table.shape[0]
+    local, mine = _owned(flat, rows, tp)
+    past = flat >= rows * tp.size
+    local = torch.where(mine | past, local, -1).to(torch.int32)
+    bags = tp.reduce(ebk.embedding_bag(table, local, mode="sum"))
+    count = (flat >= 0).sum(dim=1, keepdim=True).to(bags.dtype)
+    return bags / count.clamp(min=1e-9)
+
+
+def user_interests(params, cfg: RecsysConfig, hist_ids, profile_ids,
+                   tp=None):
+    """(B, hist_len) history + (B, fields, bag) profile -> (B, K, D); with
+    ``tp`` on this rank's parameter pieces (module docstring)."""
     B = hist_ids.shape[0]
     D = cfg.embed_dim
     mask = hist_ids >= 0
-    e = params["item_embed"][hist_ids.clamp(min=0).long()]
+    e = _gather_rows(params["item_embed"], hist_ids.clamp(min=0), tp)
     e = e @ params["bilinear"]  # shared bilinear map (B2I)
     caps = dynamic_routing(e, mask, cfg.n_interests, cfg.capsule_iters)
     # profile: one EmbeddingBag per multi-hot field
     flat = profile_ids.reshape(B * cfg.n_profile_fields, -1)
-    bags = ebk.embedding_bag(params["profile_embed"], flat,
-                             mode="mean").reshape(B, cfg.n_profile_fields * D)
+    bags = _profile_bags(params["profile_embed"], flat, tp).reshape(
+        B, cfg.n_profile_fields * D)
     prof = bags @ params["profile_proj"]  # (B, D)
     h = torch.cat([caps, prof[:, None, :].expand(caps.shape)], dim=-1)
     m = params["mlp"]
-    return torch.relu(h @ m["w1"] + m["b1"]) @ m["w2"] + m["b2"]  # (B, K, D)
+    out = torch.relu(h @ m["w1"] + m["b1"]) @ m["w2"]
+    if tp is not None:  # w2's rows over the ranks: sum the partial products
+        out = tp.reduce(out)
+    return out + m["b2"]  # (B, K, D)
 
 
 def label_aware_attention(caps, target_e, p: float = 2.0):
@@ -120,19 +178,30 @@ def mind_train_loss(params, cfg: RecsysConfig, batch: dict):
     return -logp[:, 0].mean()
 
 
-def mind_serve(params, cfg: RecsysConfig, batch: dict):
+def mind_serve(params, cfg: RecsysConfig, batch: dict, tp=None):
     """Online inference: user interest vectors (serve_p99 / serve_bulk)."""
     return user_interests(params, cfg, batch["hist_ids"],
-                          batch["profile_ids"])
+                          batch["profile_ids"], tp)
 
 
-def mind_retrieval(params, cfg: RecsysConfig, batch: dict, top_k: int = 100):
+def mind_retrieval(params, cfg: RecsysConfig, batch: dict, top_k: int = 100,
+                   tp=None):
     """Score one user's interests against `n_candidates` items (batched
-    dot); returns ``(values, indices)`` of the top ``top_k``."""
+    dot); returns ``(values, indices)`` of the top ``top_k``.  With
+    ``tp`` each rank scores the candidates whose rows it holds, 0 for the
+    rest, and the scores are summed over the ranks."""
     caps = user_interests(params, cfg, batch["hist_ids"],
-                          batch["profile_ids"])
-    cand = params["item_embed"][batch["candidate_ids"].long()]  # (C, D)
-    scores = torch.einsum("bkd,cd->bkc", caps, cand).amax(dim=1)  # (B, C)
+                          batch["profile_ids"], tp)
+    ids, table = batch["candidate_ids"], params["item_embed"]
+    if tp is None:
+        cand = table[ids.long()]                                 # (C, D)
+        scores = torch.einsum("bkd,cd->bkc", caps, cand).amax(dim=1)
+    else:
+        rows = table.shape[0]
+        local, mine = _owned(ids, rows, tp)
+        cand = table[local.clamp(0, rows - 1)]
+        scores = tp.reduce(torch.where(mine, torch.einsum(
+            "bkd,cd->bkc", caps, cand).amax(dim=1), 0.0))
     return torch.topk(scores, min(top_k, scores.shape[-1]), dim=-1)
 
 

@@ -36,6 +36,12 @@ divide ``n_kv``, so a rank's columns cut a head).  Decode gathers this
 token's q, k and v, writes k and v on the rank whose sequence piece holds
 position ``len`` (a masked write on the device on every rank), and runs
 ``layers.decode_attention_split``.  Without ``tp`` nothing changes.
+
+A decode cache whose sequence is cut over other ranks than the ``model``
+axis's (``seq``, a ``layers.SequenceSplit``: ``long_500k``, over every
+axis of the mesh) takes the same masked write and split attention on the
+ranks of ``seq``, with or without ``tp``; with ``tp`` alone the sequence
+is cut over ``tp``'s ranks.
 """
 from __future__ import annotations
 
@@ -43,9 +49,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
-from .layers import (NEG_INF, TensorParallel, chunked_attention,
-                     decode_attention, decode_attention_split, rms_norm,
-                     rope, swiglu, swiglu_hidden)
+from .layers import (NEG_INF, SequenceSplit, TensorParallel,
+                     chunked_attention, decode_attention,
+                     decode_attention_split, rms_norm, rope, swiglu,
+                     swiglu_hidden)
 from .moe import moe_apply, moe_param_specs
 from .params import Spec, tree_leaves, tree_init
 
@@ -230,15 +237,18 @@ def _mla_decode(p, cfg: LMConfig, x, positions, cache):
     return out @ p["wo"]
 
 
-def attention_block(p, cfg: LMConfig, x, positions, cache=None, tp=None):
+def attention_block(p, cfg: LMConfig, x, positions, cache=None, tp=None,
+                    seq=None):
     """The attention output.  Without ``cache``: the cache-free form over
     the whole sequence (``chunked_attention``, causal).  With it: ``cache``
     is the layer's caches in :func:`make_kv_cache_specs` order and ``len``,
     a device int32 scalar (GQA ``(k_cache, v_cache, len)``, caches (B, T,
     Hkv, dh); MLA ``(ckv_cache, kr_cache, len)``); this step's entries are
-    written into them in place.  With ``tp``: :func:`_attention_tp`."""
+    written into them in place.  With ``tp``: :func:`_attention_tp`; with
+    ``seq`` alone the caches are this rank's sequence pieces
+    (:func:`_split_decode`)."""
     if tp is not None:
-        return _attention_tp(p, cfg, x, positions, cache, tp)
+        return _attention_tp(p, cfg, x, positions, cache, tp, seq)
     B, S, _ = x.shape
     if cache is not None and cfg.mla is not None:
         return _mla_decode(p, cfg, x, positions, cache)
@@ -246,6 +256,9 @@ def attention_block(p, cfg: LMConfig, x, positions, cache=None, tp=None):
     q, k, v = qkv(p, cfg, x, positions)
     if cache is None:
         out = chunked_attention(q, k, v, causal=True)
+        return out.reshape(B, S, -1) @ p["wo"]
+    if seq is not None:
+        out = _split_decode(q, k, v, cache, seq)
         return out.reshape(B, S, -1) @ p["wo"]
     k_cache, v_cache, length = cache
     # in place of dynamic_update_slice: positions len .. len+S-1
@@ -282,28 +295,45 @@ def _kv_of_heads(k, v, heads: list):
     return k[:, :, heads], v[:, :, heads]
 
 
-def _write_owned(cache, new, length, tp: TensorParallel) -> None:
+def _write_owned(cache, new, length, seq: SequenceSplit) -> None:
     """Write ``new`` (B, 1, Hkv, dh) at position ``length`` of the
     sequence into this rank's piece ``cache`` (B, T, Hkv, dh), which holds
-    positions ``[index * T, (index + 1) * T)``: a masked write on the
-    device (a clamped local index; the old entry written back where the
-    position is not this rank's), so no rank reads ``length`` on the
+    positions ``[seq.index * T, (seq.index + 1) * T)``: a masked write on
+    the device (a clamped local index; the old entry written back where
+    the position is not this rank's), so no rank reads ``length`` on the
     host."""
     T = cache.shape[1]
-    local = length.long() - tp.index * T
+    local = length.long() - seq.index * T
     own = (local >= 0) & (local < T)
     idx = local.clamp(0, T - 1).reshape(1)
     cache.index_copy_(1, idx, torch.where(own, new.to(cache.dtype),
                                           cache.index_select(1, idx)))
 
 
-def _attention_tp(p, cfg: LMConfig, x, positions, cache, tp: TensorParallel):
+def _split_decode(q, k, v, cache, seq: SequenceSplit,
+                  tp: TensorParallel | None = None):
+    """One token's attention over this rank's sequence pieces ``cache``
+    (``(k_cache, v_cache, len)``): every head's q (B, 1, H, dh), k and v
+    (B, 1, Hkv, dh); k and v written on the rank of ``seq`` that holds
+    position ``len``, then :func:`layers.decode_attention_split` (with
+    ``tp``, this rank's heads of it)."""
+    if q.shape[1] != 1:
+        raise ValueError(f"decode over a split sequence takes one token a "
+                         f"step, got {q.shape[1]}")
+    k_cache, v_cache, length = cache
+    _write_owned(k_cache, k, length, seq)
+    _write_owned(v_cache, v, length, seq)
+    return decode_attention_split(q, k_cache, v_cache, length + 1, seq, tp)
+
+
+def _attention_tp(p, cfg: LMConfig, x, positions, cache, tp: TensorParallel,
+                  seq: SequenceSplit | None = None):
     """GQA attention with this rank's weight pieces: column-parallel
     ``wq``/``wk``/``wv``, row-parallel ``wo``.  Without ``cache``, the
     causal ``chunked_attention`` of this rank's ``H / M`` query heads.
-    With it (one token), every head's q, k, v gathered, k and v written
-    on the rank that holds position ``len``, and the split attention over
-    the cache pieces (:func:`layers.decode_attention_split`)."""
+    With it (one token), every head's q, k, v gathered and
+    :func:`_split_decode` over the cache pieces of ``seq`` (by default
+    the sequence cut over ``tp``'s ranks)."""
     if cfg.mla is not None:
         raise NotImplementedError("MLA under tensor parallelism")
     B, S, _ = x.shape
@@ -311,9 +341,6 @@ def _attention_tp(p, cfg: LMConfig, x, positions, cache, tp: TensorParallel):
     nh = H // M
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cache is not None:
-        if S != 1:
-            raise ValueError(f"tensor-parallel decode takes one token a "
-                             f"step, got {S}")
         # one gather: every rank's q, k and v columns side by side
         nq, nk = q.shape[-1], k.shape[-1]
         parts = tp.comm.all_gather(torch.cat([q, k, v], dim=-1))
@@ -321,11 +348,8 @@ def _attention_tp(p, cfg: LMConfig, x, positions, cache, tp: TensorParallel):
                    for a, b in ((0, nq), (nq, nq + nk), (nq + nk, None)))
         q, k = _qk_rope(p, cfg, q.reshape(B, S, H, dh),
                         k.reshape(B, S, Hkv, dh), positions)
-        v = v.reshape(B, S, Hkv, dh)
-        k_cache, v_cache, length = cache
-        _write_owned(k_cache, k, length, tp)
-        _write_owned(v_cache, v, length, tp)
-        out = decode_attention_split(q, k_cache, v_cache, length + S, tp)
+        seq = seq or SequenceSplit(tp.comm, tp.size, tp.index)
+        out = _split_decode(q, k, v.reshape(B, S, Hkv, dh), cache, seq, tp)
     else:
         if Hkv % M:  # this rank's columns cut a kv head: k, v whole
             k, v = tp.gather(k), tp.gather(v)
@@ -371,9 +395,9 @@ def _layer_slice(gp, i: int) -> dict:
 
 
 def _layer(cfg: LMConfig, x, lp, positions, use_moe: bool, cache=None,
-           tp=None):
+           tp=None, seq=None):
     a = attention_block(lp["attn"], cfg, rms_norm(x, lp["ln_attn"]), positions,
-                        cache, tp)
+                        cache, tp, seq)
     x = x + a
     h = rms_norm(x, lp["ln_mlp"])
     if use_moe and tp is not None:
@@ -384,14 +408,14 @@ def _layer(cfg: LMConfig, x, lp, positions, use_moe: bool, cache=None,
 
 
 def lm_forward(params, cfg: LMConfig, tokens, positions=None, caches=None,
-               tp=None):
+               tp=None, seq=None):
     """tokens (B, S) -> (hidden (B, S, E), caches).  Without ``caches`` the
     cache-free forward (prefill, training), returning ``None`` for them,
     each layer under activation checkpointing when grad is enabled; with
     them (:func:`make_kv_caches`, under any keys beside ``len``) each
     layer's entries are written in place and ``len`` advanced.  With
-    ``tp`` the params and caches are this rank's pieces (module
-    docstring)."""
+    ``tp`` the params and caches are this rank's pieces, with ``seq`` the
+    caches' sequence pieces over its ranks (module docstring)."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -412,7 +436,7 @@ def lm_forward(params, cfg: LMConfig, tokens, positions=None, caches=None,
             cache = None if caches is None else (
                 *(caches[k][offset + i] for k in cache_keys), length)
             x = _layer(cfg, x, _layer_slice(gp, i), positions, use_moe, cache,
-                       tp)
+                       tp, seq)
         offset += depth
     if caches is not None:
         caches["len"] = length + S
@@ -483,11 +507,12 @@ def serve_prefill(params, cfg: LMConfig, tokens, tp=None):
     return lm_logits(params, cfg, hidden[:, -1:, :])
 
 
-def serve_decode(params, cfg: LMConfig, tokens, caches, tp=None):
+def serve_decode(params, cfg: LMConfig, tokens, caches, tp=None, seq=None):
     """One decode step: tokens (B, 1) + caches -> (logits, caches), the
-    caches updated in place (with ``tp``: this rank's cache pieces and
-    vocab columns)."""
+    caches updated in place (with ``tp``: this rank's weight pieces and
+    vocab columns; with ``tp`` or ``seq``: this rank's cache pieces)."""
     B = tokens.shape[0]
     positions = caches["len"].reshape(1, 1).expand(B, 1)
-    hidden, caches = lm_forward(params, cfg, tokens, positions, caches, tp)
+    hidden, caches = lm_forward(params, cfg, tokens, positions, caches, tp,
+                                seq)
     return lm_logits(params, cfg, hidden), caches

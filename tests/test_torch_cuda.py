@@ -1198,6 +1198,63 @@ def test_flash_decode_pieces_read_no_position_past_cache_len(dev):
     _close(got, want, DECODE_TOL["float32"], "pieces, per-row lengths")
 
 
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
+def test_flash_decode_on_four_pieces_of_one_row(dev, dtype):
+    """long_500k's layout at a smaller T: a batch of 1 whose sequence is
+    cut into 4 pieces (one a rank of a 2 x 2 mesh), Qwen3-0.6B's heads; the
+    split kernel on each piece at its offset and the combine over the 4
+    against their plain versions and the whole cache's plain attention, at
+    lengths inside each piece and on both sides of each boundary."""
+    B, T, Hkv, G, d, P = 1, 32768, 8, 2, 128, 4
+    q, k, v = (torch.as_tensor(a, device=dev).to(getattr(torch, dtype))
+               for a in decode_case(np.random.default_rng(29), B, Hkv, G, T,
+                                    d))
+    Tp = T // P
+    lens = sorted({1, Tp // 3, T - 3, T,
+                   *(x for p in range(1, P)
+                     for x in (p * Tp - 2, p * Tp, p * Tp + 1))})
+    fdk.reset_launch_counts()
+    for n in lens:
+        _hold_pieces(q, k, v, torch.tensor(n, dtype=torch.int32, device=dev),
+                     P, dtype, f"{dtype} B=1 pieces {n}")
+    torch.cuda.synchronize(dev)
+    assert fdk.LAUNCHES["flash_decode"] == P * len(lens)
+    assert fdk.LAUNCHES["flash_decode_combine"] == len(lens)
+
+
+@pytest.mark.parametrize("dtype", BAG_DTYPES)
+@pytest.mark.parametrize("M", [2, 4])
+def test_embedding_bag_on_a_row_piece_matches_plain(dev, dtype, M):
+    """MIND's profile bags with the table's rows over M ranks: each
+    piece's ``sum`` bags of its local ids (the ids it does not hold
+    masked, about (M - 1) / M of the slots, and a quarter masked before)
+    against ``bag_plain``; the pieces' sums over the global count of
+    valid slots against the whole table's mean bags."""
+    rng = np.random.default_rng(31 + M)
+    N, D, B, L = 4000, 64, 4096, 16
+    table, idx, _ = (torch.as_tensor(a, device=dev)
+                     for a in bag_case(rng, N, D, B, L))
+    table = table.to(getattr(torch, dtype))
+    rows = N // M
+    total = torch.zeros((B, D), dtype=torch.float32, device=dev)
+    ebk.reset_launch_counts()
+    for r in range(M):
+        local = idx.long() - r * rows
+        mine = (idx >= 0) & (local >= 0) & (local < rows)
+        ids = torch.where(mine, local, -1).to(torch.int32)
+        piece = table[r * rows:(r + 1) * rows].contiguous()
+        got = ebk.embedding_bag(piece, ids, mode="sum")
+        _close(got, ebk.bag_plain(piece, ids, None, "sum"), BAG_TOL[dtype],
+               f"{dtype} piece {r} of {M}")
+        total += got.float()
+    count = (idx >= 0).sum(dim=1, keepdim=True).float().clamp(min=1e-9)
+    want = ebk.embedding_bag_plain(table, idx, mode="mean")
+    _close((total / count).to(table.dtype), want, BAG_TOL[dtype],
+           f"{dtype} global mean over {M} pieces")
+    torch.cuda.synchronize(dev)
+    assert ebk.LAUNCHES["embedding_bag"] == M
+
+
 # ----------------------------------------------------------------- serving
 def test_mind_serving_on_the_card_matches_plain(dev, monkeypatch):
     from repro_torch.configs import get_config

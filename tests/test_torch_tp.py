@@ -1,5 +1,6 @@
 """Megatron tensor parallelism for dense LM serving over a ``model`` axis
-wider than 1, against the one-device step and the JAX package.
+wider than 1, and ``long_500k``'s cache sequence split over every axis,
+against the one-device step and the JAX package.
 
 The port's ranks are gloo processes on the CPU (``torch_pg_ranks.tp_cases``,
 which imports no JAX), started once per mesh layout ``(data, model)`` in
@@ -10,7 +11,10 @@ at one of :func:`start_lengths`.  Every rank's logits (joined whole) and
 cache pieces are held within 1e-5 of the one-device step cut by the
 reference's placements, and the logits within 2e-4 of the reference's
 bundle jitted with its shardings on forced host devices (the serving
-tests' tolerance).  The flash-decode partials of a sequence cut into
+tests' tolerance).  ``long_500k`` (batch 1) runs three decode steps on
+:data:`LONG_LAYOUTS`, its sequence cut into D * M pieces, from each
+:func:`long_lengths`; exactly one rank writes each step's k and v.  The
+flash-decode partials of a sequence cut into
 pieces are held to the whole cache's attention on their plain versions
 (the kernels themselves are held to those on the card,
 ``tests/test_torch_cuda.py``).
@@ -40,6 +44,8 @@ TESTS = ROOT / "tests"
 CPU = torch.device("cpu")
 ARCHS = ("qwen3-0.6b", "qwen3-14b", "yi-34b")
 LAYOUTS = ((1, 2), (1, 4), (2, 2))
+#: long_500k's layouts: the sequence over every axis, with and without TP
+LONG_LAYOUTS = ((1, 2), (2, 1), (2, 2))
 DECODE_STEPS = 3
 ONE_DEVICE_TOL = 1e-5
 REFERENCE_TOL = 2e-4
@@ -54,21 +60,47 @@ def start_lengths(T: int, M: int) -> dict:
             "last": T - DECODE_STEPS}
 
 
+def long_lengths(T: int, P: int) -> dict:
+    """``len`` before long_500k's first decode step, its sequence of T in P
+    pieces: 0; inside piece 0; one below each piece boundary; T - 3."""
+    out = {"zero": 0, "inside": 5}
+    out.update({f"boundary{p}": p * T // P - 1 for p in range(1, P)})
+    out["last"] = T - DECODE_STEPS
+    return out
+
+
+def _long_T() -> int:
+    _, av = steps.build_step(ARCHS[0], "long_500k", reduced=True).args[1:]
+    return av["k"][0][2]
+
+
+RUN_LAYOUTS = LAYOUTS + tuple(lo for lo in LONG_LAYOUTS if lo not in LAYOUTS)
+LONG_STARTS = [(layout, tag) for layout in LONG_LAYOUTS
+               for tag in long_lengths(_long_T(), layout[0] * layout[1])]
+
+
 def _layout_name(layout) -> str:
     return "x".join(map(str, layout))
 
 
 def _cases(layout) -> dict:
-    M = layout[1]
-    _, av = steps.build_step(ARCHS[0], "decode_32k", reduced=True).args[1:]
-    T = av["k"][0][2]
+    D, M = layout
     cases = {}
-    for arch in ARCHS:
-        cases[f"{arch}|prefill"] = {"arch": arch, "shape": "prefill_32k"}
-        for tag, n in start_lengths(T, M).items():
-            cases[f"{arch}|decode|{tag}"] = {"arch": arch,
-                                             "shape": "decode_32k",
-                                             "len": n}
+    if layout in LAYOUTS:
+        _, av = steps.build_step(ARCHS[0], "decode_32k",
+                                 reduced=True).args[1:]
+        T = av["k"][0][2]
+        for arch in ARCHS:
+            cases[f"{arch}|prefill"] = {"arch": arch, "shape": "prefill_32k"}
+            for tag, n in start_lengths(T, M).items():
+                cases[f"{arch}|decode|{tag}"] = {"arch": arch,
+                                                 "shape": "decode_32k",
+                                                 "len": n}
+    if layout in LONG_LAYOUTS:
+        for tag, n in long_lengths(_long_T(), D * M).items():
+            cases[f"{ARCHS[0]}|long|{tag}"] = {"arch": ARCHS[0],
+                                               "shape": "long_500k",
+                                               "len": n}
     return cases
 
 
@@ -165,7 +197,7 @@ def tp_runs(tmp_path_factory):
                  **{n: t.detach().numpy() for n, t in
                     tree_leaves(params[arch])})
     one = {}
-    for layout in LAYOUTS:
+    for layout in RUN_LAYOUTS:
         lname = _layout_name(layout)
         (case_dir / lname).mkdir()
         cases = _cases(layout)
@@ -186,7 +218,7 @@ def tp_runs(tmp_path_factory):
                             for i, t in enumerate(x["tokens"])})
             one[lname, name] = _one_device(params[case["arch"]], case, x)
     (case_dir / "layouts.json").write_text(json.dumps(
-        {_layout_name(lo): lo for lo in LAYOUTS}))
+        {_layout_name(lo): lo for lo in RUN_LAYOUTS}))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(TESTS)]), JAX_PLATFORMS="cpu",
         XLA_FLAGS="--xla_force_host_platform_device_count=4")
@@ -196,7 +228,7 @@ def tp_runs(tmp_path_factory):
                            cwd=ROOT)
     outs = {}
     try:
-        for layout in LAYOUTS:
+        for layout in RUN_LAYOUTS:
             lname = _layout_name(layout)
             out = tmp_path_factory.mktemp(f"tp_ranks_{lname}")
             run_ranks("torch_pg_ranks:tp_cases", layout[0] * layout[1],
@@ -212,7 +244,7 @@ def tp_runs(tmp_path_factory):
             ref.wait()
     assert ref.returncode == 0 and "REFERENCE_TP_OK" in stdout, \
         stderr[-3000:]
-    return {"one": one, "outs": outs, "ref": ref_dir}
+    return {"one": one, "outs": outs, "ref": ref_dir, "case_dir": case_dir}
 
 
 def _one_device(params, case, x):
@@ -239,9 +271,14 @@ def _close(got, want, tol, what):
 
 
 def _hold_logits(runs, lname, name, layout, recs):
+    """Every rank's joined logits against the one-device step and the
+    reference, and its vocab piece (batch over data, but for long_500k's
+    batch of 1) against the one-device step's."""
     one = runs["one"][lname, name]
     cfg = get_config(name.split("|")[0]).reduced()
     D, M = layout
+    if "|long|" in name:
+        D = 1
     key = name.replace("|", "__")
     with np.load(runs["ref"] / f"{lname}.npz") as z:
         for r, rec in enumerate(recs):
@@ -258,8 +295,9 @@ def _hold_logits(runs, lname, name, layout, recs):
                 B = one["logits"][i].shape[0]
                 assert piece.shape == (B // D, 1, cfg.vocab // M)
                 c = rec["coords"]
+                row = c["data"] if D > 1 else 0
                 want = one["logits"][i][
-                    c["data"] * (B // D):(c["data"] + 1) * (B // D), :,
+                    row * (B // D):(row + 1) * (B // D), :,
                     c["model"] * (cfg.vocab // M):
                     (c["model"] + 1) * (cfg.vocab // M)]
                 _close(piece, want, ONE_DEVICE_TOL,
@@ -304,6 +342,60 @@ def test_tp_decode_equals_one_device_and_the_reference(tp_runs, arch, layout,
             start_lengths(T, M)[start] + DECODE_STEPS
 
 
+@pytest.mark.parametrize("layout,start", LONG_STARTS,
+                         ids=[f"{_layout_name(lo)}-{t}" for lo, t in
+                              LONG_STARTS])
+def test_long_500k_sequence_over_every_axis(tp_runs, layout, start):
+    """Three long_500k decode steps, the cache sequence cut over all D * M
+    ranks data-major: every rank's joined logits held as the decode
+    cases' are, its sequence piece equal to the one-device step's cache
+    cut at ``index * T / (D * M)``, and each step's k and v written on
+    exactly one rank."""
+    lname, name = _layout_name(layout), f"{ARCHS[0]}|long|{start}"
+    recs = _rank_records(tp_runs, lname, name, layout)
+    _hold_logits(tp_runs, lname, name, layout, recs)
+    one = tp_runs["one"][lname, name]
+    D, M = layout
+    P = D * M
+    L, B, T = one["caches"]["k"].shape[:3]
+    assert B == 1
+    for r, rec in enumerate(recs):
+        c = rec["coords"]
+        p = c["data"] * M + c["model"]
+        for key in ("k", "v"):
+            piece = rec["caches"][key]
+            assert piece.shape == (L, B, T // P, *one["caches"][key]
+                                   .shape[3:])
+            want = one["caches"][key][:, :, p * (T // P):(p + 1) * (T // P)]
+            _close(piece, want, ONE_DEVICE_TOL,
+                   f"{lname} {name} rank {r} cache {key}")
+        assert int(rec["caches"]["len"]) == \
+            long_lengths(T, P)[start] + DECODE_STEPS
+    for i in range(DECODE_STEPS):
+        assert sum(rec["written"][i] for rec in recs) == 1, (name, i)
+
+
+def test_long_500k_on_data_ranks_attends_the_whole_cache(tp_runs):
+    """On a (2, 1) mesh (no tensor parallelism) each rank's logits are the
+    whole cache's: far from the one-device step run on rank 0's piece
+    alone, the answer a rank would give if it ignored the split."""
+    layout = (2, 1)
+    lname, name = _layout_name(layout), f"{ARCHS[0]}|long|last"
+    recs = _rank_records(tp_runs, lname, name, layout)
+    one = tp_runs["one"][lname, name]
+    x = torch.load(tp_runs["case_dir"] / lname / f"{name}.pt")
+    T = x["caches"]["k"].shape[2]
+    piece = {k: x["caches"][k][:, :, :T // 2].clone() for k in ("k", "v")}
+    piece["len"] = torch.tensor(T // 2 - 1, dtype=torch.int32)
+    b = steps.build_step(ARCHS[0], "long_500k", reduced=True)
+    params = torch.load(tp_runs["case_dir"] / f"{ARCHS[0]}.pt")
+    alone, _ = b.fn(params, x["tokens"][0], piece)
+    for rec in recs:
+        _close(rec["logits"][0], one["logits"][0], ONE_DEVICE_TOL, "whole")
+        err = float((rec["logits"][0] - alone).abs().max())
+        assert err > 100 * ONE_DEVICE_TOL, err
+
+
 @pytest.mark.parametrize("layout", LAYOUTS, ids=_layout_name)
 def test_no_model_split_weight_is_gathered_whole(tp_runs, layout):
     """No all-gather in any case's steps takes a weight piece as its
@@ -337,9 +429,7 @@ RAISES = {
     "deepseek-v3 decode": ("deepseek-v3-671b", "decode_32k", (1, 2),
                            "MLA's latent"),
     "arctic prefill": ("arctic-480b", "prefill_32k", (1, 2), "MoE experts"),
-    "long_500k": ("qwen3-0.6b", "long_500k", (1, 2), "long_500k"),
-    "mind serve": ("mind", "serve_p99", (1, 2), "MIND's serve"),
-    "mind retrieval": ("mind", "retrieval_cand", (1, 2), "MIND's retrieval"),
+    "moe data ranks": ("arctic-480b", "decode_32k", (2, 1), "MoE capacity"),
     "mind train": ("mind", "train_batch", (1, 2), "MIND's train"),
     "lm train": ("qwen3-0.6b", "train_4k", (1, 2), "LM train"),
     "heads not divided": ("qwen3-14b", "prefill_32k", (1, 3),

@@ -200,7 +200,8 @@ def tp_cases(case_dir: str, params_dir: str, out_dir: str, data: str,
     (``<params_dir>/<arch>.pt``, ``<case_dir>/<case>.pt`` written by the
     test) cut to this rank's pieces, the
     prefill or every decode step run; every rank writes its pieces, the
-    logits joined whole and the gathers it made (``<case>_<rank>.pt``).
+    logits joined whole, whether each decode step wrote into its cache
+    pieces and the gathers it made (``<case>_<rank>.pt``).
     Then the weights gathered as they are, once, to show the spy sees
     it."""
     from repro_torch.launch.mesh import Mesh, _device_mesh
@@ -232,9 +233,14 @@ def tp_cases(case_dir: str, params_dir: str, out_dir: str, data: str,
             else:
                 _, _, caches = local_args(b, None, None, args["caches"])
                 rec["logits"], rec["logits_pieces"] = [], []
+                rec["written"] = []
                 for tok in args["tokens"]:
                     _, tokens, _ = local_args(b, None, tok, None)
+                    before = [caches[k].clone() for k in ("k", "v")]
                     logits, caches = b.fn(params, tokens, caches)
+                    rec["written"].append(not all(
+                        torch.equal(x, caches[k])
+                        for x, k in zip(before, ("k", "v"))))
                     rec["logits_pieces"].append(logits)
                     rec["logits"].append(
                         _whole(logits, b.out_shardings[0]))
@@ -249,3 +255,52 @@ def tp_cases(case_dir: str, params_dir: str, out_dir: str, data: str,
         _zip_map(_whole, params, b.in_shardings[0])
     torch.save({"gathers": spy.calls, "weight_gathers": spy.of_weights},
                os.path.join(out_dir, f"control_{rank}.pt"))
+
+
+def tp_mind_gnn_cases(case_dir: str, out_dir: str, data: str,
+                      model: str) -> None:
+    """MIND's serve and retrieval steps and the GNN train step over a
+    ``(data, model)`` mesh of the group: each case's global arguments
+    (``<case_dir>/<case>.pt``, MIND's whole parameters in ``mind.pt``) cut
+    to this rank's pieces, the step run and its outputs joined whole.  A
+    MIND case also writes the profile bags of its whole batch on this
+    rank's row piece (summed over ``model``), and an ``IndexError`` the
+    step raised.  Every rank writes ``<case>_<rank>.pt``."""
+    from repro_torch.launch.mesh import Mesh, _device_mesh
+    from repro_torch.launch.steps import (_model_tp, build_step,
+                                          gather_outputs, local_args)
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamWConfig
+
+    torch.set_num_threads(1)
+    shape, axes = (int(data), int(model)), ("data", "model")
+    mesh = Mesh(shape, axes, [CPU], _device_mesh(shape, axes, CPU))
+    rank = dist.get_rank()
+    with open(os.path.join(case_dir, "cases.json")) as f:
+        cases = json.load(f)
+    mind = torch.load(os.path.join(case_dir, "mind.pt"))
+    for name, case in cases.items():
+        args = torch.load(os.path.join(case_dir, f"{name}.pt"))
+        rec = {"coords": mesh.coords()}
+        if case["arch"] == "mind":
+            b = build_step("mind", case["shape"], mesh, reduced=True)
+            params, batch = local_args(b, mind, args)
+            try:
+                rec["out"] = gather_outputs(b, b.fn(params, batch))
+            except IndexError as e:
+                rec["raised"] = str(e)
+            with torch.inference_mode():
+                flat = args["profile_ids"].reshape(
+                    -1, args["profile_ids"].shape[-1])
+                try:
+                    rec["bags"] = recsys._profile_bags(
+                        params["profile_embed"], flat, _model_tp(mesh))
+                except IndexError as e:
+                    rec["bags_raised"] = str(e)
+        else:
+            b = build_step(case["arch"], case["shape"], mesh, reduced=True,
+                           opt=AdamWConfig(lr=case["lr"]))
+            params, state, loss = gather_outputs(
+                b, b.fn(*local_args(b, *args)))
+            rec.update(params=params, state=state, loss=loss)
+        torch.save(rec, os.path.join(out_dir, f"{name}_{rank}.pt"))
