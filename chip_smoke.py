@@ -186,6 +186,21 @@ Phases, each printing one JSON line:
              its losses equal to an uninterrupted run's.  Each prints ms a
              step, tokens or users a second, peak device memory and the
              loss curve
+  tp_train   training over a (data, model) = (1, 2) mesh of two gloo ranks
+             sharing the card (this script's tp_train_rank), each held to
+             a one-device control run first at the same depth, batch and
+             seed: Qwen3-0.6B's train_4k at full width (28 layers cut to
+             4, 256 x 4,096 tokens to 2 x 4,096), three steps under
+             Megatron tensor parallelism (the vocab-parallel loss, the
+             moments kept as model pieces), losses within 2e-3 relative,
+             every parameter and moment piece within its stated limit of
+             the control's; MIND's train_batch at full width with its rows
+             over model (65,536 users cut to 8,192), three steps, saved
+             whole after step 1 and restored onto the placements, each
+             loss within 1e-4 of the uninterrupted control's, kernel #4
+             launched once a step on each rank's row piece and held bit
+             for bit to the slot-order sum there.  Each rank prints ms a
+             step, the collectives' share and peak device memory
   gnn        the GNN zoo at full width through build_step and make_source
              (the reference's cells, uncut; plain torch, no kernel): GCN
              on full_graph_sm (Cora's 2,708 nodes, 1,433 features),
@@ -219,7 +234,10 @@ kernel #4 in MIND's cells; kernel #5 also timed at one 131,072-position
 piece a rank and its combine over four under ``tp_serve_pieces``, kernel
 #4 at a model rank's row piece under ``tp_serve_local``), on Arctic's
 (``lm_moe_launches``), on MIND's train steps (``train_launches``;
-the bag's figures at the train shape under ``train_batch``) and on the
+the bag's figures at the train shape under ``train_batch``), on the
+tp_train phase's ranks (``tp_train_launches``: kernel #4 in MIND's
+steps; kernel #4 at a rank's row piece of those bags, with its plain
+backward, under ``tp_train_local``) and on the
 GNN runs (``gnn_launches``, 0: the GNN path has no kernel),
 error against the plain version,
 times and bounds; the superstep pair and the segment sums
@@ -410,6 +428,30 @@ TRAIN_LOSS_REL = 1e-6
 #: (float32, the card's atomics reorder sums between runs): relative to
 #: max(1, |loss|)
 TRAIN_RESUME_TOL = 1e-5
+#: tp_train: two gloo ranks sharing cuda:0 on a (data, model) =
+#: TP_TRAIN_MESH mesh, each held to a one-device control run first at the
+#: same depth, batch and seed (then freed).  Qwen3-0.6B's train_4k at full
+#: width, 28 layers cut to TP_TRAIN_LAYERS and the batch from 256 x 4,096
+#: to TP_TRAIN_LM (one 8,192-token microbatch); MIND's train_batch at full
+#: width with its rows over model, 65,536 users cut to TP_TRAIN_USERS (its
+#: history and negatives all-reduces go through the host), saved whole
+#: after step 1 and restored onto the placements before step 2.  Each
+#: runs TP_TRAIN_STEPS steps at TRAIN_LR, the first a warm-up
+TP_TRAIN_MESH = (1, 2)
+TP_TRAIN_LAYERS = 4
+TP_TRAIN_LM = (2, 4096)
+TP_TRAIN_USERS = 8192
+TP_TRAIN_STEPS = 3
+#: the LM's loss against the control's, relative
+TP_TRAIN_LOSS_REL = 2e-3
+#: the LM's bf16 parameters against the control's after the steps: an
+#: element within 2 x TRAIN_LR a step (AdamW moves it by about lr x
+#: sign(g), and a gradient near 0 may turn its sign between the two) plus
+#: two bf16 steps of its size; the float32 moments m and v within these
+#: shares of their leaf's largest (the control's kept in bf16 to compare)
+TP_TRAIN_MOMENT_REL = {"m": 0.05, "v": 0.1}
+#: MIND's loss (float32) against the control's: absolute, x max(1, |loss|)
+TP_TRAIN_MIND_TOL = 1e-4
 #: the gnn phase: (run, arch, cell, the source's steps of its three train
 #: steps) at full width, build_step(..., reduced=False) on make_source's
 #: batches (the reference's cells, uncut), AdamW at TRAIN_LR
@@ -3483,10 +3525,10 @@ def timed_collectives(sync):
     coll = {"calls": 0, "s": 0.0, "bytes": 0}
 
     def timed(fn):
-        def collective(self, x):
+        def collective(self, x, *a, **kw):
             sync()
             t = time.perf_counter()
-            y = fn(self, x)
+            y = fn(self, x, *a, **kw)
             sync()
             coll["s"] += time.perf_counter() - t
             coll["calls"] += 1
@@ -4353,6 +4395,363 @@ def phase_train(device) -> tuple:
     return launches, bag_train
 
 
+def tp_train_inputs(spec: dict) -> tuple:
+    """``(LM cfg, MIND cfg, LM batches, MIND batches)`` of the tp_train
+    phase from its ``spec``: host tensors, one batch a step
+    (``TokenSource`` / ``RecsysSource`` seed 0)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import RecsysSource, TokenSource
+
+    lcfg, mcfg = get_config(spec["arch"]), get_config("mind")
+    if spec["reduced"]:
+        lcfg, mcfg = lcfg.reduced(), mcfg.reduced()
+    if spec["layers"]:
+        lcfg = replace(lcfg, n_layers=spec["layers"])
+    B, S = spec["lm"]
+    tok, rec = TokenSource(B, S, lcfg.vocab, seed=0), RecsysSource(
+        mcfg, spec["users"], seed=0)
+    lm = [tuple(torch.as_tensor(tok(i)[k]) for k in ("tokens", "labels"))
+          for i in range(spec["steps"])]
+    mind = [{k: torch.as_tensor(v) for k, v in rec(i).items()}
+            for i in range(spec["steps"])]
+    return lcfg, mcfg, lm, mind
+
+
+def tp_train_builds(spec: dict, lcfg, mcfg, mesh=None) -> tuple:
+    """The LM and MIND train steps of the tp_train phase on ``mesh``
+    (None: one device), AdamW at ``spec["lr"]``: the LM's on the cut
+    ``(B, S)`` avals (one microbatch)."""
+    import torch
+
+    from repro_torch.launch import steps
+
+    B, S = spec["lm"]
+    avals = {k: ((B, S), torch.int32) for k in ("tokens", "labels")}
+    lm = steps._build_lm(lcfg, "train_4k", "train", avals, mesh,
+                         steps.default_opt(lcfg, lr=spec["lr"]), False)
+    mind = steps.build_step("mind", "train_batch", mesh,
+                            reduced=spec["reduced"],
+                            opt=steps.default_opt(mcfg, lr=spec["lr"]))
+    return lm, mind
+
+
+def _on_host(tree, dtype=None):
+    """A host copy of a tree of tensors (in ``dtype``, if given)."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_on_host(x, dtype) for x in tree)
+    if hasattr(tree, "keys"):
+        return {k: _on_host(tree[k], dtype) for k in tree.keys()}
+    return tree.detach().to("cpu", dtype)
+
+
+def tp_train_rank(run_dir: str, device_type: str) -> None:
+    """One rank of the tp_train phase (started by ``run_ranks``): the mesh
+    ``spec["mesh"]`` over the group on ``cuda:(rank % visible cards)`` (or
+    the CPU for a rehearsal).  The LM: this rank's pieces of the seeded
+    weights and fresh AdamW state, the train steps through the mesh step,
+    each timed with its collectives; then its parameter and moment pieces
+    held to the one-device control's (``lm_control.pt``, memmapped, cut
+    the same way).  MIND: the same, the bag's launches counted from 0
+    around each step; after step 1 the joined (params, state) saved whole
+    by rank 0 and restored onto the placements; then kernel #4 on this
+    rank's profile rows at the last batch against the slot-order sum.
+    Writes ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.kernels.ref import embedding_bag_slot_order
+    from repro_torch.launch.mesh import Mesh, _device_mesh
+    from repro_torch.launch.steps import gather_outputs, local_args
+    from repro_torch.models import recsys
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import checkpoint
+
+    t_rank = time.perf_counter()
+    rank = dist.get_rank()
+    card = device_type == "cuda"
+    device = torch.device("cuda", rank % torch.cuda.device_count()) \
+        if card else torch.device("cpu")
+    if card:
+        torch.cuda.set_device(device)
+    with open(os.path.join(run_dir, "spec.json")) as f:
+        spec = json.load(f)
+    shape, axes = tuple(spec["mesh"]), ("data", "model")
+    mesh = Mesh(shape, axes, [device], _device_mesh(shape, axes, device))
+    rec = {"rank": rank, "coords": mesh.coords(),
+           "backend": dist.get_backend(), "device": str(device)}
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(device)
+
+    def steps_of(b, params, state, batches, after=None) -> tuple:
+        """The steps, each timed (ms, collectives' ms and calls)."""
+        out = {"losses": [], "step_ms": [], "collective_ms": [],
+               "collective_calls": [], "launches": []}
+        for i, batch in enumerate(batches):
+            batch = local_args(b, None, None, *batch)[2:]
+            collectives()
+            ebk.reset_launch_counts()
+            sync()
+            t = time.perf_counter()
+            params, state, loss = b.fn(params, state, *batch)
+            sync()
+            out["step_ms"].append(1e3 * (time.perf_counter() - t))
+            out["launches"].append(dict(ebk.LAUNCHES))
+            c = collectives()
+            out["collective_ms"].append(1e3 * c["s"])
+            out["collective_calls"].append(c["calls"])
+            out["losses"].append(float(loss))
+            if after is not None:
+                params, state = after(i, params, state)
+        steady = out["step_ms"][1:] or out["step_ms"]
+        coll = out["collective_ms"][1:] or out["collective_ms"]
+        out.update(ms_per_step=float(np.mean(steady)),
+                   collective_share=float(np.sum(coll) / np.sum(steady)))
+        return params, state, out
+
+    collectives = timed_collectives(sync)
+    lcfg, mcfg, lm_batches, mind_batches = tp_train_inputs(spec)
+    lm, mind = tp_train_builds(spec, lcfg, mcfg, mesh)
+    # ---- the LM: Megatron TP, the vocab-parallel loss
+    t = time.perf_counter()
+    whole = tfm.lm_init(lcfg, torch.Generator(device).manual_seed(0))
+    params, state = local_args(lm, whole, adamw_init(whole, lm.static[
+        "opt"]))[:2]
+    del whole
+    sync()
+    rec["lm_init_s"] = time.perf_counter() - t
+    if card:
+        free_card(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    params, state, rec["lm"] = steps_of(
+        lm, params, state, [tuple(x.to(device) for x in b)
+                            for b in lm_batches])
+    rec["lm"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+        device) if card else None
+    t = time.perf_counter()
+    control = torch.load(os.path.join(run_dir, "lm_control.pt"), mmap=True)
+    want_p, want_s = local_args(lm, control["params"], control["state"])[:2]
+    lr, n = spec["lr"], len(lm_batches)
+    worst, unequal, elements = 0.0, 0, 0
+    for (name, got), (_, w) in zip(tree_leaves(params),
+                                   tree_leaves(want_p)):
+        g, w = got.detach().float().cpu(), w.float()
+        err = (g - w).abs()
+        lim = 2 * lr * n + 2 * BF16_STEP * w.abs()
+        worst = max(worst, float((err / lim).max()))
+        unequal += int((err > 0).sum())
+        elements += err.numel()
+    moments = {}
+    for (name, got), (_, w) in zip(tree_leaves(state["mu"]),
+                                   tree_leaves(want_s["mu"])):
+        w = w.float()
+        share = float((got.float().cpu() - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        key = name.rsplit(".", 1)[1]
+        moments[key] = max(moments.get(key, 0.0),
+                           share / TP_TRAIN_MOMENT_REL[key])
+    rec["lm"].update(param_worst_share=worst, params_unequal=unequal,
+                     param_elements=elements, moment_worst_share=moments,
+                     control_losses=control["losses"],
+                     compare_s=time.perf_counter() - t)
+    del params, state, control, want_p, want_s
+    if card:
+        free_card(device)
+    # ---- MIND: rows over model, saved and restored after step 1
+    t = time.perf_counter()
+    whole = recsys.mind_init(mcfg, torch.Generator(device).manual_seed(0))
+    params, state = local_args(mind, whole, adamw_init(whole, mind.static[
+        "opt"]))[:2]
+    del whole
+    sync()
+    rec["mind_init_s"] = time.perf_counter() - t
+    ckpt = os.path.join(run_dir, "mind_ckpt")
+
+    def save_and_restore(i, params, state):
+        if i:
+            return params, state
+        t = time.perf_counter()
+        whole = gather_outputs(mind, (params, state))
+        if rank == 0:
+            checkpoint.save(ckpt, 1, whole)
+        del whole
+        dist.barrier()
+        tree, step = checkpoint.restore(ckpt, (params, state),
+                                        device=device,
+                                        shardings=mind.in_shardings[:2])
+        check(step == 1, f"tp_train rank {rank}: restored step {step}")
+        sync()
+        rec["mind_save_restore_s"] = time.perf_counter() - t
+        return tree
+
+    if card:
+        torch.cuda.reset_peak_memory_stats(device)
+    batches = [({k: v.to(device) for k, v in b.items()},)
+               for b in mind_batches]
+    params, state, rec["mind"] = steps_of(mind, params, state, batches,
+                                          save_and_restore)
+    rec["mind"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+        device) if card else None
+    # kernel #4 on this rank's rows, the last batch's bags
+    table = params["profile_embed"].detach()
+    rows, index = table.shape[0], mesh.axis_index("model")
+    flat = batches[-1][0]["profile_ids"].reshape(-1, mcfg.profile_bag).long()
+    local = flat - index * rows
+    local = torch.where((local >= 0) & (local < rows), local,
+                        -1).to(torch.int32).contiguous()
+    got = ebk.launch_bag(table, local, None, "sum") if card else \
+        ebk.bag_plain(table, local, None, "sum")
+    rec["mind"]["bag_bit_for_bit"] = bool(torch.equal(
+        got, embedding_bag_slot_order(table, local, "sum")))
+    rec["mind"]["bag_masked_share"] = float((local < 0).float().mean())
+    rec["rank_s"] = time.perf_counter() - t_rank
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase_tp_train(device, spec: dict | None = None) -> tuple:
+    """Training over a model axis of 2: the one-device control first
+    (Qwen3-0.6B's train_4k cut as :data:`TP_TRAIN_LAYERS` and
+    :data:`TP_TRAIN_LM`, then MIND's train_batch at
+    :data:`TP_TRAIN_USERS` users, :data:`TP_TRAIN_STEPS` steps each), its
+    LM state saved and freed; then :data:`TP_TRAIN_MESH`'s ranks
+    (:func:`tp_train_rank`, gloo, sharing the card), each holding its
+    losses to the control's (:data:`TP_TRAIN_LOSS_REL`,
+    :data:`TP_TRAIN_MIND_TOL`), its LM pieces to the control's state,
+    MIND's step 2 after the save and restore to the uninterrupted
+    control's, and launching kernel #4 once a MIND step, bit for bit the
+    slot-order sum on its rows.  Returns the kernels' launches summed over
+    the ranks' MIND steps, and kernel #4 timed at a rank's row piece of
+    the train bags."""
+    import torch
+
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import recsys
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+
+    spec = spec or {"arch": "qwen3-0.6b", "reduced": False,
+                    "layers": TP_TRAIN_LAYERS, "mesh": list(TP_TRAIN_MESH),
+                    "lm": list(TP_TRAIN_LM), "users": TP_TRAIN_USERS,
+                    "steps": TP_TRAIN_STEPS, "lr": TRAIN_LR}
+    card = device.type == "cuda"
+    world = spec["mesh"][0] * spec["mesh"][1]
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(device)
+
+    def timed(b, params, state, batches) -> tuple:
+        losses, ms = [], []
+        for batch in batches:
+            sync()
+            t = time.perf_counter()
+            params, state, loss = b.fn(params, state, *batch)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t))
+            losses.append(float(loss))
+        return params, state, {"losses": losses, "step_ms": ms,
+                               "ms_per_step": float(np.mean(ms[1:] or ms))}
+
+    if card:
+        free_card(device)
+    lcfg, mcfg, lm_batches, mind_batches = tp_train_inputs(spec)
+    out = {"phase": "tp_train", **spec,
+           "tolerances": {"lm_loss_rel": TP_TRAIN_LOSS_REL,
+                          "lm_params": "2 x lr a step + 2 bf16 steps",
+                          "lm_moments_of_largest": TP_TRAIN_MOMENT_REL,
+                          "mind_loss": TP_TRAIN_MIND_TOL},
+           "reduced": {"train_4k (B, S)": [[256, 4096], spec["lm"]],
+                       "train_4k layers": [28, lcfg.n_layers],
+                       "train_batch users": [65_536, spec["users"]]}}
+    lm, mind = tp_train_builds(spec, lcfg, mcfg)
+    one = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        params = tfm.lm_init(lcfg, torch.Generator(device).manual_seed(0))
+        state = adamw_init(params, lm.static["opt"])
+        if card:
+            torch.cuda.reset_peak_memory_stats(device)
+        params, state, one["lm"] = timed(
+            lm, params, state, [tuple(x.to(device) for x in b)
+                                for b in lm_batches])
+        one["lm"]["max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated(device) if card else None
+        t0 = time.perf_counter()
+        # the moments in bf16 (2.25 GB saved, not 3.75): a rounding of at
+        # most 2^-9 of a value, against limits of 5% / 10% of the largest
+        torch.save({"params": _on_host(params),
+                    "state": {"step": state["step"].cpu(),
+                              "mu": _on_host(state["mu"], torch.bfloat16)},
+                    "losses": one["lm"]["losses"]},
+                   os.path.join(tmp, "lm_control.pt"))
+        one["lm"]["save_s"] = time.perf_counter() - t0
+        del params, state
+        if card:
+            free_card(device)
+        params = recsys.mind_init(mcfg, torch.Generator(device).manual_seed(0))
+        profile_embed = params["profile_embed"].detach().clone()
+        state = adamw_init(params, mind.static["opt"])
+        params, state, one["mind"] = timed(
+            mind, params, state, [({k: v.to(device) for k, v in b.items()},)
+                                  for b in mind_batches])
+        del params, state
+        if card:
+            free_card(device)
+        out["one_device"] = {**one, "wall_s": time.perf_counter() - t}
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t = time.perf_counter()
+        run_ranks("chip_smoke:tp_train_rank", world, backend="gloo",
+                  args=[tmp, device.type], paths=[ROOT],
+                  timeout=TP_TIMEOUT_S, store_dir=tmp)
+        out["ranks_wall_s"] = time.perf_counter() - t
+        ranks, total = [], {}
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                r = json.load(f)
+            what = f"tp_train rank {rank}"
+            check(r["backend"] == "gloo", f"{what}: backend")
+            for got, want in zip(r["lm"]["losses"], one["lm"]["losses"]):
+                check(abs(got - want) <= TP_TRAIN_LOSS_REL * abs(want),
+                      f"{what}: LM loss {got} against the control's {want}")
+            check(r["lm"]["param_worst_share"] <= 1.0,
+                  f"{what}: an LM parameter off the control's by "
+                  f"{r['lm']['param_worst_share']} x its limit")
+            for key, share in r["lm"]["moment_worst_share"].items():
+                check(share <= 1.0, f"{what}: LM moment {key} off the "
+                      f"control's by {share} x its limit")
+            for i, (got, want) in enumerate(zip(r["mind"]["losses"],
+                                                one["mind"]["losses"])):
+                check(abs(got - want) <= TP_TRAIN_MIND_TOL * max(1.0, abs(
+                    want)), f"{what}: MIND step {i + 1} loss {got} against "
+                    f"the uninterrupted control's {want}")
+            for i, n in enumerate(r["mind"]["launches"]):
+                got = n.get("embedding_bag", 0)
+                check(got == 1, f"{what}: MIND step {i + 1} launched the "
+                      f"bag {got} times")
+                total["embedding_bag"] = total.get("embedding_bag", 0) + got
+            check(r["mind"]["bag_bit_for_bit"], f"{what}: kernel #4 on the "
+                  "rank's rows != the slot-order sum")
+            ranks.append(r)
+    t = time.perf_counter()
+    flat = mind_batches[0]["profile_ids"].reshape(-1, mcfg.profile_bag)
+    entry = local_bag_entry(device, profile_embed, flat.to(device),
+                            backward=True) if card else None
+    out.update(ranks=ranks, launches=total, bag=entry,
+               bag_entry_s=time.perf_counter() - t)
+    emit(out)
+    return total, entry
+
+
 def sage_ball_seeds(graph, count: int, max_edges: int) -> np.ndarray:
     """``count`` nodes (seeded draw, sorted) with at least one neighbour
     whose two-hop in-neighbourhood (the edges into the node and into each
@@ -4653,27 +5052,34 @@ def bag_entries(device, launches, profile_embed, profile_ids) -> list:
     return entries
 
 
-def local_bag_entry(device, profile_embed) -> dict:
-    """Kernel #4 in the tp_serve phase's mode, timed alone: a model rank's
-    ``sum`` bags over its row piece (the first of ``TP_SERVE_BAGS[2]``) of
-    MIND's profile table, at :data:`TP_SERVE_BAGS` bags x slots of
-    serve_p99's seeded ids with those the rank does not hold masked; held
-    to its plain version and, bit for bit, to the slot-order sum; its
-    bound by the bytes it must move (the ids, the bags and each distinct
-    row it reads, once)."""
+def local_bag_entry(device, profile_embed, ids=None,
+                    backward: bool = False) -> dict:
+    """Kernel #4 in the mode of MIND's rows over model, timed alone: a
+    model rank's ``sum`` bags over its row piece (the first of
+    ``TP_SERVE_BAGS[2]``) of MIND's profile table, at ``ids`` (bags x
+    slots; None: :data:`TP_SERVE_BAGS` bags x slots of serve_p99's seeded
+    ids) with those the rank does not hold masked; held to its plain
+    version and, bit for bit, to the slot-order sum; its bound by the
+    bytes it must move (the ids, the bags and each distinct row it reads,
+    once).  With ``backward`` also the bag's backward (plain torch,
+    ``bag_backward``: the gradient of the whole row piece), timed beside
+    its bound."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import embedding_bag as ebk
     from repro_torch.kernels.ref import embedding_bag_slot_order
 
-    B, L, M = TP_SERVE_BAGS
+    M = TP_SERVE_BAGS[2]
     N, D = profile_embed.shape
     rows = N // M
     table = profile_embed[:rows]
-    ids = torch.as_tensor(np.random.default_rng(7).integers(
-        0, N, (B, L)).astype(np.int32), device=device)
-    idx = torch.where(ids < rows, ids, -1).contiguous()
+    if ids is None:
+        B, L = TP_SERVE_BAGS[:2]
+        ids = torch.as_tensor(np.random.default_rng(7).integers(
+            0, N, (B, L)).astype(np.int32), device=device)
+    B, L = ids.shape
+    idx = torch.where(ids < rows, ids, -1).to(torch.int32).contiguous()
     valid = int((idx >= 0).sum())
     got = ebk.embedding_bag(table, idx, mode="sum")
     want = ebk.bag_plain(table, idx, None, "sum")
@@ -4690,7 +5096,17 @@ def local_bag_entry(device, profile_embed) -> dict:
     distinct = int(torch.unique(idx[idx >= 0]).numel())
     nbytes = 4 * B * L + 4 * B * D + 4 * distinct * D
     bms, by = bound(nbytes, valid * D, F32_OPS_PER_S)
-    return {"max_abs_err": err, "ms": device_ms(
+    grad = {}
+    if backward:
+        g = torch.randn((B, D), device=device,
+                        generator=torch.Generator(device).manual_seed(3))
+        # the grad of the whole piece written, the ids and grad_out read
+        back = 4 * B * L + 4 * B * D + 4 * rows * D
+        grad = {"backward_ms": cuda_ms(lambda: ebk.bag_backward(
+            g, table, idx, None, "sum", False), 5, device),
+            "backward_bound_ms": bound(back, valid * D, F32_OPS_PER_S)[0],
+            "backward_bytes": back}
+    return {**grad, "max_abs_err": err, "ms": device_ms(
         lambda: ebk.embedding_bag(table, idx, mode="sum"), 200, device),
         "plain_ms": cuda_ms(lambda: ebk.bag_plain(table, idx, None, "sum"),
                             3, device),
@@ -5040,6 +5456,10 @@ def main(argv: list) -> int:
         # the train path's launches: MIND's five steps, counts set to 0
         # before them
         train, bag_train = phase_train(device)
+        # training over a model axis of 2 (two gloo ranks sharing the
+        # card): counts set to 0 in every rank before each MIND step,
+        # summed over the ranks
+        tp_train, bag_tp_train = phase_tp_train(device)
         # the GNN zoo's runs: counts set to 0 before each run's steps, none
         # of the kernels on its path
         gnn = phase_gnn(device, drawn)
@@ -5047,6 +5467,7 @@ def main(argv: list) -> int:
     bag = next(e for e in entries if e["name"] == "embedding_bag")
     bag["train_batch"] = bag_train
     bag["tp_serve_local"] = local_bag_entry(device, profile_embed)
+    bag["tp_train_local"] = bag_tp_train
     entries += decode_entries(device, launches)
     for entry in entries:
         entry["maintain_launches"] = maintain.get(entry["name"], 0)
@@ -5059,6 +5480,7 @@ def main(argv: list) -> int:
         entry["tp_serve_launches"] = tp_serve.get(entry["name"], 0)
         entry["lm_moe_launches"] = lm_moe.get(entry["name"], 0)
         entry["train_launches"] = train.get(entry["name"], 0)
+        entry["tp_train_launches"] = tp_train.get(entry["name"], 0)
         entry["gnn_launches"] = gnn.get(entry["name"], 0)
     emit({"kernels": entries})
     print(card, flush=True)

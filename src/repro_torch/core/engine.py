@@ -595,9 +595,9 @@ def _indexed(device) -> torch.device:
 
 class _Collectives:
     """The collectives of the shard backend over one process group: an
-    all-gather of equal-sized tensors and an all-reduce sum.  A gloo group
-    takes a CUDA tensor through the host (a copy there and back); booleans
-    travel as uint8."""
+    all-gather of equal-sized tensors and an all-reduce (sum or max).  A
+    gloo group takes a CUDA tensor through the host (a copy there and
+    back); booleans travel as uint8."""
 
     def __init__(self, group):
         import torch.distributed as dist
@@ -621,12 +621,14 @@ class _Collectives:
         return [o.view(torch.bool) for o in out] if x.dtype == torch.bool \
             else out
 
-    def all_reduce(self, x):
-        """The sum of every rank's ``x`` (a new tensor on its device)."""
+    def all_reduce(self, x, op: str = "sum"):
+        """The sum (``op="max"``: the largest) of every rank's ``x``, element
+        by element (a new tensor on its device)."""
         y = self._wire(x)
         if y.data_ptr() == x.data_ptr():
             y = y.clone()
-        self.dist.all_reduce(y, group=self.group)
+        red = {"sum": self.dist.ReduceOp.SUM, "max": self.dist.ReduceOp.MAX}
+        self.dist.all_reduce(y, op=red[op], group=self.group)
         return y.to(x.device)
 
 

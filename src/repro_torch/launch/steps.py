@@ -39,13 +39,25 @@ of every argument (:func:`local_args` cuts them from the global ones by
 ``in_shardings``) and returns this rank's piece of every output
 (:func:`gather_outputs` joins them).  Collectives run over the axes'
 groups (``Mesh.get_group``); a gloo group takes CUDA tensors through the
-host.  With a ``model`` axis of 1:
+host.  On any mesh:
 
-* LM and MIND train steps are data-parallel: each rank takes its batch
-  slice, the gradients are averaged over the batch axes' group before
-  ``adamw_update``, and the loss is the ranks' mean.  Parameters and
-  moments split over the batch axes (ZeRO-1, experts) are gathered whole
-  for the step and cut again after it;
+* LM and MIND train steps take each rank's batch slice, average the loss
+  and the gradients over the batch axes' group before ``adamw_update``
+  (:func:`_train_ranks`); parameters and moments split over the batch
+  axes (ZeRO-1, experts) are gathered over those axes for the step and
+  cut again after it.  With a ``model`` axis of M > 1 every weight split
+  over ``model`` stays this rank's piece, never gathered whole: the
+  dense GQA LMs' loss runs Megatron tensor parallelism with its
+  autograd-aware collectives and the vocab-parallel cross entropy
+  (``models.transformer.lm_loss(tp=)``), MIND's rows its own
+  (``models.recsys.mind_train_loss(tp=)``, kernel #4 on a rank's row
+  piece under autograd); the float32 moments are the param's pieces, and
+  the int8 moments, whose blocks run over the whole parameter and are
+  replicated over ``model``, are decoded whole, cut, and joined whole
+  again before they are encoded (``optim.adamw_update``'s ``pieces``).
+
+With a ``model`` axis of 1:
+
 * the GNN train step splits the edges over every rank and keeps node
   state whole (``models.gnn.edges_split``);
 * serve steps take the batch over the batch axes; ``retrieval_step`` takes
@@ -73,12 +85,13 @@ row pieces over ``model`` and the MLP Megatron-split
 (``models.recsys``, ``tp``); the GNN train step splits its edges over
 every axis whatever the mesh's shape.
 
-Still raising ``NotImplementedError`` when run (ROADMAP Queue 1 item 8):
-MoE and MLA configs over M > 1, M not dividing ``n_heads``, the LM and
-MIND train steps over M > 1 and MoE configs (DeepSeek-V3, the one MLA
-config, among them) at more than one data rank (the reference's capacity
-is global).  A mesh with no process group and more than one rank (a
-production mesh) describes placements only.
+Still raising ``NotImplementedError`` when run: MoE, MLA and MTP
+configs over M > 1, serving or training, and MoE configs (DeepSeek-V3,
+the one MLA config, among them) at more than one data rank, the
+reference's capacity being global (ROADMAP Queue 1 item 8.3); M not
+dividing ``n_heads`` (the reference's ``NamedSharding`` refuses it).  A
+mesh with no process group and more than one rank (a production mesh)
+describes placements only.
 """
 from __future__ import annotations
 
@@ -95,9 +108,9 @@ from ..models import gnn as gnn_m
 from ..models import recsys as rec_m
 from ..models import transformer as tfm
 from ..models.layers import SequenceSplit, TensorParallel
-from ..models.params import (requires_grad, tree_map, tree_num_params,
-                             tree_shardings)
-from ..optim import AdamWConfig, adamw_state_specs, adamw_update
+from ..models.params import (requires_grad, tree_leaves, tree_map,
+                             tree_num_params, tree_shardings)
+from ..optim import AdamWConfig, Piece, adamw_state_specs, adamw_update
 from .mesh import Mesh, Sharding
 
 __all__ = ["StepBundle", "build_step", "default_opt", "value_and_grad",
@@ -208,24 +221,35 @@ def _zip_map(fn, tree, sh):
     return fn(tree, sh)
 
 
-def _piece(x, sh: Sharding):
-    """This rank's piece of a whole tensor ``x`` placed by ``sh``; a
+def _split_dims(x, sh: Sharding, over):
+    """``(dim, axes, ranks)`` of each dimension of ``x`` that ``sh`` splits
+    over more than one rank (with ``over``, a tuple of axis names, only
+    those split over some of them alone)."""
+    out = []
+    for d in range(x.dim()):
+        axes = sh.dim_axes(d)
+        k = sh.mesh.axis_size(axes)
+        if k > 1 and (over is None or set(axes) <= set(over)):
+            out.append((d, axes, k))
+    return out
+
+
+def _piece(x, sh: Sharding, over=None):
+    """This rank's piece of a whole tensor ``x`` placed by ``sh`` (with
+    ``over``, cut only along the dimensions split over those axes); a
     dimension that its ranks do not divide is refused, as the reference's
     ``NamedSharding`` refuses it."""
     if not isinstance(x, torch.Tensor):
         return x
-    mesh = sh.mesh
-    for d in range(x.dim()):
-        axes = sh.dim_axes(d)
-        k = mesh.axis_size(axes)
-        if k > 1:
-            if x.shape[d] % k:
-                raise ValueError(
-                    f"dimension {d} of a {tuple(x.shape)} tensor does not "
-                    f"divide over the {k} ranks of {axes}")
-            size = x.shape[d] // k
-            x = x.narrow(d, mesh.axis_index(axes) * size, size)
-    return x.clone() if x.dim() and sh.frac > 1 else x
+    dims = _split_dims(x, sh, over)
+    for d, axes, k in dims:
+        if x.shape[d] % k:
+            raise ValueError(
+                f"dimension {d} of a {tuple(x.shape)} tensor does not "
+                f"divide over the {k} ranks of {axes}")
+        size = x.shape[d] // k
+        x = x.narrow(d, sh.mesh.axis_index(axes) * size, size)
+    return x.clone() if dims else x
 
 
 def _comm(mesh: Mesh, axes):
@@ -236,16 +260,14 @@ def _comm(mesh: Mesh, axes):
     return _Collectives(mesh.get_group(axes))
 
 
-def _whole(x, sh: Sharding):
+def _whole(x, sh: Sharding, over=None):
     """The whole tensor from every rank's piece ``x`` placed by ``sh``
-    (one all-gather a split dimension)."""
+    (one all-gather a split dimension; with ``over``, only along the
+    dimensions split over those axes)."""
     if not isinstance(x, torch.Tensor):
         return x
-    mesh = sh.mesh
-    for d in range(x.dim()):
-        axes = sh.dim_axes(d)
-        if mesh.axis_size(axes) > 1:
-            x = torch.cat(_comm(mesh, axes).all_gather(x), d)
+    for d, axes, _ in _split_dims(x, sh, over):
+        x = torch.cat(_comm(sh.mesh, axes).all_gather(x), d)
     return x
 
 
@@ -269,41 +291,37 @@ def gather_outputs(bundle: StepBundle, out):
     return _zip_map(_whole, out, sh)
 
 
-def _ranks(mesh, no_tp: str | None) -> bool:
+def _ranks(mesh) -> bool:
     """Whether ``mesh`` runs over more than one rank (and may: a process
-    group spans it; a ``model`` axis wider than 1 raises where ``no_tp``
-    names the step, which has no tensor-parallel form)."""
+    group spans it)."""
     if mesh is None or mesh.size == 1:
         return False
     if mesh.device_mesh is None:
         raise RuntimeError(
             f"{mesh} has no process group: its steps describe placements "
             "(the dry run); run them on make_host_mesh() inside a group")
-    M = mesh.shape.get("model", 1)
-    if M > 1 and no_tp is not None:
-        raise NotImplementedError(
-            f"{no_tp} over a model axis of {M} is not ported ({_TP}); "
-            "use make_host_mesh()")
     return True
 
 
-def _on_mesh(mesh, one_device: Callable, ranks: Callable,
-             no_tp: str | None) -> Callable:
+def _on_mesh(mesh, one_device: Callable, ranks: Callable) -> Callable:
     """``one_device`` without a mesh or on one rank, ``ranks`` over the
-    ranks of ``mesh`` (decided when the step runs; see :func:`_ranks` for
-    ``no_tp``)."""
+    ranks of ``mesh`` (decided when the step runs)."""
     if mesh is None or mesh.size == 1:
         return one_device
 
     def step(*args):
-        return ranks(*args) if _ranks(mesh, no_tp) else one_device(*args)
+        return ranks(*args) if _ranks(mesh) else one_device(*args)
 
     return step
 
 
 def _mean_over(mesh, axes, tensors) -> None:
-    """Average ``tensors`` in place over the group of ``axes``."""
-    comm, k = _comm(mesh, axes), mesh.axis_size(axes)
+    """Average ``tensors`` in place over the group of ``axes`` (nothing to
+    do over one rank)."""
+    k = mesh.axis_size(axes)
+    if k == 1:
+        return
+    comm = _comm(mesh, axes)
     for t in tensors:
         t.copy_(comm.all_reduce(t)).div_(k)
 
@@ -313,21 +331,21 @@ def _no_moe(cfg: LMConfig, mesh) -> None:
         raise NotImplementedError(
             f"{cfg.name}'s MoE capacity is counted over the global batch in "
             f"the reference; the port routes a rank's tokens alone, so MoE "
-            f"configs run on one data rank ({_TP})")
+            f"configs run on one data rank ({_TP}.3)")
 
 
 def _tp_of(cfg: LMConfig, mesh) -> TensorParallel | None:
-    """Tensor parallelism over ``mesh``'s model axis for a serving step
-    (None for an axis of 1); raises where the port has none: MoE experts
-    and MLA's latent cache over ``model``, an axis that does not divide
-    the query heads."""
+    """Tensor parallelism over ``mesh``'s model axis for an LM step (None
+    for an axis of 1); raises where the port has none: MoE experts, MLA's
+    latent cache and MTP over ``model``, an axis that does not divide the
+    query heads."""
     M = mesh.shape.get("model", 1)
     if M == 1:
         return None
-    if cfg.moe is not None or cfg.mla is not None:
+    if cfg.moe is not None or cfg.mla is not None or cfg.mtp_depth > 0:
         raise NotImplementedError(
-            f"{cfg.name} over a model axis of {M}: MoE experts and MLA's "
-            f"latent cache over model are not ported ({_TP})")
+            f"{cfg.name} over a model axis of {M}: MoE experts, MLA's "
+            f"latent cache and MTP over model are not ported ({_TP}.3)")
     if cfg.n_heads % M:
         raise NotImplementedError(
             f"a model axis of {M} does not divide {cfg.name}'s "
@@ -342,6 +360,52 @@ def _model_tp(mesh) -> TensorParallel | None:
     if M == 1:
         return None
     return TensorParallel(_comm(mesh, "model"), M, mesh.axis_index("model"))
+
+
+def _model_pieces(pspecs, p_shard) -> dict:
+    """Leaf name -> ``optim.Piece`` of each parameter split over a
+    ``model`` axis wider than 1 (cut and joined along its model
+    dimensions)."""
+    sh_of = dict(tree_leaves(p_shard))
+    out = {}
+    for name, spec in tree_leaves(pspecs):
+        sh = sh_of[name]
+        if sh.mesh.shape.get("model", 1) > 1 and any(
+                "model" in sh.dim_axes(d) for d in range(len(sh.spec))):
+            out[name] = Piece(tuple(spec.shape),
+                              lambda x, sh=sh: _piece(x, sh, ("model",)),
+                              lambda x, sh=sh: _whole(x, sh, ("model",)))
+    return out
+
+
+def _train_ranks(mesh, pspecs, p_shard, o_shard, opt: AdamWConfig,
+                 grads_of: Callable) -> Callable:
+    """The train step over the ranks of ``mesh``: parameters and moments
+    gathered over the batch axes only (each stays this rank's ``model``
+    piece), ``grads_of(params, *batch) -> (loss, grads)`` on this rank's
+    batch slice, the loss and gradients averaged over the batch axes, the
+    AdamW update on the pieces (int8 moments through
+    :func:`_model_pieces`), and the results cut again over the batch
+    axes."""
+    ba = _batch_axes(mesh)
+
+    def cut(tree, sh):
+        return _zip_map(lambda x, s: _piece(x, s, ba), tree, sh)
+
+    def join(tree, sh):
+        return _zip_map(lambda x, s: _whole(x, s, ba), tree, sh)
+
+    pieces = _model_pieces(pspecs, p_shard) if opt.quantize_moments else None
+
+    def ranks(params, opt_state, *batch):
+        params, opt_state = join(params, p_shard), join(opt_state, o_shard)
+        loss, grads = grads_of(params, *batch)
+        _mean_over(mesh, ba, [loss, *grads])
+        params, opt_state = adamw_update(params, grads, opt_state, opt,
+                                         pieces)
+        return cut(params, p_shard), cut(opt_state, o_shard), loss
+
+    return ranks
 
 
 # ===================================================================== LM
@@ -361,17 +425,18 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
         shards = 1 if mesh is None else mesh.axis_size(ba)
         accum = accum_steps(B, S, shards)
 
-        def grads_of(params, tokens, labels):
+        def grads_of(params, tokens, labels, tp=None):
             b = tokens.shape[0]
             if accum == 1:
                 return value_and_grad(tfm.lm_loss, params, cfg, tokens,
-                                      labels)
+                                      labels, tp)
             mb_tok = tokens.reshape(accum, b // accum, S)
             mb_lbl = labels.reshape(accum, b // accum, S)
             grads, loss = None, torch.zeros((), dtype=F32,
                                             device=tokens.device)
             for t, lab in zip(mb_tok, mb_lbl):
-                mb_loss, g = value_and_grad(tfm.lm_loss, params, cfg, t, lab)
+                mb_loss, g = value_and_grad(tfm.lm_loss, params, cfg, t, lab,
+                                            tp)
                 if grads is None:
                     grads = [torch.zeros(x.shape, dtype=F32, device=x.device)
                              for x in g]
@@ -401,17 +466,14 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
 
         def ranks(params, opt_state, tokens, labels):
             _no_moe(cfg, mesh)
-            params = _zip_map(_whole, params, p_shard)
-            opt_state = _zip_map(_whole, opt_state, o_shard)
-            loss, grads = grads_of(params, tokens, labels)
-            _mean_over(mesh, ba, [loss, *grads])
-            params, opt_state = adamw_update(params, grads, opt_state, opt)
-            return (_zip_map(_piece, params, p_shard),
-                    _zip_map(_piece, opt_state, o_shard), loss)
+            tp = _tp_of(cfg, mesh)  # raises before any collective
+            return _train_ranks(
+                mesh, pspecs, p_shard, o_shard, opt,
+                lambda p, t, lab: grads_of(p, t, lab, tp))(
+                    params, opt_state, tokens, labels)
 
         bundle.static["rules"] = rules
-        return replace(bundle, fn=_on_mesh(
-            mesh, step, ranks, "the LM train step (serving comes first)"),
+        return replace(bundle, fn=_on_mesh(mesh, step, ranks),
                        in_shardings=(p_shard, o_shard, tok_sh, tok_sh),
                        out_shardings=(p_shard, o_shard, _ns(mesh)))
 
@@ -434,7 +496,7 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
             with torch.inference_mode():
                 return tfm.serve_prefill(params, cfg, tokens, tp)
 
-        return replace(bundle, fn=_on_mesh(mesh, step, ranks, None),
+        return replace(bundle, fn=_on_mesh(mesh, step, ranks),
                        in_shardings=(p_shard, _ns(mesh, ba, None)),
                        out_shardings=_ns(mesh, ba, None, "model"))
 
@@ -474,7 +536,7 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
         with torch.inference_mode():
             return tfm.serve_decode(params, cfg, tokens, caches, tp, seq)
 
-    return replace(bundle, fn=_on_mesh(mesh, step, ranks, None),
+    return replace(bundle, fn=_on_mesh(mesh, step, ranks),
                    in_shardings=(p_shard, _ns(mesh, cache_b, None), c_shard),
                    out_shardings=(_ns(mesh, cache_b, None, "model"),
                                   dict(c_shard)))
@@ -516,7 +578,7 @@ def _build_gnn(cfg: GNNConfig, shape_name, step_kind, avals, mesh, opt,
         with gnn_m.edges_split(mesh.get_group(_all_axes(mesh))):
             return step(params, opt_state, batch)
 
-    return replace(bundle, fn=_on_mesh(mesh, step, ranks, None),
+    return replace(bundle, fn=_on_mesh(mesh, step, ranks),
                    in_shardings=(p_shard, o_shard, b_shard),
                    out_shardings=(p_shard, o_shard, repl))
 
@@ -561,15 +623,13 @@ def _build_recsys(cfg: RecsysConfig, shape_name, step_kind, avals, mesh, opt,
             return bundle
         o_shard = _opt_shardings(pspecs, mesh, rules, opt)
 
-        def ranks(params, opt_state, batch):
-            loss, grads = value_and_grad(rec_m.mind_train_loss, params, cfg,
-                                         batch)
-            _mean_over(mesh, ba, [loss, *grads])
-            params, opt_state = adamw_update(params, grads, opt_state, opt)
-            return params, opt_state, loss
+        def grads_of(params, batch):
+            return value_and_grad(rec_m.mind_train_loss, params, cfg, batch,
+                                  _model_tp(mesh))
 
         return replace(bundle, fn=_on_mesh(
-            mesh, step, ranks, "MIND's train step (its rows over model)"),
+            mesh, step, _train_ranks(mesh, pspecs, p_shard, o_shard, opt,
+                                     grads_of)),
                        in_shardings=(p_shard, o_shard, b_shard),
                        out_shardings=(p_shard, o_shard, _ns(mesh)))
 
@@ -587,7 +647,7 @@ def _build_recsys(cfg: RecsysConfig, shape_name, step_kind, avals, mesh, opt,
             with torch.inference_mode():
                 return rec_m.mind_serve(params, cfg, batch, _model_tp(mesh))
 
-        return replace(bundle, fn=_on_mesh(mesh, step, ranks, None),
+        return replace(bundle, fn=_on_mesh(mesh, step, ranks),
                        in_shardings=(p_shard, b_shard),
                        out_shardings=_ns(mesh, ba, None, None))
 
@@ -616,7 +676,7 @@ def _build_recsys(cfg: RecsysConfig, shape_name, step_kind, avals, mesh, opt,
         top = torch.topk(v, min(_TOP_K, v.shape[-1]), dim=-1)
         return top.values, torch.gather(i, -1, top.indices)
 
-    return replace(bundle, fn=_on_mesh(mesh, step, ranks, None),
+    return replace(bundle, fn=_on_mesh(mesh, step, ranks),
                    in_shardings=(p_shard, b_shard),
                    out_shardings=(_ns(mesh), _ns(mesh)))
 

@@ -17,6 +17,14 @@ sequence is cut over the ranks of a :class:`SequenceSplit` (the
 leaves to XLA on a sequence-sharded cache, on the same two kernels.
 Under tensor parallelism (:class:`TensorParallel`, the ``model`` axis)
 each rank keeps its own query heads of the result.
+
+:class:`TensorParallel`'s collectives are Megatron's autograd-aware ones
+where autograd records their input (the train steps over a ``model``
+axis): ``copy_to`` (*f*: identity forward, all-reduce backward),
+``reduce`` (*g*: all-reduce forward, identity backward) and ``gather``
+(all-gather forward; backward all-reduces the gradient and keeps this
+rank's columns); ``max`` is a detached all-reduce max (the
+vocab-parallel softmax's constant).
 """
 from __future__ import annotations
 
@@ -34,26 +42,96 @@ __all__ = ["NEG_INF", "TensorParallel", "SequenceSplit", "rms_norm", "rope",
 NEG_INF = -1e30
 
 
+def _tracked(x) -> bool:
+    """Whether autograd records an op on ``x`` here."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's *f*: the identity forward; backward, the sum of every
+    rank's gradient (in float32, rounded once to the gradient's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.comm.all_reduce(grad.float()).to(grad.dtype), None
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's *g*: the sum of every rank's ``x`` forward; the identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.comm.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's ``x`` joined along the last dimension forward;
+    backward, the sum of every rank's gradient of the whole (each rank may
+    read any rank's columns), this rank's columns of it."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp, ctx.width = tp, x.shape[-1]
+        return torch.cat(tp.comm.all_gather(x), dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tp, n = ctx.tp, ctx.width
+        whole = tp.comm.all_reduce(grad.float()).to(grad.dtype)
+        return whole.narrow(-1, tp.index * n, n).contiguous(), None
+
+
 @dataclass(frozen=True)
 class TensorParallel:
     """Megatron tensor parallelism over one mesh axis: ``comm`` holds the
     axis group's collectives (``all_gather(x)`` -> every rank's ``x`` in
-    rank order, ``all_reduce(x)`` -> their sum, each a new tensor on
-    ``x``'s device), ``size`` the axis's ranks M and ``index`` this rank's
-    place on it."""
+    rank order, ``all_reduce(x, op)`` -> their sum or max, each a new
+    tensor on ``x``'s device), ``size`` the axis's ranks M and ``index``
+    this rank's place on it.
+
+    Where autograd records ``x`` (training), :meth:`copy_to`,
+    :meth:`reduce` and :meth:`gather` are ``torch.autograd.Function``s
+    whose backward runs the matching collective; elsewhere (serving under
+    ``inference_mode``) they are the plain collectives.  Every rank issues
+    them in the same order, the backward's and a checkpointed layer's
+    recompute included, as the ranks build the same graph."""
 
     comm: Any
     size: int
     index: int
 
+    def copy_to(self, x):
+        """``x`` (the same on every rank) at the input of a
+        column-parallel product or of a replicated weight read in a
+        split region: itself, its gradient summed over the ranks."""
+        return _CopyTo.apply(x, self) if _tracked(x) else x
+
     def gather(self, x):
         """Every rank's ``x`` joined along the last dimension, in rank
         order."""
+        if _tracked(x):
+            return _Gather.apply(x, self)
         return torch.cat(self.comm.all_gather(x), dim=-1)
 
     def reduce(self, x):
         """The sum of every rank's ``x``."""
-        return self.comm.all_reduce(x)
+        return _Reduce.apply(x, self) if _tracked(x) else \
+            self.comm.all_reduce(x)
+
+    def max(self, x):
+        """The largest of every rank's ``x``, element by element, outside
+        autograd (a constant to it)."""
+        return self.comm.all_reduce(x.detach(), op="max")
 
 
 @dataclass(frozen=True)

@@ -15,9 +15,9 @@ Item gathers and the matrix products stay torch ops, as the reference
 leaves them to XLA.
 
 With ``tp`` (a ``layers.TensorParallel`` over the mesh's ``model`` axis;
-serving only) ``params`` are this rank's pieces by the reference's rules:
-``item_embed`` and ``profile_embed`` rows ``[index * R, (index + 1) * R)``
-of R a rank, the MLP's ``w1`` columns and ``b1`` in pieces, ``w2``'s rows,
+serving and training) ``params`` are this rank's pieces by the
+reference's rules: ``item_embed`` and ``profile_embed`` rows ``[index *
+R, (index + 1) * R)`` of R a rank, the MLP's ``w1`` columns and ``b1`` in pieces, ``w2``'s rows,
 ``bilinear``, ``profile_proj`` and ``b2`` whole.  The history gather reads
 the ids a rank owns, zeros elsewhere, and sums over the ranks (one
 non-zero term an element: exact).  The profile bags run the kernel in
@@ -25,7 +25,12 @@ non-zero term an element: exact).  The profile bags run the kernel in
 partial bags are summed over the ranks and divided by the global count of
 valid slots.  Retrieval scores the candidates a rank owns, 0 elsewhere,
 and sums the scores over the ranks.  The MLP's second product is summed
-over the ranks before ``b2``.
+over the ranks before ``b2``.  Under autograd (:func:`mind_train_loss`
+over ``model``) these sums are Megatron's *g* (identity backward, so a
+rank's rows get the gradient of the rows it holds), ``tp.copy_to`` (*f*)
+precedes ``w1``, and the bags' backward (``kernels.embedding_bag.
+bag_backward``, plain torch) adds exactly 0 to the piece for a masked
+slot.
 
 :func:`serve_step` and :func:`retrieval_step` are the entry points of the
 reference's recsys serve and retrieval steps (``launch/steps.py``), on one
@@ -108,12 +113,16 @@ def _owned(ids, rows: int, tp):
 
 def _gather_rows(table, ids, tp=None):
     """``table[ids]``; with ``tp``, from this rank's row piece, the rows it
-    does not hold zero, summed over the ranks (exact: one non-zero term)."""
+    does not hold zero, summed over the ranks (exact: one non-zero term).
+    An id this rank does not hold reads row ``id mod R`` of its R rows and
+    drops it: under autograd its zero gradient then lands on spread rows,
+    not on one row that every such id would share (which the card's
+    ``index_put`` backward adds up one id after another)."""
     if tp is None:
         return table[ids.long()]
     rows = table.shape[0]
     local, mine = _owned(ids, rows, tp)
-    part = torch.where(mine[..., None], table[local.clamp(0, rows - 1)], 0.0)
+    part = torch.where(mine[..., None], table[local.remainder(rows)], 0.0)
     return tp.reduce(part)
 
 
@@ -151,6 +160,8 @@ def user_interests(params, cfg: RecsysConfig, hist_ids, profile_ids,
     prof = bags @ params["profile_proj"]  # (B, D)
     h = torch.cat([caps, prof[:, None, :].expand(caps.shape)], dim=-1)
     m = params["mlp"]
+    if tp is not None:  # w1's columns over the ranks: f before them
+        h = tp.copy_to(h)
     out = torch.relu(h @ m["w1"] + m["b1"]) @ m["w2"]
     if tp is not None:  # w2's rows over the ranks: sum the partial products
         out = tp.reduce(out)
@@ -164,13 +175,16 @@ def label_aware_attention(caps, target_e, p: float = 2.0):
     return torch.einsum("bk,bkd->bd", w, caps)
 
 
-def mind_train_loss(params, cfg: RecsysConfig, batch: dict):
-    """Sampled softmax: target vs `num_sampled_negatives` uniform negatives."""
-    caps = user_interests(params, cfg, batch["hist_ids"], batch["profile_ids"])
+def mind_train_loss(params, cfg: RecsysConfig, batch: dict, tp=None):
+    """Sampled softmax: target vs `num_sampled_negatives` uniform
+    negatives; with ``tp`` on this rank's parameter pieces (module
+    docstring), the target and negative rows gathered as the history's."""
+    caps = user_interests(params, cfg, batch["hist_ids"], batch["profile_ids"],
+                          tp)
     table = params["item_embed"]
-    tgt = table[batch["target_id"].long()]                        # (B, D)
+    tgt = _gather_rows(table, batch["target_id"], tp)             # (B, D)
     user = label_aware_attention(caps, tgt)
-    negs = table[batch["negative_ids"].long()]                    # (B, M, D)
+    negs = _gather_rows(table, batch["negative_ids"], tp)         # (B, M, D)
     pos_logit = torch.einsum("bd,bd->b", user, tgt)[:, None]
     neg_logit = torch.einsum("bd,bmd->bm", user, negs)
     logits = torch.cat([pos_logit, neg_logit], dim=1)

@@ -23,8 +23,8 @@ kernels on CUDA tensors, the reference's einsum form on CPU tensors.  MLA
 decode is the reference's weight-absorbed einsum form, plain torch.
 
 Megatron tensor parallelism (``tp``, a ``layers.TensorParallel`` over the
-mesh's ``model`` axis; dense GQA serving only): every weight is this
-rank's piece by the reference's rules.  The embedding table is
+mesh's ``model`` axis; dense GQA serving and training): every weight is
+this rank's piece by the reference's rules.  The embedding table is
 vocab-parallel (this rank's rows looked up, the rest zero, one all-reduce:
 a sum with one non-zero term, exact); ``wq``/``wk``/``wv`` and
 ``w_gate``/``w_up`` are column-parallel; ``wo`` and ``w_down`` are
@@ -36,6 +36,18 @@ divide ``n_kv``, so a rank's columns cut a head).  Decode gathers this
 token's q, k and v, writes k and v on the rank whose sequence piece holds
 position ``len`` (a masked write on the device on every rank), and runs
 ``layers.decode_attention_split``.  Without ``tp`` nothing changes.
+
+Under autograd (the train step over ``model``) the same forward runs
+with Megatron's autograd-aware collectives: ``tp.copy_to`` (*f*) on the
+replicated input of every column-parallel product (``wq``/``wk``/``wv``,
+``w_gate``/``w_up``, ``lm_head``) and on the qk-norm weights, which
+every rank reads with its own heads; ``tp.reduce`` (*g*) for the
+row-parallel sums and the embedding; ``tp.gather`` where M does not
+divide ``n_kv``.  :func:`lm_loss` takes the vocab-parallel
+:func:`softmax_xent` on the logits cut by vocab, never joined.  Each
+layer's ``torch.utils.checkpoint`` recomputes its collectives in the
+backward, in the same order on every rank.  MoE, MLA and MTP under
+``tp`` raise (ROADMAP Queue 1 item 8.3).
 
 A decode cache whose sequence is cut over other ranks than the ``model``
 axis's (``seq``, a ``layers.SequenceSplit``: ``long_500k``, over every
@@ -62,6 +74,8 @@ __all__ = ["lm_param_specs", "lm_init", "layer_groups", "attention_block",
            "lm_loss"]
 
 F32 = torch.float32
+#: what the tensor-parallel forms leave out (MoE, MLA and MTP over model)
+_ITEM_8_3 = "ROADMAP Queue 1 item 8.3"
 
 
 # ---------------------------------------------------------------- param specs
@@ -165,12 +179,16 @@ def _gqa_qkv(p, cfg: LMConfig, x, positions):
     return q, k, v
 
 
-def _qk_rope(p, cfg: LMConfig, q, k, positions):
+def _qk_rope(p, cfg: LMConfig, q, k, positions, tp=None):
     """qk_norm (per head) and RoPE on q (B, S, h, dh) and k (B, S, hkv,
-    dh)."""
+    dh); with ``tp`` the norms' weights (whole on every rank, read by this
+    rank's heads) get their gradient summed over the ranks."""
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        wq, wk = p["q_norm"], p["k_norm"]
+        if tp is not None:
+            wq, wk = tp.copy_to(wq), tp.copy_to(wk)
+        q = rms_norm(q, wq)
+        k = rms_norm(k, wk)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k
@@ -275,8 +293,13 @@ def _row_parallel(h, w, tp: TensorParallel):
     float32, summed over the ranks by one all-reduce, rounded once to
     ``h``'s dtype.  On the card the product takes ``h`` and ``w`` as they
     are (bf16 on the tensor cores) and writes float32; on the CPU it runs
-    in float32."""
-    if h.is_cuda:
+    in float32.  Under autograd on the card the partial product is
+    rounded to ``h``'s dtype first: ``torch.mm``'s ``out_dtype`` form has
+    no derivative (torch 2.11 on an H100)."""
+    if h.is_cuda and torch.is_grad_enabled() and (h.requires_grad
+                                                  or w.requires_grad):
+        part = (h @ w).float()
+    elif h.is_cuda:
         part = torch.mm(h.reshape(-1, h.shape[-1]), w,
                         out_dtype=torch.float32).reshape(*h.shape[:-1], -1)
     else:
@@ -335,10 +358,12 @@ def _attention_tp(p, cfg: LMConfig, x, positions, cache, tp: TensorParallel,
     :func:`_split_decode` over the cache pieces of ``seq`` (by default
     the sequence cut over ``tp``'s ranks)."""
     if cfg.mla is not None:
-        raise NotImplementedError("MLA under tensor parallelism")
+        raise NotImplementedError(
+            f"MLA under tensor parallelism ({_ITEM_8_3})")
     B, S, _ = x.shape
     H, Hkv, dh, M = cfg.n_heads, cfg.n_kv, cfg.head_dim, tp.size
     nh = H // M
+    x = tp.copy_to(x)
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cache is not None:
         # one gather: every rank's q, k and v columns side by side
@@ -347,7 +372,7 @@ def _attention_tp(p, cfg: LMConfig, x, positions, cache, tp: TensorParallel,
         q, k, v = (torch.cat([part[..., a:b] for part in parts], dim=-1)
                    for a, b in ((0, nq), (nq, nq + nk), (nq + nk, None)))
         q, k = _qk_rope(p, cfg, q.reshape(B, S, H, dh),
-                        k.reshape(B, S, Hkv, dh), positions)
+                        k.reshape(B, S, Hkv, dh), positions, tp)
         seq = seq or SequenceSplit(tp.comm, tp.size, tp.index)
         out = _split_decode(q, k, v.reshape(B, S, Hkv, dh), cache, seq, tp)
     else:
@@ -357,7 +382,7 @@ def _attention_tp(p, cfg: LMConfig, x, positions, cache, tp: TensorParallel,
         else:
             kv0 = tp.index * (Hkv // M)
         q, k = _qk_rope(p, cfg, q.reshape(B, S, nh, dh),
-                        k.reshape(B, S, -1, dh), positions)
+                        k.reshape(B, S, -1, dh), positions, tp)
         v = v.reshape(B, S, -1, dh)
         G = H // Hkv
         k, v = _kv_of_heads(k, v, [(tp.index * nh + j) // G - kv0
@@ -384,8 +409,8 @@ def _embed(params, cfg: LMConfig, tokens, tp=None):
 def _dense_mlp(p, x, tp=None):
     if tp is None:
         return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
-    return _row_parallel(swiglu_hidden(x, p["w_gate"], p["w_up"]),
-                         p["w_down"], tp)
+    return _row_parallel(swiglu_hidden(tp.copy_to(x), p["w_gate"],
+                                       p["w_up"]), p["w_down"], tp)
 
 
 def _layer_slice(gp, i: int) -> dict:
@@ -401,7 +426,8 @@ def _layer(cfg: LMConfig, x, lp, positions, use_moe: bool, cache=None,
     x = x + a
     h = rms_norm(x, lp["ln_mlp"])
     if use_moe and tp is not None:
-        raise NotImplementedError("MoE under tensor parallelism")
+        raise NotImplementedError(
+            f"MoE under tensor parallelism ({_ITEM_8_3})")
     f = moe_apply(lp["moe"], cfg, h) if use_moe else \
         _dense_mlp(lp["mlp"], h, tp)
     return x + f
@@ -448,16 +474,37 @@ def lm_logits(params, cfg: LMConfig, hidden):
 
 
 # ---------------------------------------------------------------------- steps
-def softmax_xent(logits, labels):
-    """Mean next-token cross entropy, log-softmax in float32."""
-    logp = torch.log_softmax(logits.to(F32), dim=-1)
-    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    return -ll.mean()
+def softmax_xent(logits, labels, tp=None):
+    """Mean next-token cross entropy, log-softmax in float32.  With ``tp``
+    the logits are this rank's vocab columns ``[index * V, (index + 1) *
+    V)`` and are never joined: the rows' max over every rank (a constant
+    to autograd), the log of their exponentials summed over the ranks,
+    and each label's logit from the rank that holds its column."""
+    if tp is None:
+        logp = torch.log_softmax(logits.to(F32), dim=-1)
+        ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+        return -ll.mean()
+    z = logits.to(F32)
+    V = z.shape[-1]
+    top = tp.max(z.amax(dim=-1))
+    lse = top + torch.log(tp.reduce(torch.exp(z - top[..., None]).sum(-1)))
+    local = labels.long() - tp.index * V
+    mine = (local >= 0) & (local < V)
+    picked = torch.gather(z, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+    ll = tp.reduce(torch.where(mine, picked, 0.0))
+    return (lse - ll).mean()
 
 
-def lm_loss(params, cfg: LMConfig, tokens, labels):
-    hidden, _ = lm_forward(params, cfg, tokens)
-    loss = softmax_xent(lm_logits(params, cfg, hidden), labels)
+def lm_loss(params, cfg: LMConfig, tokens, labels, tp=None):
+    """The training loss; with ``tp`` on this rank's weight pieces, the
+    logits cut by vocab (:func:`softmax_xent`)."""
+    if tp is not None and cfg.mtp_depth > 0:
+        raise NotImplementedError(
+            f"MTP under tensor parallelism ({_ITEM_8_3})")
+    hidden, _ = lm_forward(params, cfg, tokens, tp=tp)
+    if tp is not None:
+        hidden = tp.copy_to(hidden)
+    loss = softmax_xent(lm_logits(params, cfg, hidden), labels, tp)
     if cfg.mtp_depth > 0:
         loss = loss + 0.3 * _mtp_loss(params, cfg, hidden, tokens, labels)
     return loss

@@ -21,13 +21,15 @@ the process group of the active mesh's axis
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..models.params import tree_leaves, tree_map
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_state_specs",
-           "q8_encode", "q8_decode", "q8_state_specs", "compress_psum"]
+__all__ = ["AdamWConfig", "Piece", "adamw_init", "adamw_update",
+           "adamw_state_specs", "q8_encode", "q8_decode", "q8_state_specs",
+           "compress_psum"]
 
 F32 = torch.float32
 _BLOCK = 128
@@ -41,6 +43,17 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.0
     quantize_moments: bool = False  # int8 m/v with per-block scales
+
+
+class Piece(NamedTuple):
+    """Where a parameter leaf is this rank's piece of a whole leaf (a
+    weight split over a mesh's ``model`` axis): ``shape`` the whole's,
+    ``cut(whole) -> piece`` and ``join(piece) -> whole`` (a collective:
+    every rank of the axis calls it, in the same order)."""
+
+    shape: tuple
+    cut: Callable
+    join: Callable
 
 
 # ----------------------------------------------------- int8 moment codecs
@@ -99,11 +112,20 @@ def _leaf_state(mu, name: str) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig,
+                 pieces: dict | None = None):
     """One AdamW step.  ``grads``: the gradients in ``tree_leaves(params)``
     order (a list), or a tree of the parameters' shape.  Writes the new
     parameters (cast back to each leaf's dtype) and moments in place and
-    returns ``(params, state)``."""
+    returns ``(params, state)``.
+
+    ``pieces`` (leaf name -> :class:`Piece`) names the leaves that are a
+    rank's piece of a whole parameter.  Float32 moments are pieces like
+    their parameter; int8 moments cover the whole parameter, their blocks
+    of 128 running over its flattened elements across the pieces' seams.
+    So a piece's int8 moments are decoded whole and cut, updated on the
+    piece, and joined whole again before they are encoded: the blocks and
+    scales come out those of the one-device update of the whole."""
     leaves = tree_leaves(params)
     if not isinstance(grads, (list, tuple)):
         grads = [t for _, t in tree_leaves(grads)]
@@ -116,9 +138,13 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     for (name, p), g in zip(leaves, grads):
         mu = _leaf_state(state["mu"], name)
         g = g.to(F32)
+        piece = None if pieces is None else pieces.get(name)
         if cfg.quantize_moments:
-            m = q8_decode(mu["m_q"], mu["m_s"], p.shape)
-            v = q8_decode(mu["v_q"], mu["v_s"], p.shape)
+            shape = p.shape if piece is None else piece.shape
+            m = q8_decode(mu["m_q"], mu["m_s"], shape)
+            v = q8_decode(mu["v_q"], mu["v_s"], shape)
+            if piece is not None:
+                m, v = piece.cut(m), piece.cut(v)
         else:
             m, v = mu["m"], mu["v"]
         m = cfg.b1 * m + (1 - cfg.b1) * g
@@ -129,7 +155,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
         del upd, pf
         if cfg.quantize_moments:
             for key, x in (("m", m), ("v", v)):
-                q, s = q8_encode(x)
+                q, s = q8_encode(x if piece is None else piece.join(x))
                 mu[key + "_q"].copy_(q)
                 mu[key + "_s"].copy_(s)
         else:

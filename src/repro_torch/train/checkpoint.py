@@ -15,6 +15,16 @@ A tree here is nested tuples, lists, dicts and
 arrays, or Python scalars).  :func:`restore` rebuilds ``like_tree``'s
 structure (a ``ParamTree`` as a ``ParamTree``) with each leaf in the like
 leaf's dtype, on its device or ``device``.
+
+On a mesh (the reference's ``shardings=``, here trees of
+:class:`~repro_torch.launch.mesh.Sharding`): a checkpoint always holds
+whole leaves, as the reference's ``np.asarray`` of a sharded array
+writes them.  A save from the ranks joins their pieces first
+(``launch.steps.gather_outputs``) and one rank writes them; :func:`restore`
+with ``shardings`` gives each rank only its piece of every leaf, cut on
+the host as ``launch.steps.local_args`` cuts a whole argument, so a
+checkpoint saved on one mesh restores onto another mesh's placements or
+onto one device.
 """
 from __future__ import annotations
 
@@ -107,11 +117,15 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _load_leaf(arr: np.ndarray, stored: str, like, device):
+def _load_leaf(arr: np.ndarray, stored: str, like, device, sharding=None):
     if stored == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr, order="C"))  # 0-d stays 0-d
+    if sharding is not None:
+        from ..launch.steps import _piece
+
+        t = _piece(t, sharding)
     if isinstance(like, torch.Tensor):
         dev = like.device if device is None else device
         return t.to(device=dev, dtype=like.dtype)
@@ -134,11 +148,24 @@ def _param_trees(tree):
     return tree
 
 
+def _under(shardings, key):
+    """The shardings of ``key``'s subtree (one ``Sharding`` covers every
+    leaf under it; None: whole leaves)."""
+    from ..launch.mesh import Sharding
+
+    if shardings is None or isinstance(shardings, Sharding):
+        return shardings
+    return shardings[key]
+
+
 def restore(directory: str, like_tree, step: int | None = None,
-            device=None):
+            device=None, shardings=None):
     """Restore into the structure of ``like_tree``; returns ``(tree,
     step)``.  Each leaf takes its like leaf's dtype and device (or
-    ``device``); ``step`` None restores the latest."""
+    ``device``); ``step`` None restores the latest.  ``shardings``, a tree
+    of ``Sharding`` matching ``like_tree`` (a ``Sharding`` for a whole
+    subtree), loads this rank's piece of each leaf instead of all of
+    it."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -147,20 +174,20 @@ def restore(directory: str, like_tree, step: int | None = None,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        def build(like, key):
+        def build(like, key, sh):
             if isinstance(like, (tuple, list)):
-                return type(like)(build(x, f"{key}[{i}]")
+                return type(like)(build(x, f"{key}[{i}]", _under(sh, i))
                                   for i, x in enumerate(like))
             if isinstance(like, (dict, ParamTree)):
-                out = {k: build(like[k], f"{key}[{k!r}]")
+                out = {k: build(like[k], f"{key}[{k!r}]", _under(sh, k))
                        for k in like.keys()}
                 if isinstance(like, ParamTree):  # children as dicts
                     return _Branch(out)
                 return out
             return _load_leaf(data[key], manifest["keys"][key]["dtype"],
-                              like, device)
+                              like, device, sh)
 
-        return _param_trees(build(like_tree, "")), step
+        return _param_trees(build(like_tree, "", shardings)), step
 
 
 class CheckpointManager:
@@ -203,9 +230,12 @@ class CheckpointManager:
             self._thread = None
         self._raise()
 
-    def restore_latest(self, like_tree, device=None):
+    def restore_latest(self, like_tree, device=None, shardings=None):
+        """:func:`restore` of the latest checkpoint, after the save in
+        flight."""
         self.wait()
-        return restore(self.directory, like_tree, device=device)
+        return restore(self.directory, like_tree, device=device,
+                       shardings=shardings)
 
     def _gc(self) -> None:
         steps = sorted(

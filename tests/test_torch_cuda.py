@@ -1255,6 +1255,88 @@ def test_embedding_bag_on_a_row_piece_matches_plain(dev, dtype, M):
     assert ebk.LAUNCHES["embedding_bag"] == M
 
 
+@pytest.mark.parametrize("M", [2, 4])
+def test_bag_autograd_on_a_row_piece(dev, M):
+    """MIND's train bags with the profile rows over M ranks: on each
+    piece, kernel #4 under ``Bag`` (one launch) equals the slot-order sum
+    bit for bit, and its gradient equals the plain version's under
+    autograd (within 1e-5 of its largest: atomics order the sums); the
+    masked slots (the ids the piece does not hold, and a
+    quarter masked before) add exactly 0: the piece's rows 0-9, which no
+    valid slot reads (the backward sends a masked slot's 0 to row 0), get
+    a zero gradient."""
+    rng = np.random.default_rng(41 + M)
+    N, D, B, L = 4000, 64, 4096, 16
+    table, idx, _ = (torch.as_tensor(a, device=dev)
+                     for a in bag_case(rng, N, D, B, L))
+    cot = torch.as_tensor(rng.normal(size=(B, D)).astype(np.float32),
+                          device=dev)
+    rows = N // M
+    for r in range(M):
+        local = idx.long() - r * rows
+        mine = (idx >= 0) & (local >= 0) & (local < rows)
+        ids = torch.where(mine & (local >= 10), local, -1).to(torch.int32)
+        piece = table[r * rows:(r + 1) * rows].contiguous()
+        t = piece.clone().requires_grad_(True)
+        ebk.reset_launch_counts()
+        out = ebk.embedding_bag(t, ids, mode="sum")
+        assert ebk.LAUNCHES["embedding_bag"] == 1 and out.grad_fn is not None
+        assert torch.equal(out.detach(),
+                           embedding_bag_slot_order(piece, ids, "sum"))
+        (got,) = torch.autograd.grad(out, t, cot)
+        ref = piece.clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(ebk.bag_plain(ref, ids, None, "sum"),
+                                      ref, cot)
+        # each row sums ~16 slots' cotangents in another order than the
+        # plain backward: held within 1e-5 of the largest, as in train
+        _close(got, want, (1e-5, 1e-5 * float(want.abs().max())),
+               f"piece {r} of {M} gradient")
+        assert bool((got[:10] == 0).all()) and bool((got[10:] != 0).any())
+        assert float((ids < 0).float().mean()) > 0.5
+
+
+def test_mind_train_step_over_model_on_the_card(dev, tmp_path):
+    """MIND's reduced train step over a (1, 2) mesh of two gloo ranks
+    sharing the card (``torch_pg_ranks.card_mind_train_case``), its rows
+    over ``model``: each rank launches kernel #4 once, on its row piece,
+    and its joined loss, parameters and moments equal the one-device
+    step's on the card (the CPU tests' limits: 1e-5, moments relative to
+    their largest)."""
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import recsys
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from torch_pg_ranks import CARD_MIND, card_mind_batch
+
+    tests = Path(__file__).resolve().parent
+    run_ranks("torch_pg_ranks:card_mind_train_case", 2, backend="gloo",
+              args=[tmp_path], paths=[tests], timeout=300)
+    cfg = get_config("mind").reduced()
+    opt = AdamWConfig(lr=CARD_MIND["lr"], eps=CARD_MIND["eps"])
+    b = steps.build_step("mind", "train_batch", reduced=True, opt=opt)
+    params = recsys.mind_init(cfg, torch.Generator(dev).manual_seed(0))
+    params, state, loss = b.fn(params, adamw_init(params, opt),
+                               card_mind_batch(cfg, dev))
+    for r in range(2):
+        got = torch.load(tmp_path / f"card_mind_{r}.pt")
+        assert got["launches"] == 1, r
+        assert abs(got["loss"] - float(loss)) <= 1e-5 * max(1, abs(
+            float(loss))), r
+        for (n, g), (_, w) in zip(tree_leaves(got["params"]),
+                                  tree_leaves(params)):
+            err = float((g.float() - w.detach().float()).abs().max())
+            assert err <= 1e-5, (r, n, err)
+        for (n, g), (_, w) in zip(tree_leaves(got["mu"]),
+                                  tree_leaves(state["mu"])):
+            scale = max(float(w.abs().max()), 1e-30)
+            err = float((g.float() - w.float()).abs().max())
+            assert err <= 1e-5 * scale, (r, n, err, scale)
+
+
 # ----------------------------------------------------------------- serving
 def test_mind_serving_on_the_card_matches_plain(dev, monkeypatch):
     from repro_torch.configs import get_config

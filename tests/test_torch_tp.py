@@ -430,8 +430,10 @@ RAISES = {
                            "MLA's latent"),
     "arctic prefill": ("arctic-480b", "prefill_32k", (1, 2), "MoE experts"),
     "moe data ranks": ("arctic-480b", "decode_32k", (2, 1), "MoE capacity"),
-    "mind train": ("mind", "train_batch", (1, 2), "MIND's train"),
-    "lm train": ("qwen3-0.6b", "train_4k", (1, 2), "LM train"),
+    "deepseek-v3 train over model": ("deepseek-v3-671b", "train_4k", (1, 2),
+                                     "MTP over model"),
+    "deepseek-v3 train on data ranks": ("deepseek-v3-671b", "train_4k",
+                                        (2, 1), "MoE capacity"),
     "heads not divided": ("qwen3-14b", "prefill_32k", (1, 3),
                           "does not divide"),
 }

@@ -304,3 +304,159 @@ def tp_mind_gnn_cases(case_dir: str, out_dir: str, data: str,
                 b, b.fn(*local_args(b, *args)))
             rec.update(params=params, state=state, loss=loss)
         torch.save(rec, os.path.join(out_dir, f"{name}_{rank}.pt"))
+
+
+def _mesh_of(data: str, model: str):
+    from repro_torch.launch.mesh import Mesh, _device_mesh
+
+    shape, axes = (int(data), int(model)), ("data", "model")
+    return Mesh(shape, axes, [CPU], _device_mesh(shape, axes, CPU))
+
+
+def _tp_functions(mesh, case_dir: str) -> dict:
+    """Megatron's three autograd Functions alone (``functions.pt``: x
+    (B, E) whole, W (E, N) cut by columns, C (B, N)): ``copy_to`` and
+    ``reduce`` around a column-parallel product, the loss summed over the
+    ranks; ``gather`` of that product, each rank reading the next rank's
+    columns of it; ``max`` of each rank's row maxima of x @ W.  Returns
+    the losses, the gradients of x (whole) and of this rank's W piece."""
+    from repro_torch.launch.steps import _model_tp
+
+    z = torch.load(os.path.join(case_dir, "functions.pt"))
+    tp = _model_tp(mesh)
+    N = z["W"].shape[1]
+    n = N // tp.size
+
+    def cols(r):
+        return slice(r * n, (r + 1) * n)
+
+    out = {}
+    for name in ("copy_reduce", "gather"):
+        x = z["x"].clone().requires_grad_(True)
+        w = z["W"][:, cols(tp.index)].clone().requires_grad_(True)
+        y = tp.copy_to(x) @ w
+        if name == "copy_reduce":
+            part = (y * z["C"][:, cols(tp.index)]).sum()
+        else:
+            nxt = (tp.index + 1) % tp.size
+            part = (tp.gather(y)[:, cols(nxt)] * z["C"][:, cols(nxt)]).sum()
+        loss = tp.reduce(part)
+        gx, gw = torch.autograd.grad(loss, [x, w])
+        out[name] = {"loss": loss.detach(), "grad_x": gx, "grad_w": gw}
+    with torch.no_grad():
+        out["max"] = tp.max((z["x"] @ z["W"][:, cols(tp.index)]).amax(-1))
+    return out
+
+
+def _copied(tree):
+    """A copy of a tree of tensors (the next step updates its leaves in
+    place)."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_copied(x) for x in tree)
+    if hasattr(tree, "keys"):
+        return {k: _copied(tree[k]) for k in tree.keys()}
+    return tree.detach().clone()
+
+
+def tp_train_cases(case_dir: str, out_dir: str, data: str, model: str,
+                   ckpt: str) -> None:
+    """The LM and MIND train steps over a ``(data, model)`` mesh of the
+    group: each case's two steps (``<case_dir>/<case>.pt``: the whole
+    params and AdamW state before each step, and its batch), each from
+    that state cut to this rank's pieces, its outputs joined whole.  Every
+    rank writes its pieces and the whole outputs after each step and the
+    all-gathers the steps made (``<case>_<rank>.pt``), and the autograd
+    Functions alone (``functions_<rank>.pt``).  ``ckpt`` ``save:<dir>``:
+    after step 1 of a case marked ``ckpt`` rank 0 writes the joined
+    (params, state) under ``<dir>/<case>``; ``restore:<dir>``: such a
+    case is also restored from there onto this mesh's placements and its
+    step 2 run (``restored``)."""
+    from repro_torch.launch.steps import build_step, gather_outputs, \
+        local_args
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import checkpoint
+
+    torch.set_num_threads(1)
+    mesh = _mesh_of(data, model)
+    rank = dist.get_rank()
+    mode, ckpt_dir = ckpt.split(":", 1)
+    with open(os.path.join(case_dir, "cases.json")) as f:
+        cases = json.load(f)
+    torch.save({"coords": mesh.coords(), **_tp_functions(mesh, case_dir)},
+               os.path.join(out_dir, f"functions_{rank}.pt"))
+    for name, case in cases.items():
+        b = build_step(case["arch"], case["shape"], mesh, reduced=True,
+                       opt=AdamWConfig(**case["opt"]))
+        z = torch.load(os.path.join(case_dir, f"{name}.pt"))
+        rec = {"coords": mesh.coords(), "whole": [], "pieces": [],
+               "gathers": 0, "weight_gathers": 0}
+        for i, (before, batch) in enumerate(zip(z["states"], z["batches"])):
+            params, state = local_args(b, *before)[:2]
+            batch = local_args(b, None, None, *batch)[2:]
+            with _GatherSpy(_param_storages(params)) as spy:
+                params, state, loss = b.fn(params, state, *batch)
+            rec["gathers"] += spy.calls
+            rec["weight_gathers"] += spy.of_weights
+            whole = _copied(gather_outputs(b, (params, state, loss)))
+            rec["whole"].append(whole)
+            rec["pieces"].append(_copied((params, state)))
+            if i == 0 and case["ckpt"] and mode == "save":
+                if rank == 0:
+                    checkpoint.save(os.path.join(ckpt_dir, name), 1,
+                                    whole[:2])
+                dist.barrier()
+        if case["ckpt"] and mode == "restore":
+            (params, state), step = checkpoint.restore(
+                os.path.join(ckpt_dir, name), z["states"][0],
+                shardings=b.in_shardings[:2])
+            batch = local_args(b, None, None, *z["batches"][1])[2:]
+            rec["restored_step"] = step
+            rec["restored"] = gather_outputs(b, b.fn(params, state, *batch))
+        torch.save(rec, os.path.join(out_dir, f"{name}_{rank}.pt"))
+
+
+#: the card's MIND train case: users, AdamW (eps as tests/test_torch_tp_
+#: train.py's EPS, so that a gradient near 0 keeps the hold well posed)
+CARD_MIND = {"users": 64, "seed": 1, "lr": 1e-3, "eps": 1e-4}
+
+
+def card_mind_batch(cfg, device) -> dict:
+    """The card's MIND train batch (``RecsysSource``) on ``device``."""
+    from repro_torch.data import RecsysSource
+
+    batch = RecsysSource(cfg, CARD_MIND["users"], seed=CARD_MIND["seed"])(0)
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def card_mind_train_case(out_dir: str) -> None:
+    """MIND's reduced train step over a (1, 2) mesh of gloo ranks sharing
+    cuda:0 (its rows over ``model``, kernel #4 on each rank's row piece):
+    the seeded weights drawn on the card, cut to this rank's pieces, one
+    step with the bag's launches counted; every rank writes the joined
+    loss, parameters and moments and its launches (``card_mind_<rank>.pt``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import embedding_bag as ebk
+    from repro_torch.launch.mesh import Mesh, _device_mesh
+    from repro_torch.launch.steps import build_step, gather_outputs, \
+        local_args
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    shape, axes = (1, 2), ("data", "model")
+    mesh = Mesh(shape, axes, [device], _device_mesh(shape, axes, device))
+    cfg = get_config("mind").reduced()
+    opt = AdamWConfig(lr=CARD_MIND["lr"], eps=CARD_MIND["eps"])
+    b = build_step("mind", "train_batch", mesh, reduced=True, opt=opt)
+    whole = recsys.mind_init(cfg, torch.Generator(device).manual_seed(0))
+    args = local_args(b, whole, adamw_init(whole, opt),
+                      card_mind_batch(cfg, device))
+    ebk.reset_launch_counts()
+    out = b.fn(*args)
+    torch.cuda.synchronize(device)
+    launches = ebk.LAUNCHES["embedding_bag"]
+    params, state, loss = gather_outputs(b, out)
+    torch.save({"launches": launches, "loss": float(loss),
+                "params": _copied(params), "mu": _copied(state["mu"])},
+               os.path.join(out_dir, f"card_mind_{dist.get_rank()}.pt"))
