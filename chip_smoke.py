@@ -148,7 +148,18 @@ Phases, each printing one JSON line:
              and its combine across the ranks; the joined logits held to
              the one-rank path's on the same weights and cache within
              LM_LOGITS_ATOL, their argmax agreement printed; each rank's
-             step ms, collectives' time and peak device memory
+             step ms, collectives' time and peak device memory.  In the
+             same rank start, DeepSeek-V3 (MLA, its dense layer and one MoE
+             layer of 61) and Arctic (one MoE layer of 35) at full width,
+             each rank drawing its pieces leaf by leaf (experts over
+             model, MLA's heads over model): serve_prefill at 1 x 4,096,
+             4 decode_32k steps at 8 rows from len 20,000, DeepSeek-V3's
+             long_500k 3 steps from len 262,142 across its piece
+             boundary; each held to a one-device control run first (the
+             rows routed as the control's within LM_LOGITS_ATOL, the
+             routes bit for bit the other rank's and at least
+             MOE_ROUTING_AGREE the control's), flash decode on each rank's
+             piece in Arctic's decode
   tp_serve   four gloo ranks sharing the card on a (data, model) = (2, 2)
              mesh, in one start: long_500k on Qwen3-0.6B at full width
              (28 layers cut to 4), its seeded cache of 524,288 positions
@@ -228,7 +239,8 @@ maintain path (``maintain_launches``), on the out-of-core path
 on the shard path (``shard_launches``, its runs but the timing reruns),
 on the process-group path (``dist_launches``, every rank's runs),
 on Qwen3-14B's decode (``lm_prefill_launches``), on the tensor-parallel
-decode (``lm_tp_launches``, both ranks' steps), on the tp_serve
+decode (``lm_tp_launches``, both ranks' steps; ``tp_moe_launches``, both
+ranks' Arctic decode steps with its experts over model), on the tp_serve
 phase's ranks (``tp_serve_launches``: kernel #5 in long_500k's steps,
 kernel #4 in MIND's cells; kernel #5 also timed at one 131,072-position
 piece a rank and its combine over four under ``tp_serve_pieces``, kernel
@@ -371,7 +383,23 @@ TP_MESH = (1, 2)
 TP_PREFILL = (2, 2048)
 TP_DECODE_STEPS = 8
 TP_T, TP_LEN0 = 32768, 20_000
+LONG_T = 524_288
 TP_TIMEOUT_S = 300
+#: lm_tp's MoE and MLA cases, run in the same rank start as Qwen3-0.6B's
+#: (no new process pays a first step's warm-up): DeepSeek-V3 (MLA, a
+#: shared expert) and Arctic (GQA with G = 7, a dense residual MLP) at full
+#: width, depth cut to (n_layers, first_k_dense) = TP_MOE_DEPTH (DeepSeek
+#: from 61 and 3: its dense layer and one MoE layer; Arctic one MoE layer
+#: of 35); serve_prefill at MOE_PREFILL; TP_MOE_DECODE_STEPS decode_32k
+#: steps at LM_SLOTS rows (cut from 128) from len TP_LEN0 on a TP_T cache;
+#: DeepSeek's long_500k, TP_MOE_LONG_STEPS steps from TP_MOE_LONG_LEN0 on a
+#: LONG_T latent cache, writing on both sides of its piece boundary.  Each
+#: rank draws its pieces leaf by leaf (steps.local_init): the whole weights
+#: (~28.9 / 28.2 GB) beside a piece on each of two ranks would pass 80 GB
+TP_MOE_DEPTH = {"deepseek-v3-671b": (2, 1), "arctic-480b": (1, 0)}
+TP_MOE_DECODE_STEPS = 4
+TP_MOE_LONG_STEPS = 3
+TP_MOE_LONG_LEN0 = LONG_T // 2 - 2
 #: tp_serve: four gloo ranks sharing cuda:0 on a (data, model) =
 #: TP_SERVE_MESH mesh.  long_500k on Qwen3-0.6B at full width, depth cut
 #: from 28 layers to TP_SERVE_LAYERS (its whole bf16 cache is ~60 GB at 28,
@@ -384,7 +412,6 @@ TP_TIMEOUT_S = 300
 #: (its history's all-reduce over model goes through the host)
 TP_SERVE_MESH = (2, 2)
 TP_SERVE_LAYERS = 4
-LONG_T = 524_288
 TP_SERVE_LEN0 = 131_070
 TP_SERVE_STEPS = 3
 TP_SERVE_BULK = 16_384
@@ -3462,25 +3489,30 @@ def phase_lm_prefill(device, held) -> dict:
 
 
 def tp_cache(cfg, B: int, T: int, pieces: int, which, device) -> dict:
-    """The lm_tp phase's seeded decode cache: ``k`` and ``v`` (L, B, T /
-    pieces * len(which), Hkv, dh) in ``cfg.dtype``, the pieces ``which``
-    of ``pieces`` along the sequence side by side (every piece: the whole
-    cache).  Each (tensor, layer, piece) is its own seeded draw, so a
+    """A seeded decode cache of ``cfg`` (:func:`make_kv_cache_specs`'
+    entries: GQA ``k`` and ``v`` (L, B, ·, Hkv, dh), MLA ``ckv`` and
+    ``kr`` (L, B, ·, ·)) in ``cfg.dtype``, the pieces ``which`` of
+    ``pieces`` along the sequence of T side by side (every piece: the whole
+    cache).  Each (entry, layer, piece) is its own seeded draw, so a
     rank's piece equals that slice of the whole."""
     import torch
 
+    from repro_torch.models.transformer import make_kv_cache_specs
+
+    specs = make_kv_cache_specs(cfg, B, T)
     Tp = T // pieces
     out = {}
-    for i, key in enumerate(("k", "v")):
-        t = torch.empty((cfg.n_layers, B, Tp * len(which), cfg.n_kv,
-                         cfg.head_dim), dtype=cfg.dtype, device=device)
-        for layer in range(cfg.n_layers):
+    for i, key in enumerate(k for k in specs if k != "len"):
+        shape, dtype = specs[key]
+        t = torch.empty((shape[0], B, Tp * len(which), *shape[3:]),
+                        dtype=dtype, device=device)
+        for layer in range(shape[0]):
             for j, p in enumerate(which):
                 g = torch.Generator(device).manual_seed(
                     (2 * layer + i) * 1000 + p)
                 t[layer, :, j * Tp:(j + 1) * Tp] = torch.randn(
-                    (B, Tp, cfg.n_kv, cfg.head_dim), generator=g,
-                    device=device, dtype=cfg.dtype)
+                    (B, Tp, *shape[3:]), generator=g, device=device,
+                    dtype=dtype)
         out[key] = t
     return out
 
@@ -3547,6 +3579,309 @@ def timed_collectives(sync):
     return collectives
 
 
+def tp_moe_spec(reduced: bool = False) -> dict:
+    """lm_tp's MoE and MLA cases (:data:`TP_MOE_DEPTH`): the cells' sizes,
+    at full width unless ``reduced`` (a CPU rehearsal passes its own)."""
+    return {"reduced": reduced, "archs": dict(TP_MOE_DEPTH),
+            "prefill": list(MOE_PREFILL), "slots": LM_SLOTS, "T": TP_T,
+            "len0": TP_LEN0, "steps": TP_MOE_DECODE_STEPS,
+            "long": [LONG_T, TP_MOE_LONG_LEN0, TP_MOE_LONG_STEPS]}
+
+
+def tp_moe_config(arch: str, spec: dict):
+    """``arch``'s config cut to its depth: ``(base, cut)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = get_config(arch)
+    if spec["reduced"]:
+        base = base.reduced()
+    depth, dense = spec["archs"][arch]
+    return base, dataclasses.replace(base, n_layers=depth,
+                                     moe=dataclasses.replace(
+                                         base.moe, first_k_dense=dense))
+
+
+def tp_moe_cells(cfg, spec: dict, mesh=None) -> dict:
+    """The cut config's serve_prefill, decode_32k and (MLA) long_500k steps
+    as ``build_step`` assembles them (``_build_lm`` on the cut cells;
+    ``mesh`` its ranks), with each cell's tokens (TokenSource, seeds 1, 2,
+    3): ``{cell: (bundle, tokens)}``, decode tokens a list of steps."""
+    import torch
+
+    from repro_torch.data import TokenSource
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import make_kv_cache_specs
+
+    i32 = torch.int32
+    B, S = spec["prefill"]
+    out = {"prefill": (steps._build_lm(
+        cfg, "prefill_32k", "prefill", {"tokens": ((B, S), i32)}, mesh,
+        None, False), TokenSource(B, S, cfg.vocab, seed=1)(0)["tokens"])}
+    cells = [("decode", "decode_32k", spec["slots"], spec["T"],
+              spec["steps"], 2)]
+    if cfg.mla is not None:
+        cells.append(("long", "long_500k", 1, spec["long"][0],
+                      spec["long"][2], 3))
+    for cell, shape, rows, T, n, seed in cells:
+        b = steps._build_lm(cfg, shape, "decode", {
+            "tokens": ((rows, 1), i32),
+            "caches": make_kv_cache_specs(cfg, rows, T)}, mesh, None, False)
+        toks = TokenSource(rows, n, cfg.vocab, seed=seed)(0)["tokens"]
+        out[cell] = (b, [toks[:, i:i + 1] for i in range(n)])
+    return out
+
+
+def tp_moe_len0(spec: dict, cell: str) -> int:
+    return spec["len0"] if cell == "decode" else spec["long"][1]
+
+
+def tp_moe_rows_held(routes, ref, rows: int):
+    """(rows whose last token took the same experts as the control's in
+    every MoE layer, the share of (token, layer) pairs routed alike)."""
+    import torch
+
+    held = torch.ones(rows, dtype=torch.bool)
+    same = []
+    for got, want in zip(routes, ref):
+        eq = (got.cpu() == want).all(-1)
+        n = eq.shape[0] // rows
+        held &= eq[torch.arange(rows) * n + n - 1]
+        same.append(eq)
+    return held, float(torch.cat(same).float().mean())
+
+
+def tp_moe_control(device, spec: dict, mesh_shape, out_dir: str) -> dict:
+    """The one-device control of lm_tp's MoE and MLA cases: each model's
+    whole weights drawn from seed 0, serve_prefill (after a warm call on
+    its first 64 tokens), the decode steps on the whole seeded cache (the
+    pieces of ``mesh_shape``'s ranks side by side; after a warm step on a
+    short one), each timed, the MoE layers' routes recorded; the logits
+    and routes saved as ``moe_<arch>.pt``, the model freed before the
+    next."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    card = device.type == "cuda"
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(device)
+
+    recs = {}
+    for arch in spec["archs"]:
+        base, cfg = tp_moe_config(arch, spec)
+        cells = tp_moe_cells(cfg, spec)
+        t = time.perf_counter()
+        params = tfm.lm_init(cfg, torch.Generator(device).manual_seed(0))
+        sync()
+        rec = {"init_s": time.perf_counter() - t,
+               "reduced": {"n_layers": [base.n_layers, cfg.n_layers],
+                           "first_k_dense": [base.moe.first_k_dense,
+                                             cfg.moe.first_k_dense],
+                           "prefill_32k": [[32, 32768], spec["prefill"]],
+                           "decode_32k_batch": [128, spec["slots"]]}}
+        ref = {}
+        with torch.inference_mode():
+            pre, tokens = cells["prefill"]
+            tokens = torch.as_tensor(tokens, device=device)
+            pre.fn(params, tokens[:, :64])  # warm
+            sync()
+            t = time.perf_counter()
+            with recorded_routing() as routes:
+                logits = pre.fn(params, tokens)
+            sync()
+            rec["prefill_wall_s"] = time.perf_counter() - t
+            check(bool(torch.isfinite(logits).all()),
+                  f"lm_tp {arch} control prefill logits")
+            ref["prefill"] = {"logits": logits.cpu(),
+                              "routes": [r.cpu() for r in routes]}
+            for cell in ("decode", "long"):
+                if cell not in cells:
+                    continue
+                b, toks = cells[cell]
+                rows = toks[0].shape[0]
+                key = next(k for k in b.args[2] if k != "len")
+                T = b.args[2][key][0][2]
+                if cell == "decode":
+                    warm = tp_cache(cfg, rows, 256, 2, range(2), device)
+                    warm["len"] = torch.tensor(5, dtype=torch.int32,
+                                               device=device)
+                    b.fn(params, torch.as_tensor(toks[0], device=device),
+                         warm)
+                    del warm
+                P = mesh_shape[1] if cell == "decode" else \
+                    mesh_shape[0] * mesh_shape[1]
+                caches = tp_cache(cfg, rows, T, P, range(P), device)
+                caches["len"] = torch.tensor(tp_moe_len0(spec, cell),
+                                             dtype=torch.int32, device=device)
+                ms, lg, rt = [], [], []
+                for tok in toks:
+                    sync()
+                    t = time.perf_counter()
+                    with recorded_routing() as routes:
+                        logits, caches = b.fn(
+                            params, torch.as_tensor(tok, device=device),
+                            caches)
+                    sync()
+                    ms.append(1e3 * (time.perf_counter() - t))
+                    check(bool(torch.isfinite(logits).all()),
+                          f"lm_tp {arch} control {cell} logits")
+                    lg.append(logits.cpu())
+                    rt.append([r.cpu() for r in routes])
+                ref[cell] = {"logits": lg, "routes": rt}
+                rec[f"{cell}_step_ms"] = ms
+                rec[f"{cell}_ms_per_step"] = float(np.mean(ms))
+                del caches
+            del params, logits
+        torch.save(ref, os.path.join(out_dir, f"moe_{arch}.pt"))
+        if card:
+            free_card(device)
+        recs[arch] = rec
+    return recs
+
+
+def tp_moe_rank(device, mesh, spec: dict, run_dir: str, collectives,
+                sync) -> dict:
+    """One rank's MoE and MLA cases of lm_tp (in :func:`tp_rank`'s start):
+    each model's pieces drawn leaf by leaf (``steps.local_init``), its
+    cells through the tensor-parallel steps on this rank's cache pieces
+    (the decode steps after a warm one on a short cache), each timed with
+    its collectives, the flash-decode launches counted from 0 around each
+    decode cell, the MoE layers' routes recorded; the joined logits of the
+    rows routed as the control's held to it (``moe_<arch>.pt``).  Writes
+    ``routes_<arch>_<rank>.pt``; returns the records by arch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+
+    card = device.type == "cuda"
+    rank = mesh.rank
+    recs = {}
+    for arch in spec["archs"]:
+        _, cfg = tp_moe_config(arch, spec)
+        cells = tp_moe_cells(cfg, spec, mesh)
+        ref = torch.load(os.path.join(run_dir, f"moe_{arch}.pt"))
+        if card:
+            free_card(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        pre, tokens = cells["prefill"]
+        params = steps.local_init(tfm.lm_param_specs(cfg),
+                                  pre.in_shardings[0],
+                                  torch.Generator(device).manual_seed(0))
+        sync()
+        rec = {"init_s": time.perf_counter() - t,
+               "pieces_bytes": torch.cuda.memory_allocated(device)
+               if card else None,
+               "draw_peak_bytes": torch.cuda.max_memory_allocated(device)
+               if card else None}
+        mine = {}
+        with torch.inference_mode():
+            tokens = torch.as_tensor(tokens, device=device)
+            pre.fn(params, tokens[:, :64])  # warm
+            collectives()
+            sync()
+            t = time.perf_counter()
+            with recorded_routing() as routes:
+                logits = pre.fn(params, tokens)
+            sync()
+            wall = time.perf_counter() - t
+            c = collectives()
+            joined = steps.gather_outputs(pre, logits).float().cpu()
+            collectives()
+            check(bool(torch.isfinite(joined).all()),
+                  f"lm_tp {arch} rank {rank} prefill logits")
+            held, share = tp_moe_rows_held(routes, ref["prefill"]["routes"],
+                                           tokens.shape[0])
+            err = (joined - ref["prefill"]["logits"].float()).abs().amax(
+                (1, 2))
+            mine["prefill"] = [r.cpu() for r in routes]
+            rec["prefill"] = {
+                "B": tokens.shape[0], "S": tokens.shape[1], "wall_s": wall,
+                "tokens_per_s": tokens.numel() / wall,
+                "collective_s": c["s"], "collective_share": c["s"] / wall,
+                "collective_calls": c["calls"],
+                "collective_bytes": c["bytes"],
+                "max_abs_logit_err": float(err[held].max())
+                if bool(held.any()) else None,
+                "rows_rerouted": int((~held).sum()),
+                "routing_agree_share": share}
+            for cell in ("decode", "long"):
+                if cell not in cells:
+                    continue
+                b, toks = cells[cell]
+                join = dataclasses.replace(b, out_shardings=b.out_shardings[0])
+                rows = toks[0].shape[0]
+                key = next(k for k in b.args[2] if k != "len")
+                T = b.args[2][key][0][2]
+                axes = ("data", "model") if cell == "long" else "model"
+                P, index = mesh.axis_size(axes), mesh.axis_index(axes)
+                if cell == "decode":
+                    warm = tp_cache(cfg, rows, 128 * P, P, [index], device)
+                    warm["len"] = torch.tensor(5, dtype=torch.int32,
+                                               device=device)
+                    b.fn(params, torch.as_tensor(toks[0], device=device),
+                         warm)
+                    del warm
+                caches = tp_cache(cfg, rows, T, P, [index], device)
+                caches["len"] = torch.tensor(tp_moe_len0(spec, cell),
+                                             dtype=torch.int32, device=device)
+                sync()
+                collectives()
+                fdk.reset_launch_counts()
+                ms, errs, rerouted, shares, coll_s = [], [], 0, [], 0.0
+                mine[cell] = []
+                for i, tok in enumerate(toks):
+                    sync()
+                    t = time.perf_counter()
+                    with recorded_routing() as routes:
+                        logits, caches = b.fn(
+                            params, torch.as_tensor(tok, device=device),
+                            caches)
+                    sync()
+                    ms.append(1e3 * (time.perf_counter() - t))
+                    coll_s += collectives()["s"]
+                    joined = steps.gather_outputs(join, logits).float().cpu()
+                    collectives()
+                    held, share = tp_moe_rows_held(
+                        routes, ref[cell]["routes"][i], rows)
+                    err = (joined - ref[cell]["logits"][i].float()).abs() \
+                        .amax((1, 2))
+                    errs.append(float(err[held].max())
+                                if bool(held.any()) else None)
+                    rerouted += int((~held).sum())
+                    shares.append(share)
+                    mine[cell].append([r.cpu() for r in routes])
+                    check(bool(torch.isfinite(joined).all()),
+                          f"lm_tp {arch} rank {rank} {cell} logits")
+                launches = dict(fdk.LAUNCHES)
+                rec[cell] = {
+                    "rows": rows, "T": T, "pieces": P,
+                    "len0": tp_moe_len0(spec, cell), "steps": len(toks),
+                    "step_ms": ms, "ms_per_step": float(np.mean(ms)),
+                    "collective_ms_per_step": 1e3 * coll_s / len(toks),
+                    "collective_share": 1e3 * coll_s / sum(ms),
+                    "max_abs_logit_err": errs, "rows_rerouted": rerouted,
+                    "routing_agree_share": min(shares),
+                    "len_after": int(caches["len"]), "launches": launches}
+                del caches
+            rec["max_memory_allocated"] = \
+                torch.cuda.max_memory_allocated(device) if card else None
+            del params, logits
+        torch.save(mine, os.path.join(run_dir, f"routes_{arch}_{rank}.pt"))
+        recs[arch] = rec
+    if card:
+        free_card(device)
+    return recs
+
+
 def tp_rank(run_dir: str, device_type: str) -> None:
     """One rank of the lm_tp phase (started by ``run_ranks``): the mesh
     ``spec["mesh"]`` over the group, on ``cuda:(rank % visible cards)``
@@ -3555,7 +3890,8 @@ def tp_rank(run_dir: str, device_type: str) -> None:
     ``build_step``'s tensor-parallel steps on its seeded cache piece, the
     flash-decode launches counted from 0 around the decode steps, the
     collectives timed (the card synchronised before and after each), the
-    joined logits held to the one-rank path's (``ref.pt``).  Writes
+    joined logits held to the one-rank path's (``ref.pt``); then the MoE
+    and MLA cases of ``spec["moe"]`` (:func:`tp_moe_rank`).  Writes
     ``rank<r>.json``."""
     from dataclasses import replace
 
@@ -3657,19 +3993,29 @@ def tp_rank(run_dir: str, device_type: str) -> None:
             "len_after": int(caches["len"]), "launches": launches}
         rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(
             device) if card else None
+        del params, caches, logits
+    if spec.get("moe"):
+        rec["moe"] = tp_moe_rank(device, mesh, spec["moe"], run_dir,
+                                 collectives, sync)
     with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
 
 
-def phase_lm_tp(device, spec: dict | None = None) -> dict:
+def phase_lm_tp(device, spec: dict | None = None) -> tuple:
     """Qwen3-0.6B under Megatron tensor parallelism at full width: the
     one-rank path first (``serve_prefill`` at :data:`TP_PREFILL`, then the
     decode steps on the whole seeded cache, each timed), its logits saved;
-    then :data:`TP_MESH`'s ranks (:func:`tp_rank`, gloo, sharing the
-    card), each holding its joined logits to those within
-    :data:`LM_LOGITS_ATOL` and launching both flash-decode kernels once a
-    layer a step.  Returns the kernels' launches summed over the ranks'
-    decode steps."""
+    then DeepSeek-V3's and Arctic's one-device controls
+    (:func:`tp_moe_control`); then :data:`TP_MESH`'s ranks
+    (:func:`tp_rank`, gloo, sharing the card), each holding its joined
+    logits to those within :data:`LM_LOGITS_ATOL` (for the MoE models the
+    rows whose tokens took the control's experts in every MoE layer; the
+    others counted), its MoE routes bit for bit the other rank's and at
+    least :data:`MOE_ROUTING_AGREE` the control's, and launching both
+    flash-decode kernels once a layer a step (Qwen3-0.6B's and Arctic's
+    decode; none in DeepSeek-V3's latent decode).  Returns the kernels'
+    launches summed over the ranks' Qwen3-0.6B decode steps, and over
+    their Arctic decode steps."""
     import torch
 
     from repro_torch.launch.ranks import run_ranks
@@ -3678,7 +4024,7 @@ def phase_lm_tp(device, spec: dict | None = None) -> dict:
     spec = spec or {"arch": "qwen3-0.6b", "reduced": False,
                     "mesh": list(TP_MESH), "prefill": list(TP_PREFILL),
                     "slots": LM_SLOTS, "T": TP_T, "len0": TP_LEN0,
-                    "steps": TP_DECODE_STEPS}
+                    "steps": TP_DECODE_STEPS, "moe": tp_moe_spec()}
     card = device.type == "cuda"
 
     def sync():
@@ -3727,6 +4073,11 @@ def phase_lm_tp(device, spec: dict | None = None) -> dict:
         if card:
             free_card(device)
         out["one_rank"] = {**one, "wall_s": time.perf_counter() - t}
+        if spec.get("moe"):
+            t = time.perf_counter()
+            out["moe_control"] = tp_moe_control(device, spec["moe"],
+                                                spec["mesh"], tmp)
+            out["moe_control_wall_s"] = time.perf_counter() - t
         world = spec["mesh"][0] * spec["mesh"][1]
         t = time.perf_counter()
         run_ranks("chip_smoke:tp_rank", world, backend="gloo",
@@ -3754,8 +4105,59 @@ def phase_lm_tp(device, spec: dict | None = None) -> dict:
                       f"{spec['steps']} steps x {cfg.n_layers} layers")
                 total[name] = total.get(name, 0) + n
             ranks.append(rec)
-    out.update(ranks=ranks, launches=total)
+        moe = check_tp_moe(spec, tmp, ranks) if spec.get("moe") else {}
+    out.update(ranks=ranks, launches=total, moe_launches=moe)
     emit(out)
+    return total, moe
+
+
+def check_tp_moe(spec: dict, run_dir: str, ranks: list) -> dict:
+    """lm_tp's checks of the ranks' MoE and MLA records (:func:`tp_moe_rank`)
+    against the controls; returns kernel #5's launches summed over the
+    ranks' Arctic decode steps."""
+    import torch
+
+    moe, total = spec["moe"], {}
+    for arch in moe["archs"]:
+        _, cfg = tp_moe_config(arch, moe)
+        mine = []
+        for r in range(len(ranks)):
+            cells = torch.load(os.path.join(run_dir, f"routes_{arch}_{r}.pt"))
+            mine.append([t for cell in sorted(cells) for step in (
+                [cells[cell]] if cell == "prefill" else cells[cell])
+                for t in step])
+        for r, got in enumerate(mine[1:], 1):
+            check(len(got) == len(mine[0]) > 0 and all(
+                torch.equal(a, b) for a, b in zip(got, mine[0])),
+                f"lm_tp {arch} rank {r}: routes differ from rank 0's")
+        for r, rank in enumerate(ranks):
+            rec, what = rank["moe"][arch], f"lm_tp {arch} rank {r}"
+            for cell in ("prefill", "decode", "long"):
+                if cell not in rec:
+                    continue
+                c = rec[cell]
+                errs = c["max_abs_logit_err"]
+                errs = [e for e in (errs if isinstance(errs, list)
+                                    else [errs]) if e is not None]
+                check(bool(errs), f"{what}: {cell} held no row")
+                check(max(errs) <= LM_LOGITS_ATOL, f"{what}: {cell} logits "
+                      f"differ from the control's by {max(errs)} > "
+                      f"{LM_LOGITS_ATOL}")
+                check(c["routing_agree_share"] >= MOE_ROUTING_AGREE,
+                      f"{what}: {cell} routes {c['routing_agree_share']} "
+                      "of the pairs as the control")
+                if cell == "prefill":
+                    continue
+                check(c["len_after"] == c["len0"] + c["steps"],
+                      f"{what}: {cell} len")
+                layers = cfg.n_layers if cfg.mla is None else 0
+                for name in ("flash_decode", "flash_decode_combine"):
+                    n = c["launches"].get(name, 0)
+                    check(n == c["steps"] * layers, f"{what}: {cell} {name} "
+                          f"launched {n} times, not {c['steps']} steps x "
+                          f"{layers} layers")
+                    if layers:
+                        total[name] = total.get(name, 0) + n
     return total
 
 
@@ -5446,8 +5848,9 @@ def main(argv: list) -> int:
         lm_prefill = phase_lm_prefill(device, held)
         del held
         # Megatron TP over two gloo ranks sharing the card: counts set to
-        # 0 in every rank before its decode steps, summed over the ranks
-        lm_tp = phase_lm_tp(device)
+        # 0 in every rank before each model's decode steps, summed over the
+        # ranks (Qwen3-0.6B's, and Arctic's with its experts over model)
+        lm_tp, tp_moe = phase_lm_tp(device)
         # long_500k's sequence over four gloo ranks and MIND's rows over
         # model, one start: counts set to 0 in every rank before each
         # run, summed over the ranks
@@ -5477,6 +5880,7 @@ def main(argv: list) -> int:
         entry["dist_launches"] = dist_launches.get(entry["name"], 0)
         entry["lm_prefill_launches"] = lm_prefill.get(entry["name"], 0)
         entry["lm_tp_launches"] = lm_tp.get(entry["name"], 0)
+        entry["tp_moe_launches"] = tp_moe.get(entry["name"], 0)
         entry["tp_serve_launches"] = tp_serve.get(entry["name"], 0)
         entry["lm_moe_launches"] = lm_moe.get(entry["name"], 0)
         entry["train_launches"] = train.get(entry["name"], 0)

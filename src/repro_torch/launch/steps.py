@@ -66,7 +66,7 @@ With a ``model`` axis of 1:
 * the core-graph cell is one SemiCore* superstep of the shard backend
   over the group (``core.resident.build_shard_chunk_fn``, ``chunk=1``).
 
-With a ``model`` axis of M > 1, the dense GQA LMs' ``prefill_32k`` and
+With a ``model`` axis of M > 1, the LMs' ``prefill_32k`` and
 ``decode_32k`` run Megatron tensor parallelism on the weight pieces
 (``models.transformer``, a ``layers.TensorParallel`` over the ``model``
 group; no weight split over ``model`` is gathered whole), the batch over
@@ -74,24 +74,31 @@ the batch axes at the same time: prefill attends each rank's ``H / M``
 query heads; decode holds positions ``[r * T / M, (r + 1) * T / M)`` of the
 cache on model rank r, writes the token's k and v on the rank that holds
 ``len`` and merges the ranks' flash-decode partials (kernel #5 on each
-piece, its combine across the ranks).  The logits come out cut by vocab.
-``long_500k`` (batch 1, whole on every rank) cuts its cache sequence over
-every axis, data-major (a ``layers.SequenceSplit`` over the group of all
-axes, beside the tensor parallelism over ``model`` where M > 1): the
-token's k and v are written on the one rank of all D * M that holds
-``len``, and each rank combines the D * M pieces' partials.  MIND's
-serve and retrieval steps hold ``item_embed`` and ``profile_embed`` as
-row pieces over ``model`` and the MLP Megatron-split
-(``models.recsys``, ``tp``); the GNN train step splits its edges over
-every axis whatever the mesh's shape.
+piece, its combine across the ranks).  The MoE configs (one data rank)
+hold experts ``[r * X / M, (r + 1) * X / M)`` on model rank r and route
+every token on every rank (``models.moe``, one all-reduce a layer); MLA
+(DeepSeek-V3) cuts ``wq_b``, ``wk_b``, ``wv_b`` and ``wo`` by heads and,
+decoding, merges every head's float32 partials over the ranks' latent
+cache pieces (``layers.decode_latent_split``).  The logits come out cut
+by vocab.  ``long_500k`` (batch 1, whole on every rank) cuts its cache
+sequence over every axis, data-major (a ``layers.SequenceSplit`` over the
+group of all axes, beside the tensor parallelism over ``model`` where M >
+1): the token's k and v (MLA: its latent and rope key) are written on the
+one rank of all D * M that holds ``len``, and each rank combines the D *
+M pieces' partials.  MIND's serve and retrieval steps hold ``item_embed``
+and ``profile_embed`` as row pieces over ``model`` and the MLP
+Megatron-split (``models.recsys``, ``tp``); the GNN train step splits its
+edges over every axis whatever the mesh's shape.
 
-Still raising ``NotImplementedError`` when run: MoE, MLA and MTP
-configs over M > 1, serving or training, and MoE configs (DeepSeek-V3,
-the one MLA config, among them) at more than one data rank, the
-reference's capacity being global (ROADMAP Queue 1 item 8.3); M not
-dividing ``n_heads`` (the reference's ``NamedSharding`` refuses it).  A
-mesh with no process group and more than one rank (a production mesh)
-describes placements only.
+Still raising ``NotImplementedError`` when run (ROADMAP Queue 1 item
+8.3.2): the MoE, MLA and MTP configs' train step over M > 1, and MoE
+configs (DeepSeek-V3, the one MLA config, among them) at more than one
+data rank, serving or training, the reference's capacity being global
+(``long_500k`` too, where ``expert_embed`` cuts the experts' embed
+dimension over the batch axes); M not dividing ``n_heads`` or the
+experts (the reference's ``NamedSharding`` refuses it).  A mesh with no
+process group and more than one rank (a production mesh) describes
+placements only.
 """
 from __future__ import annotations
 
@@ -108,13 +115,13 @@ from ..models import gnn as gnn_m
 from ..models import recsys as rec_m
 from ..models import transformer as tfm
 from ..models.layers import SequenceSplit, TensorParallel
-from ..models.params import (requires_grad, tree_leaves, tree_map,
-                             tree_num_params, tree_shardings)
+from ..models.params import (requires_grad, tree_init, tree_leaves,
+                             tree_map, tree_num_params, tree_shardings)
 from ..optim import AdamWConfig, Piece, adamw_state_specs, adamw_update
 from .mesh import Mesh, Sharding
 
 __all__ = ["StepBundle", "build_step", "default_opt", "value_and_grad",
-           "accum_steps", "local_args", "gather_outputs"]
+           "accum_steps", "local_args", "local_init", "gather_outputs"]
 
 F32 = torch.float32
 _TP = "ROADMAP Queue 1 item 8"
@@ -280,6 +287,18 @@ def local_args(bundle: StepBundle, *args) -> tuple:
                  for a, sh in zip(args, bundle.in_shardings))
 
 
+def local_init(spec_tree, shardings, generator: torch.Generator):
+    """This rank's pieces of the parameters ``tree_init(spec_tree,
+    generator)`` would draw whole, cut by ``shardings`` (a bundle's
+    ``in_shardings[0]``): each leaf drawn in the same order from
+    ``generator`` and cut at once, so the rank holds its pieces and at most
+    one whole leaf, never the whole model.  Equal to ``local_args`` of the
+    whole tree."""
+    sh_of = dict(tree_leaves(shardings))
+    return tree_init(spec_tree, generator,
+                     cut=lambda name, leaf: _piece(leaf, sh_of[name]))
+
+
 def gather_outputs(bundle: StepBundle, out):
     """The global outputs of ``bundle.fn`` from this rank's pieces, joined
     by ``bundle.out_shardings`` (every rank gets them whole)."""
@@ -331,25 +350,31 @@ def _no_moe(cfg: LMConfig, mesh) -> None:
         raise NotImplementedError(
             f"{cfg.name}'s MoE capacity is counted over the global batch in "
             f"the reference; the port routes a rank's tokens alone, so MoE "
-            f"configs run on one data rank ({_TP}.3)")
+            f"configs run on one data rank ({_TP}.3.2)")
 
 
-def _tp_of(cfg: LMConfig, mesh) -> TensorParallel | None:
-    """Tensor parallelism over ``mesh``'s model axis for an LM step (None
-    for an axis of 1); raises where the port has none: MoE experts, MLA's
-    latent cache and MTP over ``model``, an axis that does not divide the
-    query heads."""
+def _tp_of(cfg: LMConfig, mesh, kind: str) -> TensorParallel | None:
+    """Tensor parallelism over ``mesh``'s model axis for an LM step of
+    ``kind`` (``"train"``, ``"prefill"`` or ``"decode"``; None for an axis
+    of 1); raises where the port has none: MoE experts, MLA and MTP over
+    ``model`` under autograd (training), an axis that does not divide the
+    query heads or the experts."""
     M = mesh.shape.get("model", 1)
     if M == 1:
         return None
-    if cfg.moe is not None or cfg.mla is not None or cfg.mtp_depth > 0:
+    if kind == "train" and (cfg.moe is not None or cfg.mla is not None
+                            or cfg.mtp_depth > 0):
         raise NotImplementedError(
-            f"{cfg.name} over a model axis of {M}: MoE experts, MLA's "
-            f"latent cache and MTP over model are not ported ({_TP}.3)")
+            f"{cfg.name} trained over a model axis of {M}: MoE experts, MLA "
+            f"and MTP over model under autograd are not ported ({_TP}.3.2)")
     if cfg.n_heads % M:
         raise NotImplementedError(
             f"a model axis of {M} does not divide {cfg.name}'s "
             f"{cfg.n_heads} query heads ({_TP})")
+    if cfg.moe is not None and cfg.moe.num_experts % M:
+        raise NotImplementedError(
+            f"a model axis of {M} does not divide {cfg.name}'s "
+            f"{cfg.moe.num_experts} experts ({_TP})")
     return _model_tp(mesh)
 
 
@@ -466,7 +491,7 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
 
         def ranks(params, opt_state, tokens, labels):
             _no_moe(cfg, mesh)
-            tp = _tp_of(cfg, mesh)  # raises before any collective
+            tp = _tp_of(cfg, mesh, "train")  # raises before any collective
             return _train_ranks(
                 mesh, pspecs, p_shard, o_shard, opt,
                 lambda p, t, lab: grads_of(p, t, lab, tp))(
@@ -490,7 +515,7 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
 
         def ranks(params, tokens):
             _no_moe(cfg, mesh)
-            tp = _tp_of(cfg, mesh)
+            tp = _tp_of(cfg, mesh, "prefill")
             if tp is None:
                 return step(_zip_map(_whole, params, p_shard), tokens)
             with torch.inference_mode():
@@ -526,7 +551,7 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
 
     def ranks(params, tokens, caches):
         _no_moe(cfg, mesh)
-        tp = _tp_of(cfg, mesh)
+        tp = _tp_of(cfg, mesh, "decode")
         seq = None
         if long_ctx:  # the sequence over every rank, data-major
             seq = SequenceSplit(_comm(mesh, cache_t), mesh.axis_size(cache_t),

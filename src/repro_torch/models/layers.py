@@ -24,7 +24,14 @@ axis): ``copy_to`` (*f*: identity forward, all-reduce backward),
 ``reduce`` (*g*: all-reduce forward, identity backward) and ``gather``
 (all-gather forward; backward all-reduces the gradient and keeps this
 rank's columns); ``max`` is a detached all-reduce max (the
-vocab-parallel softmax's constant).
+vocab-parallel softmax's constant).  :func:`row_partial` is a
+row-parallel product's float32 partial, the term those sums add.
+
+``latent_partial`` / ``merge_latent`` / ``decode_latent_split`` are
+MLA's weight-absorbed decode over a latent cache whose sequence is cut
+over the ranks of a :class:`SequenceSplit`: each piece's float32
+softmax partials for every head, gathered and merged.  Plain torch, as
+the reference's latent decode is plain jnp.
 """
 from __future__ import annotations
 
@@ -35,9 +42,10 @@ import torch
 
 from ..kernels import flash_decode as fd
 
-__all__ = ["NEG_INF", "TensorParallel", "SequenceSplit", "rms_norm", "rope",
-           "swiglu", "swiglu_hidden", "chunked_attention", "decode_attention",
-           "decode_attention_split"]
+__all__ = ["NEG_INF", "TensorParallel", "SequenceSplit", "row_partial",
+           "rms_norm", "rope", "swiglu", "swiglu_hidden", "chunked_attention",
+           "decode_attention", "decode_attention_split", "latent_partial",
+           "merge_latent", "decode_latent_split"]
 
 NEG_INF = -1e30
 
@@ -89,6 +97,42 @@ class _Gather(torch.autograd.Function):
         tp, n = ctx.tp, ctx.width
         whole = tp.comm.all_reduce(grad.float()).to(grad.dtype)
         return whole.narrow(-1, tp.index * n, n).contiguous(), None
+
+
+class _RowPartial(torch.autograd.Function):
+    """``h @ w`` written in float32 from operands in their own dtype
+    (``torch.mm``'s ``out_dtype`` form, which has no derivative);
+    backward, the two products in ``h``'s dtype, as autograd computes them
+    for ``(h @ w).float()``: the gradient rounded to that dtype, then
+    ``g @ w.T`` and ``h.T @ g`` over the rows folded to a matrix."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        h2 = h.reshape(-1, h.shape[-1])
+        return torch.mm(h2, w, out_dtype=torch.float32).reshape(
+            *h.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, w = ctx.saved_tensors
+        g = grad.to(h.dtype).reshape(-1, w.shape[-1])
+        gh = gw = None
+        if ctx.needs_input_grad[0]:
+            gh = g.mm(w.t()).reshape(h.shape)
+        if ctx.needs_input_grad[1]:
+            gw = h.reshape(-1, h.shape[-1]).t().mm(g)
+        return gh, gw
+
+
+def row_partial(h, w):
+    """This rank's float32 partial ``h @ w`` of a row-parallel product
+    (``w`` its rows): on the card the product takes ``h`` and ``w`` as
+    they are (bf16 on the tensor cores) and writes float32, under autograd
+    too (:class:`_RowPartial`); on the CPU it runs in float32."""
+    if h.is_cuda:
+        return _RowPartial.apply(h, w)
+    return h.float() @ w.float()
 
 
 @dataclass(frozen=True)
@@ -318,3 +362,52 @@ def decode_attention_split(q, k_piece, v_piece, cache_len,
         nh = H // tp.size
         out = out[:, tp.index * nh:(tp.index + 1) * nh]
     return out.reshape(B, 1, -1, d)
+
+
+def latent_partial(q_abs, q_rope, ckv, kr, cache_len, offset, scale: float):
+    """MLA's decode over one piece of a latent cache, every head: q_abs
+    (B, 1, H, kv_lora) (``wk_b`` absorbed) and q_rope (B, 1, H, dh_rope);
+    the piece ``ckv`` (B, T, kv_lora) and ``kr`` (B, T, dh_rope) holds
+    positions ``[offset, offset + T)``, of which those below ``cache_len``
+    are valid.  Returns the float32 softmax partials ``(ml, ctx)``: ``ml``
+    (B, 1, H, 2) the scores' max and the sum of their exponentials below
+    it, ``ctx`` (B, 1, H, kv_lora) the latent context weighted by them.  A
+    piece with no valid position is neutral: max ``NEG_INF``, sum 0,
+    context 0."""
+    ckv32 = ckv.float()
+    s = (torch.einsum("bshk,btk->bhst", q_abs.float(), ckv32)
+         + torch.einsum("bshr,btr->bhst", q_rope.float(), kr.float())) * scale
+    mask = offset + torch.arange(ckv.shape[1], device=ckv.device) < cache_len
+    s = torch.where(mask, s, NEG_INF)
+    top = s.amax(-1)                                            # (B, H, 1)
+    p = torch.where(mask, torch.exp(s - top[..., None]), 0.0)
+    ctx = torch.einsum("bhst,btk->bshk", p, ckv32)
+    ml = torch.stack([top, p.sum(-1)], dim=-1).permute(0, 2, 1, 3)
+    return ml, ctx
+
+
+def merge_latent(ml, ctx):
+    """The softmax over every piece from their stacked partials (``ml``
+    (P, B, 1, H, 2), ``ctx`` (P, B, 1, H, kv_lora), as
+    :func:`latent_partial` gives them): each piece weighted by the
+    exponential of its max less the largest, so no exponential exceeds
+    1.  Returns the latent context (B, 1, H, kv_lora) in float32."""
+    top = ml[..., 0].amax(0)
+    w = torch.exp(ml[..., 0] - top)                             # (P,B,1,H)
+    total = (w * ml[..., 1]).sum(0)
+    return (w[..., None] * ctx).sum(0) / total[..., None]
+
+
+def decode_latent_split(q_abs, q_rope, ckv_piece, kr_piece, cache_len,
+                        seq: SequenceSplit, scale: float):
+    """MLA's one-token decode over a latent cache whose sequence is cut
+    over the ranks of ``seq``: every head's q_abs and q_rope, this rank's
+    pieces (B, T, ·) at offset ``seq.index * T``, the first ``cache_len``
+    positions of the whole sequence valid.  Each rank's
+    :func:`latent_partial`, gathered over ``seq``'s group in one
+    all-gather and merged (:func:`merge_latent`): the latent context
+    (B, 1, H, kv_lora) in float32, every head."""
+    ml, ctx = latent_partial(q_abs, q_rope, ckv_piece, kr_piece, cache_len,
+                             seq.index * ckv_piece.shape[1], scale)
+    parts = torch.stack(seq.comm.all_gather(torch.cat([ml, ctx], dim=-1)))
+    return merge_latent(parts[..., :2], parts[..., 2:])

@@ -9,11 +9,23 @@ batched product over the expert axis.  Dropped assignments are aimed at a
 dummy expert row X with gate 0.  DeepSeek's shared experts and Arctic's
 parallel dense residual MLP are added on top.  Plain torch, as the
 reference's is plain jnp.
+
+With ``tp`` (a ``layers.TensorParallel`` over the ``model`` axis, one
+data rank) the rank holds experts ``[index * X / M, (index + 1) * X /
+M)`` and Megatron pieces of the shared and dense MLPs (``w_gate`` /
+``w_up`` by columns, ``w_down`` by rows).  Every rank routes all T tokens
+with the whole router, on an input equal on every rank, and keeps the
+same first C assignments of each expert (the positions counted over every
+expert); those of experts it does not hold go to its dummy row.  The
+gated expert outputs, the shared and the dense partials are added in
+float32, summed over ``model`` by one all-reduce and rounded once: no
+all-to-all.
 """
 from __future__ import annotations
 
 import torch
 
+from .layers import TensorParallel, row_partial, swiglu, swiglu_hidden
 from .params import Spec
 
 __all__ = ["moe_param_specs", "moe_capacity", "moe_apply"]
@@ -52,13 +64,12 @@ def moe_capacity(m, T: int) -> int:
     return max(8, int(T * m.top_k / m.num_experts * m.capacity_factor))
 
 
-def _swiglu(x, g, u, d):
-    return (torch.nn.functional.silu(x @ g) * (x @ u)) @ d
-
-
-def moe_apply(p, cfg, x, layer_idx=None, aux=None):
+def moe_apply(p, cfg, x, layer_idx=None, aux=None,
+              tp: TensorParallel | None = None):
     """x (B, S, E) -> (B, S, E).  Dropping top-k dispatch (see module doc);
-    ``aux``, a dict, receives the Switch load-balance term."""
+    ``aux``, a dict, receives the Switch load-balance term.  With ``tp``,
+    ``p`` holds this rank's experts and pieces and the output is the sum
+    over the ranks (module doc)."""
     m = cfg.moe
     B, S, E = x.shape
     T = B * S
@@ -77,32 +88,42 @@ def moe_apply(p, cfg, x, layer_idx=None, aux=None):
     start = torch.searchsorted(sorted_e, torch.arange(X, device=x.device))
     pos = torch.arange(T * k, device=x.device) - start[sorted_e]
     keep = pos < C
-    slot_e = torch.where(keep, sorted_e, X)                    # drop -> dummy
-    slot_p = torch.where(keep, pos, 0)
     tok = order // k
+    if tp is not None:  # this rank's experts, numbered from 0
+        Xl = p["w_gate"].shape[0]
+        sorted_e = sorted_e - tp.index * Xl
+        keep = keep & (sorted_e >= 0) & (sorted_e < Xl)
+    else:
+        Xl = X
+    slot_e = torch.where(keep, sorted_e, Xl)                   # drop -> dummy
+    slot_p = torch.where(keep, pos, 0)
 
-    buf = torch.zeros((X + 1, C, E), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((Xl + 1, C, E), dtype=x.dtype, device=x.device)
     buf[slot_e, slot_p] = xt[tok]
-    h = buf[:X]                                                # (X, C, E)
+    h = buf[:Xl]                                               # (Xl, C, E)
     h = torch.nn.functional.silu(torch.bmm(h, p["w_gate"])) * torch.bmm(
         h, p["w_up"])
-    out_buf = torch.bmm(h, p["w_down"])                        # (X, C, E)
+    out_buf = torch.bmm(h, p["w_down"])                        # (Xl, C, E)
 
-    gathered = out_buf[torch.clamp(slot_e, max=X - 1), slot_p]  # (T*k, E)
+    gathered = out_buf[torch.clamp(slot_e, max=Xl - 1), slot_p]  # (T*k, E)
     gate = top_p.reshape(-1)[order] * keep
-    y = torch.zeros((T, E), dtype=x.dtype, device=x.device).index_add_(
-        0, tok, (gathered.to(F32) * gate[:, None]).to(x.dtype))
-
-    if m.num_shared:
-        s = p["shared"]
-        y = y + _swiglu(xt, s["w_gate"], s["w_up"], s["w_down"])
-    if m.dense_parallel:
-        d = p["dense"]
-        y = y + _swiglu(xt, d["w_gate"], d["w_up"], d["w_down"])
     if aux is not None:
         # Switch-style load-balance loss terms
         me = probs.mean(dim=0)
         ce = torch.zeros(X, dtype=F32, device=x.device).index_add_(
             0, flat_e, torch.ones(T * k, dtype=F32, device=x.device)) / (T * k)
         aux["load_balance"] = X * torch.sum(me * ce)
+    extra = [p[name] for name, on in (("shared", m.num_shared),
+                                      ("dense", m.dense_parallel)) if on]
+    if tp is not None:  # float32 partials, one sum over the ranks
+        y = torch.zeros((T, E), dtype=F32, device=x.device).index_add_(
+            0, tok, gathered.to(F32) * gate[:, None])
+        for q in extra:
+            y = y + row_partial(swiglu_hidden(xt, q["w_gate"], q["w_up"]),
+                                q["w_down"])
+        return tp.reduce(y).to(x.dtype).reshape(B, S, E)
+    y = torch.zeros((T, E), dtype=x.dtype, device=x.device).index_add_(
+        0, tok, (gathered.to(F32) * gate[:, None]).to(x.dtype))
+    for q in extra:
+        y = y + swiglu(xt, q["w_gate"], q["w_up"], q["w_down"])
     return y.reshape(B, S, E)

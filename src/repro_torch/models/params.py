@@ -123,17 +123,27 @@ def _init_leaf(s: Spec, generator: torch.Generator) -> torch.Tensor:
     return out
 
 
-def tree_init(spec_tree, generator: torch.Generator) -> ParamTree:
+def tree_init(spec_tree, generator: torch.Generator, cut=None) -> ParamTree:
     """Materialize the parameters on ``generator.device``: normal leaves
     are ``N(0, 1) * scale`` drawn in float32 and cast to the leaf's dtype,
     leaf after leaf in sorted key order from ``generator`` (a leaf past
-    :data:`DRAW_ELEMENTS` slice after slice along its leading axes)."""
-    def build(tree):
-        return {k: build(v) if isinstance(v, dict) else _init_leaf(v, generator)
-                for k, v in sorted(tree.items())}
+    :data:`DRAW_ELEMENTS` slice after slice along its leading axes).
+    ``cut(name, leaf)``, given, replaces each leaf as soon as it is drawn
+    (by a rank's piece of it: the whole leaf is then freed before the next
+    is drawn); ``name`` is its dotted name in :func:`tree_leaves`."""
+    def build(tree, prefix):
+        out = {}
+        for k, v in sorted(tree.items()):
+            if isinstance(v, dict):
+                out[k] = build(v, f"{prefix}{k}.")
+            else:
+                leaf = _init_leaf(v, generator)
+                out[k] = leaf if cut is None else cut(f"{prefix}{k}", leaf)
+                del leaf
+        return out
 
     with torch.no_grad():
-        return ParamTree(build(spec_tree))
+        return ParamTree(build(spec_tree, ""))
 
 
 def tree_num_params(spec_tree) -> int:

@@ -23,8 +23,8 @@ kernels on CUDA tensors, the reference's einsum form on CPU tensors.  MLA
 decode is the reference's weight-absorbed einsum form, plain torch.
 
 Megatron tensor parallelism (``tp``, a ``layers.TensorParallel`` over the
-mesh's ``model`` axis; dense GQA serving and training): every weight is
-this rank's piece by the reference's rules.  The embedding table is
+mesh's ``model`` axis; serving, and the dense GQA LMs' training): every
+weight is this rank's piece by the reference's rules.  The embedding table is
 vocab-parallel (this rank's rows looked up, the rest zero, one all-reduce:
 a sum with one non-zero term, exact); ``wq``/``wk``/``wv`` and
 ``w_gate``/``w_up`` are column-parallel; ``wo`` and ``w_down`` are
@@ -35,7 +35,15 @@ the logits stay cut by vocab.  The cache-free forward attends this rank's
 divide ``n_kv``, so a rank's columns cut a head).  Decode gathers this
 token's q, k and v, writes k and v on the rank whose sequence piece holds
 position ``len`` (a masked write on the device on every rank), and runs
-``layers.decode_attention_split``.  Without ``tp`` nothing changes.
+``layers.decode_attention_split``.  MLA (DeepSeek-V3) keeps ``wq_a``,
+``wkv_a`` and the norms whole and cuts ``wq_b``, ``wk_b``, ``wv_b`` by
+heads and ``wo`` by rows: prefill attends this rank's heads; decode
+writes the token's latent and rope key on the rank that holds ``len``,
+gathers every head's absorbed query, merges every head's float32
+partials over the ranks' latent pieces (``layers.decode_latent_split``)
+and keeps its own heads' context.  MoE layers run ``moe.moe_apply`` with
+``tp``: this rank's experts, one all-reduce.  Without ``tp`` nothing
+changes.
 
 Under autograd (the train step over ``model``) the same forward runs
 with Megatron's autograd-aware collectives: ``tp.copy_to`` (*f*) on the
@@ -47,13 +55,13 @@ divide ``n_kv``.  :func:`lm_loss` takes the vocab-parallel
 :func:`softmax_xent` on the logits cut by vocab, never joined.  Each
 layer's ``torch.utils.checkpoint`` recomputes its collectives in the
 backward, in the same order on every rank.  MoE, MLA and MTP under
-``tp`` raise (ROADMAP Queue 1 item 8.3).
+``tp`` with autograd raise (ROADMAP Queue 1 item 8.3.2).
 
 A decode cache whose sequence is cut over other ranks than the ``model``
 axis's (``seq``, a ``layers.SequenceSplit``: ``long_500k``, over every
 axis of the mesh) takes the same masked write and split attention on the
-ranks of ``seq``, with or without ``tp``; with ``tp`` alone the sequence
-is cut over ``tp``'s ranks.
+ranks of ``seq``, with or without ``tp`` (MLA's latent caches too); with
+``tp`` alone the sequence is cut over ``tp``'s ranks.
 """
 from __future__ import annotations
 
@@ -63,8 +71,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import LMConfig
 from .layers import (NEG_INF, SequenceSplit, TensorParallel,
                      chunked_attention, decode_attention,
-                     decode_attention_split, rms_norm, rope, swiglu,
-                     swiglu_hidden)
+                     decode_attention_split, decode_latent_split, rms_norm,
+                     rope, row_partial, swiglu, swiglu_hidden)
 from .moe import moe_apply, moe_param_specs
 from .params import Spec, tree_leaves, tree_init
 
@@ -74,8 +82,9 @@ __all__ = ["lm_param_specs", "lm_init", "layer_groups", "attention_block",
            "lm_loss"]
 
 F32 = torch.float32
-#: what the tensor-parallel forms leave out (MoE, MLA and MTP over model)
-_ITEM_8_3 = "ROADMAP Queue 1 item 8.3"
+#: what the tensor-parallel forms leave out (MoE, MLA and MTP over model
+#: under autograd)
+_ITEM_8_3_2 = "ROADMAP Queue 1 item 8.3.2"
 
 
 # ---------------------------------------------------------------- param specs
@@ -194,25 +203,45 @@ def _qk_rope(p, cfg: LMConfig, q, k, positions, tp=None):
     return q, k
 
 
-def _mla_qkv_full(p, cfg: LMConfig, x, positions):
-    """MLA decompressed form (prefill: full per-head k, v; the rope key,
-    one for all heads, broadcast)."""
+def _mla_q(p, cfg: LMConfig, x, positions):
+    """MLA's queries of the heads ``p["wq_b"]`` holds (all, or a rank's
+    columns of whole heads): q_nope (B, S, h, dh_nope) and q_rope (B, S,
+    h, dh_rope), roped."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
     cq = rms_norm(x @ p["wq_a"], p["q_norm"])
-    q = (cq @ p["wq_b"]).reshape(B, S, H, m.dh_nope + m.dh_rope)
-    q_nope, q_rope = q[..., :m.dh_nope], q[..., m.dh_nope:]
+    q = (cq @ p["wq_b"]).reshape(B, S, -1, m.dh_nope + m.dh_rope)
+    return q[..., :m.dh_nope], rope(q[..., m.dh_nope:], positions,
+                                    cfg.rope_theta)
+
+
+def _mla_latent(p, cfg: LMConfig, x, positions):
+    """The compressed latent ``c_kv`` (B, S, kv_lora) and the roped key
+    ``k_rope`` (B, S, 1, dh_rope), one for all heads."""
+    m = cfg.mla
     kv_a = x @ p["wkv_a"]
     c_kv = rms_norm(kv_a[..., :m.kv_lora], p["kv_norm"])
-    k_rope = kv_a[..., m.kv_lora:][:, :, None, :]
-    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, m.dh_nope)
-    v = (c_kv @ p["wv_b"]).reshape(B, S, H, m.dh_v)
-    q_rope = rope(q_rope, positions, cfg.rope_theta)
-    k_rope = rope(k_rope, positions, cfg.rope_theta)
+    return c_kv, rope(kv_a[:, :, None, m.kv_lora:], positions, cfg.rope_theta)
+
+
+def _mla_qkv_full(p, cfg: LMConfig, x, positions):
+    """MLA decompressed form (prefill: full per-head k, v; the rope key,
+    one for all heads, broadcast) of the heads the ``wq_b``, ``wk_b`` and
+    ``wv_b`` given hold."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    h = q_nope.shape[2]
+    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, h, m.dh_nope)
+    v = (c_kv @ p["wv_b"]).reshape(B, S, h, m.dh_v)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(B, S, H, m.dh_rope)], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, h, m.dh_rope)], dim=-1)
     return q, k, v
+
+
+def _mla_scale(cfg: LMConfig) -> float:
+    return 1.0 / ((cfg.mla.dh_nope + cfg.mla.dh_rope) ** 0.5)
 
 
 def _mla_decode(p, cfg: LMConfig, x, positions, cache):
@@ -225,26 +254,19 @@ def _mla_decode(p, cfg: LMConfig, x, positions, cache):
     H = cfg.n_heads
     ckv_c, kr_c, length = cache
     T = ckv_c.shape[1]
-    cq = rms_norm(x @ p["wq_a"], p["q_norm"])
-    q = (cq @ p["wq_b"]).reshape(B, S, H, m.dh_nope + m.dh_rope)
-    q_nope, q_rope = q[..., :m.dh_nope], q[..., m.dh_nope:]
-    q_rope = rope(q_rope, positions, cfg.rope_theta)
-    kv_a = x @ p["wkv_a"]
-    c_kv = rms_norm(kv_a[..., :m.kv_lora], p["kv_norm"])       # (B,S,kvl)
-    k_rope = rope(kv_a[:, :, None, m.kv_lora:], positions,
-                  cfg.rope_theta)[:, :, 0]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
     # in place of dynamic_update_slice: positions len .. len+S-1
     pos = (length + torch.arange(S, device=x.device)).long()
     ckv_c.index_copy_(1, pos, c_kv.to(ckv_c.dtype))
-    kr_c.index_copy_(1, pos, k_rope.to(kr_c.dtype))
+    kr_c.index_copy_(1, pos, k_rope[:, :, 0].to(kr_c.dtype))
     # absorb wk_b into q: q_abs (B,S,H,kvl)
     wk = p["wk_b"].reshape(m.kv_lora, H, m.dh_nope)
     q_abs = torch.einsum("bshn,khn->bshk", q_nope, wk)
-    scale = 1.0 / ((m.dh_nope + m.dh_rope) ** 0.5)
     ckv32 = ckv_c.to(F32)
     s = (torch.einsum("bshk,btk->bhst", q_abs.to(F32), ckv32)
          + torch.einsum("bshr,btr->bhst", q_rope.to(F32),
-                        kr_c.to(F32))) * scale
+                        kr_c.to(F32))) * _mla_scale(cfg)
     mask = torch.arange(T, device=x.device) < (length + S)
     s = torch.where(mask, s, NEG_INF)
     pr = torch.softmax(s, dim=-1)
@@ -253,6 +275,42 @@ def _mla_decode(p, cfg: LMConfig, x, positions, cache):
     out = torch.einsum("bshk,khv->bshv", ctx, wv.to(F32))
     out = out.reshape(B, S, H * m.dh_v).to(x.dtype)
     return out @ p["wo"]
+
+
+def _mla_decode_split(p, cfg: LMConfig, x, positions, cache,
+                      seq: SequenceSplit, tp: TensorParallel | None = None):
+    """:func:`_mla_decode` over latent caches whose sequence is cut over
+    the ranks of ``seq`` (``cache``: this rank's pieces and ``len``), one
+    token a step.  The token's latent and rope key are written on the rank
+    that holds position ``len``; with ``tp`` each rank forms the absorbed
+    queries of its own heads and one all-gather over ``model`` gives every
+    rank all of them.  Each rank's float32 partials for every head over
+    its pieces are merged over ``seq`` (:func:`layers.decode_latent_split`);
+    a rank keeps its heads of the latent context, applies its ``wv_b``
+    and ``wo`` (row-parallel) pieces."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"decode over a split sequence takes one token a "
+                         f"step, got {S}")
+    ckv_c, kr_c, length = cache
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    _write_owned(ckv_c, c_kv, length, seq)
+    _write_owned(kr_c, k_rope[:, :, 0], length, seq)
+    h = q_nope.shape[2]
+    wk = p["wk_b"].reshape(m.kv_lora, h, m.dh_nope)
+    q = torch.cat([torch.einsum("bshn,khn->bshk", q_nope, wk), q_rope], -1)
+    if tp is not None:  # every head's absorbed query on every rank
+        q = torch.cat(tp.comm.all_gather(q), dim=2)
+    ctx = decode_latent_split(q[..., :m.kv_lora], q[..., m.kv_lora:], ckv_c,
+                              kr_c, length + 1, seq, _mla_scale(cfg))
+    if tp is not None:
+        ctx = ctx[:, :, tp.index * h:(tp.index + 1) * h]
+    wv = p["wv_b"].reshape(m.kv_lora, h, m.dh_v)
+    out = torch.einsum("bshk,khv->bshv", ctx, wv.to(F32))
+    out = out.reshape(B, S, h * m.dh_v).to(x.dtype)
+    return out @ p["wo"] if tp is None else _row_parallel(out, p["wo"], tp)
 
 
 def attention_block(p, cfg: LMConfig, x, positions, cache=None, tp=None,
@@ -264,11 +322,13 @@ def attention_block(p, cfg: LMConfig, x, positions, cache=None, tp=None,
     Hkv, dh); MLA ``(ckv_cache, kr_cache, len)``); this step's entries are
     written into them in place.  With ``tp``: :func:`_attention_tp`; with
     ``seq`` alone the caches are this rank's sequence pieces
-    (:func:`_split_decode`)."""
+    (:func:`_split_decode`, MLA :func:`_mla_decode_split`)."""
     if tp is not None:
         return _attention_tp(p, cfg, x, positions, cache, tp, seq)
     B, S, _ = x.shape
     if cache is not None and cfg.mla is not None:
+        if seq is not None:
+            return _mla_decode_split(p, cfg, x, positions, cache, seq)
         return _mla_decode(p, cfg, x, positions, cache)
     qkv = _mla_qkv_full if cfg.mla is not None else _gqa_qkv
     q, k, v = qkv(p, cfg, x, positions)
@@ -289,22 +349,10 @@ def attention_block(p, cfg: LMConfig, x, positions, cache=None, tp=None,
 
 # ------------------------------------------------------ tensor parallelism
 def _row_parallel(h, w, tp: TensorParallel):
-    """``h @ w`` for a row-parallel ``w``: this rank's partial product in
-    float32, summed over the ranks by one all-reduce, rounded once to
-    ``h``'s dtype.  On the card the product takes ``h`` and ``w`` as they
-    are (bf16 on the tensor cores) and writes float32; on the CPU it runs
-    in float32.  Under autograd on the card the partial product is
-    rounded to ``h``'s dtype first: ``torch.mm``'s ``out_dtype`` form has
-    no derivative (torch 2.11 on an H100)."""
-    if h.is_cuda and torch.is_grad_enabled() and (h.requires_grad
-                                                  or w.requires_grad):
-        part = (h @ w).float()
-    elif h.is_cuda:
-        part = torch.mm(h.reshape(-1, h.shape[-1]), w,
-                        out_dtype=torch.float32).reshape(*h.shape[:-1], -1)
-    else:
-        part = h.float() @ w.float()
-    return tp.reduce(part).to(h.dtype)
+    """``h @ w`` for a row-parallel ``w``: this rank's float32 partial
+    product (:func:`layers.row_partial`), summed over the ranks by one
+    all-reduce, rounded once to ``h``'s dtype."""
+    return tp.reduce(row_partial(h, w)).to(h.dtype)
 
 
 def _kv_of_heads(k, v, heads: list):
@@ -319,8 +367,9 @@ def _kv_of_heads(k, v, heads: list):
 
 
 def _write_owned(cache, new, length, seq: SequenceSplit) -> None:
-    """Write ``new`` (B, 1, Hkv, dh) at position ``length`` of the
-    sequence into this rank's piece ``cache`` (B, T, Hkv, dh), which holds
+    """Write ``new`` (B, 1, ...) at position ``length`` of the sequence
+    into this rank's piece ``cache`` (B, T, ...: GQA's (Hkv, dh), MLA's
+    latent or rope key), which holds
     positions ``[seq.index * T, (seq.index + 1) * T)``: a masked write on
     the device (a clamped local index; the old entry written back where
     the position is not this rank's), so no rank reads ``length`` on the
@@ -351,16 +400,22 @@ def _split_decode(q, k, v, cache, seq: SequenceSplit,
 
 def _attention_tp(p, cfg: LMConfig, x, positions, cache, tp: TensorParallel,
                   seq: SequenceSplit | None = None):
-    """GQA attention with this rank's weight pieces: column-parallel
-    ``wq``/``wk``/``wv``, row-parallel ``wo``.  Without ``cache``, the
-    causal ``chunked_attention`` of this rank's ``H / M`` query heads.
-    With it (one token), every head's q, k, v gathered and
-    :func:`_split_decode` over the cache pieces of ``seq`` (by default
-    the sequence cut over ``tp``'s ranks)."""
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"MLA under tensor parallelism ({_ITEM_8_3})")
+    """Attention with this rank's weight pieces: column-parallel
+    ``wq``/``wk``/``wv`` (MLA: ``wq_b``/``wk_b``/``wv_b``, whole heads;
+    ``wq_a``, ``wkv_a`` and the norms whole), row-parallel ``wo``.
+    Without ``cache``, the causal ``chunked_attention`` of this rank's
+    ``H / M`` query heads.  With it (one token) the cache is cut over the
+    ranks of ``seq`` (by default the sequence cut over ``tp``'s ranks):
+    GQA gathers every head's q, k, v and runs :func:`_split_decode`; MLA
+    runs :func:`_mla_decode_split`."""
     B, S, _ = x.shape
+    seq = seq or SequenceSplit(tp.comm, tp.size, tp.index)
+    if cfg.mla is not None:
+        if cache is not None:
+            return _mla_decode_split(p, cfg, x, positions, cache, seq, tp)
+        q, k, v = _mla_qkv_full(p, cfg, x, positions)
+        out = chunked_attention(q, k, v, causal=True)
+        return _row_parallel(out.reshape(B, S, -1), p["wo"], tp)
     H, Hkv, dh, M = cfg.n_heads, cfg.n_kv, cfg.head_dim, tp.size
     nh = H // M
     x = tp.copy_to(x)
@@ -373,7 +428,6 @@ def _attention_tp(p, cfg: LMConfig, x, positions, cache, tp: TensorParallel,
                    for a, b in ((0, nq), (nq, nq + nk), (nq + nk, None)))
         q, k = _qk_rope(p, cfg, q.reshape(B, S, H, dh),
                         k.reshape(B, S, Hkv, dh), positions, tp)
-        seq = seq or SequenceSplit(tp.comm, tp.size, tp.index)
         out = _split_decode(q, k, v.reshape(B, S, Hkv, dh), cache, seq, tp)
     else:
         if Hkv % M:  # this rank's columns cut a kv head: k, v whole
@@ -421,14 +475,17 @@ def _layer_slice(gp, i: int) -> dict:
 
 def _layer(cfg: LMConfig, x, lp, positions, use_moe: bool, cache=None,
            tp=None, seq=None):
+    if tp is not None and (use_moe or cfg.mla is not None) and \
+            torch.is_grad_enabled() and (x.requires_grad or any(
+                t.requires_grad for _, t in tree_leaves(lp))):
+        raise NotImplementedError(
+            f"MoE and MLA under tensor parallelism with autograd "
+            f"({_ITEM_8_3_2})")
     a = attention_block(lp["attn"], cfg, rms_norm(x, lp["ln_attn"]), positions,
                         cache, tp, seq)
     x = x + a
     h = rms_norm(x, lp["ln_mlp"])
-    if use_moe and tp is not None:
-        raise NotImplementedError(
-            f"MoE under tensor parallelism ({_ITEM_8_3})")
-    f = moe_apply(lp["moe"], cfg, h) if use_moe else \
+    f = moe_apply(lp["moe"], cfg, h, tp=tp) if use_moe else \
         _dense_mlp(lp["mlp"], h, tp)
     return x + f
 
@@ -500,7 +557,7 @@ def lm_loss(params, cfg: LMConfig, tokens, labels, tp=None):
     logits cut by vocab (:func:`softmax_xent`)."""
     if tp is not None and cfg.mtp_depth > 0:
         raise NotImplementedError(
-            f"MTP under tensor parallelism ({_ITEM_8_3})")
+            f"MTP under tensor parallelism ({_ITEM_8_3_2})")
     hidden, _ = lm_forward(params, cfg, tokens, tp=tp)
     if tp is not None:
         hidden = tp.copy_to(hidden)

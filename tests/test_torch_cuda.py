@@ -1337,6 +1337,83 @@ def test_mind_train_step_over_model_on_the_card(dev, tmp_path):
             assert err <= 1e-5 * scale, (r, n, err, scale)
 
 
+@pytest.mark.parametrize("shape", [(2, 48, 96, 64), (1, 300, 256, 128)])
+def test_row_partial_under_autograd_is_the_float32_product(dev, shape):
+    """The row-parallel product under autograd on the card
+    (``layers.row_partial``): its forward is ``torch.mm``'s ``out_dtype``
+    float32 product of the bf16 operands bit for bit, and its gradients
+    those autograd gives ``(h @ w).float()``, bit for bit."""
+    from repro_torch.models import layers
+
+    B, S, K, N = shape
+    g = torch.Generator(dev).manual_seed(B * S)
+    h0 = torch.randn((B, S, K), generator=g, device=dev).to(torch.bfloat16)
+    w0 = torch.randn((K, N), generator=g, device=dev).to(torch.bfloat16)
+    cot = torch.randn((B, S, N), generator=g, device=dev)
+    h, w = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+    got = layers.row_partial(h, w)
+    assert got.dtype == torch.float32
+    want = torch.mm(h0.reshape(-1, K), w0, out_dtype=torch.float32)
+    assert torch.equal(got.detach().reshape(-1, N), want)
+    gh, gw = torch.autograd.grad(got, [h, w], cot)
+    h2, w2 = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+    wh, ww = torch.autograd.grad((h2 @ w2).float(), [h2, w2], cot)
+    assert gh.dtype == wh.dtype == torch.bfloat16
+    assert torch.equal(gh, wh) and torch.equal(gw, ww)
+
+
+def test_moe_and_mla_decode_over_model_on_the_card(dev, tmp_path):
+    """DeepSeek-V3's and Arctic's reduced configs in bf16, three decode_32k
+    steps over a (1, 2) mesh of two gloo ranks sharing the card
+    (``torch_pg_ranks.card_tp_moe_case``: experts and MLA's heads over
+    ``model``, the cache's sequence cut at one below the boundary, each
+    rank's pieces drawn leaf by leaf on the card): the rows whose tokens
+    took the one device's experts in every MoE layer hold their logits
+    within 1/8 of the one-device logits' spread (the ranks sum float32
+    partials and round once where one device rounds each product to
+    bf16), at least 90% of the (token, layer) pairs route alike, and each
+    rank launches kernel #5's split and combine once a layer a step on its
+    piece in Arctic's decode (none in DeepSeek's latent decode)."""
+    from pathlib import Path
+
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import tree_init
+    from torch_pg_ranks import (CARD_MOE, _RouteSpy, card_moe_cell,
+                                card_moe_inputs)
+
+    tests = Path(__file__).resolve().parent
+    run_ranks("torch_pg_ranks:card_tp_moe_case", 2, backend="gloo",
+              args=[tmp_path], paths=[tests], timeout=300)
+    for arch in CARD_MOE["archs"]:
+        cfg, b = card_moe_cell(arch)
+        params = tree_init(tfm.lm_param_specs(cfg),
+                           torch.Generator(dev).manual_seed(0))
+        x = card_moe_inputs(cfg, b, dev)
+        caches, want = x["caches"], []
+        with _RouteSpy() as rs:
+            for tok in x["tokens"]:
+                lg, caches = b.fn(params, tok, caches)
+                want.append(lg.float().cpu())
+        routes = [r.cpu() for r in rs.routes]
+        layers = cfg.n_layers if cfg.mla is None else 0
+        tol = float(torch.stack(want).std()) / 8
+        for r in range(2):
+            got = torch.load(tmp_path / f"card_moe_{arch}_{r}.pt")
+            for name in ("flash_decode", "flash_decode_combine"):
+                assert got["launches"].get(name, 0) == \
+                    CARD_MOE["steps"] * layers, (arch, r, got["launches"])
+            assert len(got["routes"]) == len(routes)
+            same = [(a == e).all(-1) for a, e in zip(got["routes"], routes)]
+            assert float(torch.cat(same).float().mean()) >= 0.9, (arch, r)
+            n_moe = len(routes) // CARD_MOE["steps"]
+            for i, (g, w) in enumerate(zip(got["logits"], want)):
+                held = torch.stack(same[i * n_moe:(i + 1) * n_moe]).all(0)
+                err = (g.float() - w).abs().amax((1, 2))[held]
+                assert held.any() and float(err.max()) <= tol, \
+                    (arch, r, i, err, tol)
+
+
 # ----------------------------------------------------------------- serving
 def test_mind_serving_on_the_card_matches_plain(dev, monkeypatch):
     from repro_torch.configs import get_config

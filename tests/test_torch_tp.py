@@ -426,9 +426,10 @@ def _mesh(shape):
 
 
 RAISES = {
-    "deepseek-v3 decode": ("deepseek-v3-671b", "decode_32k", (1, 2),
-                           "MLA's latent"),
-    "arctic prefill": ("arctic-480b", "prefill_32k", (1, 2), "MoE experts"),
+    "arctic decode on data ranks": ("arctic-480b", "decode_32k", (2, 2),
+                                    "MoE capacity"),
+    "arctic train over model": ("arctic-480b", "train_4k", (1, 2),
+                                "item 8.3.2"),
     "moe data ranks": ("arctic-480b", "decode_32k", (2, 1), "MoE capacity"),
     "deepseek-v3 train over model": ("deepseek-v3-671b", "train_4k", (1, 2),
                                      "MTP over model"),

@@ -460,3 +460,171 @@ def card_mind_train_case(out_dir: str) -> None:
     torch.save({"launches": launches, "loss": float(loss),
                 "params": _copied(params), "mu": _copied(state["mu"])},
                os.path.join(out_dir, f"card_mind_{dist.get_rank()}.pt"))
+
+
+class _RouteSpy:
+    """Records each ``moe_apply`` call of the transformer: its input (the
+    tensor every model rank must hold alike) and the top-k expert ids it
+    routes that input to, computed as ``moe_apply`` computes them."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+
+        self.module, self.inputs, self.routes = transformer, [], []
+        self._orig = transformer.moe_apply
+
+    def __enter__(self):
+        def spy(p, cfg, x, *a, **kw):
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                  @ p["router"].float(), dim=-1)
+            self.inputs.append(x.detach().clone())
+            self.routes.append(torch.topk(probs, cfg.moe.top_k).indices)
+            return self._orig(p, cfg, x, *a, **kw)
+
+        self.module.moe_apply = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.moe_apply = self._orig
+
+
+def tp_moe_cases(case_dir: str, params_dir: str, out_dir: str, data: str,
+                 model: str) -> None:
+    """MoE and MLA serving over a ``(data, model)`` mesh of the group:
+    each case's global params (``<params_dir>/<params>.pt``), tokens and
+    caches (``<case_dir>/<case>.pt``) cut to this rank's pieces, the
+    prefill or every decode step run through ``build_step``; every rank
+    writes its logits (its piece and joined whole), its cache pieces,
+    whether each decode step wrote into them, the MoE layers' inputs and
+    routes and the all-gathers it made (``<case>_<rank>.pt``).  A case
+    marked ``seq_alone`` runs ``serve_decode`` on the whole weights with
+    the cache's sequence cut over ``model`` and no tensor parallelism."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (_comm, _whole, build_step,
+                                          gather_outputs, local_args)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import SequenceSplit
+
+    torch.set_num_threads(1)
+    mesh = _mesh_of(data, model)
+    rank = dist.get_rank()
+    with open(os.path.join(case_dir, "cases.json")) as f:
+        cases = json.load(f)
+    params_of = {}
+    for name, case in cases.items():
+        arch, cell = case["arch"], case["shape"]
+        b = build_step(arch, cell, mesh, reduced=True)
+        whole = torch.load(os.path.join(params_dir, f"{case['params']}.pt"))
+        if case.get("seq_alone"):
+            params = whole
+        else:
+            if case["params"] not in params_of:
+                params_of[case["params"]] = local_args(b, whole)[0]
+            params = params_of[case["params"]]
+        args = torch.load(os.path.join(case_dir, f"{name}.pt"))
+        rec = {"coords": mesh.coords()}
+        with _GatherSpy(_param_storages(params)) as spy, _RouteSpy() as rs:
+            if cell == "prefill_32k":
+                _, tokens = local_args(b, None, args["tokens"])
+                logits = b.fn(params, tokens)
+                rec["logits_piece"] = logits
+                rec["logits"] = [gather_outputs(b, logits)]
+            else:
+                _, _, caches = local_args(b, None, None, args["caches"])
+                keys = [k for k in caches if k != "len"]
+                seq = SequenceSplit(_comm(mesh, "model"), mesh.shape["model"],
+                                    mesh.axis_index("model"))
+                rec.update(logits=[], logits_pieces=[], written=[])
+                for tok in args["tokens"]:
+                    _, tokens, _ = local_args(b, None, tok, None)
+                    before = [caches[k].clone() for k in keys]
+                    if case.get("seq_alone"):
+                        cfg = get_config(arch).reduced()
+                        with torch.inference_mode():
+                            logits, caches = tfm.serve_decode(
+                                params, cfg, tokens, caches, seq=seq)
+                        rec["logits"].append(logits)
+                    else:
+                        logits, caches = b.fn(params, tokens, caches)
+                        rec["logits_pieces"].append(logits)
+                        rec["logits"].append(
+                            _whole(logits, b.out_shardings[0]))
+                    rec["written"].append(not all(
+                        torch.equal(x, caches[k])
+                        for x, k in zip(before, keys)))
+                rec["caches"] = caches
+        rec["gathers"], rec["weight_gathers"] = spy.calls, spy.of_weights
+        rec["moe_inputs"], rec["routes"] = rs.inputs, rs.routes
+        torch.save(rec, os.path.join(out_dir, f"{name}_{rank}.pt"))
+
+
+#: the card's MoE and MLA decode case: the ids' reduced configs in bf16 on a
+#: (1, 2) mesh, three decode_32k steps from one below the piece boundary
+CARD_MOE = {"archs": ("deepseek-v3-671b", "arctic-480b"), "steps": 3,
+            "mesh": (1, 2)}
+
+
+def card_moe_cell(arch: str, mesh=None):
+    """``(cfg, decode bundle)`` of the card's MoE case: ``arch``'s reduced
+    config in bf16, its decode_32k step (on ``mesh``'s ranks)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import lm_specs
+    from repro_torch.launch import steps
+
+    cfg = replace(get_config(arch).reduced(), dtype=torch.bfloat16)
+    b = steps._build_lm(cfg, "decode_32k", "decode",
+                        lm_specs(cfg, "decode_32k", reduced=True), mesh,
+                        None, False)
+    return cfg, b
+
+
+def card_moe_inputs(cfg, b, device) -> dict:
+    """The card case's cache (seeded with numpy, bf16) and tokens."""
+    rng = np.random.default_rng(5)
+    (B, _), _ = b.args[1]
+    caches = {k: torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                 device=device).to(dtype)
+              for k, (shape, dtype) in b.args[2].items() if k != "len"}
+    T = next(iter(caches.values())).shape[2]
+    caches["len"] = torch.tensor(T // CARD_MOE["mesh"][1] - 1,
+                                 dtype=torch.int32, device=device)
+    toks = [torch.as_tensor(rng.integers(0, cfg.vocab, (B, 1)).astype(
+        np.int32), device=device) for _ in range(CARD_MOE["steps"])]
+    return {"caches": caches, "tokens": toks}
+
+
+def card_tp_moe_case(out_dir: str) -> None:
+    """MoE and MLA decode over a (1, 2) mesh of gloo ranks sharing cuda:0
+    (:data:`CARD_MOE`): each rank draws its pieces leaf by leaf on the card
+    (``local_init``, seed 0), runs the decode steps on its cache piece with
+    the flash-decode launches counted from 0, and writes the joined logits,
+    its routes and the launches (``card_moe_<arch>_<rank>.pt``)."""
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.launch.mesh import Mesh, _device_mesh
+    from repro_torch.launch.steps import _whole, local_args, local_init
+    from repro_torch.models import transformer as tfm
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    shape, axes = CARD_MOE["mesh"], ("data", "model")
+    mesh = Mesh(shape, axes, [device], _device_mesh(shape, axes, device))
+    for arch in CARD_MOE["archs"]:
+        cfg, b = card_moe_cell(arch, mesh)
+        params = local_init(tfm.lm_param_specs(cfg), b.in_shardings[0],
+                            torch.Generator(device).manual_seed(0))
+        x = card_moe_inputs(cfg, b, device)
+        _, _, caches = local_args(b, None, None, x["caches"])
+        fdk.reset_launch_counts()
+        logits = []
+        with _RouteSpy() as rs:
+            for tok in x["tokens"]:
+                lg, caches = b.fn(params, local_args(b, None, tok, None)[1],
+                                  caches)
+                logits.append(_whole(lg, b.out_shardings[0]).cpu())
+        torch.cuda.synchronize(device)
+        torch.save({"logits": logits, "launches": dict(fdk.LAUNCHES),
+                    "routes": [r.cpu() for r in rs.routes]},
+                   os.path.join(out_dir,
+                                f"card_moe_{arch}_{dist.get_rank()}.pt"))
