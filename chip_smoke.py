@@ -38,7 +38,9 @@ Phases, each printing one JSON line:
   outofcore  the semi-external path at full width: the same powerlaw
              stream built into on-disk tables by build_csr (default chunk,
              in a child process, this script with --ooc-build-child, that
-             reports its sampled peak RSS), memmap-loaded and held
+             reports its sampled peak RSS; both builds start with the
+             script and run beside the phases before this one), memmap-
+             loaded and held
              array-equal to the in-memory graph, loaded afresh and
              decomposed on "cuda" with every result field equal to the
              main path's, the host RSS sampled over the decompose; the
@@ -137,29 +139,27 @@ Phases, each printing one JSON line:
              ServeEngine: 8 prompts of 64 tokens, 16 greedy tokens, flash
              decode under every layer, each decode step's logits held to
              the cache-free forward
-  lm_tp      Qwen3-0.6B at full width under Megatron tensor parallelism
-             over a (data, model) = (1, 2) mesh of two gloo ranks sharing
-             cuda:0 (repro_torch.launch.ranks, this script's tp_rank),
-             each holding its weight pieces and its half of a seeded
-             decode_32k cache (8 rows x 32,768 positions, 15.0 GB a rank):
-             serve_prefill at 2 x 2,048, then 8 teacher-forced decode
-             steps from len 20,000 (past the piece boundary at 16,384)
-             through build_step's steps, flash decode on each rank's piece
-             and its combine across the ranks; the joined logits held to
-             the one-rank path's on the same weights and cache within
-             LM_LOGITS_ATOL, their argmax agreement printed; each rank's
-             step ms, collectives' time and peak device memory.  In the
-             same rank start, DeepSeek-V3 (MLA, its dense layer and one MoE
-             layer of 61) and Arctic (one MoE layer of 35) at full width,
-             each rank drawing its pieces leaf by leaf (experts over
-             model, MLA's heads over model): serve_prefill at 1 x 4,096,
-             4 decode_32k steps at 8 rows from len 20,000, DeepSeek-V3's
-             long_500k 3 steps from len 262,142 across its piece
-             boundary; each held to a one-device control run first (the
-             rows routed as the control's within LM_LOGITS_ATOL, the
-             routes bit for bit the other rank's and at least
-             MOE_ROUTING_AGREE the control's), flash decode on each rank's
-             piece in Arctic's decode
+  lm_tp      three models at full width under tensor parallelism over
+             a (data, model) = (1, 2) mesh of two gloo ranks sharing
+             cuda:0 (repro_torch.launch.ranks, this script's tp_rank), in
+             one rank start: Qwen3-0.6B (Megatron), DeepSeek-V3 (MLA, its
+             dense layer and one MoE layer of 61) and Arctic (one MoE
+             layer of 35), experts and MLA's heads over model, each rank
+             drawing its pieces leaf by leaf and holding its half of a
+             seeded decode_32k cache (8 rows x 32,768 positions; 15.0 GB a
+             rank for Qwen3-0.6B): serve_prefill (Qwen3-0.6B 2 x 2,048,
+             the MoE models 1 x 4,096), then teacher-forced decode steps
+             from len 20,000 (past the piece boundary at 16,384; 4 a
+             model) and DeepSeek-V3's long_500k 3
+             steps from len 262,142 across its piece boundary, through
+             build_step's steps, flash decode on each rank's piece and its
+             combine across the ranks in the GQA models; each position's
+             joined logits held to a one-device control run first within
+             LM_LOGITS_ATOL where its token took the control's experts
+             (every position of Qwen3-0.6B, at least MOE_ROUTING_AGREE of
+             them), the routes bit for bit the other rank's and at least
+             MOE_ROUTING_AGREE the control's; each rank's step ms,
+             collectives' time and peak device memory
   tp_serve   four gloo ranks sharing the card on a (data, model) = (2, 2)
              mesh, in one start: long_500k on Qwen3-0.6B at full width
              (28 layers cut to 4), its seeded cache of 524,288 positions
@@ -239,8 +239,11 @@ maintain path (``maintain_launches``), on the out-of-core path
 on the shard path (``shard_launches``, its runs but the timing reruns),
 on the process-group path (``dist_launches``, every rank's runs),
 on Qwen3-14B's decode (``lm_prefill_launches``), on the tensor-parallel
-decode (``lm_tp_launches``, both ranks' steps; ``tp_moe_launches``, both
-ranks' Arctic decode steps with its experts over model), on the tp_serve
+decode (``lm_tp_launches``, both ranks' Qwen3-0.6B steps;
+``tp_moe_launches``, both ranks' Arctic decode steps with its experts over
+model; kernel #5 also timed at a rank's 16,384-position piece and its
+combine over two under ``lm_tp_pieces`` at Qwen3-0.6B's heads and
+``tp_moe_pieces`` at Arctic's), on the tp_serve
 phase's ranks (``tp_serve_launches``: kernel #5 in long_500k's steps,
 kernel #4 in MIND's cells; kernel #5 also timed at one 131,072-position
 piece a rank and its combine over four under ``tp_serve_pieces``, kernel
@@ -262,6 +265,7 @@ and exits non-zero.  Needs CUDA, nvcc and the repository's ``src/``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
@@ -366,40 +370,37 @@ MOE_ROUTING_AGREE = 0.9
 #: flash decode also timed at the served shapes of the zoo's GQA models,
 #: (label, B, T, cache_len, (H, Hkv, d)): Qwen3-14B (G = 5) and Arctic
 #: (G = 7) at their caches' last step
+ARCTIC_HEADS = (56, 8, 128)
 ZOO_DECODE_SHAPES = (
     ("served_qwen3_14b", ZOO_SLOTS, ZOO_PROMPT + ZOO_GENERATE,
      ZOO_PROMPT + ZOO_GENERATE, (40, 8, 128)),
     ("served_arctic_480b", ZOO_SLOTS, ZOO_PROMPT + ZOO_GENERATE,
-     ZOO_PROMPT + ZOO_GENERATE, (56, 8, 128)))
-#: lm_tp: Qwen3-0.6B at full width (28 layers) under Megatron tensor
-#: parallelism over a (data, model) = TP_MESH mesh of gloo ranks sharing
-#: cuda:0 (NCCL refuses two ranks on one card): serve_prefill at TP_PREFILL
-#: = (B, S), then TP_DECODE_STEPS teacher-forced decode steps at LM_SLOTS
-#: rows over a seeded decode_32k cache of TP_T positions from len TP_LEN0,
-#: past the piece boundary at TP_T / 2 (30.1 GB of bf16 cache whole, 15.0 GB
-#: a rank).  Each rank holds its joined logits to the one-rank path's
-#: within LM_LOGITS_ATOL
+     ZOO_PROMPT + ZOO_GENERATE, ARCTIC_HEADS))
+#: lm_tp: three models at full width under tensor parallelism over a
+#: (data, model) = TP_MESH mesh of gloo ranks sharing cuda:0 (NCCL refuses
+#: two ranks on one card), one rank start for the three (no new process
+#: pays a first step's warm-up), each held to a one-device control.  Per
+#: model TP_MODELS gives (depth cut (n_layers, first_k_dense) or None,
+#: serve_prefill (B, S), decode_32k steps, long_500k steps): Qwen3-0.6B
+#: all 28 layers; DeepSeek-V3 (MLA, a shared expert) cut from 61 and 3 to
+#: its dense layer and one MoE layer; Arctic (GQA with G = 7, a dense
+#: residual MLP) one MoE layer of 35.  The decode steps are teacher-forced
+#: at LM_SLOTS rows (cut from 128) over a seeded decode_32k cache of TP_T
+#: positions from len TP_LEN0, past the piece boundary at TP_T / 2
+#: (Qwen3-0.6B's bf16 cache 30.1 GB whole, 15.0 GB a rank; its steps cut
+#: from 8 to 4 to keep the script within its time limit); DeepSeek's
+#: long_500k from TP_LONG_LEN0 on a LONG_T latent cache writes on both
+#: sides of its piece boundary.  Each rank draws its pieces leaf by leaf
+#: (steps.local_init): the whole MoE weights (~28.9 / 28.2 GB) beside a
+#: piece on each of two ranks would pass 80 GB
 TP_MESH = (1, 2)
-TP_PREFILL = (2, 2048)
-TP_DECODE_STEPS = 8
 TP_T, TP_LEN0 = 32768, 20_000
 LONG_T = 524_288
+TP_LONG_LEN0 = LONG_T // 2 - 2
 TP_TIMEOUT_S = 300
-#: lm_tp's MoE and MLA cases, run in the same rank start as Qwen3-0.6B's
-#: (no new process pays a first step's warm-up): DeepSeek-V3 (MLA, a
-#: shared expert) and Arctic (GQA with G = 7, a dense residual MLP) at full
-#: width, depth cut to (n_layers, first_k_dense) = TP_MOE_DEPTH (DeepSeek
-#: from 61 and 3: its dense layer and one MoE layer; Arctic one MoE layer
-#: of 35); serve_prefill at MOE_PREFILL; TP_MOE_DECODE_STEPS decode_32k
-#: steps at LM_SLOTS rows (cut from 128) from len TP_LEN0 on a TP_T cache;
-#: DeepSeek's long_500k, TP_MOE_LONG_STEPS steps from TP_MOE_LONG_LEN0 on a
-#: LONG_T latent cache, writing on both sides of its piece boundary.  Each
-#: rank draws its pieces leaf by leaf (steps.local_init): the whole weights
-#: (~28.9 / 28.2 GB) beside a piece on each of two ranks would pass 80 GB
-TP_MOE_DEPTH = {"deepseek-v3-671b": (2, 1), "arctic-480b": (1, 0)}
-TP_MOE_DECODE_STEPS = 4
-TP_MOE_LONG_STEPS = 3
-TP_MOE_LONG_LEN0 = LONG_T // 2 - 2
+TP_MODELS = {"qwen3-0.6b": (None, (2, 2048), 4, 0),
+             "deepseek-v3-671b": ((2, 1), MOE_PREFILL, 4, 3),
+             "arctic-480b": ((1, 0), MOE_PREFILL, 4, 0)}
 #: tp_serve: four gloo ranks sharing cuda:0 on a (data, model) =
 #: TP_SERVE_MESH mesh.  long_500k on Qwen3-0.6B at full width, depth cut
 #: from 28 layers to TP_SERVE_LAYERS (its whole bf16 cache is ~60 GB at 28,
@@ -1542,17 +1543,44 @@ class ChildSource:
         self.close()
 
 
-def build_out_of_core(out_dir: str, relabel: str, shape: tuple) -> dict:
-    """``build_csr`` of the powerlaw stream of ``shape`` (n, draws) into
-    ``out_dir`` in a child process (:func:`ooc_build_child`); returns its
-    JSON record."""
-    proc = subprocess.run(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--ooc-build-child",
-         out_dir, relabel, str(shape[0]), str(shape[1])],
-        capture_output=True, text=True, timeout=OOC_BUILD_TIMEOUT_S)
-    check(proc.returncode == 0,
-          f"out-of-core build ({relabel}) failed: {proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+class ChildBuild:
+    """``build_csr`` of the powerlaw stream of ``shape`` (n, draws) into a
+    directory of its own (:attr:`path`) by :func:`ooc_build_child`, in a
+    process of its own started here; :meth:`result` waits for it and
+    returns its JSON record, :meth:`close` (or leaving a ``with`` block, or
+    the script's exit) stops it and removes its files."""
+
+    def __init__(self, relabel: str, shape: tuple):
+        self.relabel = relabel
+        self.tmp = tempfile.TemporaryDirectory(prefix="ooc_")
+        self.path = os.path.join(self.tmp.name, relabel)
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--ooc-build-child",
+             self.path, relabel, str(shape[0]), str(shape[1])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        atexit.register(self.close)
+
+    def result(self) -> dict:
+        """The child's record, with the parent's wait in ``wait_s``."""
+        t = time.perf_counter()
+        out, err = self.proc.communicate(timeout=OOC_BUILD_TIMEOUT_S)
+        check(self.proc.returncode == 0, f"out-of-core build "
+              f"({self.relabel}) failed: {err[-4000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        rec["wait_s"] = time.perf_counter() - t
+        return rec
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        self.tmp.cleanup()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def hold_relabeled(g2, g, perm) -> None:
@@ -1576,10 +1604,12 @@ def hold_relabeled(g2, g, perm) -> None:
           "relabeled build: edges differ from the graph's through perm")
 
 
-def phase_outofcore(device, g, r, small) -> dict:
+def phase_outofcore(device, g, r, small, builds: tuple) -> dict:
     """The semi-external path: the full phase's stream built out of core
     into on-disk tables (``build_csr`` at the default chunk, in a child
-    process), memmap-loaded and held array-equal to the in-memory graph
+    process, ``builds[0]``, started with the script so that it runs beside
+    the phases before this one), memmap-loaded and held array-equal to the
+    in-memory graph
     ``g``, decomposed on the card with every DecompResult field equal to
     the main path's ``r``; then the ``relabel="degree"`` build of the small
     phase's stream (``small``: its graph and semicore* result), held to
@@ -1598,16 +1628,16 @@ def phase_outofcore(device, g, r, small) -> dict:
     from repro_torch.graph import CSRGraph
     from repro_torch.obs import trace
 
-    legs = (("plain", "none", FULL, g, r), ("degree", "degree", SMALL, *small))
+    legs = (("plain", builds[0], g, r), ("degree", builds[1], *small))
     out = {"phase": "outofcore", "n": g.n, "directed_edges": g.num_directed,
            "relabeled_n": small[0].n,
            "relabeled_directed_edges": small[0].num_directed,
            "builds": {}, "decomposes": {}}
     total: dict = {}
-    with tempfile.TemporaryDirectory(prefix="ooc_") as work:
-        for label, relabel, shape, base, base_r in legs:
-            path = os.path.join(work, label)
-            rec = build_out_of_core(path, relabel, shape)
+    with builds[0], builds[1]:
+        for label, build, base, base_r in legs:
+            path, relabel = build.path, build.relabel
+            rec = build.result()
             t = time.perf_counter()
             go = CSRGraph.load(path, mmap=True)
             check(isinstance(go.adj, np.memmap),
@@ -3111,7 +3141,7 @@ def phase_lm(device) -> tuple:
     eng = ServeEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=device)
     events = []
     decode = eng.decode
-    prefill_logits = []
+    step_logits = []  # the kernel path's logits, step by step
 
     def timed_decode(tokens):
         s = torch.cuda.Event(enable_timing=True)
@@ -3120,8 +3150,7 @@ def phase_lm(device) -> tuple:
         logits = decode(tokens)
         e.record()
         events.append((s, e))
-        if len(events) == LM_PROMPT:  # the prefill's last step
-            prefill_logits.append(logits)
+        step_logits.append(logits)
         return logits
 
     eng.decode = timed_decode
@@ -3150,21 +3179,21 @@ def phase_lm(device) -> tuple:
         lambda: [decode(tok) for _ in range(8)])
     del eng
 
-    # teacher-forced replay: the kernel engine and a plain-attention engine
-    # on the kernel run's token stream (a flipped near-tie cannot fork them);
-    # the plain engine's cache ends at the stream's length, which changes no
-    # result (positions past len weigh exactly 0)
+    # teacher-forced replay: a plain-attention engine on the kernel run's
+    # token stream, held step by step to the kernel run's logits (the
+    # stream is the tokens that run decoded, so a flipped near-tie cannot
+    # fork them); the plain engine's cache ends at the stream's length,
+    # which changes no result (positions past len weigh exactly 0)
     with torch.inference_mode():
         stream = torch.as_tensor(np.concatenate([prompts, toks], axis=1),
                                  device=device)
-        ek = ServeEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=device)
         ep = ServeEngine(params, cfg, LM_SLOTS, steps, device=device)
         worst = torch.zeros((), device=device)
         firm = torch.zeros((), dtype=torch.int64, device=device)
         flips = torch.zeros((), dtype=torch.int64, device=device)
         same_tok = torch.zeros((), dtype=torch.int64, device=device)
         for i in range(steps):
-            lk = ek.decode(stream[:, i:i + 1])[:, -1].float()
+            lk = step_logits[i][:, -1].float()
             with plain_serving():
                 lp = ep.decode(stream[:, i:i + 1])[:, -1].float()
             worst = torch.maximum(worst, (lk - lp).abs().max())
@@ -3186,7 +3215,7 @@ def phase_lm(device) -> tuple:
                replay_tokens=LM_SLOTS * LM_GENERATE)
     emit(out)
     return launches, {"params": params, "prompts": prompts,
-                      "prefill_logits": prefill_logits[0]}
+                      "prefill_logits": step_logits[LM_PROMPT - 1]}
 
 
 @contextlib.contextmanager
@@ -3211,6 +3240,26 @@ def recorded_routing():
         yield seen
     finally:
         tfm.moe_apply = inner
+
+
+@contextlib.contextmanager
+def recorded_hidden():
+    """``lm_forward`` as the steps call it, each call's hidden states
+    (B, S, E) recorded (serve_prefill keeps only the last position's)."""
+    from repro_torch.models import transformer as tfm
+
+    seen, inner = [], tfm.lm_forward
+
+    def recording(*args, **kw):
+        out = inner(*args, **kw)
+        seen.append(out[0])
+        return out
+
+    tfm.lm_forward = recording
+    try:
+        yield seen
+    finally:
+        tfm.lm_forward = inner
 
 
 def free_card(device) -> None:
@@ -3517,29 +3566,6 @@ def tp_cache(cfg, B: int, T: int, pieces: int, which, device) -> dict:
     return out
 
 
-def tp_inputs(spec: dict, device) -> tuple:
-    """``(cfg, params, prefill tokens, decode tokens)`` of the lm_tp phase
-    from its ``spec`` (the whole weights, drawn from seed 0)."""
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.data import TokenSource
-    from repro_torch.models import transformer as tfm
-
-    cfg = get_config(spec["arch"])
-    if spec["reduced"]:
-        cfg = cfg.reduced()
-    params = tfm.lm_init(cfg, torch.Generator(device).manual_seed(0))
-    B, S = spec["prefill"]
-    tokens = torch.as_tensor(TokenSource(B, S, cfg.vocab, seed=1)(0)[
-        "tokens"], device=device)
-    steps = TokenSource(spec["slots"], spec["steps"], cfg.vocab, seed=2)(0)[
-        "tokens"]
-    decode = [torch.as_tensor(steps[:, i:i + 1], device=device)
-              for i in range(spec["steps"])]
-    return cfg, params, tokens, decode
-
-
 def _logits_hold(got, want) -> tuple:
     """(max |got - want|, rows whose argmax agree, rows)."""
     got, want = got.float()[:, -1], want.float()[:, -1]
@@ -3579,17 +3605,9 @@ def timed_collectives(sync):
     return collectives
 
 
-def tp_moe_spec(reduced: bool = False) -> dict:
-    """lm_tp's MoE and MLA cases (:data:`TP_MOE_DEPTH`): the cells' sizes,
-    at full width unless ``reduced`` (a CPU rehearsal passes its own)."""
-    return {"reduced": reduced, "archs": dict(TP_MOE_DEPTH),
-            "prefill": list(MOE_PREFILL), "slots": LM_SLOTS, "T": TP_T,
-            "len0": TP_LEN0, "steps": TP_MOE_DECODE_STEPS,
-            "long": [LONG_T, TP_MOE_LONG_LEN0, TP_MOE_LONG_STEPS]}
-
-
-def tp_moe_config(arch: str, spec: dict):
-    """``arch``'s config cut to its depth: ``(base, cut)``."""
+def tp_model(arch: str, spec: dict):
+    """``arch``'s config as lm_tp runs it, ``(base, cut)``: the depth cut
+    to the model's ``depth`` (n_layers, first_k_dense) where it has one."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3597,17 +3615,22 @@ def tp_moe_config(arch: str, spec: dict):
     base = get_config(arch)
     if spec["reduced"]:
         base = base.reduced()
-    depth, dense = spec["archs"][arch]
-    return base, dataclasses.replace(base, n_layers=depth,
+    depth = spec["models"][arch]["depth"]
+    if depth is None:
+        return base, base
+    return base, dataclasses.replace(base, n_layers=depth[0],
                                      moe=dataclasses.replace(
-                                         base.moe, first_k_dense=dense))
+                                         base.moe, first_k_dense=depth[1]))
 
 
-def tp_moe_cells(cfg, spec: dict, mesh=None) -> dict:
-    """The cut config's serve_prefill, decode_32k and (MLA) long_500k steps
-    as ``build_step`` assembles them (``_build_lm`` on the cut cells;
-    ``mesh`` its ranks), with each cell's tokens (TokenSource, seeds 1, 2,
-    3): ``{cell: (bundle, tokens)}``, decode tokens a list of steps."""
+def tp_cells(cfg, spec: dict, model: dict, mesh=None) -> dict:
+    """The cut config's serve_prefill, decode_32k and (where ``model`` has
+    long steps) long_500k steps as ``build_step`` assembles them
+    (``_build_lm`` on the cut cells; ``mesh`` its ranks), with each cell's
+    tokens (TokenSource, seeds 1, 2, 3), the whole cache's length and
+    pieces (decode over ``model``, long_500k over every axis) and its
+    starting ``len``: ``{cell: (bundle, tokens, T, pieces, len0)}``, the
+    prefill's tokens one (B, S) step, the decode cells' a list of steps."""
     import torch
 
     from repro_torch.data import TokenSource
@@ -3615,51 +3638,72 @@ def tp_moe_cells(cfg, spec: dict, mesh=None) -> dict:
     from repro_torch.models.transformer import make_kv_cache_specs
 
     i32 = torch.int32
-    B, S = spec["prefill"]
+    B, S = model["prefill"]
+    D, M = spec["mesh"]
     out = {"prefill": (steps._build_lm(
         cfg, "prefill_32k", "prefill", {"tokens": ((B, S), i32)}, mesh,
-        None, False), TokenSource(B, S, cfg.vocab, seed=1)(0)["tokens"])}
-    cells = [("decode", "decode_32k", spec["slots"], spec["T"],
-              spec["steps"], 2)]
-    if cfg.mla is not None:
-        cells.append(("long", "long_500k", 1, spec["long"][0],
-                      spec["long"][2], 3))
-    for cell, shape, rows, T, n, seed in cells:
+        None, False), [TokenSource(B, S, cfg.vocab, seed=1)(0)["tokens"]],
+        None, None, None)}
+    cells = [("decode", "decode_32k", spec["slots"], spec["T"], M,
+              spec["len0"], model["steps"], 2)]
+    if model["long_steps"]:
+        cells.append(("long", "long_500k", 1, spec["long"][0], D * M,
+                      spec["long"][1], model["long_steps"], 3))
+    for cell, shape, rows, T, P, len0, n, seed in cells:
         b = steps._build_lm(cfg, shape, "decode", {
             "tokens": ((rows, 1), i32),
             "caches": make_kv_cache_specs(cfg, rows, T)}, mesh, None, False)
         toks = TokenSource(rows, n, cfg.vocab, seed=seed)(0)["tokens"]
-        out[cell] = (b, [toks[:, i:i + 1] for i in range(n)])
+        out[cell] = (b, [toks[:, i:i + 1] for i in range(n)], T, P, len0)
     return out
 
 
-def tp_moe_len0(spec: dict, cell: str) -> int:
-    return spec["len0"] if cell == "decode" else spec["long"][1]
+def tp_reduced(base, cfg, spec: dict, model: dict) -> dict:
+    """What lm_tp cut of ``base`` for one model, each as [from, to]."""
+    out = {"prefill_32k": [[32, 32768], list(model["prefill"])],
+           "decode_32k_batch": [128, spec["slots"]],
+           "decode_steps": model["steps"]}
+    if cfg is not base:
+        out.update(n_layers=[base.n_layers, cfg.n_layers],
+                   first_k_dense=[base.moe.first_k_dense,
+                                  cfg.moe.first_k_dense])
+    return out
 
 
-def tp_moe_rows_held(routes, ref, rows: int):
-    """(rows whose last token took the same experts as the control's in
-    every MoE layer, the share of (token, layer) pairs routed alike)."""
+def tp_hold(joined, want, routes, ref_routes) -> dict:
+    """Joined (B, S, V) logits against the control's ``want``, position by
+    position: the largest |difference| over the positions whose tokens
+    took the control's experts in every MoE layer (every position of a
+    model without MoE; a rerouted token takes other experts' output, so
+    its logits are only counted), how many those are, the last
+    positions' argmax agreement, and the share of (token, MoE layer)
+    pairs routed as the control's (None without MoE)."""
     import torch
 
-    held = torch.ones(rows, dtype=torch.bool)
+    B, S = joined.shape[:2]
+    held = torch.ones((B, S), dtype=torch.bool)
     same = []
-    for got, want in zip(routes, ref):
-        eq = (got.cpu() == want).all(-1)
-        n = eq.shape[0] // rows
-        held &= eq[torch.arange(rows) * n + n - 1]
+    for got, ref in zip(routes, ref_routes):
+        eq = (got.cpu() == ref).all(-1)
+        held &= eq.reshape(B, S)
         same.append(eq)
-    return held, float(torch.cat(same).float().mean())
+    want = want.to(joined.device).float()
+    err = (joined.float() - want).abs().amax(-1)[held.to(joined.device)]
+    return {"err": float(err.max()) if err.numel() else None,
+            "held": int(held.sum()), "positions": B * S,
+            "argmax_equal": int((joined[:, -1].argmax(-1)
+                                 == want[:, -1].argmax(-1)).sum()),
+            "routes_alike": float(torch.cat(same).float().mean())
+            if same else None}
 
 
-def tp_moe_control(device, spec: dict, mesh_shape, out_dir: str) -> dict:
-    """The one-device control of lm_tp's MoE and MLA cases: each model's
-    whole weights drawn from seed 0, serve_prefill (after a warm call on
-    its first 64 tokens), the decode steps on the whole seeded cache (the
-    pieces of ``mesh_shape``'s ranks side by side; after a warm step on a
-    short one), each timed, the MoE layers' routes recorded; the logits
-    and routes saved as ``moe_<arch>.pt``, the model freed before the
-    next."""
+def tp_control(device, spec: dict, out_dir: str) -> dict:
+    """The one-device control of lm_tp, model by model: the whole weights
+    drawn from seed 0, serve_prefill (after a warm call on its first 64
+    tokens), the decode cells on the whole seeded cache (the ranks' pieces
+    side by side; decode_32k after a warm step on a short one), each
+    timed, the MoE layers' routes recorded; the logits and routes saved as
+    ``ref_<arch>.pt``, the model freed before the next."""
     import torch
 
     from repro_torch.models import transformer as tfm
@@ -3671,62 +3715,47 @@ def tp_moe_control(device, spec: dict, mesh_shape, out_dir: str) -> dict:
             torch.cuda.synchronize(device)
 
     recs = {}
-    for arch in spec["archs"]:
-        base, cfg = tp_moe_config(arch, spec)
-        cells = tp_moe_cells(cfg, spec)
+    for arch, model in spec["models"].items():
+        base, cfg = tp_model(arch, spec)
+        cells = tp_cells(cfg, spec, model)
         t = time.perf_counter()
         params = tfm.lm_init(cfg, torch.Generator(device).manual_seed(0))
         sync()
         rec = {"init_s": time.perf_counter() - t,
-               "reduced": {"n_layers": [base.n_layers, cfg.n_layers],
-                           "first_k_dense": [base.moe.first_k_dense,
-                                             cfg.moe.first_k_dense],
-                           "prefill_32k": [[32, 32768], spec["prefill"]],
-                           "decode_32k_batch": [128, spec["slots"]]}}
+               "reduced": tp_reduced(base, cfg, spec, model)}
         ref = {}
         with torch.inference_mode():
-            pre, tokens = cells["prefill"]
-            tokens = torch.as_tensor(tokens, device=device)
-            pre.fn(params, tokens[:, :64])  # warm
-            sync()
-            t = time.perf_counter()
-            with recorded_routing() as routes:
-                logits = pre.fn(params, tokens)
-            sync()
-            rec["prefill_wall_s"] = time.perf_counter() - t
-            check(bool(torch.isfinite(logits).all()),
-                  f"lm_tp {arch} control prefill logits")
-            ref["prefill"] = {"logits": logits.cpu(),
-                              "routes": [r.cpu() for r in routes]}
-            for cell in ("decode", "long"):
-                if cell not in cells:
-                    continue
-                b, toks = cells[cell]
+            for cell, (b, toks, T, P, len0) in cells.items():
+                toks = [torch.as_tensor(tok, device=device) for tok in toks]
                 rows = toks[0].shape[0]
-                key = next(k for k in b.args[2] if k != "len")
-                T = b.args[2][key][0][2]
-                if cell == "decode":
-                    warm = tp_cache(cfg, rows, 256, 2, range(2), device)
-                    warm["len"] = torch.tensor(5, dtype=torch.int32,
-                                               device=device)
-                    b.fn(params, torch.as_tensor(toks[0], device=device),
-                         warm)
-                    del warm
-                P = mesh_shape[1] if cell == "decode" else \
-                    mesh_shape[0] * mesh_shape[1]
-                caches = tp_cache(cfg, rows, T, P, range(P), device)
-                caches["len"] = torch.tensor(tp_moe_len0(spec, cell),
-                                             dtype=torch.int32, device=device)
+                if cell == "prefill":
+                    caches = None
+                    b.fn(params, toks[0][:, :64])  # warm
+                else:
+                    if cell == "decode":  # warm on a short cache
+                        warm = tp_cache(cfg, rows, 256, 2, range(2), device)
+                        warm["len"] = torch.tensor(5, dtype=torch.int32,
+                                                   device=device)
+                        b.fn(params, toks[0], warm)
+                        del warm
+                    caches = tp_cache(cfg, rows, T, P, range(P), device)
+                    caches["len"] = torch.tensor(len0, dtype=torch.int32,
+                                                 device=device)
                 ms, lg, rt = [], [], []
                 for tok in toks:
                     sync()
                     t = time.perf_counter()
-                    with recorded_routing() as routes:
-                        logits, caches = b.fn(
-                            params, torch.as_tensor(tok, device=device),
-                            caches)
+                    with recorded_routing() as routes, \
+                            recorded_hidden() as hidden:
+                        if caches is None:
+                            logits = b.fn(params, tok)
+                        else:
+                            logits, caches = b.fn(params, tok, caches)
                     sync()
                     ms.append(1e3 * (time.perf_counter() - t))
+                    if caches is None:  # every position's logits
+                        logits = tfm.lm_logits(params, cfg, hidden[0])
+                    del hidden
                     check(bool(torch.isfinite(logits).all()),
                           f"lm_tp {arch} control {cell} logits")
                     lg.append(logits.cpu())
@@ -3734,25 +3763,26 @@ def tp_moe_control(device, spec: dict, mesh_shape, out_dir: str) -> dict:
                 ref[cell] = {"logits": lg, "routes": rt}
                 rec[f"{cell}_step_ms"] = ms
                 rec[f"{cell}_ms_per_step"] = float(np.mean(ms))
-                del caches
-            del params, logits
-        torch.save(ref, os.path.join(out_dir, f"moe_{arch}.pt"))
+                del caches, logits
+            del params
+        torch.save(ref, os.path.join(out_dir, f"ref_{arch}.pt"))
         if card:
             free_card(device)
         recs[arch] = rec
     return recs
 
 
-def tp_moe_rank(device, mesh, spec: dict, run_dir: str, collectives,
-                sync) -> dict:
-    """One rank's MoE and MLA cases of lm_tp (in :func:`tp_rank`'s start):
-    each model's pieces drawn leaf by leaf (``steps.local_init``), its
-    cells through the tensor-parallel steps on this rank's cache pieces
-    (the decode steps after a warm one on a short cache), each timed with
-    its collectives, the flash-decode launches counted from 0 around each
-    decode cell, the MoE layers' routes recorded; the joined logits of the
-    rows routed as the control's held to it (``moe_<arch>.pt``).  Writes
-    ``routes_<arch>_<rank>.pt``; returns the records by arch."""
+def tp_model_rank(device, mesh, arch: str, spec: dict, run_dir: str,
+                  collectives, sync) -> dict:
+    """One model of lm_tp on one rank (in :func:`tp_rank`'s start): its
+    pieces drawn leaf by leaf (``steps.local_init``: the rank never holds
+    the whole model), its cells through the tensor-parallel steps on this
+    rank's cache pieces (decode_32k after a warm step on a short cache),
+    each step timed with its collectives, the flash-decode launches
+    counted from 0 around each decode cell, the MoE layers' routes
+    recorded; the joined logits held to the control's (``ref_<arch>.pt``)
+    by :func:`tp_hold`.  Writes ``routes_<arch>_<rank>.pt``; returns the
+    model's record."""
     import dataclasses
 
     import torch
@@ -3762,146 +3792,115 @@ def tp_moe_rank(device, mesh, spec: dict, run_dir: str, collectives,
     from repro_torch.models import transformer as tfm
 
     card = device.type == "cuda"
-    rank = mesh.rank
-    recs = {}
-    for arch in spec["archs"]:
-        _, cfg = tp_moe_config(arch, spec)
-        cells = tp_moe_cells(cfg, spec, mesh)
-        ref = torch.load(os.path.join(run_dir, f"moe_{arch}.pt"))
-        if card:
-            free_card(device)
-            torch.cuda.reset_peak_memory_stats(device)
-        t = time.perf_counter()
-        pre, tokens = cells["prefill"]
-        params = steps.local_init(tfm.lm_param_specs(cfg),
-                                  pre.in_shardings[0],
-                                  torch.Generator(device).manual_seed(0))
-        sync()
-        rec = {"init_s": time.perf_counter() - t,
-               "pieces_bytes": torch.cuda.memory_allocated(device)
-               if card else None,
-               "draw_peak_bytes": torch.cuda.max_memory_allocated(device)
-               if card else None}
-        mine = {}
-        with torch.inference_mode():
-            tokens = torch.as_tensor(tokens, device=device)
-            pre.fn(params, tokens[:, :64])  # warm
-            collectives()
-            sync()
-            t = time.perf_counter()
-            with recorded_routing() as routes:
-                logits = pre.fn(params, tokens)
-            sync()
-            wall = time.perf_counter() - t
-            c = collectives()
-            joined = steps.gather_outputs(pre, logits).float().cpu()
-            collectives()
-            check(bool(torch.isfinite(joined).all()),
-                  f"lm_tp {arch} rank {rank} prefill logits")
-            held, share = tp_moe_rows_held(routes, ref["prefill"]["routes"],
-                                           tokens.shape[0])
-            err = (joined - ref["prefill"]["logits"].float()).abs().amax(
-                (1, 2))
-            mine["prefill"] = [r.cpu() for r in routes]
-            rec["prefill"] = {
-                "B": tokens.shape[0], "S": tokens.shape[1], "wall_s": wall,
-                "tokens_per_s": tokens.numel() / wall,
-                "collective_s": c["s"], "collective_share": c["s"] / wall,
-                "collective_calls": c["calls"],
-                "collective_bytes": c["bytes"],
-                "max_abs_logit_err": float(err[held].max())
-                if bool(held.any()) else None,
-                "rows_rerouted": int((~held).sum()),
-                "routing_agree_share": share}
-            for cell in ("decode", "long"):
-                if cell not in cells:
-                    continue
-                b, toks = cells[cell]
-                join = dataclasses.replace(b, out_shardings=b.out_shardings[0])
-                rows = toks[0].shape[0]
-                key = next(k for k in b.args[2] if k != "len")
-                T = b.args[2][key][0][2]
+    _, cfg = tp_model(arch, spec)
+    cells = tp_cells(cfg, spec, spec["models"][arch], mesh)
+    ref = torch.load(os.path.join(run_dir, f"ref_{arch}.pt"))
+    if card:
+        free_card(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    params = steps.local_init(tfm.lm_param_specs(cfg),
+                              cells["prefill"][0].in_shardings[0],
+                              torch.Generator(device).manual_seed(0))
+    sync()
+    rec = {"init_s": time.perf_counter() - t,
+           "pieces_bytes": torch.cuda.memory_allocated(device)
+           if card else None,
+           "draw_peak_bytes": torch.cuda.max_memory_allocated(device)
+           if card else None}
+    mine = {}
+    with torch.inference_mode():
+        for cell, (b, toks, T, P, len0) in cells.items():
+            toks = [torch.as_tensor(tok, device=device) for tok in toks]
+            rows = toks[0].shape[0]
+            join = b if cell == "prefill" else dataclasses.replace(
+                b, out_shardings=b.out_shardings[0])
+            c = {"rows": rows, "tokens_a_step": toks[0].numel()}
+            if cell == "prefill":
+                caches = None
+                b.fn(params, toks[0][:, :64])  # warm
+            else:
                 axes = ("data", "model") if cell == "long" else "model"
-                P, index = mesh.axis_size(axes), mesh.axis_index(axes)
-                if cell == "decode":
+                index = mesh.axis_index(axes)
+                if cell == "decode":  # warm on a short cache
                     warm = tp_cache(cfg, rows, 128 * P, P, [index], device)
                     warm["len"] = torch.tensor(5, dtype=torch.int32,
                                                device=device)
-                    b.fn(params, torch.as_tensor(toks[0], device=device),
-                         warm)
+                    b.fn(params, toks[0], warm)
                     del warm
                 caches = tp_cache(cfg, rows, T, P, [index], device)
-                caches["len"] = torch.tensor(tp_moe_len0(spec, cell),
-                                             dtype=torch.int32, device=device)
+                c.update(T=T, pieces=P, len0=len0, cache_piece_bytes=sum(
+                    x.numel() * x.element_size() for x in caches.values()))
+                caches["len"] = torch.tensor(len0, dtype=torch.int32,
+                                             device=device)
+            sync()
+            collectives()
+            fdk.reset_launch_counts()
+            ms, holds, coll = [], [], {"s": 0.0, "calls": 0, "bytes": 0}
+            mine[cell] = []
+            for i, tok in enumerate(toks):
                 sync()
+                t = time.perf_counter()
+                with recorded_routing() as routes, \
+                        recorded_hidden() as hidden:
+                    if caches is None:
+                        logits = b.fn(params, tok)
+                    else:
+                        logits, caches = b.fn(params, tok, caches)
+                sync()
+                ms.append(1e3 * (time.perf_counter() - t))
+                for k, v in collectives().items():
+                    coll[k] += v
+                if caches is None:  # every position's logits, vocab piece
+                    logits = tfm.lm_logits(params, cfg, hidden[0])
+                del hidden
+                joined = steps.gather_outputs(join, logits)
                 collectives()
-                fdk.reset_launch_counts()
-                ms, errs, rerouted, shares, coll_s = [], [], 0, [], 0.0
-                mine[cell] = []
-                for i, tok in enumerate(toks):
-                    sync()
-                    t = time.perf_counter()
-                    with recorded_routing() as routes:
-                        logits, caches = b.fn(
-                            params, torch.as_tensor(tok, device=device),
-                            caches)
-                    sync()
-                    ms.append(1e3 * (time.perf_counter() - t))
-                    coll_s += collectives()["s"]
-                    joined = steps.gather_outputs(join, logits).float().cpu()
-                    collectives()
-                    held, share = tp_moe_rows_held(
-                        routes, ref[cell]["routes"][i], rows)
-                    err = (joined - ref[cell]["logits"][i].float()).abs() \
-                        .amax((1, 2))
-                    errs.append(float(err[held].max())
-                                if bool(held.any()) else None)
-                    rerouted += int((~held).sum())
-                    shares.append(share)
-                    mine[cell].append([r.cpu() for r in routes])
-                    check(bool(torch.isfinite(joined).all()),
-                          f"lm_tp {arch} rank {rank} {cell} logits")
-                launches = dict(fdk.LAUNCHES)
-                rec[cell] = {
-                    "rows": rows, "T": T, "pieces": P,
-                    "len0": tp_moe_len0(spec, cell), "steps": len(toks),
-                    "step_ms": ms, "ms_per_step": float(np.mean(ms)),
-                    "collective_ms_per_step": 1e3 * coll_s / len(toks),
-                    "collective_share": 1e3 * coll_s / sum(ms),
-                    "max_abs_logit_err": errs, "rows_rerouted": rerouted,
-                    "routing_agree_share": min(shares),
-                    "len_after": int(caches["len"]), "launches": launches}
-                del caches
-            rec["max_memory_allocated"] = \
-                torch.cuda.max_memory_allocated(device) if card else None
-            del params, logits
-        torch.save(mine, os.path.join(run_dir, f"routes_{arch}_{rank}.pt"))
-        recs[arch] = rec
+                check(bool(torch.isfinite(joined).all()),
+                      f"lm_tp {arch} rank {mesh.rank} {cell} logits")
+                holds.append(tp_hold(joined, ref[cell]["logits"][i], routes,
+                                     ref[cell]["routes"][i]))
+                mine[cell].append([r.cpu() for r in routes])
+                del joined
+            alike = [h["routes_alike"] for h in holds
+                     if h["routes_alike"] is not None]
+            c.update(
+                steps=len(toks), step_ms=ms, ms_per_step=float(np.mean(ms)),
+                tokens_per_s=1e3 * c["tokens_a_step"] * len(ms) / sum(ms),
+                collective_ms_per_step=1e3 * coll["s"] / len(ms),
+                collective_share=1e3 * coll["s"] / sum(ms),
+                collective_calls=coll["calls"],
+                collective_bytes=coll["bytes"],
+                logits_piece=list(logits.shape),
+                max_abs_logit_err=[h["err"] for h in holds],
+                positions=sum(h["positions"] for h in holds),
+                positions_held=sum(h["held"] for h in holds),
+                argmax_equal=sum(h["argmax_equal"] for h in holds),
+                routing_agree_share=min(alike) if alike else None,
+                launches=dict(fdk.LAUNCHES))
+            if caches is not None:
+                c["len_after"] = int(caches["len"])
+            rec[cell] = c
+            del caches, logits
+        rec["max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated(device) if card else None
+        del params
+    torch.save(mine, os.path.join(run_dir, f"routes_{arch}_{mesh.rank}.pt"))
     if card:
         free_card(device)
-    return recs
+    return rec
 
 
 def tp_rank(run_dir: str, device_type: str) -> None:
     """One rank of the lm_tp phase (started by ``run_ranks``): the mesh
     ``spec["mesh"]`` over the group, on ``cuda:(rank % visible cards)``
-    (or the CPU for a rehearsal); this rank's weight pieces cut from the
-    whole (``local_args``), ``serve_prefill`` and the decode steps through
-    ``build_step``'s tensor-parallel steps on its seeded cache piece, the
-    flash-decode launches counted from 0 around the decode steps, the
-    collectives timed (the card synchronised before and after each), the
-    joined logits held to the one-rank path's (``ref.pt``); then the MoE
-    and MLA cases of ``spec["moe"]`` (:func:`tp_moe_rank`).  Writes
-    ``rank<r>.json``."""
-    from dataclasses import replace
-
+    (or the CPU for a rehearsal), the collectives timed (the card
+    synchronised before and after each); each model of ``spec["models"]``
+    in turn (:func:`tp_model_rank`).  Writes ``rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.kernels import flash_decode as fdk
     from repro_torch.launch.mesh import Mesh, _device_mesh
-    from repro_torch.launch.steps import build_step, gather_outputs, \
-        local_args
 
     rank = dist.get_rank()
     card = device_type == "cuda"
@@ -3913,7 +3912,6 @@ def tp_rank(run_dir: str, device_type: str) -> None:
         spec = json.load(f)
     shape, axes = tuple(spec["mesh"]), ("data", "model")
     mesh = Mesh(shape, axes, [device], _device_mesh(shape, axes, device))
-    M, index = mesh.shape["model"], mesh.axis_index("model")
     rec = {"rank": rank, "coords": mesh.coords(),
            "backend": dist.get_backend(), "device": str(device)}
 
@@ -3922,230 +3920,111 @@ def tp_rank(run_dir: str, device_type: str) -> None:
             torch.cuda.synchronize(device)
 
     collectives = timed_collectives(sync)
-    ref = torch.load(os.path.join(run_dir, "ref.pt"))
-    t = time.perf_counter()
-    cfg, whole, tokens, decode = tp_inputs(spec, device)
-    pre = build_step(spec["arch"], "prefill_32k", mesh,
-                     reduced=spec["reduced"])
-    params = local_args(pre, whole)[0]
-    del whole
-    sync()
-    rec["init_s"] = time.perf_counter() - t
-    with torch.inference_mode():
-        pre.fn(params, tokens[:, :64])  # warm
-        collectives()
-        sync()
-        t = time.perf_counter()
-        logits = pre.fn(params, local_args(pre, None, tokens)[1])
-        sync()
-        wall = time.perf_counter() - t
-        c = collectives()
-        err, agree, rows = _logits_hold(gather_outputs(pre, logits),
-                                        ref["prefill"].to(device))
-        rec["prefill"] = {
-            "B": tokens.shape[0], "S": tokens.shape[1], "wall_s": wall,
-            "tokens_per_s": tokens.numel() / wall,
-            "collective_s": c["s"], "collective_share": c["s"] / wall,
-            "collective_calls": c["calls"], "collective_bytes": c["bytes"],
-            "logits_piece": list(logits.shape), "max_abs_logit_err": err,
-            "argmax_equal": agree, "rows": rows}
-        del logits
-        dec = build_step(spec["arch"], "decode_32k", mesh,
-                         reduced=spec["reduced"])
-        join = replace(dec, out_shardings=dec.out_shardings[0])
-        B, T = spec["slots"], spec["T"]
-        # warm the kernels on a short cache, then the seeded piece
-        warm = tp_cache(cfg, B, 128 * M, M, [index], device)
-        warm["len"] = torch.tensor(5, dtype=torch.int32, device=device)
-        dec.fn(params, decode[0], warm)
-        del warm
-        caches = tp_cache(cfg, B, T, M, [index], device)
-        caches["len"] = torch.tensor(spec["len0"], dtype=torch.int32,
-                                     device=device)
-        rec["cache_piece_bytes"] = 2 * caches["k"].numel() * \
-            caches["k"].element_size()
-        sync()
-        if card:
-            torch.cuda.reset_peak_memory_stats(device)
-        collectives()
-        fdk.reset_launch_counts()
-        step_ms, errs, agree, coll_s = [], [], 0, 0.0
-        for i, tok in enumerate(decode):
-            sync()
-            t = time.perf_counter()
-            logits, caches = dec.fn(params, tok, caches)
-            sync()
-            step_ms.append(1e3 * (time.perf_counter() - t))
-            coll_s += collectives()["s"]
-            e, a, _ = _logits_hold(gather_outputs(join, logits),
-                                   ref["decode"][i].to(device))
-            collectives()
-            errs.append(e)
-            agree += a
-        launches = dict(fdk.LAUNCHES)
-        rec["decode"] = {
-            "B": B, "T": T, "len0": spec["len0"], "steps": len(decode),
-            "step_ms": step_ms, "ms_per_step": float(np.mean(step_ms)),
-            "collective_ms_per_step": 1e3 * coll_s / len(decode),
-            "collective_share": 1e3 * coll_s / sum(step_ms),
-            "logits_piece": list(logits.shape), "max_abs_logit_err": errs,
-            "argmax_equal": agree, "rows": B * len(decode),
-            "len_after": int(caches["len"]), "launches": launches}
-        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(
-            device) if card else None
-        del params, caches, logits
-    if spec.get("moe"):
-        rec["moe"] = tp_moe_rank(device, mesh, spec["moe"], run_dir,
-                                 collectives, sync)
+    rec["models"] = {arch: tp_model_rank(device, mesh, arch, spec, run_dir,
+                                         collectives, sync)
+                     for arch in spec["models"]}
     with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
 
 
+def tp_spec() -> dict:
+    """The lm_tp phase at full width (:data:`TP_MODELS`)."""
+    return {"reduced": False, "mesh": list(TP_MESH), "slots": LM_SLOTS,
+            "T": TP_T, "len0": TP_LEN0, "long": [LONG_T, TP_LONG_LEN0],
+            "models": {arch: {"depth": depth, "prefill": list(prefill),
+                              "steps": n, "long_steps": n_long}
+                       for arch, (depth, prefill, n, n_long)
+                       in TP_MODELS.items()}}
+
+
 def phase_lm_tp(device, spec: dict | None = None) -> tuple:
-    """Qwen3-0.6B under Megatron tensor parallelism at full width: the
-    one-rank path first (``serve_prefill`` at :data:`TP_PREFILL`, then the
-    decode steps on the whole seeded cache, each timed), its logits saved;
-    then DeepSeek-V3's and Arctic's one-device controls
-    (:func:`tp_moe_control`); then :data:`TP_MESH`'s ranks
-    (:func:`tp_rank`, gloo, sharing the card), each holding its joined
-    logits to those within :data:`LM_LOGITS_ATOL` (for the MoE models the
-    rows whose tokens took the control's experts in every MoE layer; the
-    others counted), its MoE routes bit for bit the other rank's and at
-    least :data:`MOE_ROUTING_AGREE` the control's, and launching both
-    flash-decode kernels once a layer a step (Qwen3-0.6B's and Arctic's
-    decode; none in DeepSeek-V3's latent decode).  Returns the kernels'
-    launches summed over the ranks' Qwen3-0.6B decode steps, and over
-    their Arctic decode steps."""
-    import torch
-
+    """Qwen3-0.6B, DeepSeek-V3 and Arctic (:data:`TP_MODELS`) under tensor
+    parallelism at full width: the one-device control first
+    (:func:`tp_control`), then :data:`TP_MESH`'s ranks (:func:`tp_rank`,
+    gloo, sharing the card, one start for the three), each holding its
+    joined logits to the control's within :data:`LM_LOGITS_ATOL` at the
+    positions routed as the control's (every position of Qwen3-0.6B; at
+    least :data:`MOE_ROUTING_AGREE` of them), its MoE routes bit for bit
+    the other rank's and at least :data:`MOE_ROUTING_AGREE` the control's,
+    and launching both flash-decode kernels once a layer a step of a GQA
+    model's decode (none in DeepSeek-V3's latent decode).  Returns the
+    kernels' launches summed over the ranks' decode steps of the models
+    without MoE, and of those with it."""
     from repro_torch.launch.ranks import run_ranks
-    from repro_torch.launch.steps import build_step
 
-    spec = spec or {"arch": "qwen3-0.6b", "reduced": False,
-                    "mesh": list(TP_MESH), "prefill": list(TP_PREFILL),
-                    "slots": LM_SLOTS, "T": TP_T, "len0": TP_LEN0,
-                    "steps": TP_DECODE_STEPS, "moe": tp_moe_spec()}
-    card = device.type == "cuda"
-
-    def sync():
-        if card:
-            torch.cuda.synchronize(device)
-
-    if card:
+    spec = spec or tp_spec()
+    if device.type == "cuda":
         free_card(device)
     out = {"phase": "lm_tp", **spec, "logits_atol": LM_LOGITS_ATOL,
-           "reduced": {"prefill_32k": {"batch": [32, spec["prefill"][0]],
-                                       "seq": [32768, spec["prefill"][1]]},
-                       "decode_32k_batch": [128, spec["slots"]],
-                       "decode_steps": spec["steps"]}}
+           "routing_agree": MOE_ROUTING_AGREE,
+           "reduced": {"qwen3-0.6b_decode_steps": [8, 4]}}
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
-        with torch.inference_mode():
-            cfg, params, tokens, decode = tp_inputs(spec, device)
-            pre = build_step(spec["arch"], "prefill_32k",
-                             reduced=spec["reduced"])
-            dec = build_step(spec["arch"], "decode_32k",
-                             reduced=spec["reduced"])
-            pre.fn(params, tokens[:, :64])  # warm
-            sync()
-            t0 = time.perf_counter()
-            ref = {"prefill": pre.fn(params, tokens).cpu()}
-            one = {"prefill_wall_s": time.perf_counter() - t0}
-            M = spec["mesh"][1]
-            caches = tp_cache(cfg, spec["slots"], spec["T"], M, range(M),
-                              device)
-            caches["len"] = torch.tensor(spec["len0"], dtype=torch.int32,
-                                         device=device)
-            ref["decode"], step_ms = [], []
-            for tok in decode:
-                sync()
-                t0 = time.perf_counter()
-                logits, caches = dec.fn(params, tok, caches)
-                sync()
-                step_ms.append(1e3 * (time.perf_counter() - t0))
-                ref["decode"].append(logits.cpu())
-            one.update(decode_step_ms=step_ms,
-                       decode_ms_per_step=float(np.mean(step_ms)))
-            del params, caches, logits
-        torch.save(ref, os.path.join(tmp, "ref.pt"))
+        out["control"] = tp_control(device, spec, tmp)
+        out["control_wall_s"] = time.perf_counter() - t
         with open(os.path.join(tmp, "spec.json"), "w") as f:
             json.dump(spec, f)
-        if card:
-            free_card(device)
-        out["one_rank"] = {**one, "wall_s": time.perf_counter() - t}
-        if spec.get("moe"):
-            t = time.perf_counter()
-            out["moe_control"] = tp_moe_control(device, spec["moe"],
-                                                spec["mesh"], tmp)
-            out["moe_control_wall_s"] = time.perf_counter() - t
         world = spec["mesh"][0] * spec["mesh"][1]
         t = time.perf_counter()
         run_ranks("chip_smoke:tp_rank", world, backend="gloo",
                   args=[tmp, device.type], paths=[ROOT],
                   timeout=TP_TIMEOUT_S, store_dir=tmp)
         out["ranks_wall_s"] = time.perf_counter() - t
-        ranks, total = [], {}
+        ranks = []
         for rank in range(world):
             with open(os.path.join(tmp, f"rank{rank}.json")) as f:
                 rec = json.load(f)
-            what = f"lm_tp rank {rank}"
-            check(rec["backend"] == "gloo", f"{what}: backend")
-            for cell in ("prefill", "decode"):
-                err = rec[cell]["max_abs_logit_err"]
-                worst = max(err) if isinstance(err, list) else err
-                check(worst <= LM_LOGITS_ATOL, f"{what}: {cell} logits "
-                      f"differ from the one-rank path's by {worst} > "
-                      f"{LM_LOGITS_ATOL}")
-            check(rec["decode"]["len_after"] == spec["len0"] + spec["steps"],
-                  f"{what}: len")
-            for name in ("flash_decode", "flash_decode_combine"):
-                n = rec["decode"]["launches"].get(name, 0)
-                check(n == spec["steps"] * cfg.n_layers,
-                      f"{what}: {name} launched {n} times, not "
-                      f"{spec['steps']} steps x {cfg.n_layers} layers")
-                total[name] = total.get(name, 0) + n
+            check(rec["backend"] == "gloo", f"lm_tp rank {rank}: backend")
             ranks.append(rec)
-        moe = check_tp_moe(spec, tmp, ranks) if spec.get("moe") else {}
-    out.update(ranks=ranks, launches=total, moe_launches=moe)
+        dense, moe = check_tp(spec, tmp, ranks)
+    out.update(ranks=ranks, launches=dense, moe_launches=moe)
     emit(out)
-    return total, moe
+    return dense, moe
 
 
-def check_tp_moe(spec: dict, run_dir: str, ranks: list) -> dict:
-    """lm_tp's checks of the ranks' MoE and MLA records (:func:`tp_moe_rank`)
-    against the controls; returns kernel #5's launches summed over the
-    ranks' Arctic decode steps."""
+def check_tp(spec: dict, run_dir: str, ranks: list) -> tuple:
+    """lm_tp's checks of the ranks' records (:func:`tp_model_rank`)
+    against the control; returns kernel #5's launches summed over the
+    ranks' decode steps of the models without MoE, and of those with
+    it."""
     import torch
 
-    moe, total = spec["moe"], {}
-    for arch in moe["archs"]:
-        _, cfg = tp_moe_config(arch, moe)
+    dense, moe = {}, {}
+    for arch in spec["models"]:
+        _, cfg = tp_model(arch, spec)
         mine = []
         for r in range(len(ranks)):
             cells = torch.load(os.path.join(run_dir, f"routes_{arch}_{r}.pt"))
-            mine.append([t for cell in sorted(cells) for step in (
-                [cells[cell]] if cell == "prefill" else cells[cell])
-                for t in step])
+            mine.append([t for cell in sorted(cells) for step in cells[cell]
+                         for t in step])
         for r, got in enumerate(mine[1:], 1):
-            check(len(got) == len(mine[0]) > 0 and all(
+            check(len(got) == len(mine[0]) and all(
                 torch.equal(a, b) for a, b in zip(got, mine[0])),
                 f"lm_tp {arch} rank {r}: routes differ from rank 0's")
+        check((len(mine[0]) > 0) == (cfg.moe is not None),
+              f"lm_tp {arch}: {len(mine[0])} routings recorded")
+        total = moe if cfg.moe is not None else dense
         for r, rank in enumerate(ranks):
-            rec, what = rank["moe"][arch], f"lm_tp {arch} rank {r}"
+            rec, what = rank["models"][arch], f"lm_tp {arch} rank {r}"
             for cell in ("prefill", "decode", "long"):
                 if cell not in rec:
                     continue
                 c = rec[cell]
-                errs = c["max_abs_logit_err"]
-                errs = [e for e in (errs if isinstance(errs, list)
-                                    else [errs]) if e is not None]
-                check(bool(errs), f"{what}: {cell} held no row")
-                check(max(errs) <= LM_LOGITS_ATOL, f"{what}: {cell} logits "
-                      f"differ from the control's by {max(errs)} > "
+                least = c["positions"] if cfg.moe is None else \
+                    MOE_ROUTING_AGREE * c["positions"]
+                check(c["positions_held"] >= least, f"{what}: {cell} held "
+                      f"{c['positions_held']} of {c['positions']} positions "
+                      f"(routed as the control's), fewer than {least}")
+                errs = [e for e in c["max_abs_logit_err"] if e is not None]
+                worst = max(errs) if errs else float("inf")
+                check(worst <= LM_LOGITS_ATOL, f"{what}: {cell} logits "
+                      f"differ from the control's by {worst} > "
                       f"{LM_LOGITS_ATOL}")
-                check(c["routing_agree_share"] >= MOE_ROUTING_AGREE,
-                      f"{what}: {cell} routes {c['routing_agree_share']} "
-                      "of the pairs as the control")
+                if cfg.moe is not None:
+                    check(c["routing_agree_share"] >= MOE_ROUTING_AGREE,
+                          f"{what}: {cell} routes "
+                          f"{c['routing_agree_share']} of the pairs as the "
+                          "control")
                 if cell == "prefill":
                     continue
                 check(c["len_after"] == c["len0"] + c["steps"],
@@ -4158,7 +4037,7 @@ def check_tp_moe(spec: dict, run_dir: str, ranks: list) -> dict:
                           f"{layers} layers")
                     if layers:
                         total[name] = total.get(name, 0) + n
-    return total
+    return dense, moe
 
 
 def tp_serve_lm(spec: dict, device) -> tuple:
@@ -5544,12 +5423,13 @@ def device_ms(fn, reps: int, device) -> float:
     return start.elapsed_time(end) / reps
 
 
-def piece_entries(device, B: int, T: int, P: int, len0: int,
-                  phase: str) -> tuple:
-    """Kernel #5 in a sequence-split phase's modes at its shape:
-    Qwen3-0.6B's bf16 caches (:data:`DECODE_HEADS`) of ``B`` rows over
-    ``T`` positions cut into ``P`` pieces (lm_tp: :data:`LM_SLOTS` x
-    :data:`TP_T` in ``TP_MESH[1]``; tp_serve: 1 x :data:`LONG_T` in four).
+def piece_entries(device, B: int, T: int, P: int, len0: int, phase: str,
+                  heads: tuple = DECODE_HEADS) -> tuple:
+    """Kernel #5 in a sequence-split phase's modes at its shape: bf16
+    caches of ``heads`` = (H, Hkv, d) (Qwen3-0.6B's :data:`DECODE_HEADS`
+    unless given) of ``B`` rows over ``T`` positions cut into ``P`` pieces
+    (lm_tp: :data:`LM_SLOTS` x :data:`TP_T` in ``TP_MESH[1]``, Qwen3-0.6B's
+    heads and Arctic's; tp_serve: 1 x :data:`LONG_T` in four).
     At cache_len 0, 1, one below, at and one above each piece boundary,
     ``len0`` and T: the split kernel on each piece at its offset held to
     :func:`split_plain` (m, l and acc of the splits the piece's plan
@@ -5564,7 +5444,7 @@ def piece_entries(device, B: int, T: int, P: int, len0: int,
 
     from repro_torch.kernels import flash_decode as fdk
 
-    H, Hkv, d = DECODE_HEADS
+    H, Hkv, d = heads
     G = H // Hkv
     Tp = T // P
     gen = torch.Generator(device).manual_seed(11)
@@ -5762,6 +5642,9 @@ def decode_entries(device, launches) -> list:
     served = timed.pop("served")
     timed["lm_tp_pieces"], combine["lm_tp_pieces"] = piece_entries(
         device, LM_SLOTS, TP_T, TP_MESH[1], TP_LEN0, "lm_tp")
+    timed["tp_moe_pieces"], combine["tp_moe_pieces"] = piece_entries(
+        device, LM_SLOTS, TP_T, TP_MESH[1], TP_LEN0, "lm_tp arctic-480b",
+        ARCTIC_HEADS)
     timed["tp_serve_pieces"], combine["tp_serve_pieces"] = piece_entries(
         device, 1, LONG_T, TP_SERVE_MESH[0] * TP_SERVE_MESH[1],
         TP_SERVE_LEN0, "tp_serve")
@@ -5808,6 +5691,9 @@ def main(argv: list) -> int:
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     phase_build()
+    # the outofcore phase's two builds, each in a child process from here
+    # on, beside the phases before that one
+    builds = (ChildBuild("none", FULL), ChildBuild("degree", SMALL))
     phase_parity(device)
     small = phase_small(device, *SMALL)
     # the LiveJournal-sized graph, built once for every full-width phase
@@ -5818,7 +5704,7 @@ def main(argv: list) -> int:
     launches, r = main_path["launches"], main_path["result"]
     launches.update(phase_per_probe(device, g, r))
     # the out-of-core path's launches, summed over its two decomposes
-    outofcore = phase_outofcore(device, g, r, small)
+    outofcore = phase_outofcore(device, g, r, small, builds)
     tables = device_tables(g, device)
     launches.update(phase_segment_sum(device, g, r, tables))
     entries = kernel_entries(g, device, tables, launches, main_path)

@@ -353,20 +353,13 @@ def _no_moe(cfg: LMConfig, mesh) -> None:
             f"configs run on one data rank ({_TP}.3.2)")
 
 
-def _tp_of(cfg: LMConfig, mesh, kind: str) -> TensorParallel | None:
-    """Tensor parallelism over ``mesh``'s model axis for an LM step of
-    ``kind`` (``"train"``, ``"prefill"`` or ``"decode"``; None for an axis
-    of 1); raises where the port has none: MoE experts, MLA and MTP over
-    ``model`` under autograd (training), an axis that does not divide the
-    query heads or the experts."""
+def _tp_of(cfg: LMConfig, mesh) -> TensorParallel | None:
+    """Tensor parallelism over ``mesh``'s model axis for an LM step (None
+    for an axis of 1); raises where the port has none: an axis that does
+    not divide the query heads or the experts."""
     M = mesh.shape.get("model", 1)
     if M == 1:
         return None
-    if kind == "train" and (cfg.moe is not None or cfg.mla is not None
-                            or cfg.mtp_depth > 0):
-        raise NotImplementedError(
-            f"{cfg.name} trained over a model axis of {M}: MoE experts, MLA "
-            f"and MTP over model under autograd are not ported ({_TP}.3.2)")
     if cfg.n_heads % M:
         raise NotImplementedError(
             f"a model axis of {M} does not divide {cfg.name}'s "
@@ -490,8 +483,15 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
         tok_sh = _ns(mesh, ba, None)
 
         def ranks(params, opt_state, tokens, labels):
-            _no_moe(cfg, mesh)
-            tp = _tp_of(cfg, mesh, "train")  # raises before any collective
+            _no_moe(cfg, mesh)  # these raise before any collective
+            M = mesh.shape.get("model", 1)
+            if M > 1 and (cfg.moe is not None or cfg.mla is not None
+                          or cfg.mtp_depth > 0):
+                raise NotImplementedError(
+                    f"{cfg.name} trained over a model axis of {M}: MoE "
+                    f"experts, MLA and MTP over model under autograd are not "
+                    f"ported ({_TP}.3.2)")
+            tp = _tp_of(cfg, mesh)
             return _train_ranks(
                 mesh, pspecs, p_shard, o_shard, opt,
                 lambda p, t, lab: grads_of(p, t, lab, tp))(
@@ -515,7 +515,7 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
 
         def ranks(params, tokens):
             _no_moe(cfg, mesh)
-            tp = _tp_of(cfg, mesh, "prefill")
+            tp = _tp_of(cfg, mesh)
             if tp is None:
                 return step(_zip_map(_whole, params, p_shard), tokens)
             with torch.inference_mode():
@@ -551,7 +551,7 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
 
     def ranks(params, tokens, caches):
         _no_moe(cfg, mesh)
-        tp = _tp_of(cfg, mesh, "decode")
+        tp = _tp_of(cfg, mesh)
         seq = None
         if long_ctx:  # the sequence over every rank, data-major
             seq = SequenceSplit(_comm(mesh, cache_t), mesh.axis_size(cache_t),

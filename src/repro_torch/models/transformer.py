@@ -69,10 +69,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
-from .layers import (NEG_INF, SequenceSplit, TensorParallel,
-                     chunked_attention, decode_attention,
-                     decode_attention_split, decode_latent_split, rms_norm,
-                     rope, row_partial, swiglu, swiglu_hidden)
+from .layers import (SequenceSplit, TensorParallel, chunked_attention,
+                     decode_attention, decode_attention_split,
+                     decode_latent_split, latent_partial, merge_latent,
+                     rms_norm, rope, row_partial, swiglu, swiglu_hidden)
 from .moe import moe_apply, moe_param_specs
 from .params import Spec, tree_leaves, tree_init
 
@@ -248,12 +248,12 @@ def _mla_decode(p, cfg: LMConfig, x, positions, cache):
     """Latent-cache decode with weight absorption: writes this step's
     latent ``c_kv`` and rope key into the caches ``(B, T, kv_lora)`` and
     ``(B, T, dh_rope)`` in place; the scores and the latent context in
-    float32."""
+    float32 (:func:`layers.latent_partial` over the whole cache as one
+    piece)."""
     m = cfg.mla
     B, S, _ = x.shape            # S == new tokens (1 for decode)
     H = cfg.n_heads
     ckv_c, kr_c, length = cache
-    T = ckv_c.shape[1]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
     # in place of dynamic_update_slice: positions len .. len+S-1
@@ -263,14 +263,9 @@ def _mla_decode(p, cfg: LMConfig, x, positions, cache):
     # absorb wk_b into q: q_abs (B,S,H,kvl)
     wk = p["wk_b"].reshape(m.kv_lora, H, m.dh_nope)
     q_abs = torch.einsum("bshn,khn->bshk", q_nope, wk)
-    ckv32 = ckv_c.to(F32)
-    s = (torch.einsum("bshk,btk->bhst", q_abs.to(F32), ckv32)
-         + torch.einsum("bshr,btr->bhst", q_rope.to(F32),
-                        kr_c.to(F32))) * _mla_scale(cfg)
-    mask = torch.arange(T, device=x.device) < (length + S)
-    s = torch.where(mask, s, NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhst,btk->bshk", pr, ckv32)            # latent context
+    ml, ctx = latent_partial(q_abs, q_rope, ckv_c, kr_c, length + S, 0,
+                             _mla_scale(cfg))
+    ctx = merge_latent(ml[None], ctx[None])                    # latent context
     wv = p["wv_b"].reshape(m.kv_lora, H, m.dh_v)
     out = torch.einsum("bshk,khv->bshv", ctx, wv.to(F32))
     out = out.reshape(B, S, H * m.dh_v).to(x.dtype)
