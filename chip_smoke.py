@@ -162,17 +162,25 @@ Phases, each printing one JSON line:
              collectives' time and peak device memory
   tp_serve   four gloo ranks sharing the card on a (data, model) = (2, 2)
              mesh, in one start: long_500k on Qwen3-0.6B at full width
-             (28 layers cut to 4), its seeded cache of 524,288 positions
+             (28 layers cut to 2), its seeded cache of 524,288 positions
              in four pieces of 131,072 (one a rank: the sequence over
              every axis), three decode steps from len 131,070 across the
-             first piece boundary; then MIND at full width with its item
-             and profile rows over model: serve_p99 (512 users),
-             retrieval_cand (one user against 1,000,000 items, top 100)
-             and serve_bulk (262,144 users cut to 16,384).  Each rank's
-             joined outputs held to a one-device control run first
-             (LM_LOGITS_ATOL; MIND_TOL, retrieval indices where the
-             scores are apart); each rank's ms a step or a call, its
-             collectives' share, peak device memory and kernel launches
+             first piece boundary; DeepSeek-V3 at full width with its 256
+             experts (its dense layer and one MoE layer of 61; the rows
+             over data, the capacity counted over both; experts and MLA's
+             heads over model, the experts' embed pieces joined over data
+             a group at a time), prefill_32k at 2 x 2,048 and four
+             decode_32k steps at 8 rows from len 20,000, held as lm_tp
+             holds them at MOE_HELD_SHARE of the positions, the dropped
+             assignments counted beside the control's; then MIND at full
+             width with its item and profile rows over model: serve_p99
+             (512 users), retrieval_cand (one user against 1,000,000
+             items, top 100) and serve_bulk (262,144 users cut to
+             16,384).  Each rank's joined outputs held to a one-device
+             control run first (LM_LOGITS_ATOL; MIND_TOL, retrieval
+             indices where the scores are apart); each rank's ms a step
+             or a call, its collectives' share, peak device memory and
+             kernel launches
   lm_moe     DeepSeek-V3-671B (MLA latent caches, 256 experts top-8 and a
              shared expert; 61 layers cut to 3, the dense one and 2
              routed) and Arctic-480B (128 experts top-2 beside a dense
@@ -210,8 +218,10 @@ Phases, each printing one JSON line:
              whole after step 1 and restored onto the placements, each
              loss within 1e-4 of the uninterrupted control's, kernel #4
              launched once a step on each rank's row piece and held bit
-             for bit to the slot-order sum there.  Each rank prints ms a
-             step, the collectives' share and peak device memory
+             for bit to the slot-order sum there (DeepSeek-V3 over model,
+             TP_TRAIN_MOE, runs with the phase alone: tp_train_spec(moe=
+             True)).  Each rank prints ms a step, the collectives' share
+             and peak device memory
   gnn        the GNN zoo at full width through build_step and make_source
              (the reference's cells, uncut; plain torch, no kernel): GCN
              on full_graph_sm (Cora's 2,708 nodes, 1,433 features),
@@ -404,7 +414,8 @@ TP_MODELS = {"qwen3-0.6b": (None, (2, 2048), 4, 0),
 #: tp_serve: four gloo ranks sharing cuda:0 on a (data, model) =
 #: TP_SERVE_MESH mesh.  long_500k on Qwen3-0.6B at full width, depth cut
 #: from 28 layers to TP_SERVE_LAYERS (its whole bf16 cache is ~60 GB at 28,
-#: and the phase holds a one-device control beside the ranks), its seeded
+#: and the phase holds a one-device control beside the ranks; 4 until the
+#: MoE model below came in), its seeded
 #: cache of LONG_T positions in four pieces of 131,072 (one a rank),
 #: TP_SERVE_STEPS decode steps from len TP_SERVE_LEN0, so they write on
 #: both sides of the first piece boundary; then MIND at full width with its
@@ -412,10 +423,21 @@ TP_MODELS = {"qwen3-0.6b": (None, (2, 2048), 4, 0),
 #: item, top 100) and serve_bulk cut from 262,144 users to TP_SERVE_BULK
 #: (its history's all-reduce over model goes through the host)
 TP_SERVE_MESH = (2, 2)
-TP_SERVE_LAYERS = 4
+TP_SERVE_LAYERS = 2
 TP_SERVE_LEN0 = 131_070
 TP_SERVE_STEPS = 3
 TP_SERVE_BULK = 16_384
+#: tp_serve's MoE models over the same mesh, each in lm_tp's form
+#: (TP_MODELS), ((n_layers, first_k_dense), serve_prefill (B, S), decode_32k
+#: steps): DeepSeek-V3 at full width with all 256 experts (128 a model rank,
+#: their embed dimension cut over data and joined a group at a time), its
+#: dense layer and one MoE layer of 61; prefill_32k cut to 2 x 2,048 (one
+#: row a data rank) at the published capacity factor, counted over both
+#: rows; decode_32k at LM_SLOTS rows (4 a data rank) from TP_LEN0 on the
+#: seeded cache of TP_T (its sequence over model).  The ranks make no warm
+#: call: each call joins a rank's 5.6 GB of expert pieces through the host
+#: (~20 s of gloo on one card), which dwarfs a first call's set-up
+TP_SERVE_MOE = {"deepseek-v3-671b": ((2, 1), (2, 2048), 4)}
 #: the one-device control's retrieval keeps one more than the top 100, so
 #: that _retrieval_agrees can tell which neighbours are apart
 _TOP_K_HELD = 101
@@ -452,6 +474,12 @@ TRAIN_RESUME = (6, 4)
 #: its out-of-place one): relative; Qwen3-0.6B and DeepSeek-V3 read 0 on
 #: an H100
 TRAIN_LOSS_REL = 1e-6
+#: the same for a model with a MoE layer: index_add_ adds a token's k
+#: gated expert outputs with atomics, in bf16, in an order that changes
+#: from run to run, and DeepSeek-V3's MTP logits are not normed (its loss
+#: ~84 at tp_train's cut), which carries a bf16 step far: read 2.5e-6 and
+#: 1.2e-5 in two runs on an H100
+TRAIN_MOE_LOSS_REL = 5e-5
 #: the resumed TrainLoop's losses against the uninterrupted run's
 #: (float32, the card's atomics reorder sums between runs): relative to
 #: max(1, |loss|)
@@ -480,6 +508,44 @@ TP_TRAIN_LOSS_REL = 2e-3
 TP_TRAIN_MOMENT_REL = {"m": 0.05, "v": 0.1}
 #: MIND's loss (float32) against the control's: absolute, x max(1, |loss|)
 TP_TRAIN_MIND_TOL = 1e-4
+#: tp_train's MoE model, DeepSeek-V3 at full width (d_model 7,168, 128
+#: heads, its MLA dims, d_ff_expert 2,048, top 8, one shared expert, MTP),
+#: ((n_layers, first_k_dense), routed experts, (B, S)): 61 layers cut to
+#: its dense layer and one MoE layer, 256 x 4,096 tokens to 1 x 4,096 (one
+#: microbatch), and its 256 routed experts to 32, 16 a rank.  One whole
+#: MoE layer is 3 x 256 x 7,168 x 2,048 = 11.3e9 parameters: 22.5 GB of
+#: bf16 weights, as much again of gradients and of int8 moments, and each
+#: leaf's moments decoded whole in float32 in the update, which does not
+#: fit in 80 GB beside the one-device control (here ~4.6e9 parameters in
+#: all).  Its moments are float32, not the int8 build_step picks at its
+#: width: with int8 moments (the reference's AdamW, eps 1e-8) a second
+#: moment decodes to 0 where its square is under 1/254 of its block's
+#: largest, and the next update divides m by that element's new gradient
+#: alone: the control's loss went 83.70, 80.87, 246.92 over three steps and
+#: the ranks' 83.70, 80.86, 243.76, 0.64% of parameters past their limit
+#: and the moments 12-29 times theirs after the third (an H100, 700 W), and
+#: each rank's step joined its pieces' moments whole through the host (63-
+#: 74 s a step).  The int8 pieces are held on the CPU
+#: (tests/test_torch_tp_moe_train.py).  The control's step 0 is held to
+#: the no-grad forward.  The case runs with the phase alone
+#: (tp_train_spec(moe=True)), not in the script: it adds ~60 s (the
+#: control's 27.5 GB state written to disk beside the ranks' start, a
+#: rank's steps ~10 s each) to a script that reached the phase after
+#: ~950 s on the card of its last runs, against a limit of 1,200 s
+TP_TRAIN_MOE = ((2, 1), 32, (1, 4096))
+#: AdamW's largest move a step in units of lr at the reference's b1 0.9
+#: and b2 0.95 over three steps: |m_t| / sqrt(v_t) is at most (1 - b1) /
+#: sqrt(1 - b2) x sqrt(sum_k (b1^2 / b2)^k) (Cauchy-Schwarz), and with the
+#: bias corrections sqrt(1 - b2^t) / (1 - b1^t) that is 1.0000, 1.0007 and
+#: 1.0006 at t = 1, 2, 3.  The MoE model's parameters are held to 2 x this
+#: x lr a step plus a bf16 step of their size a step (each run rounds a
+#: parameter to bf16 once a step); the LM's limit, 2 x lr a step plus two
+#: bf16 steps, read 1.0037 on one of DeepSeek-V3's (an H100)
+TP_TRAIN_MOE_MOVE = 1.001
+#: the least share of a MoE model's positions whose tokens take the
+#: control's experts in every MoE layer, over ranks (tp_train's step 0,
+#: tp_serve's prefill and decode)
+MOE_HELD_SHARE = 0.98
 #: the gnn phase: (run, arch, cell, the source's steps of its three train
 #: steps) at full width, build_step(..., reduced=False) on make_source's
 #: batches (the reference's cells, uncut), AdamW at TRAIN_LR
@@ -558,8 +624,25 @@ BF16_STEP = 2.0 ** -7
 LIBRARY_STEPS = 16
 
 
+#: (phase, seconds since the script started) of each record emitted
+EMITTED: list = []
+T_START = time.perf_counter()
+
+
 def emit(record: dict) -> None:
+    EMITTED.append((record.get("phase"), time.perf_counter() - T_START))
     print(json.dumps(record), flush=True)
+
+
+def phase_walls() -> dict:
+    """Each phase's seconds, from the end of the record before it to the
+    end of its own, and the script's so far (its time limit is 1,200 s on
+    the card)."""
+    out, last = [], 0.0
+    for phase, t in EMITTED:
+        out.append([phase, round(t - last, 1)])
+        last = t
+    return {"phase": "walls", "script_s": round(last, 1), "seconds": out}
 
 
 def check(cond, msg: str) -> None:
@@ -3670,21 +3753,24 @@ def tp_reduced(base, cfg, spec: dict, model: dict) -> dict:
     return out
 
 
-def tp_hold(joined, want, routes, ref_routes) -> dict:
+def tp_hold(joined, want, routes, ref_routes, rows=slice(None)) -> dict:
     """Joined (B, S, V) logits against the control's ``want``, position by
-    position: the largest |difference| over the positions whose tokens
-    took the control's experts in every MoE layer (every position of a
-    model without MoE; a rerouted token takes other experts' output, so
-    its logits are only counted), how many those are, the last
-    positions' argmax agreement, and the share of (token, MoE layer)
-    pairs routed as the control's (None without MoE)."""
+    position, on this rank's ``rows`` of the batch (``routes``: its MoE
+    layers' routes of their tokens): the largest |difference| over the
+    positions whose tokens took the control's experts in every MoE layer
+    (every position of a model without MoE; a rerouted token takes other
+    experts' output, so its logits are only counted), how many those are,
+    the last positions' argmax agreement, and the share of (token, MoE
+    layer) pairs routed as the control's (None without MoE)."""
     import torch
 
+    joined, want = joined[rows], want[rows]
     B, S = joined.shape[:2]
+    first = (rows.start or 0) * S
     held = torch.ones((B, S), dtype=torch.bool)
     same = []
     for got, ref in zip(routes, ref_routes):
-        eq = (got.cpu() == ref).all(-1)
+        eq = (got.cpu() == ref[first:first + B * S]).all(-1)
         held &= eq.reshape(B, S)
         same.append(eq)
     want = want.to(joined.device).float()
@@ -3795,6 +3881,7 @@ def tp_model_rank(device, mesh, arch: str, spec: dict, run_dir: str,
     _, cfg = tp_model(arch, spec)
     cells = tp_cells(cfg, spec, spec["models"][arch], mesh)
     ref = torch.load(os.path.join(run_dir, f"ref_{arch}.pt"))
+    D, d = mesh.axis_size("data"), mesh.axis_index("data")
     if card:
         free_card(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -3811,24 +3898,32 @@ def tp_model_rank(device, mesh, arch: str, spec: dict, run_dir: str,
     mine = {}
     with torch.inference_mode():
         for cell, (b, toks, T, P, len0) in cells.items():
-            toks = [torch.as_tensor(tok, device=device) for tok in toks]
-            rows = toks[0].shape[0]
+            # this rank's rows of a batch cut over the data axis (long_500k's
+            # one row whole on every rank)
+            n = len(toks[0]) // D if cell != "long" else len(toks[0])
+            rows = slice(d * n, (d + 1) * n) if cell != "long" else \
+                slice(None)
+            toks = [torch.as_tensor(tok[rows], device=device) for tok in toks]
             join = b if cell == "prefill" else dataclasses.replace(
                 b, out_shardings=b.out_shardings[0])
-            c = {"rows": rows, "tokens_a_step": toks[0].numel()}
+            c = {"rows": n, "tokens_a_step": toks[0].numel()}
+            warm_up = spec["models"][arch].get("warm", True)
             if cell == "prefill":
                 caches = None
-                b.fn(params, toks[0][:, :64])  # warm
+                if warm_up:
+                    b.fn(params, toks[0][:, :64])
             else:
                 axes = ("data", "model") if cell == "long" else "model"
                 index = mesh.axis_index(axes)
-                if cell == "decode":  # warm on a short cache
-                    warm = tp_cache(cfg, rows, 128 * P, P, [index], device)
+                if cell == "decode" and warm_up:  # on a short cache
+                    warm = tp_cache(cfg, n, 128 * P, P, [index], device)
                     warm["len"] = torch.tensor(5, dtype=torch.int32,
                                                device=device)
                     b.fn(params, toks[0], warm)
                     del warm
-                caches = tp_cache(cfg, rows, T, P, [index], device)
+                caches = {k: v[:, rows].contiguous() for k, v in tp_cache(
+                    cfg, n * (D if cell != "long" else 1), T, P, [index],
+                    device).items()}
                 c.update(T=T, pieces=P, len0=len0, cache_piece_bytes=sum(
                     x.numel() * x.element_size() for x in caches.values()))
                 caches["len"] = torch.tensor(len0, dtype=torch.int32,
@@ -3859,7 +3954,7 @@ def tp_model_rank(device, mesh, arch: str, spec: dict, run_dir: str,
                 check(bool(torch.isfinite(joined).all()),
                       f"lm_tp {arch} rank {mesh.rank} {cell} logits")
                 holds.append(tp_hold(joined, ref[cell]["logits"][i], routes,
-                                     ref[cell]["routes"][i]))
+                                     ref[cell]["routes"][i], rows))
                 mine[cell].append([r.cpu() for r in routes])
                 del joined
             alike = [h["routes_alike"] for h in holds
@@ -3982,11 +4077,12 @@ def phase_lm_tp(device, spec: dict | None = None) -> tuple:
     return dense, moe
 
 
-def check_tp(spec: dict, run_dir: str, ranks: list) -> tuple:
+def check_tp(spec: dict, run_dir: str, ranks: list, phase: str = "lm_tp",
+             held_share: float = MOE_ROUTING_AGREE) -> tuple:
     """lm_tp's checks of the ranks' records (:func:`tp_model_rank`)
-    against the control; returns kernel #5's launches summed over the
-    ranks' decode steps of the models without MoE, and of those with
-    it."""
+    against the control (at least ``held_share`` of a MoE model's
+    positions held); returns kernel #5's launches summed over the ranks'
+    decode steps of the models without MoE, and of those with it."""
     import torch
 
     dense, moe = {}, {}
@@ -3997,21 +4093,24 @@ def check_tp(spec: dict, run_dir: str, ranks: list) -> tuple:
             cells = torch.load(os.path.join(run_dir, f"routes_{arch}_{r}.pt"))
             mine.append([t for cell in sorted(cells) for step in cells[cell]
                          for t in step])
-        for r, got in enumerate(mine[1:], 1):
-            check(len(got) == len(mine[0]) and all(
-                torch.equal(a, b) for a, b in zip(got, mine[0])),
-                f"lm_tp {arch} rank {r}: routes differ from rank 0's")
+        for r, got in enumerate(mine):
+            # the ranks that hold the same rows: the same data coordinate
+            peer = next(q for q, rank in enumerate(ranks) if rank["coords"][
+                "data"] == ranks[r]["coords"]["data"])
+            check(len(got) == len(mine[peer]) and all(
+                torch.equal(a, b) for a, b in zip(got, mine[peer])),
+                f"{phase} {arch} rank {r}: routes differ from rank {peer}'s")
         check((len(mine[0]) > 0) == (cfg.moe is not None),
-              f"lm_tp {arch}: {len(mine[0])} routings recorded")
+              f"{phase} {arch}: {len(mine[0])} routings recorded")
         total = moe if cfg.moe is not None else dense
         for r, rank in enumerate(ranks):
-            rec, what = rank["models"][arch], f"lm_tp {arch} rank {r}"
+            rec, what = rank["models"][arch], f"{phase} {arch} rank {r}"
             for cell in ("prefill", "decode", "long"):
                 if cell not in rec:
                     continue
                 c = rec[cell]
                 least = c["positions"] if cfg.moe is None else \
-                    MOE_ROUTING_AGREE * c["positions"]
+                    held_share * c["positions"]
                 check(c["positions_held"] >= least, f"{what}: {cell} held "
                       f"{c['positions_held']} of {c['positions']} positions "
                       f"(routed as the control's), fewer than {least}")
@@ -4021,7 +4120,7 @@ def check_tp(spec: dict, run_dir: str, ranks: list) -> tuple:
                       f"differ from the control's by {worst} > "
                       f"{LM_LOGITS_ATOL}")
                 if cfg.moe is not None:
-                    check(c["routing_agree_share"] >= MOE_ROUTING_AGREE,
+                    check(c["routing_agree_share"] >= held_share,
                           f"{what}: {cell} routes "
                           f"{c['routing_agree_share']} of the pairs as the "
                           "control")
@@ -4038,6 +4137,56 @@ def check_tp(spec: dict, run_dir: str, ranks: list) -> tuple:
                     if layers:
                         total[name] = total.get(name, 0) + n
     return dense, moe
+
+
+def moe_drops(spec: dict, run_dir: str, ranks: list) -> dict:
+    """Each MoE model's dropped (token, expert) assignments a layer at the
+    published capacity factor, the control's and the ranks': the ranks'
+    routes of their rows joined in the batch's order (the data ranks of
+    model coordinate 0), the capacity of the whole batch, as the ranks
+    count it.  Equal to the control's where every token took the
+    control's experts; a rerouted token moves k assignments, each of
+    which can move the count by 2, so the two may differ by 2k a rerouted
+    token."""
+    import torch
+
+    from repro_torch.models.moe import moe_capacity
+
+    out = {}
+    for arch in spec["models"]:
+        _, cfg = tp_model(arch, spec)
+        if cfg.moe is None:
+            continue
+        X, k = cfg.moe.num_experts, cfg.moe.top_k
+        ref = torch.load(os.path.join(run_dir, f"ref_{arch}.pt"))
+        order = sorted((r for r in range(len(ranks))
+                        if ranks[r]["coords"]["model"] == 0),
+                       key=lambda r: ranks[r]["coords"]["data"])
+        got = [torch.load(os.path.join(run_dir, f"routes_{arch}_{r}.pt"))
+               for r in order]
+        rec = {}
+        for cell in ("prefill", "decode"):
+            if cell not in ref:
+                continue
+            rows = []
+            for i, want_step in enumerate(ref[cell]["routes"]):
+                for layer, want in enumerate(want_step):
+                    joined = torch.cat([g[cell][i][layer] for g in got])
+                    C = moe_capacity(cfg.moe, want.shape[0])
+                    drops = [int((torch.bincount(e.reshape(-1), minlength=X)
+                                  - C).clamp(min=0).sum())
+                             for e in (want, joined)]
+                    rerouted = int((~(joined == want).all(-1)).sum())
+                    check(abs(drops[0] - drops[1]) <= 2 * k * rerouted,
+                          f"tp_serve {arch} {cell} step {i} layer {layer}: "
+                          f"the ranks drop {drops[1]} assignments, the "
+                          f"control {drops[0]}, {rerouted} tokens rerouted")
+                    rows.append({"step": i, "layer": layer, "capacity": C,
+                                 "control": drops[0], "ranks": drops[1],
+                                 "rerouted": rerouted})
+            rec[cell] = rows
+        out[arch] = rec
+    return out
 
 
 def tp_serve_lm(spec: dict, device) -> tuple:
@@ -4105,10 +4254,12 @@ def tp_serve_rank(run_dir: str, device_type: str) -> None:
     from the whole, its seeded piece of the cache's sequence (piece
     ``axis_index(("data", "model"))``), the decode steps through
     ``build_step``'s step, each timed, their joined logits held to the
-    one-device control's (``ref.pt``).  MIND: its rows over model, each
-    cell's batch cut to this rank's, the step timed and its joined output
-    held to the control's.  The kernels' launches counted from 0 around
-    each run, the collectives timed.  Writes ``rank<r>.json``."""
+    one-device control's (``ref.pt``).  The MoE models of ``spec["moe"]``
+    (:func:`tp_model_rank`: this rank's rows of each batch, its pieces
+    drawn leaf by leaf).  MIND: its rows over model, each cell's batch cut
+    to this rank's, the step timed and its joined output held to the
+    control's.  The kernels' launches counted from 0 around each run, the
+    collectives timed.  Writes ``rank<r>.json``."""
     from dataclasses import replace
 
     import torch
@@ -4191,6 +4342,12 @@ def tp_serve_rank(run_dir: str, device_type: str) -> None:
         del params, caches, logits
         if card:
             free_card(device)
+    # ---- DeepSeek-V3: rows over data, experts and MLA's heads over model
+    if spec.get("moe"):
+        rec["models"] = {arch: tp_model_rank(device, mesh, arch, spec["moe"],
+                                             run_dir, collectives, sync)
+                         for arch in spec["moe"]["models"]}
+    with torch.inference_mode():
         # ---- MIND: item and profile rows over model
         t = time.perf_counter()
         mcfg, whole, batches = tp_serve_mind(spec, device)
@@ -4246,26 +4403,44 @@ def tp_serve_rank(run_dir: str, device_type: str) -> None:
         json.dump(rec, f)
 
 
+def tp_serve_spec() -> dict:
+    """The tp_serve phase at full width; its MoE models' part in lm_tp's
+    form (:data:`TP_SERVE_MOE`)."""
+    return {"arch": "qwen3-0.6b", "reduced": False,
+            "layers": TP_SERVE_LAYERS, "mesh": list(TP_SERVE_MESH),
+            "T": LONG_T, "len0": TP_SERVE_LEN0, "steps": TP_SERVE_STEPS,
+            "p99": 512, "bulk": TP_SERVE_BULK,
+            "moe": {"reduced": False, "mesh": list(TP_SERVE_MESH),
+                    "slots": LM_SLOTS, "T": TP_T, "len0": TP_LEN0,
+                    "long": [LONG_T, TP_LONG_LEN0],
+                    "models": {arch: {"depth": list(depth),
+                                      "prefill": list(prefill), "steps": n,
+                                      "long_steps": 0, "warm": False}
+                               for arch, (depth, prefill, n)
+                               in TP_SERVE_MOE.items()}}}
+
+
 def phase_tp_serve(device, spec: dict | None = None) -> dict:
     """Serving across ranks, part 2: the one-device control first
-    (long_500k's decode steps on the whole seeded cache, then MIND's three
-    cells), its outputs saved; then :data:`TP_SERVE_MESH`'s four ranks
+    (long_500k's decode steps on the whole seeded cache, MIND's three
+    cells, then each model of :data:`TP_SERVE_MOE` by :func:`tp_control`),
+    its outputs saved; then :data:`TP_SERVE_MESH`'s four ranks
     (:func:`tp_serve_rank`, gloo, sharing the card) in one start, each
     holding its joined long_500k logits to the control's within
     :data:`LM_LOGITS_ATOL`, its MIND outputs within :data:`MIND_TOL`
     (retrieval by :func:`_retrieval_agrees`), launching both flash-decode
-    kernels once a layer a step and the bag in every MIND cell.  Returns
-    the kernels' launches summed over the ranks."""
+    kernels once a layer a step and the bag in every MIND cell; the MoE
+    models held as lm_tp holds them (:func:`check_tp`, at least
+    :data:`MOE_HELD_SHARE` of the positions routed as the control's, each
+    rank's rows of the batch), their dropped assignments counted
+    (:func:`moe_drops`).  Returns the kernels' launches summed over the
+    ranks."""
     import torch
 
     from repro_torch.launch.ranks import run_ranks
     from repro_torch.models import recsys as rec
 
-    spec = spec or {"arch": "qwen3-0.6b", "reduced": False,
-                    "layers": TP_SERVE_LAYERS, "mesh": list(TP_SERVE_MESH),
-                    "T": LONG_T, "len0": TP_SERVE_LEN0,
-                    "steps": TP_SERVE_STEPS, "p99": 512,
-                    "bulk": TP_SERVE_BULK}
+    spec = spec or tp_serve_spec()
     card = device.type == "cuda"
     P = spec["mesh"][0] * spec["mesh"][1]
 
@@ -4277,9 +4452,14 @@ def phase_tp_serve(device, spec: dict | None = None) -> dict:
         free_card(device)
     out = {"phase": "tp_serve", **spec, "logits_atol": LM_LOGITS_ATOL,
            "mind_tolerance": list(MIND_TOL),
+           "held_share": MOE_HELD_SHARE,
            "reduced": {"long_500k_layers": [28, spec["layers"]],
                        "serve_bulk_users": [262_144, spec["bulk"]],
                        "decode_steps": spec["steps"]}}
+    if spec.get("moe"):
+        out["reduced"]["moe"] = {
+            arch: tp_reduced(*tp_model(arch, spec["moe"]), spec["moe"], m)
+            for arch, m in spec["moe"]["models"].items()}
     t = time.perf_counter()
     ref, one = {}, {}
     with torch.inference_mode():
@@ -4329,8 +4509,10 @@ def phase_tp_serve(device, spec: dict | None = None) -> dict:
         del mparams, on, vals, idx
     if card:
         free_card(device)
-    out["one_device"] = {**one, "wall_s": time.perf_counter() - t}
     with tempfile.TemporaryDirectory() as tmp:
+        if spec.get("moe"):
+            one["moe"] = tp_control(device, spec["moe"], tmp)
+        out["one_device"] = {**one, "wall_s": time.perf_counter() - t}
         torch.save(ref, os.path.join(tmp, "ref.pt"))
         with open(os.path.join(tmp, "spec.json"), "w") as f:
             json.dump(spec, f)
@@ -4363,6 +4545,10 @@ def phase_tp_serve(device, spec: dict | None = None) -> dict:
                 check(n == 1, f"{what}: {cell} launched the bag {n} times")
                 total["embedding_bag"] = total.get("embedding_bag", 0) + n
             ranks.append(r)
+        if spec.get("moe"):
+            # MLA's latent decode runs no kernel: no launch to add
+            check_tp(spec["moe"], tmp, ranks, "tp_serve", MOE_HELD_SHARE)
+            out["moe_drops"] = moe_drops(spec["moe"], tmp, ranks)
     out.update(ranks=ranks, launches=total)
     emit(out)
     return total
@@ -4702,22 +4888,57 @@ def tp_train_inputs(spec: dict) -> tuple:
     return lcfg, mcfg, lm, mind
 
 
-def tp_train_builds(spec: dict, lcfg, mcfg, mesh=None) -> tuple:
-    """The LM and MIND train steps of the tp_train phase on ``mesh``
-    (None: one device), AdamW at ``spec["lr"]``: the LM's on the cut
-    ``(B, S)`` avals (one microbatch)."""
+def tp_train_moe(spec: dict) -> tuple:
+    """``(base, cut cfg, batches)`` of the tp_train phase's MoE model
+    (``spec["moe"]``): its config cut to ``depth`` (n_layers,
+    first_k_dense) and ``experts`` routed experts, every width kept; one
+    ``lm`` = (B, S) batch a step (``TokenSource`` seed 0, host
+    tensors)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenSource
+
+    moe = spec["moe"]
+    base = get_config(moe["arch"])
+    if spec["reduced"]:
+        base = base.reduced()
+    n_layers, dense = moe["depth"]
+    cfg = replace(base, n_layers=n_layers, moe=replace(
+        base.moe, first_k_dense=dense, num_experts=moe["experts"]))
+    B, S = moe["lm"]
+    tok = TokenSource(B, S, cfg.vocab, seed=0)
+    batches = [tuple(torch.as_tensor(tok(i)[k]) for k in ("tokens", "labels"))
+               for i in range(moe["steps"])]
+    return base, cfg, batches
+
+
+def tp_train_builds(spec: dict, lcfg, mcfg, mesh=None, moe_cfg=None) -> tuple:
+    """The LM, MIND and (given ``moe_cfg``) MoE train steps of the
+    tp_train phase on ``mesh`` (None: one device): the LM's on the cut
+    ``(B, S)`` avals (one microbatch), AdamW at ``spec["lr"]``; the MoE
+    model's on its cut avals with float32 moments (:data:`TP_TRAIN_MOE`)
+    and ``build_step``'s default lr (at TRAIN_LR the first step moves each
+    bf16 weight of scale 0.02 by 15%)."""
     import torch
 
     from repro_torch.launch import steps
 
-    B, S = spec["lm"]
-    avals = {k: ((B, S), torch.int32) for k in ("tokens", "labels")}
-    lm = steps._build_lm(lcfg, "train_4k", "train", avals, mesh,
-                         steps.default_opt(lcfg, lr=spec["lr"]), False)
+    def lm_build(cfg, shape, opt):
+        avals = {k: (tuple(shape), torch.int32) for k in ("tokens", "labels")}
+        return steps._build_lm(cfg, "train_4k", "train", avals, mesh, opt,
+                               False)
+
+    lm = lm_build(lcfg, spec["lm"], steps.default_opt(lcfg, lr=spec["lr"]))
     mind = steps.build_step("mind", "train_batch", mesh,
                             reduced=spec["reduced"],
                             opt=steps.default_opt(mcfg, lr=spec["lr"]))
-    return lm, mind
+    moe = None if moe_cfg is None else lm_build(
+        moe_cfg, spec["moe"]["lm"],
+        steps.default_opt(moe_cfg, quantize_moments=False))
+    return lm, mind, moe
 
 
 def _on_host(tree, dtype=None):
@@ -4729,6 +4950,64 @@ def _on_host(tree, dtype=None):
     return tree.detach().to("cpu", dtype)
 
 
+def lm_pieces_hold(b, params, state, control: dict, steps: int,
+                   bf16_steps: int = 2, move: float = 1.0) -> dict:
+    """This rank's LM parameter and float32 moment pieces against the
+    one-device control's (``control``: its whole params and AdamW state,
+    memmapped), cut by ``b``'s placements: each parameter within ``2 x
+    move x lr`` a step (``move``: AdamW's largest step in units of lr)
+    plus ``bf16_steps`` bf16 steps of its size (``param_worst_share``: the
+    largest error over its limit), how many elements differ at all; each
+    moment off the control's by a share of its leaf's largest, over
+    :data:`TP_TRAIN_MOMENT_REL`."""
+    from repro_torch.launch.steps import local_args
+    from repro_torch.models.params import tree_leaves
+
+    want_p, want_s = local_args(b, control["params"], control["state"])[:2]
+    lr = b.static["opt"].lr
+    worst, unequal, elements, where = 0.0, 0, 0, {}
+    for (name, got), (_, w) in zip(tree_leaves(params),
+                                   tree_leaves(want_p)):
+        g, w = got.detach().float(), w.to(got.device).float()
+        err = (g - w).abs()
+        lim = 2 * move * lr * steps + bf16_steps * BF16_STEP * w.abs()
+        share = float((err / lim).max())
+        if share > worst:
+            worst, where["param"] = share, name
+        unequal += int((err > 0).sum())
+        elements += err.numel()
+        del g, w, err, lim
+    moments = {}
+    for (name, got), (_, w) in zip(tree_leaves(state["mu"]),
+                                   tree_leaves(want_s["mu"])):
+        w = w.to(got.device).float()
+        leaf, key = name.rsplit(".", 1)
+        share = float((got.float() - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30) / TP_TRAIN_MOMENT_REL[key]
+        if share > moments.get(key, 0.0):
+            moments[key], where[key] = share, leaf
+        del w
+    return {"param_worst_share": worst, "params_unequal": unequal,
+            "param_elements": elements, "moment_worst_share": moments,
+            "worst_leaves": where}
+
+
+def whole_leaf_digests(b, params) -> dict:
+    """The SHA-1 of the bytes of every leaf that ``b``'s placements leave
+    whole on every rank (MoE's router, MLA's ``wq_a``, ``wkv_a`` and
+    norms, MTP's ``proj`` and norms, every layer norm)."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.models.params import tree_leaves
+
+    sh = dict(tree_leaves(b.in_shardings[0]))
+    return {n: hashlib.sha1(t.detach().cpu().contiguous().view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+        for n, t in tree_leaves(params) if sh[n].frac == 1}
+
+
 def tp_train_rank(run_dir: str, device_type: str) -> None:
     """One rank of the tp_train phase (started by ``run_ranks``): the mesh
     ``spec["mesh"]`` over the group on ``cuda:(rank % visible cards)`` (or
@@ -4736,21 +5015,23 @@ def tp_train_rank(run_dir: str, device_type: str) -> None:
     weights and fresh AdamW state, the train steps through the mesh step,
     each timed with its collectives; then its parameter and moment pieces
     held to the one-device control's (``lm_control.pt``, memmapped, cut
-    the same way).  MIND: the same, the bag's launches counted from 0
-    around each step; after step 1 the joined (params, state) saved whole
-    by rank 0 and restored onto the placements; then kernel #4 on this
-    rank's profile rows at the last batch against the slot-order sum.
-    Writes ``rank<r>.json``."""
+    the same way: :func:`lm_pieces_hold`).  MIND: the same, the bag's
+    launches counted from 0 around each step; after step 1 the joined
+    (params, state) saved whole by rank 0 and restored onto the
+    placements; then kernel #4 on this rank's profile rows at the last
+    batch against the slot-order sum.  The MoE model (``spec["moe"]``):
+    as the LM, its step-0 routes recorded and the digests of its whole
+    leaves written (``moe_control.pt``).  Writes ``rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.kernels import embedding_bag as ebk
     from repro_torch.kernels.ref import embedding_bag_slot_order
     from repro_torch.launch.mesh import Mesh, _device_mesh
-    from repro_torch.launch.steps import gather_outputs, local_args
+    from repro_torch.launch.steps import gather_outputs, local_args, \
+        local_init
     from repro_torch.models import recsys
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.params import tree_leaves
     from repro_torch.optim import adamw_init
     from repro_torch.train import checkpoint
 
@@ -4798,54 +5079,61 @@ def tp_train_rank(run_dir: str, device_type: str) -> None:
                    collective_share=float(np.sum(coll) / np.sum(steady)))
         return params, state, out
 
+    def lm_run(b, cfg, batches, control: str, routes: bool = False) -> dict:
+        """An LM through the mesh step from this rank's pieces of the
+        seeded weights (drawn leaf by leaf) and fresh float32 moments of
+        them, held to ``control``'s state."""
+        t = time.perf_counter()
+        params = local_init(tfm.lm_param_specs(cfg), b.in_shardings[0],
+                            torch.Generator(device).manual_seed(0))
+        state = adamw_init(params, b.static["opt"])
+        sync()
+        init_s = time.perf_counter() - t
+        if card:
+            free_card(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        first = []
+
+        def after(i, params, state):
+            if i == 0 and routes:
+                first.extend(seen[:n_moe])
+            seen.clear()
+            return params, state
+
+        n_moe = sum(d for _, d, moe in tfm.layer_groups(cfg) if moe)
+        with recorded_routing() as seen:
+            params, state, out = steps_of(
+                b, params, state, [tuple(x.to(device) for x in bt)
+                                   for bt in batches], after)
+        out["init_s"] = init_s
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            device) if card else None
+        if routes:
+            torch.save([r.cpu() for r in first],
+                       os.path.join(run_dir, f"moe_routes_{rank}.pt"))
+            out["whole_leaf_sha1"] = whole_leaf_digests(b, params)
+        t = time.perf_counter()
+        path = os.path.join(run_dir, control)
+        while not os.path.exists(path):  # written beside the ranks' start
+            time.sleep(0.5)
+        ctrl = torch.load(path, mmap=True)
+        hold = {} if not routes else {"bf16_steps": len(batches),
+                                      "move": TP_TRAIN_MOE_MOVE}
+        out.update(lm_pieces_hold(b, params, state, ctrl, len(batches),
+                                  **hold))
+        out.update(control_losses=ctrl["losses"],
+                   compare_s=time.perf_counter() - t)
+        del params, state, ctrl
+        if card:
+            free_card(device)
+        return out
+
     collectives = timed_collectives(sync)
     lcfg, mcfg, lm_batches, mind_batches = tp_train_inputs(spec)
-    lm, mind = tp_train_builds(spec, lcfg, mcfg, mesh)
+    moe_cfg = tp_train_moe(spec)[1:] if spec.get("moe") else (None, None)
+    lm, mind, moe = tp_train_builds(spec, lcfg, mcfg, mesh, moe_cfg[0])
     # ---- the LM: Megatron TP, the vocab-parallel loss
-    t = time.perf_counter()
-    whole = tfm.lm_init(lcfg, torch.Generator(device).manual_seed(0))
-    params, state = local_args(lm, whole, adamw_init(whole, lm.static[
-        "opt"]))[:2]
-    del whole
-    sync()
-    rec["lm_init_s"] = time.perf_counter() - t
-    if card:
-        free_card(device)
-        torch.cuda.reset_peak_memory_stats(device)
-    params, state, rec["lm"] = steps_of(
-        lm, params, state, [tuple(x.to(device) for x in b)
-                            for b in lm_batches])
-    rec["lm"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(
-        device) if card else None
-    t = time.perf_counter()
-    control = torch.load(os.path.join(run_dir, "lm_control.pt"), mmap=True)
-    want_p, want_s = local_args(lm, control["params"], control["state"])[:2]
-    lr, n = spec["lr"], len(lm_batches)
-    worst, unequal, elements = 0.0, 0, 0
-    for (name, got), (_, w) in zip(tree_leaves(params),
-                                   tree_leaves(want_p)):
-        g, w = got.detach().float().cpu(), w.float()
-        err = (g - w).abs()
-        lim = 2 * lr * n + 2 * BF16_STEP * w.abs()
-        worst = max(worst, float((err / lim).max()))
-        unequal += int((err > 0).sum())
-        elements += err.numel()
-    moments = {}
-    for (name, got), (_, w) in zip(tree_leaves(state["mu"]),
-                                   tree_leaves(want_s["mu"])):
-        w = w.float()
-        share = float((got.float().cpu() - w).abs().max()) / max(
-            float(w.abs().max()), 1e-30)
-        key = name.rsplit(".", 1)[1]
-        moments[key] = max(moments.get(key, 0.0),
-                           share / TP_TRAIN_MOMENT_REL[key])
-    rec["lm"].update(param_worst_share=worst, params_unequal=unequal,
-                     param_elements=elements, moment_worst_share=moments,
-                     control_losses=control["losses"],
-                     compare_s=time.perf_counter() - t)
-    del params, state, control, want_p, want_s
-    if card:
-        free_card(device)
+    rec["lm"] = lm_run(lm, lcfg, lm_batches, "lm_control.pt")
     # ---- MIND: rows over model, saved and restored after step 1
     t = time.perf_counter()
     whole = recsys.mind_init(mcfg, torch.Generator(device).manual_seed(0))
@@ -4893,23 +5181,46 @@ def tp_train_rank(run_dir: str, device_type: str) -> None:
     rec["mind"]["bag_bit_for_bit"] = bool(torch.equal(
         got, embedding_bag_slot_order(table, local, "sum")))
     rec["mind"]["bag_masked_share"] = float((local < 0).float().mean())
+    del params, state, batches, table, flat, local, got
+    if card:
+        free_card(device)
+    # ---- the MoE model: experts, MLA's heads and MTP over model
+    if moe is not None:
+        rec["moe"] = lm_run(moe, moe_cfg[0], moe_cfg[1], "moe_control.pt",
+                            routes=True)
     rec["rank_s"] = time.perf_counter() - t_rank
     with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
 
 
+def tp_train_spec(moe: bool = False) -> dict:
+    """The tp_train phase at full width; with ``moe`` also DeepSeek-V3
+    (:data:`TP_TRAIN_MOE`), which the script's time limit leaves to a run
+    of the phase alone."""
+    return {"arch": "qwen3-0.6b", "reduced": False,
+            "layers": TP_TRAIN_LAYERS, "mesh": list(TP_TRAIN_MESH),
+            "lm": list(TP_TRAIN_LM), "users": TP_TRAIN_USERS,
+            "steps": TP_TRAIN_STEPS, "lr": TRAIN_LR,
+            "moe": {"arch": "deepseek-v3-671b", "depth": list(TP_TRAIN_MOE[0]),
+                    "experts": TP_TRAIN_MOE[1], "lm": list(TP_TRAIN_MOE[2]),
+                    "steps": TP_TRAIN_STEPS} if moe else None}
+
+
 def phase_tp_train(device, spec: dict | None = None) -> tuple:
     """Training over a model axis of 2: the one-device control first
     (Qwen3-0.6B's train_4k cut as :data:`TP_TRAIN_LAYERS` and
-    :data:`TP_TRAIN_LM`, then MIND's train_batch at
-    :data:`TP_TRAIN_USERS` users, :data:`TP_TRAIN_STEPS` steps each), its
-    LM state saved and freed; then :data:`TP_TRAIN_MESH`'s ranks
-    (:func:`tp_train_rank`, gloo, sharing the card), each holding its
-    losses to the control's (:data:`TP_TRAIN_LOSS_REL`,
+    :data:`TP_TRAIN_LM`, MIND's train_batch at :data:`TP_TRAIN_USERS`
+    users, then DeepSeek-V3 cut as :data:`TP_TRAIN_MOE`, with step 0's
+    loss held to the no-grad forward's, :data:`TP_TRAIN_STEPS` steps
+    each), the LMs' states saved and freed; then :data:`TP_TRAIN_MESH`'s
+    ranks (:func:`tp_train_rank`, gloo, sharing the card), each holding
+    its losses to the control's (:data:`TP_TRAIN_LOSS_REL`,
     :data:`TP_TRAIN_MIND_TOL`), its LM pieces to the control's state,
     MIND's step 2 after the save and restore to the uninterrupted
     control's, and launching kernel #4 once a MIND step, bit for bit the
-    slot-order sum on its rows.  Returns the kernels' launches summed over
+    slot-order sum on its rows; DeepSeek-V3's whole leaves equal on both
+    ranks and its step-0 routes the control's at :data:`MOE_HELD_SHARE`
+    of the positions or more.  Returns the kernels' launches summed over
     the ranks' MIND steps, and kernel #4 timed at a rank's row piece of
     the train bags."""
     import torch
@@ -4919,10 +5230,7 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw_init
 
-    spec = spec or {"arch": "qwen3-0.6b", "reduced": False,
-                    "layers": TP_TRAIN_LAYERS, "mesh": list(TP_TRAIN_MESH),
-                    "lm": list(TP_TRAIN_LM), "users": TP_TRAIN_USERS,
-                    "steps": TP_TRAIN_STEPS, "lr": TRAIN_LR}
+    spec = spec or tp_train_spec()
     card = device.type == "cuda"
     world = spec["mesh"][0] * spec["mesh"][1]
 
@@ -4930,17 +5238,46 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
         if card:
             torch.cuda.synchronize(device)
 
-    def timed(b, params, state, batches) -> tuple:
+    def timed(b, params, state, batches, first=None) -> tuple:
         losses, ms = [], []
-        for batch in batches:
+        for i, batch in enumerate(batches):
             sync()
             t = time.perf_counter()
-            params, state, loss = b.fn(params, state, *batch)
+            with contextlib.ExitStack() as stack:
+                seen = stack.enter_context(recorded_routing()) \
+                    if i == 0 and first is not None else None
+                params, state, loss = b.fn(params, state, *batch)
+            if seen is not None:
+                first.extend(seen)
             sync()
             ms.append(1e3 * (time.perf_counter() - t))
             losses.append(float(loss))
         return params, state, {"losses": losses, "step_ms": ms,
                                "ms_per_step": float(np.mean(ms[1:] or ms))}
+
+    def save_lm(params, state, losses, path, mu_dtype=None,
+                background=None, **extra):
+        """The state copied to the host, then written to ``path`` (under
+        another name first); with ``background`` (a dict) the writing
+        runs in a thread, its seconds into ``background["write_s"]``."""
+        tree = {"params": _on_host(params),
+                "state": {"step": state["step"].cpu(),
+                          "mu": _on_host(state["mu"], mu_dtype)},
+                "losses": losses, **extra}
+
+        def write():
+            t = time.perf_counter()
+            torch.save(tree, path + ".part")
+            os.replace(path + ".part", path)
+            if background is not None:
+                background["write_s"] = time.perf_counter() - t
+
+        if background is None:
+            write()
+            return None
+        thread = threading.Thread(target=write)
+        thread.start()
+        return thread
 
     if card:
         free_card(device)
@@ -4948,12 +5285,26 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
     out = {"phase": "tp_train", **spec,
            "tolerances": {"lm_loss_rel": TP_TRAIN_LOSS_REL,
                           "lm_params": "2 x lr a step + 2 bf16 steps",
+                          "moe_params": "2 x TP_TRAIN_MOE_MOVE x lr a step "
+                                        "+ a bf16 step a step",
                           "lm_moments_of_largest": TP_TRAIN_MOMENT_REL,
-                          "mind_loss": TP_TRAIN_MIND_TOL},
+                          "mind_loss": TP_TRAIN_MIND_TOL,
+                          "moe_positions_routed_alike": MOE_HELD_SHARE,
+                          "moe_step0_loss_rel": TRAIN_MOE_LOSS_REL},
            "reduced": {"train_4k (B, S)": [[256, 4096], spec["lm"]],
                        "train_4k layers": [28, lcfg.n_layers],
                        "train_batch users": [65_536, spec["users"]]}}
-    lm, mind = tp_train_builds(spec, lcfg, mcfg)
+    moe_base = moe_cfg = moe_batches = None
+    if spec.get("moe"):
+        moe_base, moe_cfg, moe_batches = tp_train_moe(spec)
+        out["reduced"]["moe"] = {
+            "train_4k (B, S)": [[256, 4096], spec["moe"]["lm"]],
+            "n_layers": [moe_base.n_layers, moe_cfg.n_layers],
+            "first_k_dense": [moe_base.moe.first_k_dense,
+                              moe_cfg.moe.first_k_dense],
+            "num_experts": [moe_base.moe.num_experts,
+                            moe_cfg.moe.num_experts]}
+    lm, mind, moe = tp_train_builds(spec, lcfg, mcfg, moe_cfg=moe_cfg)
     one = {}
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
@@ -4969,11 +5320,8 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
         t0 = time.perf_counter()
         # the moments in bf16 (2.25 GB saved, not 3.75): a rounding of at
         # most 2^-9 of a value, against limits of 5% / 10% of the largest
-        torch.save({"params": _on_host(params),
-                    "state": {"step": state["step"].cpu(),
-                              "mu": _on_host(state["mu"], torch.bfloat16)},
-                    "losses": one["lm"]["losses"]},
-                   os.path.join(tmp, "lm_control.pt"))
+        save_lm(params, state, one["lm"]["losses"],
+                os.path.join(tmp, "lm_control.pt"), torch.bfloat16)
         one["lm"]["save_s"] = time.perf_counter() - t0
         del params, state
         if card:
@@ -4987,29 +5335,74 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
         del params, state
         if card:
             free_card(device)
+        if moe is not None:
+            # DeepSeek-V3 (the train phase's dense layer and MTP, one MoE
+            # layer beside them), its moments saved in bf16 as the LM's
+            t0 = time.perf_counter()
+            params = tfm.lm_init(moe_cfg, torch.Generator(device).manual_seed(0))
+            state = adamw_init(params, moe.static["opt"])
+            sync()
+            init_s = time.perf_counter() - t0
+            args = [tuple(x.to(device) for x in b) for b in moe_batches]
+            want = lm_xent_no_grad(params, moe_cfg, *args[0],
+                                   moe.static["accum"])
+            if card:
+                torch.cuda.reset_peak_memory_stats(device)
+            routes = []
+            params, state, one["moe"] = timed(moe, params, state, args,
+                                              routes)
+            n_moe = sum(d for _, d, m in tfm.layer_groups(moe_cfg) if m)
+            routes = [r.cpu() for r in routes[:n_moe]]
+            rel = abs(one["moe"]["losses"][0] - want) / abs(want)
+            check(rel <= TRAIN_MOE_LOSS_REL, f"tp_train deepseek control: step "
+                  f"0 loss {one['moe']['losses'][0]} against the no-grad "
+                  f"forward's {want}")
+            one["moe"].update(
+                init_s=init_s, no_grad_loss=want, loss_rel=rel,
+                max_memory_allocated=torch.cuda.max_memory_allocated(device)
+                if card else None)
+            # written beside the ranks' start: a rank reads it after its
+            # LM and MIND runs
+            t0 = time.perf_counter()
+            saving = save_lm(params, state, one["moe"]["losses"],
+                             os.path.join(tmp, "moe_control.pt"),
+                             torch.bfloat16, one["moe"], routes=routes)
+            one["moe"]["host_copy_s"] = time.perf_counter() - t0
+            del params, state, args
+            if card:
+                free_card(device)
         out["one_device"] = {**one, "wall_s": time.perf_counter() - t}
         with open(os.path.join(tmp, "spec.json"), "w") as f:
             json.dump(spec, f)
         t = time.perf_counter()
+        # two ranks' DeepSeek-V3 steps peak together (~33 GB each):
+        # segments that grow, not a cache of fixed blocks beside them
         run_ranks("chip_smoke:tp_train_rank", world, backend="gloo",
                   args=[tmp, device.type], paths=[ROOT],
-                  timeout=TP_TIMEOUT_S, store_dir=tmp)
+                  timeout=TP_TIMEOUT_S, store_dir=tmp,
+                  env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
         out["ranks_wall_s"] = time.perf_counter() - t
+        if moe is not None:
+            saving.join()
         ranks, total = [], {}
         for rank in range(world):
             with open(os.path.join(tmp, f"rank{rank}.json")) as f:
                 r = json.load(f)
             what = f"tp_train rank {rank}"
             check(r["backend"] == "gloo", f"{what}: backend")
-            for got, want in zip(r["lm"]["losses"], one["lm"]["losses"]):
-                check(abs(got - want) <= TP_TRAIN_LOSS_REL * abs(want),
-                      f"{what}: LM loss {got} against the control's {want}")
-            check(r["lm"]["param_worst_share"] <= 1.0,
-                  f"{what}: an LM parameter off the control's by "
-                  f"{r['lm']['param_worst_share']} x its limit")
-            for key, share in r["lm"]["moment_worst_share"].items():
-                check(share <= 1.0, f"{what}: LM moment {key} off the "
-                      f"control's by {share} x its limit")
+            models = [("lm", "LM")] + ([("moe", "DeepSeek-V3")]
+                                       if moe is not None else [])
+            for key, label in models:
+                for got, want in zip(r[key]["losses"], one[key]["losses"]):
+                    check(abs(got - want) <= TP_TRAIN_LOSS_REL * abs(want),
+                          f"{what}: {label} loss {got} against the "
+                          f"control's {want}")
+                check(r[key]["param_worst_share"] <= 1.0,
+                      f"{what}: a {label} parameter off the control's by "
+                      f"{r[key]['param_worst_share']} x its limit")
+                for name, share in r[key]["moment_worst_share"].items():
+                    check(share <= 1.0, f"{what}: {label} moment {name} off "
+                          f"the control's by {share} x its limit")
             for i, (got, want) in enumerate(zip(r["mind"]["losses"],
                                                 one["mind"]["losses"])):
                 check(abs(got - want) <= TP_TRAIN_MIND_TOL * max(1.0, abs(
@@ -5023,6 +5416,8 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
             check(r["mind"]["bag_bit_for_bit"], f"{what}: kernel #4 on the "
                   "rank's rows != the slot-order sum")
             ranks.append(r)
+        if moe is not None:
+            out["moe"] = tp_train_moe_hold(tmp, ranks)
     t = time.perf_counter()
     flat = mind_batches[0]["profile_ids"].reshape(-1, mcfg.profile_bag)
     entry = local_bag_entry(device, profile_embed, flat.to(device),
@@ -5031,6 +5426,38 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
                bag_entry_s=time.perf_counter() - t)
     emit(out)
     return total, entry
+
+
+def tp_train_moe_hold(run_dir: str, ranks: list) -> dict:
+    """The MoE model's checks across the tp_train ranks: every whole
+    leaf's digest equal on every rank, and each rank's step-0 routes the
+    control's at :data:`MOE_HELD_SHARE` of the positions or more (a
+    position held where its token took the control's experts in every
+    MoE layer, as lm_tp holds them)."""
+    import torch
+
+    first = ranks[0]["moe"]["whole_leaf_sha1"]
+    for r, rank in enumerate(ranks[1:], 1):
+        diff = sorted(n for n, h in rank["moe"]["whole_leaf_sha1"].items()
+                      if first.get(n) != h)
+        check(not diff and set(first) == set(rank["moe"]["whole_leaf_sha1"]),
+              f"tp_train DeepSeek-V3 rank {r}: whole leaves {diff} differ "
+              "from rank 0's")
+    want = torch.load(os.path.join(run_dir, "moe_control.pt"),
+                      mmap=True)["routes"]
+    out = {"whole_leaves": sorted(first), "held": []}
+    for r in range(len(ranks)):
+        got = torch.load(os.path.join(run_dir, f"moe_routes_{r}.pt"))
+        check(len(got) == len(want) > 0, f"tp_train DeepSeek-V3 rank {r}: "
+              f"{len(got)} routings recorded, the control {len(want)}")
+        held = torch.stack([(g == w).all(-1) for g, w in zip(got, want)]
+                           ).all(0)
+        share = float(held.float().mean())
+        check(share >= MOE_HELD_SHARE, f"tp_train DeepSeek-V3 rank {r}: "
+              f"step 0 routed {share} of the positions as the control")
+        out["held"].append({"positions": held.numel(),
+                            "held": int(held.sum()), "share": share})
+    return out
 
 
 def sage_ball_seeds(graph, count: int, max_edges: int) -> np.ndarray:
@@ -5772,6 +6199,7 @@ def main(argv: list) -> int:
         entry["train_launches"] = train.get(entry["name"], 0)
         entry["tp_train_launches"] = tp_train.get(entry["name"], 0)
         entry["gnn_launches"] = gnn.get(entry["name"], 0)
+    emit(phase_walls())
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -28,8 +28,10 @@ then ``adamw_update``, which writes the new parameters and moments into
 the given tensors (the reference donates both).  The LM step accumulates
 gradients over microbatches of at most ``REPRO_TORCH_ACCUM_TOKENS`` tokens
 a data shard (8,192 by default; the reference's ``REPRO_ACCUM_TOKENS``),
-each microbatch divisible by the data shards (:func:`accum_steps`).  The
-serve steps run under ``torch.inference_mode()``.
+each microbatch divisible by the data shards (:func:`accum_steps`):
+microbatch ``i`` is the global batch's rows ``[i * B / accum, (i + 1) * B
+/ accum)``, cut over the batch axes, as the reference's.  The serve steps
+run under ``torch.inference_mode()``.
 
 **Execution.**  With no mesh, or a mesh of one rank, ``fn`` is the
 one-device step.  On a mesh whose process group spans it
@@ -45,16 +47,25 @@ host.  On any mesh:
   and the gradients over the batch axes' group before ``adamw_update``
   (:func:`_train_ranks`); parameters and moments split over the batch
   axes (ZeRO-1, experts) are gathered over those axes for the step and
-  cut again after it.  With a ``model`` axis of M > 1 every weight split
-  over ``model`` stays this rank's piece, never gathered whole: the
-  dense GQA LMs' loss runs Megatron tensor parallelism with its
+  cut again after it.  With more than one microbatch an LM rank's
+  microbatch ``i`` is its slice of the reference's microbatch ``i`` (the
+  int32 tokens and labels gathered over the batch axes, then cut), so a
+  MoE layer's drops come from the same tokens.  With a ``model`` axis of
+  M > 1 every weight split over ``model`` stays this rank's piece, never
+  gathered whole: the LMs' loss runs Megatron tensor parallelism with its
   autograd-aware collectives and the vocab-parallel cross entropy
-  (``models.transformer.lm_loss(tp=)``), MIND's rows its own
-  (``models.recsys.mind_train_loss(tp=)``, kernel #4 on a rank's row
-  piece under autograd); the float32 moments are the param's pieces, and
-  the int8 moments, whose blocks run over the whole parameter and are
-  replicated over ``model``, are decoded whole, cut, and joined whole
-  again before they are encoded (``optim.adamw_update``'s ``pieces``).
+  (``models.transformer.lm_loss(tp=)``: MoE experts, MLA's heads and MTP
+  included), MIND's rows its own (``models.recsys.mind_train_loss(tp=)``,
+  kernel #4 on a rank's row piece under autograd); the float32 moments
+  are the param's pieces, and the int8 moments, whose blocks run over the
+  whole parameter and are replicated over ``model``, are decoded whole,
+  cut, and joined whole again before they are encoded
+  (``optim.adamw_update``'s ``pieces``).
+* A MoE layer on a batch cut over the batch axes counts the reference's
+  global capacity (``models.moe``, a ``layers.BatchSplit``: the
+  per-expert counts all-gathered over the batch axes, each rank's
+  positions offset by the ranks before it); ``long_500k``'s one row is
+  whole on every rank and keeps its own count.
 
 With a ``model`` axis of 1:
 
@@ -74,9 +85,11 @@ the batch axes at the same time: prefill attends each rank's ``H / M``
 query heads; decode holds positions ``[r * T / M, (r + 1) * T / M)`` of the
 cache on model rank r, writes the token's k and v on the rank that holds
 ``len`` and merges the ranks' flash-decode partials (kernel #5 on each
-piece, its combine across the ranks).  The MoE configs (one data rank)
+piece, its combine across the ranks).  The MoE configs
 hold experts ``[r * X / M, (r + 1) * X / M)`` on model rank r and route
-every token on every rank (``models.moe``, one all-reduce a layer); MLA
+every token on every rank (``models.moe``, one all-reduce a layer); over
+D > 1 data ranks too, where a rank joins its experts' embed pieces over
+the batch axes a group of experts at a time; MLA
 (DeepSeek-V3) cuts ``wq_b``, ``wk_b``, ``wv_b`` and ``wo`` by heads and,
 decoding, merges every head's float32 partials over the ranks' latent
 cache pieces (``layers.decode_latent_split``).  The logits come out cut
@@ -90,15 +103,10 @@ and ``profile_embed`` as row pieces over ``model`` and the MLP
 Megatron-split (``models.recsys``, ``tp``); the GNN train step splits its
 edges over every axis whatever the mesh's shape.
 
-Still raising ``NotImplementedError`` when run (ROADMAP Queue 1 item
-8.3.2): the MoE, MLA and MTP configs' train step over M > 1, and MoE
-configs (DeepSeek-V3, the one MLA config, among them) at more than one
-data rank, serving or training, the reference's capacity being global
-(``long_500k`` too, where ``expert_embed`` cuts the experts' embed
-dimension over the batch axes); M not dividing ``n_heads`` or the
-experts (the reference's ``NamedSharding`` refuses it).  A mesh with no
-process group and more than one rank (a production mesh) describes
-placements only.
+Still raising ``NotImplementedError`` when run: M not dividing
+``n_heads`` or the experts (the reference's ``NamedSharding`` refuses
+it).  A mesh with no process group and more than one rank (a production
+mesh) describes placements only.
 """
 from __future__ import annotations
 
@@ -114,7 +122,7 @@ from ..configs.shapes import input_specs
 from ..models import gnn as gnn_m
 from ..models import recsys as rec_m
 from ..models import transformer as tfm
-from ..models.layers import SequenceSplit, TensorParallel
+from ..models.layers import BatchSplit, SequenceSplit, TensorParallel
 from ..models.params import (requires_grad, tree_init, tree_leaves,
                              tree_map, tree_num_params, tree_shardings)
 from ..optim import AdamWConfig, Piece, adamw_state_specs, adamw_update
@@ -345,14 +353,6 @@ def _mean_over(mesh, axes, tensors) -> None:
         t.copy_(comm.all_reduce(t)).div_(k)
 
 
-def _no_moe(cfg: LMConfig, mesh) -> None:
-    if cfg.moe is not None and mesh.axis_size(_batch_axes(mesh)) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}'s MoE capacity is counted over the global batch in "
-            f"the reference; the port routes a rank's tokens alone, so MoE "
-            f"configs run on one data rank ({_TP}.3.2)")
-
-
 def _tp_of(cfg: LMConfig, mesh) -> TensorParallel | None:
     """Tensor parallelism over ``mesh``'s model axis for an LM step (None
     for an axis of 1); raises where the port has none: an axis that does
@@ -369,6 +369,16 @@ def _tp_of(cfg: LMConfig, mesh) -> TensorParallel | None:
             f"a model axis of {M} does not divide {cfg.name}'s "
             f"{cfg.moe.num_experts} experts ({_TP})")
     return _model_tp(mesh)
+
+
+def _batch_split(mesh, rows: bool = True) -> BatchSplit | None:
+    """The batch axes' ranks of ``mesh`` (None for one), pod-major; with
+    ``rows`` the batch's rows are cut over them."""
+    ba = _batch_axes(mesh)
+    D = mesh.axis_size(ba)
+    if D == 1:
+        return None
+    return BatchSplit(_comm(mesh, ba), D, mesh.axis_index(ba), rows)
 
 
 def _model_tp(mesh) -> TensorParallel | None:
@@ -443,18 +453,18 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
         shards = 1 if mesh is None else mesh.axis_size(ba)
         accum = accum_steps(B, S, shards)
 
-        def grads_of(params, tokens, labels, tp=None):
-            b = tokens.shape[0]
+        def grads_of(params, tokens, labels, tp=None, dp=None):
+            """(loss, grads) over the microbatches: ``tokens`` and
+            ``labels`` stacked (accum, b, S), or this rank's (B, S) of
+            one microbatch."""
             if accum == 1:
                 return value_and_grad(tfm.lm_loss, params, cfg, tokens,
-                                      labels, tp)
-            mb_tok = tokens.reshape(accum, b // accum, S)
-            mb_lbl = labels.reshape(accum, b // accum, S)
+                                      labels, tp, dp)
             grads, loss = None, torch.zeros((), dtype=F32,
                                             device=tokens.device)
-            for t, lab in zip(mb_tok, mb_lbl):
+            for t, lab in zip(tokens, labels):
                 mb_loss, g = value_and_grad(tfm.lm_loss, params, cfg, t, lab,
-                                            tp)
+                                            tp, dp)
                 if grads is None:
                     grads = [torch.zeros(x.shape, dtype=F32, device=x.device)
                              for x in g]
@@ -466,8 +476,12 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
                 acc.div_(accum)
             return loss / accum, grads
 
+        def microbatches(tokens, labels):
+            return (tokens, labels) if accum == 1 else (
+                tokens.reshape(accum, -1, S), labels.reshape(accum, -1, S))
+
         def step(params, opt_state, tokens, labels):
-            loss, grads = grads_of(params, tokens, labels)
+            loss, grads = grads_of(params, *microbatches(tokens, labels))
             params, opt_state = adamw_update(params, grads, opt_state, opt)
             return params, opt_state, loss
 
@@ -483,18 +497,20 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
         tok_sh = _ns(mesh, ba, None)
 
         def ranks(params, opt_state, tokens, labels):
-            _no_moe(cfg, mesh)  # these raise before any collective
-            M = mesh.shape.get("model", 1)
-            if M > 1 and (cfg.moe is not None or cfg.mla is not None
-                          or cfg.mtp_depth > 0):
-                raise NotImplementedError(
-                    f"{cfg.name} trained over a model axis of {M}: MoE "
-                    f"experts, MLA and MTP over model under autograd are not "
-                    f"ported ({_TP}.3.2)")
-            tp = _tp_of(cfg, mesh)
+            tp = _tp_of(cfg, mesh)  # raises before any collective
+            dp = _batch_split(mesh)
+            if accum > 1 and dp is not None:
+                # microbatch i: this rank's slice of the global batch's
+                # rows [i * B / accum, (i + 1) * B / accum)
+                tokens, labels = (
+                    torch.cat(dp.comm.all_gather(x)).reshape(
+                        accum, dp.size, -1, S)[:, dp.index]
+                    for x in (tokens, labels))
+            else:
+                tokens, labels = microbatches(tokens, labels)
             return _train_ranks(
                 mesh, pspecs, p_shard, o_shard, opt,
-                lambda p, t, lab: grads_of(p, t, lab, tp))(
+                lambda p, t, lab: grads_of(p, t, lab, tp, dp))(
                     params, opt_state, tokens, labels)
 
         bundle.static["rules"] = rules
@@ -514,12 +530,12 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
             return bundle
 
         def ranks(params, tokens):
-            _no_moe(cfg, mesh)
             tp = _tp_of(cfg, mesh)
             if tp is None:
-                return step(_zip_map(_whole, params, p_shard), tokens)
+                params = _zip_map(_whole, params, p_shard)
             with torch.inference_mode():
-                return tfm.serve_prefill(params, cfg, tokens, tp)
+                return tfm.serve_prefill(params, cfg, tokens, tp,
+                                         _batch_split(mesh))
 
         return replace(bundle, fn=_on_mesh(mesh, step, ranks),
                        in_shardings=(p_shard, _ns(mesh, ba, None)),
@@ -550,7 +566,6 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
     c_shard = {k: cache_sharding(k) for k in avals["caches"]}
 
     def ranks(params, tokens, caches):
-        _no_moe(cfg, mesh)
         tp = _tp_of(cfg, mesh)
         seq = None
         if long_ctx:  # the sequence over every rank, data-major
@@ -558,8 +573,11 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
                                 mesh.axis_index(cache_t))
         if tp is None:
             params = _zip_map(_whole, params, p_shard)
+        # long_500k's one row is whole on every rank: its MoE capacity is
+        # its own, the batch axes only join the experts' embed pieces
+        dp = _batch_split(mesh, rows=not long_ctx)
         with torch.inference_mode():
-            return tfm.serve_decode(params, cfg, tokens, caches, tp, seq)
+            return tfm.serve_decode(params, cfg, tokens, caches, tp, seq, dp)
 
     return replace(bundle, fn=_on_mesh(mesh, step, ranks),
                    in_shardings=(p_shard, _ns(mesh, cache_b, None), c_shard),

@@ -24,8 +24,13 @@ axis): ``copy_to`` (*f*: identity forward, all-reduce backward),
 ``reduce`` (*g*: all-reduce forward, identity backward) and ``gather``
 (all-gather forward; backward all-reduces the gradient and keeps this
 rank's columns); ``max`` is a detached all-reduce max (the
-vocab-parallel softmax's constant).  :func:`row_partial` is a
-row-parallel product's float32 partial, the term those sums add.
+vocab-parallel softmax's constant).  :meth:`TensorParallel.columns` is
+*f* fused with the column-parallel products that read its input: on the
+card their input gradients are written in float32 and summed over the
+ranks before the one rounding.  :func:`row_partial` is a row-parallel
+product's float32 partial, the term *g*'s sums add.
+:class:`BatchSplit` names the batch axes' ranks (a MoE layer counts its
+capacity over them).
 
 ``latent_partial`` / ``merge_latent`` / ``decode_latent_split`` are
 MLA's weight-absorbed decode over a latent cache whose sequence is cut
@@ -42,7 +47,8 @@ import torch
 
 from ..kernels import flash_decode as fd
 
-__all__ = ["NEG_INF", "TensorParallel", "SequenceSplit", "row_partial",
+__all__ = ["NEG_INF", "TensorParallel", "SequenceSplit", "BatchSplit",
+           "row_partial",
            "rms_norm", "rope", "swiglu", "swiglu_hidden", "chunked_attention",
            "decode_attention", "decode_attention_split", "latent_partial",
            "merge_latent", "decode_latent_split"]
@@ -125,6 +131,35 @@ class _RowPartial(torch.autograd.Function):
         return gh, gw
 
 
+class _Columns(torch.autograd.Function):
+    """*f* and the column-parallel products ``x @ w`` of the ``ws`` that
+    read ``x`` (the same on every rank): forward, the products in ``x``'s
+    dtype; backward, each weight piece's gradient as autograd computes it
+    and ``x``'s gradient as the products ``g @ w.T`` written in float32
+    (``torch.mm``'s ``out_dtype`` form), added, summed over the ranks and
+    rounded once to ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, tp, *ws):
+        ctx.tp = tp
+        ctx.save_for_backward(x, *ws)
+        return tuple(x @ w for w in ws)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, *ws = ctx.saved_tensors
+        x2 = x.reshape(-1, x.shape[-1])
+        gx, gws = None, []
+        for i, (w, g) in enumerate(zip(ws, grads)):
+            g2 = g.reshape(-1, w.shape[-1])
+            part = torch.mm(g2, w.t(), out_dtype=torch.float32)
+            gx = part if gx is None else gx + part
+            gws.append(x2.t().mm(g2) if ctx.needs_input_grad[2 + i]
+                       else None)
+        gx = ctx.tp.comm.all_reduce(gx).to(x.dtype).reshape(x.shape)
+        return (gx, None, *gws)
+
+
 def row_partial(h, w):
     """This rank's float32 partial ``h @ w`` of a row-parallel product
     (``w`` its rows): on the card the product takes ``h`` and ``w`` as
@@ -160,6 +195,17 @@ class TensorParallel:
         split region: itself, its gradient summed over the ranks."""
         return _CopyTo.apply(x, self) if _tracked(x) else x
 
+    def columns(self, x, *ws):
+        """``x @ w`` for each column-parallel piece ``w`` that reads
+        ``x`` (the same on every rank): :meth:`copy_to` of ``x`` before
+        the products, or, on the card under autograd, :class:`_Columns`,
+        whose backward sums the float32 partials of ``x``'s gradient
+        before it rounds them."""
+        if x.is_cuda and _tracked(x):
+            return _Columns.apply(x, self, *ws)
+        x = self.copy_to(x)
+        return tuple(x @ w for w in ws)
+
     def gather(self, x):
         """Every rank's ``x`` joined along the last dimension, in rank
         order."""
@@ -188,6 +234,21 @@ class SequenceSplit:
     comm: Any
     size: int
     index: int
+
+
+@dataclass(frozen=True)
+class BatchSplit:
+    """The mesh's batch axes (pod-major, then data) over the ranks of one
+    group: ``comm`` its collectives (as :class:`TensorParallel`'s),
+    ``size`` its ranks D, ``index`` this rank's place.  With ``rows`` the
+    batch's rows are cut over them in that order, so a rank's tokens follow
+    those of the ranks before it; without, every rank holds the whole
+    batch (``long_500k``'s one row)."""
+
+    comm: Any
+    size: int
+    index: int
+    rows: bool = True
 
 
 def rms_norm(x, weight, eps: float = 1e-6):

@@ -10,27 +10,46 @@ dummy expert row X with gate 0.  DeepSeek's shared experts and Arctic's
 parallel dense residual MLP are added on top.  Plain torch, as the
 reference's is plain jnp.
 
-With ``tp`` (a ``layers.TensorParallel`` over the ``model`` axis, one
-data rank) the rank holds experts ``[index * X / M, (index + 1) * X /
-M)`` and Megatron pieces of the shared and dense MLPs (``w_gate`` /
-``w_up`` by columns, ``w_down`` by rows).  Every rank routes all T tokens
-with the whole router, on an input equal on every rank, and keeps the
-same first C assignments of each expert (the positions counted over every
-expert); those of experts it does not hold go to its dummy row.  The
-gated expert outputs, the shared and the dense partials are added in
-float32, summed over ``model`` by one all-reduce and rounded once: no
-all-to-all.
+With ``tp`` (a ``layers.TensorParallel`` over the ``model`` axis) the
+rank holds experts ``[index * X / M, (index + 1) * X / M)`` and Megatron
+pieces of the shared and dense MLPs (``w_gate`` / ``w_up`` by columns,
+``w_down`` by rows).  Every rank routes all its tokens with the whole
+router, on an input equal on every model rank, and keeps the same first C
+assignments of each expert (the positions counted over every expert);
+those of experts it does not hold go to its dummy row.  The gated expert
+outputs, the shared and the dense partials are added in float32, summed
+over ``model`` by one all-reduce and rounded once: no all-to-all.  Under
+autograd (training) a rank's gates reach its own experts only, so the
+input and the router, whole on every rank, take *f* (``tp.copy_to``):
+their gradients are summed over ``model``; the experts' stay local.
+
+With ``dp`` (a ``layers.BatchSplit`` over the mesh's batch axes whose
+``rows`` cut the batch) the capacity is the reference's, counted over the
+whole batch: ``C`` of the global token count, and each assignment's
+position offset by the assignments of its expert on the ranks before this
+one in the batch order (one all-gather of the ``(X,)`` counts, integers).
+A rank's buffer holds its own kept assignments, ``min(C, T)`` slots an
+expert.  ``long_500k``'s one row is whole on every rank (``rows`` false):
+its capacity is the rank's own.  Where the experts' embed dimension is cut
+over ``dp``'s ranks (``expert_embed``, serving), a group of experts at a
+time is joined over them before its products (:data:`JOIN_BYTES`): the
+experts that some rank's tokens reach, as the gathered counts tell every
+rank alike (a decode step's few tokens reach a fraction of them).
 """
 from __future__ import annotations
 
 import torch
 
-from .layers import TensorParallel, row_partial, swiglu, swiglu_hidden
+from .layers import BatchSplit, TensorParallel, row_partial, swiglu, \
+    swiglu_hidden
 from .params import Spec
 
 __all__ = ["moe_param_specs", "moe_capacity", "moe_apply"]
 
 F32 = torch.float32
+#: the experts' three matrices joined at a time over the batch axes where
+#: their embed dimension is cut over them: 12 of DeepSeek-V3's bf16 experts
+JOIN_BYTES = 1 << 30
 
 
 def moe_param_specs(cfg, L: int) -> dict:
@@ -64,47 +83,84 @@ def moe_capacity(m, T: int) -> int:
     return max(8, int(T * m.top_k / m.num_experts * m.capacity_factor))
 
 
+def _expert_ffn(h, p, dp: BatchSplit | None, used=None):
+    """This rank's experts' SwiGLU on their buffer h (Xl, C, E).  Weights
+    whose embed dimension is cut over ``dp``'s ranks are joined over them
+    for the experts of ``used`` (those with an assignment on some rank of
+    ``dp``: every other expert's buffer is empty everywhere, and no slot
+    reads its output), a group of experts at a time, so at most
+    :data:`JOIN_BYTES` of them are whole at once."""
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    E = h.shape[-1]
+    if wg.shape[1] == E:
+        return torch.bmm(torch.nn.functional.silu(torch.bmm(h, wg))
+                         * torch.bmm(h, wu), wd)
+    F = wg.shape[-1]
+    group = max(1, JOIN_BYTES // (3 * E * F * wg.element_size()))
+    idx = used.nonzero()[:, 0].tolist()
+    out = torch.zeros_like(h)
+    for a in range(0, len(idx), group):
+        sel = idx[a:a + group]
+        if sel == list(range(sel[0], sel[-1] + 1)):  # a run: no copies
+            sel = slice(sel[0], sel[-1] + 1)
+        g, u = (torch.cat(dp.comm.all_gather(w[sel]), dim=1) for w in (wg, wu))
+        d = torch.cat(dp.comm.all_gather(wd[sel]), dim=2)
+        out[sel] = torch.bmm(torch.nn.functional.silu(torch.bmm(h[sel], g))
+                             * torch.bmm(h[sel], u), d)
+        del g, u, d
+    return out
+
+
 def moe_apply(p, cfg, x, layer_idx=None, aux=None,
-              tp: TensorParallel | None = None):
+              tp: TensorParallel | None = None,
+              dp: BatchSplit | None = None):
     """x (B, S, E) -> (B, S, E).  Dropping top-k dispatch (see module doc);
     ``aux``, a dict, receives the Switch load-balance term.  With ``tp``,
     ``p`` holds this rank's experts and pieces and the output is the sum
-    over the ranks (module doc)."""
+    over the ranks; with ``dp``, ``x`` is this rank's rows of a batch cut
+    over the batch axes (module doc)."""
     m = cfg.moe
     B, S, E = x.shape
     T = B * S
     X, k = m.num_experts, m.top_k
     xt = x.reshape(T, E)
+    router = p["router"]
+    if tp is not None:  # a rank's gates reach its own experts only
+        xt, router = tp.copy_to(xt), tp.copy_to(router)
 
-    logits = xt.to(F32) @ p["router"].to(F32)                  # (T, X)
+    logits = xt.to(F32) @ router.to(F32)                       # (T, X)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)                # (T, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
-    C = moe_capacity(m, T)
     flat_e = top_e.reshape(-1)                                 # (T*k,)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     start = torch.searchsorted(sorted_e, torch.arange(X, device=x.device))
     pos = torch.arange(T * k, device=x.device) - start[sorted_e]
-    keep = pos < C
+    counts = torch.bincount(flat_e, minlength=X)
+    if dp is not None and dp.rows:  # positions in the global token order
+        C = moe_capacity(m, T * dp.size)
+        every = torch.stack(dp.comm.all_gather(counts))
+        keep = pos + every[:dp.index].sum(0)[sorted_e] < C
+        counts = every.sum(0)
+    else:
+        C = moe_capacity(m, T)
+        keep = pos < C
     tok = order // k
     if tp is not None:  # this rank's experts, numbered from 0
         Xl = p["w_gate"].shape[0]
         sorted_e = sorted_e - tp.index * Xl
         keep = keep & (sorted_e >= 0) & (sorted_e < Xl)
+        counts = counts[tp.index * Xl:(tp.index + 1) * Xl]
     else:
         Xl = X
     slot_e = torch.where(keep, sorted_e, Xl)                   # drop -> dummy
     slot_p = torch.where(keep, pos, 0)
 
-    buf = torch.zeros((Xl + 1, C, E), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((Xl + 1, min(C, T), E), dtype=x.dtype, device=x.device)
     buf[slot_e, slot_p] = xt[tok]
-    h = buf[:Xl]                                               # (Xl, C, E)
-    h = torch.nn.functional.silu(torch.bmm(h, p["w_gate"])) * torch.bmm(
-        h, p["w_up"])
-    out_buf = torch.bmm(h, p["w_down"])                        # (Xl, C, E)
-
+    out_buf = _expert_ffn(buf[:Xl], p, dp, counts > 0)         # (Xl, C, E)
     gathered = out_buf[torch.clamp(slot_e, max=Xl - 1), slot_p]  # (T*k, E)
     gate = top_p.reshape(-1)[order] * keep
     if aux is not None:

@@ -46,16 +46,23 @@ and keeps its own heads' context.  MoE layers run ``moe.moe_apply`` with
 changes.
 
 Under autograd (the train step over ``model``) the same forward runs
-with Megatron's autograd-aware collectives: ``tp.copy_to`` (*f*) on the
-replicated input of every column-parallel product (``wq``/``wk``/``wv``,
-``w_gate``/``w_up``, ``lm_head``) and on the qk-norm weights, which
-every rank reads with its own heads; ``tp.reduce`` (*g*) for the
-row-parallel sums and the embedding; ``tp.gather`` where M does not
-divide ``n_kv``.  :func:`lm_loss` takes the vocab-parallel
-:func:`softmax_xent` on the logits cut by vocab, never joined.  Each
-layer's ``torch.utils.checkpoint`` recomputes its collectives in the
-backward, in the same order on every rank.  MoE, MLA and MTP under
-``tp`` with autograd raise (ROADMAP Queue 1 item 8.3.2).
+with Megatron's autograd-aware collectives: *f* (``tp.copy_to``, or
+``tp.columns`` fused with the products) on the replicated input of every
+column-parallel product (``wq``/``wk``/``wv``, ``w_gate``/``w_up``,
+``lm_head``; MLA's ``wq_b`` on the normed ``cq``, ``wk_b``/``wv_b`` on
+the normed ``c_kv``, and on the shared rope key, which every local head
+reads), on the qk-norm weights, which every rank reads with its own
+heads, and in ``moe.moe_apply`` on the MoE input and the router; ``tp.reduce``
+(*g*) for the row-parallel sums and the embedding; ``tp.gather`` where M
+does not divide ``n_kv``.  So MLA's ``wq_a``, ``wkv_a`` and norms, the
+router and MTP's ``proj`` and norms, whole on every rank, get the whole
+gradient.  :func:`lm_loss` takes the vocab-parallel :func:`softmax_xent`
+on the logits cut by vocab, never joined, MTP's too.  Each layer's
+``torch.utils.checkpoint`` recomputes its collectives in the backward, in
+the same order on every rank.
+
+With ``dp`` (a ``layers.BatchSplit`` over the mesh's batch axes) a MoE
+layer counts its capacity over the whole batch (``moe.moe_apply``).
 
 A decode cache whose sequence is cut over other ranks than the ``model``
 axis's (``seq``, a ``layers.SequenceSplit``: ``long_500k``, over every
@@ -69,10 +76,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
-from .layers import (SequenceSplit, TensorParallel, chunked_attention,
+from .layers import (BatchSplit, SequenceSplit, TensorParallel,
+                     chunked_attention,
                      decode_attention, decode_attention_split,
                      decode_latent_split, latent_partial, merge_latent,
-                     rms_norm, rope, row_partial, swiglu, swiglu_hidden)
+                     rms_norm, rope, row_partial, swiglu)
 from .moe import moe_apply, moe_param_specs
 from .params import Spec, tree_leaves, tree_init
 
@@ -82,9 +90,6 @@ __all__ = ["lm_param_specs", "lm_init", "layer_groups", "attention_block",
            "lm_loss"]
 
 F32 = torch.float32
-#: what the tensor-parallel forms leave out (MoE, MLA and MTP over model
-#: under autograd)
-_ITEM_8_3_2 = "ROADMAP Queue 1 item 8.3.2"
 
 
 # ---------------------------------------------------------------- param specs
@@ -203,38 +208,48 @@ def _qk_rope(p, cfg: LMConfig, q, k, positions, tp=None):
     return q, k
 
 
-def _mla_q(p, cfg: LMConfig, x, positions):
+def _mla_q(p, cfg: LMConfig, x, positions, tp=None):
     """MLA's queries of the heads ``p["wq_b"]`` holds (all, or a rank's
     columns of whole heads): q_nope (B, S, h, dh_nope) and q_rope (B, S,
-    h, dh_rope), roped."""
+    h, dh_rope), roped.  With ``tp`` the normed ``cq`` (whole on every
+    rank) gets its gradient summed over the ranks."""
     m = cfg.mla
     B, S, _ = x.shape
     cq = rms_norm(x @ p["wq_a"], p["q_norm"])
-    q = (cq @ p["wq_b"]).reshape(B, S, -1, m.dh_nope + m.dh_rope)
+    q, = (cq @ p["wq_b"],) if tp is None else tp.columns(cq, p["wq_b"])
+    q = q.reshape(B, S, -1, m.dh_nope + m.dh_rope)
     return q[..., :m.dh_nope], rope(q[..., m.dh_nope:], positions,
                                     cfg.rope_theta)
 
 
-def _mla_latent(p, cfg: LMConfig, x, positions):
+def _mla_latent(p, cfg: LMConfig, x, positions, tp=None):
     """The compressed latent ``c_kv`` (B, S, kv_lora) and the roped key
-    ``k_rope`` (B, S, 1, dh_rope), one for all heads."""
+    ``k_rope`` (B, S, 1, dh_rope), one for all heads; with ``tp`` the
+    rope key's gradient summed over the ranks (every rank's heads read
+    it)."""
     m = cfg.mla
     kv_a = x @ p["wkv_a"]
     c_kv = rms_norm(kv_a[..., :m.kv_lora], p["kv_norm"])
-    return c_kv, rope(kv_a[:, :, None, m.kv_lora:], positions, cfg.rope_theta)
+    k_rope = kv_a[:, :, None, m.kv_lora:]
+    if tp is not None:
+        k_rope = tp.copy_to(k_rope)
+    return c_kv, rope(k_rope, positions, cfg.rope_theta)
 
 
-def _mla_qkv_full(p, cfg: LMConfig, x, positions):
+def _mla_qkv_full(p, cfg: LMConfig, x, positions, tp=None):
     """MLA decompressed form (prefill: full per-head k, v; the rope key,
     one for all heads, broadcast) of the heads the ``wq_b``, ``wk_b`` and
-    ``wv_b`` given hold."""
+    ``wv_b`` given hold; with ``tp`` the column-parallel ``wq_b``,
+    ``wk_b`` and ``wv_b`` read ``cq`` and ``c_kv`` through *f*."""
     m = cfg.mla
     B, S, _ = x.shape
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)
-    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, tp)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions, tp)
     h = q_nope.shape[2]
-    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, h, m.dh_nope)
-    v = (c_kv @ p["wv_b"]).reshape(B, S, h, m.dh_v)
+    k_nope, v = (c_kv @ p["wk_b"], c_kv @ p["wv_b"]) if tp is None else \
+        tp.columns(c_kv, p["wk_b"], p["wv_b"])
+    k_nope = k_nope.reshape(B, S, h, m.dh_nope)
+    v = v.reshape(B, S, h, m.dh_v)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, h, m.dh_rope)], dim=-1)
     return q, k, v
@@ -408,13 +423,12 @@ def _attention_tp(p, cfg: LMConfig, x, positions, cache, tp: TensorParallel,
     if cfg.mla is not None:
         if cache is not None:
             return _mla_decode_split(p, cfg, x, positions, cache, seq, tp)
-        q, k, v = _mla_qkv_full(p, cfg, x, positions)
+        q, k, v = _mla_qkv_full(p, cfg, x, positions, tp)
         out = chunked_attention(q, k, v, causal=True)
         return _row_parallel(out.reshape(B, S, -1), p["wo"], tp)
     H, Hkv, dh, M = cfg.n_heads, cfg.n_kv, cfg.head_dim, tp.size
     nh = H // M
-    x = tp.copy_to(x)
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = tp.columns(x, p["wq"], p["wk"], p["wv"])
     if cache is not None:
         # one gather: every rank's q, k and v columns side by side
         nq, nk = q.shape[-1], k.shape[-1]
@@ -458,8 +472,9 @@ def _embed(params, cfg: LMConfig, tokens, tp=None):
 def _dense_mlp(p, x, tp=None):
     if tp is None:
         return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
-    return _row_parallel(swiglu_hidden(tp.copy_to(x), p["w_gate"],
-                                       p["w_up"]), p["w_down"], tp)
+    gate, up = tp.columns(x, p["w_gate"], p["w_up"])
+    return _row_parallel(torch.nn.functional.silu(gate) * up, p["w_down"],
+                         tp)
 
 
 def _layer_slice(gp, i: int) -> dict:
@@ -469,31 +484,26 @@ def _layer_slice(gp, i: int) -> dict:
 
 
 def _layer(cfg: LMConfig, x, lp, positions, use_moe: bool, cache=None,
-           tp=None, seq=None):
-    if tp is not None and (use_moe or cfg.mla is not None) and \
-            torch.is_grad_enabled() and (x.requires_grad or any(
-                t.requires_grad for _, t in tree_leaves(lp))):
-        raise NotImplementedError(
-            f"MoE and MLA under tensor parallelism with autograd "
-            f"({_ITEM_8_3_2})")
+           tp=None, seq=None, dp=None):
     a = attention_block(lp["attn"], cfg, rms_norm(x, lp["ln_attn"]), positions,
                         cache, tp, seq)
     x = x + a
     h = rms_norm(x, lp["ln_mlp"])
-    f = moe_apply(lp["moe"], cfg, h, tp=tp) if use_moe else \
+    f = moe_apply(lp["moe"], cfg, h, tp=tp, dp=dp) if use_moe else \
         _dense_mlp(lp["mlp"], h, tp)
     return x + f
 
 
 def lm_forward(params, cfg: LMConfig, tokens, positions=None, caches=None,
-               tp=None, seq=None):
+               tp=None, seq=None, dp: BatchSplit | None = None):
     """tokens (B, S) -> (hidden (B, S, E), caches).  Without ``caches`` the
     cache-free forward (prefill, training), returning ``None`` for them,
     each layer under activation checkpointing when grad is enabled; with
     them (:func:`make_kv_caches`, under any keys beside ``len``) each
     layer's entries are written in place and ``len`` advanced.  With
     ``tp`` the params and caches are this rank's pieces, with ``seq`` the
-    caches' sequence pieces over its ranks (module docstring)."""
+    caches' sequence pieces over its ranks, with ``dp`` the batch axes'
+    ranks of the MoE capacity (module docstring)."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -508,13 +518,13 @@ def lm_forward(params, cfg: LMConfig, tokens, positions=None, caches=None,
         for i in range(depth):
             if remat:
                 x = checkpoint(_layer, cfg, x, _layer_slice(gp, i),
-                               positions, use_moe, None, tp,
+                               positions, use_moe, None, tp, None, dp,
                                use_reentrant=False)
                 continue
             cache = None if caches is None else (
                 *(caches[k][offset + i] for k in cache_keys), length)
             x = _layer(cfg, x, _layer_slice(gp, i), positions, use_moe, cache,
-                       tp, seq)
+                       tp, seq, dp)
         offset += depth
     if caches is not None:
         caches["len"] = length + S
@@ -547,34 +557,44 @@ def softmax_xent(logits, labels, tp=None):
     return (lse - ll).mean()
 
 
-def lm_loss(params, cfg: LMConfig, tokens, labels, tp=None):
+def _head_logits(params, cfg: LMConfig, hidden, tp=None):
+    """The logits of ``hidden``; with ``tp`` this rank's vocab columns,
+    ``hidden`` (whole on every rank) read through *f*."""
+    if tp is None:
+        return lm_logits(params, cfg, hidden)
+    return tp.columns(hidden, params["lm_head"])[0]
+
+
+def lm_loss(params, cfg: LMConfig, tokens, labels, tp=None,
+            dp: BatchSplit | None = None):
     """The training loss; with ``tp`` on this rank's weight pieces, the
-    logits cut by vocab (:func:`softmax_xent`)."""
-    if tp is not None and cfg.mtp_depth > 0:
-        raise NotImplementedError(
-            f"MTP under tensor parallelism ({_ITEM_8_3_2})")
-    hidden, _ = lm_forward(params, cfg, tokens, tp=tp)
-    if tp is not None:
-        hidden = tp.copy_to(hidden)
-    loss = softmax_xent(lm_logits(params, cfg, hidden), labels, tp)
+    logits cut by vocab (:func:`softmax_xent`), MTP's too; with ``dp``
+    this rank's rows of a batch cut over the batch axes (the MoE
+    capacity counted over all of them)."""
+    hidden, _ = lm_forward(params, cfg, tokens, tp=tp, dp=dp)
+    loss = softmax_xent(_head_logits(params, cfg, hidden, tp), labels, tp)
     if cfg.mtp_depth > 0:
-        loss = loss + 0.3 * _mtp_loss(params, cfg, hidden, tokens, labels)
+        loss = loss + 0.3 * _mtp_loss(params, cfg, hidden, tokens, labels, tp)
     return loss
 
 
-def _mtp_loss(params, cfg: LMConfig, hidden, tokens, labels):
-    """DeepSeek-V3 multi-token prediction: chained extra-depth predictions."""
+def _mtp_loss(params, cfg: LMConfig, hidden, tokens, labels, tp=None):
+    """DeepSeek-V3 multi-token prediction: chained extra-depth
+    predictions.  With ``tp`` the rolled tokens' embedding is
+    vocab-parallel, the MLP Megatron-split and the logits cut by vocab;
+    ``proj`` and the norms stay whole."""
     mtp = params["mtp"]
     h = hidden
     total = 0.0
     for d in range(cfg.mtp_depth):
         nxt = torch.roll(tokens, -(d + 1), dims=1)
-        e = params["embed"][nxt.long()].to(cfg.dtype)
+        e = _embed(params, cfg, nxt, tp)
         h = torch.cat([rms_norm(h, mtp["ln_prev"][d]),
                        rms_norm(e, mtp["ln_in"][d])], dim=-1) @ mtp["proj"][d]
-        h = h + _dense_mlp(_layer_slice(mtp["mlp"], d), h)
+        h = h + _dense_mlp(_layer_slice(mtp["mlp"], d), h, tp)
         total = total + softmax_xent(
-            lm_logits(params, cfg, h), torch.roll(labels, -(d + 1), dims=1))
+            _head_logits(params, cfg, h, tp),
+            torch.roll(labels, -(d + 1), dims=1), tp)
     return total / cfg.mtp_depth
 
 
@@ -598,20 +618,25 @@ def make_kv_caches(cfg: LMConfig, batch: int, max_len: int, device) -> dict:
             make_kv_cache_specs(cfg, batch, max_len).items()}
 
 
-def serve_prefill(params, cfg: LMConfig, tokens, tp=None):
+def serve_prefill(params, cfg: LMConfig, tokens, tp=None,
+                  dp: BatchSplit | None = None):
     """The prefill cell's step: tokens (B, S) -> the last position's
     logits (B, 1, vocab), through the cache-free forward (with ``tp``:
-    this rank's vocab columns)."""
-    hidden, _ = lm_forward(params, cfg, tokens, tp=tp)
+    this rank's vocab columns; with ``dp``: this rank's rows of the
+    batch)."""
+    hidden, _ = lm_forward(params, cfg, tokens, tp=tp, dp=dp)
     return lm_logits(params, cfg, hidden[:, -1:, :])
 
 
-def serve_decode(params, cfg: LMConfig, tokens, caches, tp=None, seq=None):
+def serve_decode(params, cfg: LMConfig, tokens, caches, tp=None, seq=None,
+                 dp: BatchSplit | None = None):
     """One decode step: tokens (B, 1) + caches -> (logits, caches), the
     caches updated in place (with ``tp``: this rank's weight pieces and
-    vocab columns; with ``tp`` or ``seq``: this rank's cache pieces)."""
+    vocab columns; with ``tp`` or ``seq``: this rank's cache pieces; with
+    ``dp``: the batch axes' ranks of the MoE capacity and of the experts'
+    embed pieces)."""
     B = tokens.shape[0]
     positions = caches["len"].reshape(1, 1).expand(B, 1)
     hidden, caches = lm_forward(params, cfg, tokens, positions, caches, tp,
-                                seq)
+                                seq, dp)
     return lm_logits(params, cfg, hidden), caches

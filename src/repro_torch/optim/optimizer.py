@@ -68,19 +68,24 @@ def _q8_shapes(shape):
 
 def q8_encode(x):
     """``(q, scale)``: int8 blocks ``(blocks, 128)`` and float32 scales
-    ``(blocks,)`` of ``x``, zero-padded to whole blocks."""
+    ``(blocks,)`` of ``x``, zero-padded to whole blocks.  One float32
+    temporary of ``x``'s size beside ``x`` (the quotient, rounded and
+    clamped in place): a whole leaf of DeepSeek-V3's embedding is 3.7
+    GB."""
     n, blocks = _q8_shapes(x.shape)
-    flat = torch.nn.functional.pad(x.reshape(-1).to(F32),
-                                   (0, blocks * _BLOCK - n))
+    flat = x.reshape(-1).to(F32)
+    if blocks * _BLOCK != n:
+        flat = torch.nn.functional.pad(flat, (0, blocks * _BLOCK - n))
     flat = flat.reshape(blocks, _BLOCK)
-    scale = flat.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
-    q = torch.clamp(torch.round(flat / scale), -127, 127).to(torch.int8)
+    scale = torch.linalg.vector_norm(flat, float("inf"), dim=1,
+                                     keepdim=True) / 127.0 + 1e-12
+    q = (flat / scale).round_().clamp_(-127, 127).to(torch.int8)
     return q, scale[:, 0].to(F32)
 
 
 def q8_decode(q, scale, shape):
     n, _ = _q8_shapes(shape)
-    flat = q.to(F32) * scale[:, None]
+    flat = q.to(F32).mul_(scale[:, None])
     return flat.reshape(-1)[:n].reshape(shape)
 
 
@@ -147,20 +152,30 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
                 m, v = piece.cut(m), piece.cut(v)
         else:
             m, v = mu["m"], mu["v"]
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        pf = p.to(F32)
-        p.copy_(pf - cfg.lr * (upd + cfg.weight_decay * pf))
-        del upd, pf
+        # the reference's expressions op for op, each temporary freed or
+        # reused as soon as it is spent (a leaf of DeepSeek-V3's embedding
+        # is 3.7 GB in float32)
+        m = (m * cfg.b1).add_(g * (1 - cfg.b1))
+        gg = g * (1 - cfg.b2)
+        v = (v * cfg.b2).add_(gg.mul_(g))
+        del g, gg
+        den = (v / bc2).sqrt_().add_(cfg.eps)
+        upd = (m / bc1).div_(den)
+        del den
         if cfg.quantize_moments:
             for key, x in (("m", m), ("v", v)):
                 q, s = q8_encode(x if piece is None else piece.join(x))
                 mu[key + "_q"].copy_(q)
                 mu[key + "_s"].copy_(s)
+                del q, s
         else:
             mu["m"].copy_(m)
             mu["v"].copy_(v)
+        del m, v
+        pf = p.to(F32)
+        upd.add_(pf * cfg.weight_decay).mul_(cfg.lr)
+        p.copy_(pf.sub_(upd))
+        del upd, pf
     state["step"].copy_(step)
     return params, state
 

@@ -1414,6 +1414,133 @@ def test_moe_and_mla_decode_over_model_on_the_card(dev, tmp_path):
                     (arch, r, i, err, tol)
 
 
+class _OneRank:
+    """The collectives of a group of one rank: the sum is the input."""
+
+    @staticmethod
+    def all_reduce(x, op="sum"):
+        return x.clone()
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 96, (64, 32, 32)),
+                                   (1, 300, 256, (128,))])
+def test_columns_under_autograd_sum_float32_partials(dev, shape):
+    """The column-parallel products under autograd on the card
+    (``TensorParallel.columns``, a group of one rank): the forward is each
+    ``x @ w`` bit for bit, each weight's gradient autograd's, and ``x``'s
+    gradient the float32 products ``g @ w.T`` (``torch.mm``'s
+    ``out_dtype`` form) added and rounded once to bf16, bit for bit."""
+    from repro_torch.models import layers
+
+    B, S, K, widths = shape
+    g = torch.Generator(dev).manual_seed(B * S)
+    x0 = torch.randn((B, S, K), generator=g, device=dev).to(torch.bfloat16)
+    ws0 = [torch.randn((K, n), generator=g, device=dev).to(torch.bfloat16)
+           for n in widths]
+    cots = [torch.randn((B, S, n), generator=g, device=dev).to(
+        torch.bfloat16) for n in widths]
+    tp = layers.TensorParallel(_OneRank(), 1, 0)
+    x = x0.clone().requires_grad_()
+    ws = [w.clone().requires_grad_() for w in ws0]
+    outs = tp.columns(x, *ws)
+    for y, w in zip(outs, ws0):
+        assert torch.equal(y.detach(), x0 @ w)
+    got = torch.autograd.grad(outs, [x, *ws], cots)
+    want_x = sum(torch.mm(c.reshape(-1, c.shape[-1]), w.t(),
+                          out_dtype=torch.float32)
+                 for c, w in zip(cots, ws0)).to(torch.bfloat16)
+    assert got[0].dtype == torch.bfloat16
+    assert torch.equal(got[0].reshape(-1, K), want_x)
+    x2 = x0.clone().requires_grad_()
+    ws2 = [w.clone().requires_grad_() for w in ws0]
+    auto = torch.autograd.grad([x2 @ w for w in ws2], ws2, cots)
+    for a, b in zip(got[1:], auto):
+        assert torch.equal(a, b)
+
+
+def test_moe_train_step_over_model_on_the_card(dev, tmp_path):
+    """DeepSeek-V3's reduced train step in float32 (MLA, a shared expert,
+    MTP) over a (1, 2) mesh of two gloo ranks sharing the card
+    (``torch_pg_ranks.card_moe_train_case``: its experts, MLA's heads and
+    the MTP MLP over ``model``): each rank's joined loss, parameters and
+    moments equal the one-device step's on the card within the CPU tests'
+    limits (1e-5, moments relative to their largest), and its whole
+    leaves (the router, MLA's ``wq_a``, ``wkv_a`` and norms, MTP's
+    ``proj`` and norms) are equal bit for bit on both ranks."""
+    from pathlib import Path
+
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models.params import tree_leaves
+    from torch_pg_ranks import card_moe_train_inputs
+
+    tests = Path(__file__).resolve().parent
+    run_ranks("torch_pg_ranks:card_moe_train_case", 2, backend="gloo",
+              args=[tmp_path], paths=[tests], timeout=300)
+    b, params, state, batch = card_moe_train_inputs(dev)
+    params, state, loss = b.fn(params, state, *batch)
+    recs = [torch.load(tmp_path / f"card_moe_train_{r}.pt") for r in range(2)]
+    for r, got in enumerate(recs):
+        assert abs(got["loss"] - float(loss)) <= 1e-5 * max(1, abs(
+            float(loss))), r
+        for (n, g), (_, w) in zip(tree_leaves(got["params"]),
+                                  tree_leaves(params)):
+            err = float((g.float() - w.detach().float()).abs().max())
+            assert err <= 1e-5, (r, n, err)
+        for (n, g), (_, w) in zip(tree_leaves(got["mu"]),
+                                  tree_leaves(state["mu"])):
+            scale = max(float(w.abs().max()), 1e-30)
+            err = float((g.float() - w.float()).abs().max())
+            assert err <= 1e-5 * scale, (r, n, err, scale)
+    assert {"layers.moe.router", "layers.attn.wq_a", "layers.attn.wkv_a",
+            "layers.attn.q_norm", "layers.attn.kv_norm", "mtp.proj",
+            "mtp.ln_in", "mtp.ln_prev"} <= set(recs[0]["whole"])
+    for n, t in recs[0]["whole"].items():
+        assert torch.equal(t, recs[1]["whole"][n]), n
+
+
+def test_moe_capacity_over_data_ranks_on_the_card(dev, tmp_path):
+    """Arctic's reduced prefill in float32 with a skewed router over a
+    (2, 1) mesh of two gloo ranks sharing the card
+    (``torch_pg_ranks.card_moe_data_case``: a row a rank, the capacity
+    counted over both): the joined logits within 1e-5 of the one-device
+    prefill's on the card, each rank's routes those of its row, and rank
+    1 drops assignments that it would keep counting its own row alone."""
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models.moe import moe_capacity
+    from torch_pg_ranks import CARD_MOE_DATA, _RouteSpy, card_moe_data_inputs
+
+    tests = Path(__file__).resolve().parent
+    run_ranks("torch_pg_ranks:card_moe_data_case", 2, backend="gloo",
+              args=[tmp_path], paths=[tests], timeout=300)
+    b, params, tokens = card_moe_data_inputs(dev)
+    with _RouteSpy() as rs:
+        want = b.fn(params, tokens).float().cpu()
+    routes = [r.cpu() for r in rs.routes]
+    cfg = get_config(CARD_MOE_DATA["arch"]).reduced()
+    X = cfg.moe.num_experts
+    late = 0
+    for e in routes:
+        T = e.shape[0]
+        C = moe_capacity(cfg.moe, T)
+        n0, n1 = (torch.bincount(part.reshape(-1), minlength=X)
+                  for part in (e[:T // 2], e[T // 2:]))
+        late += int((n1.clamp(max=C) - (C - n0).clamp(min=0)).clamp(
+            min=0).sum())
+    assert late > 0
+    for r in range(2):
+        got = torch.load(tmp_path / f"card_moe_data_{r}.pt")
+        err = float((got["logits"].float() - want).abs().max())
+        assert err <= 1e-5, (r, err)
+        d = got["coords"]["data"]
+        assert len(got["routes"]) == len(routes) > 0
+        for g, w in zip(got["routes"], routes):
+            T = w.shape[0] // 2
+            assert torch.equal(g, w[d * T:(d + 1) * T]), r
+
+
 # ----------------------------------------------------------------- serving
 def test_mind_serving_on_the_card_matches_plain(dev, monkeypatch):
     from repro_torch.configs import get_config

@@ -426,15 +426,6 @@ def _mesh(shape):
 
 
 RAISES = {
-    "arctic decode on data ranks": ("arctic-480b", "decode_32k", (2, 2),
-                                    "MoE capacity"),
-    "arctic train over model": ("arctic-480b", "train_4k", (1, 2),
-                                "item 8.3.2"),
-    "moe data ranks": ("arctic-480b", "decode_32k", (2, 1), "MoE capacity"),
-    "deepseek-v3 train over model": ("deepseek-v3-671b", "train_4k", (1, 2),
-                                     "MTP over model"),
-    "deepseek-v3 train on data ranks": ("deepseek-v3-671b", "train_4k",
-                                        (2, 1), "MoE capacity"),
     "heads not divided": ("qwen3-14b", "prefill_32k", (1, 3),
                           "does not divide"),
 }

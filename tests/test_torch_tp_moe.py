@@ -510,22 +510,6 @@ def test_latent_merge_subtracts_the_largest_max_first():
     _close(got, want, 1e-5, "large scores")
 
 
-def test_moe_and_mla_under_autograd_over_model_raise():
-    """The training half (ROADMAP Queue 1 item 8.3.2): a layer of MoE or
-    MLA with ``tp`` whose weights require grad raises before any
-    collective."""
-    cfg = get_config(DSV3).reduced()
-    params = tfm.lm_init(cfg, torch.Generator().manual_seed(0))
-    lp = tfm._layer_slice(params["layers"], 0)
-    for _, t in tree_leaves(lp):
-        t.requires_grad_(True)
-    x = torch.zeros((1, 4, cfg.d_model))
-    pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match=r"item 8\.3\.2"):
-        tfm._layer(cfg, x, lp, pos, True, tp=layers.TensorParallel(
-            None, 2, 0))
-
-
 def test_a_model_axis_that_does_not_divide_the_experts_raises():
     """Arctic's 56 query heads divide over 7 model ranks, its 128 experts
     do not: the step refuses before any collective, as the reference's

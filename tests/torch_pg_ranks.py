@@ -166,24 +166,30 @@ def card_shard_case(out_dir: str) -> None:
              **result_record(r))
 
 
-def _param_storages(tree) -> set:
+def _param_storages(tree) -> dict:
+    """Storage pointer -> the dotted name of the leaf of ``tree`` on it."""
     from repro_torch.models.params import tree_leaves
 
-    return {t.untyped_storage().data_ptr() for _, t in tree_leaves(tree)}
+    return {t.untyped_storage().data_ptr(): n for n, t in tree_leaves(tree)}
 
 
 class _GatherSpy:
     """Counts ``all_gather`` calls and those whose input shares storage
-    with a tensor of ``storages`` (a weight gathered as it is)."""
+    with a tensor of ``storages`` (a weight gathered as it is), and names
+    those weights (``names``, one a call)."""
 
-    def __init__(self, storages: set):
+    def __init__(self, storages: dict):
         self.storages, self.calls, self.of_weights = storages, 0, 0
+        self.names = []
         self._orig = dist.all_gather
 
     def __enter__(self):
         def spy(out, x, *a, **kw):
             self.calls += 1
-            self.of_weights += x.untyped_storage().data_ptr() in self.storages
+            name = self.storages.get(x.untyped_storage().data_ptr())
+            if name is not None:
+                self.of_weights += 1
+                self.names.append(name)
             return self._orig(out, x, *a, **kw)
 
         dist.all_gather = spy
@@ -371,48 +377,80 @@ def tp_train_cases(case_dir: str, out_dir: str, data: str, model: str,
     (params, state) under ``<dir>/<case>``; ``restore:<dir>``: such a
     case is also restored from there onto this mesh's placements and its
     step 2 run (``restored``)."""
-    from repro_torch.launch.steps import build_step, gather_outputs, \
-        local_args
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.train import checkpoint
-
     torch.set_num_threads(1)
     mesh = _mesh_of(data, model)
     rank = dist.get_rank()
     mode, ckpt_dir = ckpt.split(":", 1)
     with open(os.path.join(case_dir, "cases.json")) as f:
         cases = json.load(f)
-    torch.save({"coords": mesh.coords(), **_tp_functions(mesh, case_dir)},
-               os.path.join(out_dir, f"functions_{rank}.pt"))
+    if os.path.exists(os.path.join(case_dir, "functions.pt")):
+        torch.save({"coords": mesh.coords(),
+                    **_tp_functions(mesh, case_dir)},
+                   os.path.join(out_dir, f"functions_{rank}.pt"))
     for name, case in cases.items():
-        b = build_step(case["arch"], case["shape"], mesh, reduced=True,
-                       opt=AdamWConfig(**case["opt"]))
         z = torch.load(os.path.join(case_dir, f"{name}.pt"))
-        rec = {"coords": mesh.coords(), "whole": [], "pieces": [],
-               "gathers": 0, "weight_gathers": 0}
-        for i, (before, batch) in enumerate(zip(z["states"], z["batches"])):
-            params, state = local_args(b, *before)[:2]
-            batch = local_args(b, None, None, *batch)[2:]
-            with _GatherSpy(_param_storages(params)) as spy:
-                params, state, loss = b.fn(params, state, *batch)
-            rec["gathers"] += spy.calls
-            rec["weight_gathers"] += spy.of_weights
-            whole = _copied(gather_outputs(b, (params, state, loss)))
-            rec["whole"].append(whole)
-            rec["pieces"].append(_copied((params, state)))
-            if i == 0 and case["ckpt"] and mode == "save":
-                if rank == 0:
-                    checkpoint.save(os.path.join(ckpt_dir, name), 1,
-                                    whole[:2])
-                dist.barrier()
-        if case["ckpt"] and mode == "restore":
-            (params, state), step = checkpoint.restore(
-                os.path.join(ckpt_dir, name), z["states"][0],
-                shardings=b.in_shardings[:2])
-            batch = local_args(b, None, None, *z["batches"][1])[2:]
-            rec["restored_step"] = step
-            rec["restored"] = gather_outputs(b, b.fn(params, state, *batch))
-        torch.save(rec, os.path.join(out_dir, f"{name}_{rank}.pt"))
+        torch.save(_train_case(mesh, name, case, z, mode, ckpt_dir),
+                   os.path.join(out_dir, f"{name}_{rank}.pt"))
+
+
+def train_bundle(case: dict, mesh=None):
+    """A train case's step (``case``: ``arch``, ``shape``, ``opt``, and
+    ``rows`` where the batch has that many rows of the reduced cell's
+    length instead of its own) on ``mesh`` (None: one device)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import lm_specs
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamWConfig
+
+    opt = AdamWConfig(**case["opt"])
+    if "rows" not in case:
+        return steps.build_step(case["arch"], case["shape"], mesh,
+                                reduced=True, opt=opt)
+    cfg = get_config(case["arch"]).reduced()
+    (_, S), dt = lm_specs(cfg, case["shape"], reduced=True)["tokens"]
+    avals = {k: ((case["rows"], S), dt) for k in ("tokens", "labels")}
+    return steps._build_lm(cfg, case["shape"], "train", avals, mesh, opt,
+                           False)
+
+
+def _train_case(mesh, name: str, case: dict, z: dict, mode: str = "none",
+                ckpt_dir: str = "") -> dict:
+    """One train case's steps on this rank (``z``: the whole params and
+    AdamW state before each step, and its batch), each from that state cut
+    to this rank's pieces, its outputs joined whole; the record of
+    :func:`tp_train_cases`, with the MoE layers' routes and batch splits
+    of each step (``_RouteSpy``)."""
+    from repro_torch.launch.steps import gather_outputs, local_args
+    from repro_torch.train import checkpoint
+
+    rank = dist.get_rank()
+    b = train_bundle(case, mesh)
+    rec = {"coords": mesh.coords(), "whole": [], "pieces": [],
+           "gathers": 0, "weight_gathers": 0, "routes": [], "splits": []}
+    for i, (before, batch) in enumerate(zip(z["states"], z["batches"])):
+        params, state = local_args(b, *before)[:2]
+        batch = local_args(b, None, None, *batch)[2:]
+        with _GatherSpy(_param_storages(params)) as spy, _RouteSpy() as rs:
+            params, state, loss = b.fn(params, state, *batch)
+        rec["gathers"] += spy.calls
+        rec["weight_gathers"] += spy.of_weights
+        rec["routes"].append(rs.routes)
+        rec["splits"].append(rs.splits)
+        whole = _copied(gather_outputs(b, (params, state, loss)))
+        rec["whole"].append(whole)
+        rec["pieces"].append(_copied((params, state)))
+        if i == 0 and case.get("ckpt") and mode == "save":
+            if rank == 0:
+                checkpoint.save(os.path.join(ckpt_dir, name), 1, whole[:2])
+            dist.barrier()
+    if case.get("ckpt") and mode == "restore":
+        (params, state), step = checkpoint.restore(
+            os.path.join(ckpt_dir, name), z["states"][0],
+            shardings=b.in_shardings[:2])
+        batch = local_args(b, None, None, *z["batches"][1])[2:]
+        rec["restored_step"] = step
+        rec["restored"] = gather_outputs(b, b.fn(params, state, *batch))
+    return rec
 
 
 #: the card's MIND train case: users, AdamW (eps as tests/test_torch_tp_
@@ -464,21 +502,29 @@ def card_mind_train_case(out_dir: str) -> None:
 
 class _RouteSpy:
     """Records each ``moe_apply`` call of the transformer: its input (the
-    tensor every model rank must hold alike) and the top-k expert ids it
-    routes that input to, computed as ``moe_apply`` computes them."""
+    tensor every model rank must hold alike), the top-k expert ids it
+    routes that input to, computed as ``moe_apply`` computes them, and the
+    batch split it was given (``(size, index, rows)`` of its ``dp``, or
+    None)."""
 
     def __init__(self):
         from repro_torch.models import transformer
 
         self.module, self.inputs, self.routes = transformer, [], []
+        self.splits = []
         self._orig = transformer.moe_apply
 
     def __enter__(self):
         def spy(p, cfg, x, *a, **kw):
-            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
-                                  @ p["router"].float(), dim=-1)
-            self.inputs.append(x.detach().clone())
-            self.routes.append(torch.topk(probs, cfg.moe.top_k).indices)
+            with torch.no_grad():
+                x0 = x.detach()
+                probs = torch.softmax(x0.reshape(-1, x.shape[-1]).float()
+                                      @ p["router"].detach().float(), dim=-1)
+                self.inputs.append(x0.clone())
+                self.routes.append(torch.topk(probs, cfg.moe.top_k).indices)
+            dp = kw.get("dp")
+            self.splits.append(None if dp is None
+                               else (dp.size, dp.index, dp.rows))
             return self._orig(p, cfg, x, *a, **kw)
 
         self.module.moe_apply = spy
@@ -493,18 +539,8 @@ def tp_moe_cases(case_dir: str, params_dir: str, out_dir: str, data: str,
     """MoE and MLA serving over a ``(data, model)`` mesh of the group:
     each case's global params (``<params_dir>/<params>.pt``), tokens and
     caches (``<case_dir>/<case>.pt``) cut to this rank's pieces, the
-    prefill or every decode step run through ``build_step``; every rank
-    writes its logits (its piece and joined whole), its cache pieces,
-    whether each decode step wrote into them, the MoE layers' inputs and
-    routes and the all-gathers it made (``<case>_<rank>.pt``).  A case
-    marked ``seq_alone`` runs ``serve_decode`` on the whole weights with
-    the cache's sequence cut over ``model`` and no tensor parallelism."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.steps import (_comm, _whole, build_step,
-                                          gather_outputs, local_args)
-    from repro_torch.models import transformer as tfm
-    from repro_torch.models.layers import SequenceSplit
-
+    prefill or every decode step run through ``build_step``
+    (:func:`_serve_case`); every rank writes ``<case>_<rank>.pt``."""
     torch.set_num_threads(1)
     mesh = _mesh_of(data, model)
     rank = dist.get_rank()
@@ -512,50 +548,94 @@ def tp_moe_cases(case_dir: str, params_dir: str, out_dir: str, data: str,
         cases = json.load(f)
     params_of = {}
     for name, case in cases.items():
-        arch, cell = case["arch"], case["shape"]
-        b = build_step(arch, cell, mesh, reduced=True)
-        whole = torch.load(os.path.join(params_dir, f"{case['params']}.pt"))
-        if case.get("seq_alone"):
-            params = whole
-        else:
-            if case["params"] not in params_of:
-                params_of[case["params"]] = local_args(b, whole)[0]
-            params = params_of[case["params"]]
         args = torch.load(os.path.join(case_dir, f"{name}.pt"))
-        rec = {"coords": mesh.coords()}
-        with _GatherSpy(_param_storages(params)) as spy, _RouteSpy() as rs:
-            if cell == "prefill_32k":
-                _, tokens = local_args(b, None, args["tokens"])
-                logits = b.fn(params, tokens)
-                rec["logits_piece"] = logits
-                rec["logits"] = [gather_outputs(b, logits)]
+        torch.save(_serve_case(mesh, case, args, params_dir, params_of),
+                   os.path.join(out_dir, f"{name}_{rank}.pt"))
+
+
+def _serve_case(mesh, case: dict, args: dict, params_dir: str,
+                params_of: dict) -> dict:
+    """One serving case on this rank: its logits (its piece and joined
+    whole), its cache pieces, whether each decode step wrote into them,
+    the MoE layers' inputs, routes and batch splits, and the all-gathers
+    it made (the weights among their inputs by name).  A case marked
+    ``seq_alone`` runs ``serve_decode`` on the whole weights with the
+    cache's sequence cut over ``model`` and no tensor parallelism.
+    ``params_of`` keeps each params name's pieces between cases."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (_comm, _whole, build_step,
+                                          gather_outputs, local_args)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import SequenceSplit
+
+    arch, cell = case["arch"], case["shape"]
+    b = build_step(arch, cell, mesh, reduced=True)
+    if case.get("seq_alone"):
+        params = torch.load(os.path.join(params_dir, f"{case['params']}.pt"))
+    else:
+        if case["params"] not in params_of:
+            whole = torch.load(os.path.join(params_dir,
+                                            f"{case['params']}.pt"))
+            params_of[case["params"]] = local_args(b, whole)[0]
+        params = params_of[case["params"]]
+    rec = {"coords": mesh.coords()}
+    with _GatherSpy(_param_storages(params)) as spy, _RouteSpy() as rs:
+        if cell == "prefill_32k":
+            _, tokens = local_args(b, None, args["tokens"])
+            logits = b.fn(params, tokens)
+            rec["logits_piece"] = logits
+            rec["logits"] = [gather_outputs(b, logits)]
+        else:
+            _, _, caches = local_args(b, None, None, args["caches"])
+            keys = [k for k in caches if k != "len"]
+            seq = SequenceSplit(_comm(mesh, "model"), mesh.shape["model"],
+                                mesh.axis_index("model"))
+            rec.update(logits=[], logits_pieces=[], written=[])
+            for tok in args["tokens"]:
+                _, tokens, _ = local_args(b, None, tok, None)
+                before = [caches[k].clone() for k in keys]
+                if case.get("seq_alone"):
+                    cfg = get_config(arch).reduced()
+                    with torch.inference_mode():
+                        logits, caches = tfm.serve_decode(
+                            params, cfg, tokens, caches, seq=seq)
+                    rec["logits"].append(logits)
+                else:
+                    logits, caches = b.fn(params, tokens, caches)
+                    rec["logits_pieces"].append(logits)
+                    rec["logits"].append(_whole(logits, b.out_shardings[0]))
+                rec["written"].append(not all(
+                    torch.equal(x, caches[k]) for x, k in zip(before, keys)))
+            rec["caches"] = caches
+    rec["gathers"], rec["weight_gathers"] = spy.calls, spy.of_weights
+    rec["gathered_weights"] = spy.names
+    rec["moe_inputs"], rec["routes"] = rs.inputs, rs.routes
+    rec["splits"] = rs.splits
+    return rec
+
+
+def moe_data_cases(case_dir: str, params_dir: str, out_dir: str, data: str,
+                   model: str) -> None:
+    """MoE serving and training over a ``(data, model)`` mesh of the group
+    whose batch axes are wider than 1, in one start: the serving cases of
+    ``cases.json`` (:func:`_serve_case`) and the train cases of
+    ``train_cases.json`` (:func:`_train_case`, their states and batches in
+    ``train_<case>.pt``).  Every rank writes ``<case>_<rank>.pt``."""
+    torch.set_num_threads(1)
+    mesh = _mesh_of(data, model)
+    rank = dist.get_rank()
+    params_of = {}
+    for kind in ("cases", "train_cases"):
+        with open(os.path.join(case_dir, f"{kind}.json")) as f:
+            cases = json.load(f)
+        for name, case in cases.items():
+            if kind == "cases":
+                args = torch.load(os.path.join(case_dir, f"{name}.pt"))
+                rec = _serve_case(mesh, case, args, params_dir, params_of)
             else:
-                _, _, caches = local_args(b, None, None, args["caches"])
-                keys = [k for k in caches if k != "len"]
-                seq = SequenceSplit(_comm(mesh, "model"), mesh.shape["model"],
-                                    mesh.axis_index("model"))
-                rec.update(logits=[], logits_pieces=[], written=[])
-                for tok in args["tokens"]:
-                    _, tokens, _ = local_args(b, None, tok, None)
-                    before = [caches[k].clone() for k in keys]
-                    if case.get("seq_alone"):
-                        cfg = get_config(arch).reduced()
-                        with torch.inference_mode():
-                            logits, caches = tfm.serve_decode(
-                                params, cfg, tokens, caches, seq=seq)
-                        rec["logits"].append(logits)
-                    else:
-                        logits, caches = b.fn(params, tokens, caches)
-                        rec["logits_pieces"].append(logits)
-                        rec["logits"].append(
-                            _whole(logits, b.out_shardings[0]))
-                    rec["written"].append(not all(
-                        torch.equal(x, caches[k])
-                        for x, k in zip(before, keys)))
-                rec["caches"] = caches
-        rec["gathers"], rec["weight_gathers"] = spy.calls, spy.of_weights
-        rec["moe_inputs"], rec["routes"] = rs.inputs, rs.routes
-        torch.save(rec, os.path.join(out_dir, f"{name}_{rank}.pt"))
+                z = torch.load(os.path.join(case_dir, f"train_{name}.pt"))
+                rec = _train_case(mesh, name, case, z)
+            torch.save(rec, os.path.join(out_dir, f"{name}_{rank}.pt"))
 
 
 #: the card's MoE and MLA decode case: the ids' reduced configs in bf16 on a
@@ -628,3 +708,116 @@ def card_tp_moe_case(out_dir: str) -> None:
                     "routes": [r.cpu() for r in rs.routes]},
                    os.path.join(out_dir,
                                 f"card_moe_{arch}_{dist.get_rank()}.pt"))
+
+
+#: the card's MoE train case: DeepSeek-V3's reduced config (MLA, a shared
+#: expert, MTP) in float32 over a (1, 2) mesh, one train_4k step of AdamW
+#: (eps as tests/test_torch_tp_train.py's EPS)
+CARD_MOE_TRAIN = {"arch": "deepseek-v3-671b", "mesh": (1, 2), "seed": 3,
+                  "opt": {"lr": 1e-3, "eps": 1e-4}}
+#: the card's data-rank case: Arctic's reduced config in float32 over a
+#: (2, 1) mesh, prefill_32k with its router columns SKEW scaled by 30, so
+#: data rank 1 drops assignments that only rank 0's tokens push past the
+#: capacity
+CARD_MOE_DATA = {"arch": "arctic-480b", "mesh": (2, 1), "seed": 4,
+                 "skew": (0, 2, 4, 6)}
+
+
+def card_moe_train_inputs(device) -> tuple:
+    """``(bundle, params, state, batch)`` of the card's MoE train case on
+    one device: seeded weights drawn on ``device``, fresh AdamW state,
+    seeded tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    c = CARD_MOE_TRAIN
+    cfg = get_config(c["arch"]).reduced()
+    b = steps.build_step(c["arch"], "train_4k", reduced=True,
+                         opt=AdamWConfig(**c["opt"]))
+    params = tfm.lm_init(cfg, torch.Generator(device).manual_seed(c["seed"]))
+    (B, S), _ = b.args[2]
+    rng = np.random.default_rng(c["seed"])
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S + 1)).astype(
+        np.int32), device=device)
+    return b, params, adamw_init(params, b.static["opt"]), (tok[:, :-1],
+                                                            tok[:, 1:])
+
+
+def card_moe_train_case(out_dir: str) -> None:
+    """The card's MoE train step over a (1, 2) mesh of gloo ranks sharing
+    cuda:0 (:data:`CARD_MOE_TRAIN`): the one-device inputs cut to this
+    rank's pieces, one step; every rank writes the joined loss,
+    parameters and moments and its whole leaves
+    (``card_moe_train_<rank>.pt``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh, _device_mesh
+    from repro_torch.launch.steps import (build_step, gather_outputs,
+                                          local_args)
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    c = CARD_MOE_TRAIN
+    shape, axes = c["mesh"], ("data", "model")
+    mesh = Mesh(shape, axes, [device], _device_mesh(shape, axes, device))
+    _, params, state, batch = card_moe_train_inputs(device)
+    b = build_step(c["arch"], "train_4k", mesh, reduced=True,
+                   opt=AdamWConfig(**c["opt"]))
+    out = b.fn(*local_args(b, params, state, *batch))
+    torch.cuda.synchronize(device)
+    sh = dict(tree_leaves(b.in_shardings[0]))
+    whole = {n: t.detach().cpu() for n, t in tree_leaves(out[0])
+             if sh[n].frac == 1}
+    params, state, loss = gather_outputs(b, out)
+    assert get_config(c["arch"]).reduced().mtp_depth == 1
+    torch.save({"loss": float(loss), "params": _copied(params),
+                "mu": _copied(state["mu"]), "whole": whole},
+               os.path.join(out_dir, f"card_moe_train_{dist.get_rank()}.pt"))
+
+
+def card_moe_data_inputs(device) -> tuple:
+    """``(bundle, params, tokens)`` of the card's data-rank case on one
+    device: seeded weights drawn on ``device`` with the skewed router,
+    seeded tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+
+    c = CARD_MOE_DATA
+    cfg = get_config(c["arch"]).reduced()
+    b = steps.build_step(c["arch"], "prefill_32k", reduced=True)
+    params = tfm.lm_init(cfg, torch.Generator(device).manual_seed(c["seed"]))
+    params["layers"]["moe"]["router"][..., list(c["skew"])] *= 30.0
+    (B, S), _ = b.args[1]
+    rng = np.random.default_rng(c["seed"])
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32), device=device)
+    return b, params, tokens
+
+
+def card_moe_data_case(out_dir: str) -> None:
+    """The card's data-rank case over a (2, 1) mesh of gloo ranks sharing
+    cuda:0 (:data:`CARD_MOE_DATA`): this rank's row of the prefill with
+    the capacity counted over both rows; every rank writes the joined
+    logits and its routes (``card_moe_data_<rank>.pt``)."""
+    from repro_torch.launch.mesh import Mesh, _device_mesh
+    from repro_torch.launch.steps import (build_step, gather_outputs,
+                                          local_args)
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    c = CARD_MOE_DATA
+    shape, axes = c["mesh"], ("data", "model")
+    mesh = Mesh(shape, axes, [device], _device_mesh(shape, axes, device))
+    _, params, tokens = card_moe_data_inputs(device)
+    b = build_step(c["arch"], "prefill_32k", mesh, reduced=True)
+    with _RouteSpy() as rs:
+        logits = b.fn(*local_args(b, params, tokens))
+    torch.cuda.synchronize(device)
+    torch.save({"logits": gather_outputs(b, logits).cpu(),
+                "routes": [r.cpu() for r in rs.routes],
+                "coords": mesh.coords()},
+               os.path.join(out_dir, f"card_moe_data_{dist.get_rank()}.pt"))
