@@ -171,8 +171,9 @@ Phases, each printing one JSON line:
              heads over model, the experts' embed pieces joined over data
              a group at a time), prefill_32k at 2 x 2,048 and four
              decode_32k steps at 8 rows from len 20,000, held as lm_tp
-             holds them at MOE_HELD_SHARE of the positions, the dropped
-             assignments counted beside the control's; then MIND at full
+             holds them at MOE_HELD_SHARE of the positions, the
+             assignments each MoE call dropped (moe_apply's count, summed
+             over the data ranks) equal to the control's; then MIND at full
              width with its item and profile rows over model: serve_p99
              (512 users), retrieval_cand (one user against 1,000,000
              items, top 100) and serve_bulk (262,144 users cut to
@@ -218,10 +219,18 @@ Phases, each printing one JSON line:
              whole after step 1 and restored onto the placements, each
              loss within 1e-4 of the uninterrupted control's, kernel #4
              launched once a step on each rank's row piece and held bit
-             for bit to the slot-order sum there (DeepSeek-V3 over model,
-             TP_TRAIN_MOE, runs with the phase alone: tp_train_spec(moe=
-             True)).  Each rank prints ms a step, the collectives' share
-             and peak device memory
+             for bit to the slot-order sum there; DeepSeek-V3 at full
+             width over model (its dense and one MoE layer, 256 routed
+             experts cut to 32, MTP, 1 x 4,096, float32 moments), three
+             steps, the control's step 0 held to the no-grad forward,
+             losses within 2e-3, parameters and moments within their
+             stated limits, its whole leaves equal on both ranks and
+             step 0's routes the control's at 98% of the positions or
+             more.  Each rank prints ms a step, the collectives' share
+             and peak device memory.  With --tp-train-witness the phase
+             runs alone, DeepSeek-V3's float32 run beside its control
+             (tp_train_witness), every moment leaf's distance from both
+             printed and the checks reported, not raised
   gnn        the GNN zoo at full width through build_step and make_source
              (the reference's cells, uncut; plain torch, no kernel): GCN
              on full_graph_sm (Cora's 2,708 nodes, 1,433 features),
@@ -527,11 +536,7 @@ TP_TRAIN_MIND_TOL = 1e-4
 #: each rank's step joined its pieces' moments whole through the host (63-
 #: 74 s a step).  The int8 pieces are held on the CPU
 #: (tests/test_torch_tp_moe_train.py).  The control's step 0 is held to
-#: the no-grad forward.  The case runs with the phase alone
-#: (tp_train_spec(moe=True)), not in the script: it adds ~60 s (the
-#: control's 27.5 GB state written to disk beside the ranks' start, a
-#: rank's steps ~10 s each) to a script that reached the phase after
-#: ~950 s on the card of its last runs, against a limit of 1,200 s
+#: the no-grad forward
 TP_TRAIN_MOE = ((2, 1), 32, (1, 4096))
 #: AdamW's largest move a step in units of lr at the reference's b1 0.9
 #: and b2 0.95 over three steps: |m_t| / sqrt(v_t) is at most (1 - b1) /
@@ -542,6 +547,19 @@ TP_TRAIN_MOE = ((2, 1), 32, (1, 4096))
 #: parameter to bf16 once a step); the LM's limit, 2 x lr a step plus two
 #: bf16 steps, read 1.0037 on one of DeepSeek-V3's (an H100)
 TP_TRAIN_MOE_MOVE = 1.001
+#: the MoE model's float32 moments against the control's: shares of
+#: their leaf's largest, as far as a float32 run of the same case sits
+#: from the bf16 control (chip_smoke.py --tp-train-witness, an H100 at
+#: 700 W): its largest m and v read 0.4201 (lm_head) and 0.4049 of their
+#: leaf's largest, and most leaves sit past TP_TRAIN_MOMENT_REL from it
+#: (MTP's logits are not normed, loss ~84: a bf16 step flips near-tied
+#: logits, and 0.46% of the positions take other experts), while the
+#: ranks sat 0.26-0.28 (m) and 0.21-0.29 (v) from the control and
+#: 0.41-0.44 and 0.28-0.38 from the float32 run: as far from it as the
+#: control.  The reduced config holds every moment within 1e-5 of one
+#: device in float32 (tests/test_torch_tp_moe_train.py, the card's
+#: test_moe_train_step_over_model_on_the_card)
+TP_TRAIN_MOE_MOMENT_REL = {"m": 0.43, "v": 0.41}
 #: the least share of a MoE model's positions whose tokens take the
 #: control's experts in every MoE layer, over ranks (tp_train's step 0,
 #: tp_serve's prefill and decode)
@@ -645,8 +663,16 @@ def phase_walls() -> dict:
     return {"phase": "walls", "script_s": round(last, 1), "seconds": out}
 
 
+#: a list where a measurement run (``--tp-train-witness``) collects the
+#: checks that fail, to print them with its readings; None: they raise
+FAILED_CHECKS = None
+
+
 def check(cond, msg: str) -> None:
     if not cond:
+        if FAILED_CHECKS is not None:
+            FAILED_CHECKS.append(msg)
+            return
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
@@ -3301,22 +3327,37 @@ def phase_lm(device) -> tuple:
                       "prefill_logits": step_logits[LM_PROMPT - 1]}
 
 
+class _Routes(list):
+    """Each ``moe_apply`` call's routes; ``dropped``, each call's count of
+    its tokens' assignments past the capacity (``aux["dropped"]``, as the
+    call counted them: over every expert, the ranks before it in the batch
+    order counted in)."""
+
+    def __init__(self):
+        super().__init__()
+        self.dropped = []
+
+
 @contextlib.contextmanager
 def recorded_routing():
     """``moe_apply`` as the transformer calls it, each call's routing
     recorded: the top-k expert ids of its tokens (T, k), sorted, as
-    ``moe_apply`` draws them from its input and router."""
+    ``moe_apply`` draws them from its input and router, and the
+    assignments it dropped (:class:`_Routes`)."""
     import torch
 
     from repro_torch.models import transformer as tfm
 
-    seen, inner = [], tfm.moe_apply
+    seen, inner = _Routes(), tfm.moe_apply
 
     def recording(p, cfg, x, *args, **kw):
         probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
                               @ p["router"].float(), dim=-1)
         seen.append(torch.topk(probs, cfg.moe.top_k).indices.sort(-1).values)
-        return inner(p, cfg, x, *args, **kw)
+        aux = {}
+        out = inner(p, cfg, x, *args, aux=aux, **kw)
+        seen.dropped.append(aux["dropped"])
+        return out
 
     tfm.moe_apply = recording
     try:
@@ -3827,7 +3868,7 @@ def tp_control(device, spec: dict, out_dir: str) -> dict:
                     caches = tp_cache(cfg, rows, T, P, range(P), device)
                     caches["len"] = torch.tensor(len0, dtype=torch.int32,
                                                  device=device)
-                ms, lg, rt = [], [], []
+                ms, lg, rt, dr = [], [], [], []
                 for tok in toks:
                     sync()
                     t = time.perf_counter()
@@ -3846,7 +3887,8 @@ def tp_control(device, spec: dict, out_dir: str) -> dict:
                           f"lm_tp {arch} control {cell} logits")
                     lg.append(logits.cpu())
                     rt.append([r.cpu() for r in routes])
-                ref[cell] = {"logits": lg, "routes": rt}
+                    dr.append([int(n) for n in routes.dropped])
+                ref[cell] = {"logits": lg, "routes": rt, "dropped": dr}
                 rec[f"{cell}_step_ms"] = ms
                 rec[f"{cell}_ms_per_step"] = float(np.mean(ms))
                 del caches, logits
@@ -3932,7 +3974,7 @@ def tp_model_rank(device, mesh, arch: str, spec: dict, run_dir: str,
             collectives()
             fdk.reset_launch_counts()
             ms, holds, coll = [], [], {"s": 0.0, "calls": 0, "bytes": 0}
-            mine[cell] = []
+            mine[cell], dropped = [], []
             for i, tok in enumerate(toks):
                 sync()
                 t = time.perf_counter()
@@ -3956,6 +3998,7 @@ def tp_model_rank(device, mesh, arch: str, spec: dict, run_dir: str,
                 holds.append(tp_hold(joined, ref[cell]["logits"][i], routes,
                                      ref[cell]["routes"][i], rows))
                 mine[cell].append([r.cpu() for r in routes])
+                dropped.append([int(n) for n in routes.dropped])
                 del joined
             alike = [h["routes_alike"] for h in holds
                      if h["routes_alike"] is not None]
@@ -3972,7 +4015,7 @@ def tp_model_rank(device, mesh, arch: str, spec: dict, run_dir: str,
                 positions_held=sum(h["held"] for h in holds),
                 argmax_equal=sum(h["argmax_equal"] for h in holds),
                 routing_agree_share=min(alike) if alike else None,
-                launches=dict(fdk.LAUNCHES))
+                dropped=dropped, launches=dict(fdk.LAUNCHES))
             if caches is not None:
                 c["len_after"] = int(caches["len"])
             rec[cell] = c
@@ -4140,49 +4183,58 @@ def check_tp(spec: dict, run_dir: str, ranks: list, phase: str = "lm_tp",
 
 
 def moe_drops(spec: dict, run_dir: str, ranks: list) -> dict:
-    """Each MoE model's dropped (token, expert) assignments a layer at the
-    published capacity factor, the control's and the ranks': the ranks'
-    routes of their rows joined in the batch's order (the data ranks of
-    model coordinate 0), the capacity of the whole batch, as the ranks
-    count it.  Equal to the control's where every token took the
-    control's experts; a rerouted token moves k assignments, each of
-    which can move the count by 2, so the two may differ by 2k a rerouted
-    token."""
+    """Each MoE model's dropped (token, expert) assignments a MoE call
+    (``moe_apply``'s ``aux["dropped"]``, as each call counted them), the
+    control's and the ranks': each rank's count over every expert of its
+    rows' assignments past the global capacity, equal on every model rank
+    of a data rank, summed over the data ranks.  Equal to the control's
+    where every token took the control's experts; a rerouted token moves
+    k assignments, each of which can move the count by 2, so the two may
+    differ by 2k a rerouted token."""
     import torch
-
-    from repro_torch.models.moe import moe_capacity
 
     out = {}
     for arch in spec["models"]:
         _, cfg = tp_model(arch, spec)
         if cfg.moe is None:
             continue
-        X, k = cfg.moe.num_experts, cfg.moe.top_k
+        k = cfg.moe.top_k
         ref = torch.load(os.path.join(run_dir, f"ref_{arch}.pt"))
-        order = sorted((r for r in range(len(ranks))
-                        if ranks[r]["coords"]["model"] == 0),
-                       key=lambda r: ranks[r]["coords"]["data"])
-        got = [torch.load(os.path.join(run_dir, f"routes_{arch}_{r}.pt"))
-               for r in order]
+        by_data = {}
+        for r in ranks:
+            by_data.setdefault(r["coords"]["data"], []).append(r)
         rec = {}
         for cell in ("prefill", "decode"):
             if cell not in ref:
                 continue
             rows = []
+            for d, group in by_data.items():
+                first = group[0]["models"][arch][cell]["dropped"]
+                for r in group[1:]:
+                    check(r["models"][arch][cell]["dropped"] == first,
+                          f"tp_serve {arch} {cell}: data rank {d}'s model "
+                          f"ranks count {r['models'][arch][cell]['dropped']}"
+                          f" dropped assignments, not {first}")
+            got = [g[0]["models"][arch][cell]["dropped"]
+                   for _, g in sorted(by_data.items())]
+            order = sorted(range(len(ranks)), key=lambda r: (
+                ranks[r]["coords"]["data"], ranks[r]["coords"]["model"]))
+            routes = [torch.load(os.path.join(run_dir,
+                                              f"routes_{arch}_{r}.pt"))
+                      for r in order if ranks[r]["coords"]["model"] == 0]
             for i, want_step in enumerate(ref[cell]["routes"]):
                 for layer, want in enumerate(want_step):
-                    joined = torch.cat([g[cell][i][layer] for g in got])
-                    C = moe_capacity(cfg.moe, want.shape[0])
-                    drops = [int((torch.bincount(e.reshape(-1), minlength=X)
-                                  - C).clamp(min=0).sum())
-                             for e in (want, joined)]
+                    joined = torch.cat([g[cell][i][layer] for g in routes])
                     rerouted = int((~(joined == want).all(-1)).sum())
+                    drops = [ref[cell]["dropped"][i][layer],
+                             sum(g[i][layer] for g in got)]
                     check(abs(drops[0] - drops[1]) <= 2 * k * rerouted,
                           f"tp_serve {arch} {cell} step {i} layer {layer}: "
                           f"the ranks drop {drops[1]} assignments, the "
                           f"control {drops[0]}, {rerouted} tokens rerouted")
-                    rows.append({"step": i, "layer": layer, "capacity": C,
+                    rows.append({"step": i, "layer": layer,
                                  "control": drops[0], "ranks": drops[1],
+                                 "per_data_rank": [g[i][layer] for g in got],
                                  "rerouted": rerouted})
             rec[cell] = rows
         out[arch] = rec
@@ -4942,16 +4994,21 @@ def tp_train_builds(spec: dict, lcfg, mcfg, mesh=None, moe_cfg=None) -> tuple:
 
 
 def _on_host(tree, dtype=None):
-    """A host copy of a tree of tensors (in ``dtype``, if given)."""
+    """A host copy of a tree of tensors (in ``dtype``, if given: a leaf
+    converted where it lies, a card's leaf on the card, before it
+    moves)."""
     if isinstance(tree, (tuple, list)):
         return type(tree)(_on_host(x, dtype) for x in tree)
     if hasattr(tree, "keys"):
         return {k: _on_host(tree[k], dtype) for k in tree.keys()}
-    return tree.detach().to("cpu", dtype)
+    x = tree.detach()
+    return (x if dtype is None else x.to(dtype)).to("cpu")
 
 
 def lm_pieces_hold(b, params, state, control: dict, steps: int,
-                   bf16_steps: int = 2, move: float = 1.0) -> dict:
+                   bf16_steps: int = 2, move: float = 1.0,
+                   moment_rel: dict = TP_TRAIN_MOMENT_REL,
+                   leaves: dict | None = None) -> dict:
     """This rank's LM parameter and float32 moment pieces against the
     one-device control's (``control``: its whole params and AdamW state,
     memmapped), cut by ``b``'s placements: each parameter within ``2 x
@@ -4959,15 +5016,20 @@ def lm_pieces_hold(b, params, state, control: dict, steps: int,
     plus ``bf16_steps`` bf16 steps of its size (``param_worst_share``: the
     largest error over its limit), how many elements differ at all; each
     moment off the control's by a share of its leaf's largest, over
-    :data:`TP_TRAIN_MOMENT_REL`."""
-    from repro_torch.launch.steps import local_args
+    ``moment_rel`` (each leaf's in ``leaves``, if given).  A ``control``
+    without ``params`` (a witness run's) holds the moments alone."""
+    from repro_torch.launch.steps import _piece, _zip_map
     from repro_torch.models.params import tree_leaves
 
-    want_p, want_s = local_args(b, control["params"], control["state"])[:2]
+    want_p = control.get("params")  # None: its moments alone were kept
+    want_s = control["state"] if b.in_shardings is None else _zip_map(
+        _piece, control["state"], b.in_shardings[1])
+    if want_p is not None and b.in_shardings is not None:
+        want_p = _zip_map(_piece, want_p, b.in_shardings[0])
     lr = b.static["opt"].lr
     worst, unequal, elements, where = 0.0, 0, 0, {}
     for (name, got), (_, w) in zip(tree_leaves(params),
-                                   tree_leaves(want_p)):
+                                   tree_leaves(want_p or {})):
         g, w = got.detach().float(), w.to(got.device).float()
         err = (g - w).abs()
         lim = 2 * move * lr * steps + bf16_steps * BF16_STEP * w.abs()
@@ -4983,7 +5045,9 @@ def lm_pieces_hold(b, params, state, control: dict, steps: int,
         w = w.to(got.device).float()
         leaf, key = name.rsplit(".", 1)
         share = float((got.float() - w).abs().max()) / max(
-            float(w.abs().max()), 1e-30) / TP_TRAIN_MOMENT_REL[key]
+            float(w.abs().max()), 1e-30) / moment_rel[key]
+        if leaves is not None:
+            leaves[name] = share
         if share > moments.get(key, 0.0):
             moments[key], where[key] = share, leaf
         del w
@@ -5118,12 +5182,24 @@ def tp_train_rank(run_dir: str, device_type: str) -> None:
             time.sleep(0.5)
         ctrl = torch.load(path, mmap=True)
         hold = {} if not routes else {"bf16_steps": len(batches),
-                                      "move": TP_TRAIN_MOE_MOVE}
+                                      "move": TP_TRAIN_MOE_MOVE,
+                                      "moment_rel": TP_TRAIN_MOE_MOMENT_REL}
+        witness = routes and spec["moe"].get("witness")
+        leaves = {} if witness else None
         out.update(lm_pieces_hold(b, params, state, ctrl, len(batches),
-                                  **hold))
+                                  leaves=leaves, **hold))
         out.update(control_losses=ctrl["losses"],
                    compare_s=time.perf_counter() - t)
-        del params, state, ctrl
+        del ctrl
+        if witness:  # the float32 run's state beside the control's
+            wit = torch.load(os.path.join(run_dir, "moe_witness.pt"),
+                             mmap=True)
+            out["leaves"], out["witness_leaves"] = leaves, {}
+            out["witness_hold"] = lm_pieces_hold(
+                b, params, state, wit, len(batches),
+                leaves=out["witness_leaves"], **hold)
+            del wit
+        del params, state
         if card:
             free_card(device)
         return out
@@ -5193,17 +5269,18 @@ def tp_train_rank(run_dir: str, device_type: str) -> None:
         json.dump(rec, f)
 
 
-def tp_train_spec(moe: bool = False) -> dict:
-    """The tp_train phase at full width; with ``moe`` also DeepSeek-V3
-    (:data:`TP_TRAIN_MOE`), which the script's time limit leaves to a run
-    of the phase alone."""
+def tp_train_spec(witness: bool = False) -> dict:
+    """The tp_train phase at full width, DeepSeek-V3 cut as
+    :data:`TP_TRAIN_MOE`; with ``witness`` its float32 run beside the
+    control (:func:`tp_train_witness`), as ``--tp-train-witness`` runs
+    it."""
     return {"arch": "qwen3-0.6b", "reduced": False,
             "layers": TP_TRAIN_LAYERS, "mesh": list(TP_TRAIN_MESH),
             "lm": list(TP_TRAIN_LM), "users": TP_TRAIN_USERS,
             "steps": TP_TRAIN_STEPS, "lr": TRAIN_LR,
             "moe": {"arch": "deepseek-v3-671b", "depth": list(TP_TRAIN_MOE[0]),
                     "experts": TP_TRAIN_MOE[1], "lm": list(TP_TRAIN_MOE[2]),
-                    "steps": TP_TRAIN_STEPS} if moe else None}
+                    "steps": TP_TRAIN_STEPS, "witness": witness}}
 
 
 def phase_tp_train(device, spec: dict | None = None) -> tuple:
@@ -5259,11 +5336,13 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
                 background=None, **extra):
         """The state copied to the host, then written to ``path`` (under
         another name first); with ``background`` (a dict) the writing
-        runs in a thread, its seconds into ``background["write_s"]``."""
-        tree = {"params": _on_host(params),
-                "state": {"step": state["step"].cpu(),
+        runs in a thread, its seconds into ``background["write_s"]``.
+        ``params`` None: the moments alone."""
+        tree = {"state": {"step": state["step"].cpu(),
                           "mu": _on_host(state["mu"], mu_dtype)},
                 "losses": losses, **extra}
+        if params is not None:
+            tree["params"] = _on_host(params)
 
         def write():
             t = time.perf_counter()
@@ -5288,6 +5367,7 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
                           "moe_params": "2 x TP_TRAIN_MOE_MOVE x lr a step "
                                         "+ a bf16 step a step",
                           "lm_moments_of_largest": TP_TRAIN_MOMENT_REL,
+                          "moe_moments_of_largest": TP_TRAIN_MOE_MOMENT_REL,
                           "mind_loss": TP_TRAIN_MIND_TOL,
                           "moe_positions_routed_alike": MOE_HELD_SHARE,
                           "moe_step0_loss_rel": TRAIN_MOE_LOSS_REL},
@@ -5364,13 +5444,20 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
             # written beside the ranks' start: a rank reads it after its
             # LM and MIND runs
             t0 = time.perf_counter()
-            saving = save_lm(params, state, one["moe"]["losses"],
+            # a witness run keeps the moments alone: two whole states
+            # beside each other would write ~55 GB to the disk
+            saving = save_lm(None if spec["moe"].get("witness") else params,
+                             state, one["moe"]["losses"],
                              os.path.join(tmp, "moe_control.pt"),
                              torch.bfloat16, one["moe"], routes=routes)
             one["moe"]["host_copy_s"] = time.perf_counter() - t0
             del params, state, args
             if card:
                 free_card(device)
+            if spec["moe"].get("witness"):
+                saving.join()
+                one["moe_witness"] = tp_train_witness(
+                    device, moe_cfg, moe_batches, moe.static["opt"], tmp)
         out["one_device"] = {**one, "wall_s": time.perf_counter() - t}
         with open(os.path.join(tmp, "spec.json"), "w") as f:
             json.dump(spec, f)
@@ -5426,6 +5513,99 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
                bag_entry_s=time.perf_counter() - t)
     emit(out)
     return total, entry
+
+
+def tp_train_witness(device, cfg, batches, opt, run_dir: str) -> dict:
+    """The tp_train phase's MoE model once more on one device in float32,
+    a second witness beside its bf16 control: the control's bf16 weights
+    (seed 0) raised to float32, its batches through ``lm_loss`` of the
+    config in float32 (TF32 off), then ``optim.adamw_update`` a leaf at a
+    time with float32 moments kept in pinned host memory (the card holds
+    the float32 weights, gradients and activations; the moments beside
+    them would not fit).  Writes its state as the control's
+    (``moe_witness.pt``: its bf16 moments) and returns its losses,
+    step times, peak device memory and each moment leaf's distance from
+    the control's (``moe_control.pt``), a share of the control's largest
+    over :data:`TP_TRAIN_MOMENT_REL`, as the ranks' are measured, printed
+    before the write."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import adamw_update
+    from repro_torch.optim.optimizer import _leaf_state
+
+    card = device.type == "cuda"
+    f32 = torch.float32
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(device)
+
+    t = time.perf_counter()
+    params = tree_map(lambda p: p.to(f32), tfm.lm_init(
+        cfg, torch.Generator(device).manual_seed(0)))
+    mu = tree_map(lambda p: {k: torch.zeros(p.shape, dtype=f32,
+                                            pin_memory=card)
+                             for k in ("m", "v")}, params)
+    step = torch.zeros((), dtype=torch.int32, device=device)
+    sync()
+    rec = {"init_s": time.perf_counter() - t, "losses": [], "step_ms": []}
+    if card:
+        torch.cuda.reset_peak_memory_stats(device)
+    wide = replace(cfg, dtype=f32)
+    for tokens, labels in batches:
+        sync()
+        t = time.perf_counter()
+        loss, grads = value_and_grad(tfm.lm_loss, params, wide,
+                                     tokens.to(device), labels.to(device))
+        for i, (name, p) in enumerate(tree_leaves(params)):
+            host = _leaf_state(mu, name)
+            leaf = {k: host[k].to(device, non_blocking=True)
+                    for k in ("m", "v")}
+            adamw_update({"w": p}, [grads[i]], {"step": step.clone(),
+                                                "mu": {"w": leaf}}, opt)
+            grads[i] = None
+            for k in ("m", "v"):
+                host[k].copy_(leaf[k], non_blocking=True)
+            del leaf
+        step += 1
+        sync()
+        rec["step_ms"].append(1e3 * (time.perf_counter() - t))
+        rec["losses"].append(float(loss))
+        del grads
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+        device) if card else None
+    t = time.perf_counter()
+    ctrl = torch.load(os.path.join(run_dir, "moe_control.pt"), mmap=True)
+    leaves = {}
+    for name, got in tree_leaves(mu):
+        w = _leaf_state(ctrl["state"]["mu"], name).to(device).float()
+        key = name.rsplit(".", 1)[1]
+        leaves[name] = float((got.to(device) - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30) / TP_TRAIN_MOMENT_REL[key]
+        del w
+    rec["control_losses"] = ctrl["losses"]
+    del ctrl
+    rec["leaves"] = leaves
+    rec["moment_worst_share"] = {
+        k: max(v for n, v in leaves.items() if n.endswith("." + k))
+        for k in ("m", "v")}
+    rec["compare_s"] = time.perf_counter() - t
+    emit({"phase": "tp_train_witness", **rec})
+    t = time.perf_counter()
+    torch.save({"state": {"step": step.cpu(),
+                          "mu": _on_host(mu, torch.bfloat16)},
+                "losses": rec["losses"]},
+               os.path.join(run_dir, "moe_witness.pt"))
+    rec["save_s"] = time.perf_counter() - t
+    del params, mu
+    if card:
+        free_card(device)
+    return rec
 
 
 def tp_train_moe_hold(run_dir: str, ranks: list) -> dict:
@@ -6103,6 +6283,7 @@ def main(argv: list) -> int:
     if argv[:1] == ["--gnn-source-child"]:
         sys.path.insert(0, str(ROOT / "src"))
         return gnn_source_child(*argv[1:])
+    global FAILED_CHECKS
     import torch
 
     if not torch.cuda.is_available():
@@ -6117,6 +6298,14 @@ def main(argv: list) -> int:
     card = card_line()
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    if argv[:1] == ["--tp-train-witness"]:
+        # the tp_train phase alone with DeepSeek-V3's float32 witness, its
+        # checks reported beside the readings, not raised
+        FAILED_CHECKS = []
+        phase_build()
+        phase_tp_train(device, tp_train_spec(witness=True))
+        emit({"phase": "failed_checks", "checks": FAILED_CHECKS})
+        return 1 if FAILED_CHECKS else 0
     phase_build()
     # the outofcore phase's two builds, each in a child process from here
     # on, beside the phases before that one

@@ -131,13 +131,22 @@ class _RowPartial(torch.autograd.Function):
         return gh, gw
 
 
+def _mm_f32(a, b):
+    """``a @ b`` written in float32 from operands in their own dtype: on
+    the card ``torch.mm``'s ``out_dtype`` form (bf16 on the tensor cores),
+    on the CPU the float32 product."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 class _Columns(torch.autograd.Function):
     """*f* and the column-parallel products ``x @ w`` of the ``ws`` that
     read ``x`` (the same on every rank): forward, the products in ``x``'s
     dtype; backward, each weight piece's gradient as autograd computes it
     and ``x``'s gradient as the products ``g @ w.T`` written in float32
-    (``torch.mm``'s ``out_dtype`` form), added, summed over the ranks and
-    rounded once to ``x``'s dtype."""
+    (:func:`_mm_f32`), added, summed over the ranks and rounded once to
+    ``x``'s dtype."""
 
     @staticmethod
     def forward(ctx, x, tp, *ws):
@@ -152,7 +161,7 @@ class _Columns(torch.autograd.Function):
         gx, gws = None, []
         for i, (w, g) in enumerate(zip(ws, grads)):
             g2 = g.reshape(-1, w.shape[-1])
-            part = torch.mm(g2, w.t(), out_dtype=torch.float32)
+            part = _mm_f32(g2, w.t())
             gx = part if gx is None else gx + part
             gws.append(x2.t().mm(g2) if ctx.needs_input_grad[2 + i]
                        else None)
@@ -197,13 +206,11 @@ class TensorParallel:
 
     def columns(self, x, *ws):
         """``x @ w`` for each column-parallel piece ``w`` that reads
-        ``x`` (the same on every rank): :meth:`copy_to` of ``x`` before
-        the products, or, on the card under autograd, :class:`_Columns`,
-        whose backward sums the float32 partials of ``x``'s gradient
-        before it rounds them."""
-        if x.is_cuda and _tracked(x):
+        ``x`` (the same on every rank); where autograd records ``x``,
+        :class:`_Columns`: *f* whose backward sums the float32 partials of
+        ``x``'s gradient before it rounds them."""
+        if _tracked(x):
             return _Columns.apply(x, self, *ws)
-        x = self.copy_to(x)
         return tuple(x @ w for w in ws)
 
     def gather(self, x):

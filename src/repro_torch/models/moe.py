@@ -118,7 +118,9 @@ def moe_apply(p, cfg, x, layer_idx=None, aux=None,
     ``aux``, a dict, receives the Switch load-balance term.  With ``tp``,
     ``p`` holds this rank's experts and pieces and the output is the sum
     over the ranks; with ``dp``, ``x`` is this rank's rows of a batch cut
-    over the batch axes (module doc)."""
+    over the batch axes (module doc).  ``aux["dropped"]`` is the count
+    of this rank's (token, expert) assignments past the capacity, over
+    every expert (an int64 tensor)."""
     m = cfg.moe
     B, S, E = x.shape
     T = B * S
@@ -147,6 +149,8 @@ def moe_apply(p, cfg, x, layer_idx=None, aux=None,
     else:
         C = moe_capacity(m, T)
         keep = pos < C
+    if aux is not None:  # this rank's tokens' assignments past C
+        aux["dropped"] = (~keep).sum()
     tok = order // k
     if tp is not None:  # this rank's experts, numbered from 0
         Xl = p["w_gate"].shape[0]

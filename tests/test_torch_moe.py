@@ -92,6 +92,21 @@ def test_moe_apply_matches_jax(arch, skew, cf, shape):
         assert _dropped(p, cfg, x) > 0
 
 
+@pytest.mark.parametrize("cf", [None, 0.5], ids=["published_cf", "cf0.5"])
+@pytest.mark.parametrize("skew", [False, True], ids=["random", "skewed"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_aux_counts_the_dropped_assignments(arch, skew, cf):
+    """``aux["dropped"]``: the (token, expert) assignments past each
+    expert's capacity, the count recomputed from the router."""
+    _, cfg = _configs(arch, cf)
+    _, p = _layer(_configs(arch, cf)[0], skew=skew)
+    x = _x((2, 64, cfg.d_model))
+    aux = {}
+    moe.moe_apply(p, cfg, torch.as_tensor(x), aux=aux)
+    assert aux["dropped"].dtype == torch.int64
+    assert int(aux["dropped"]) == _dropped(p, cfg, x)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_moe_aux_load_balance_matches_jax(arch):
     jcfg, cfg = _configs(arch, 0.5)

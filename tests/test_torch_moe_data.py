@@ -414,10 +414,22 @@ def test_skewed_prefill_drops_by_the_global_count(runs, layout):
     """Arctic's prefill with a skewed router: data rank 1 drops
     assignments that it would keep counting its own tokens alone, because
     rank 0's tokens of the same experts come first in the global order;
-    the ranks keep the one device's choice (their logits and routes).
+    the ranks keep the one device's choice (their logits and routes), and
+    the assignments that the ranks drop (``moe_apply``'s
+    ``aux["dropped"]``, summed over the data ranks; each model rank of a
+    data rank counts alike) are the one device's, a MoE call at a time.
     Fails with a rank's own capacity and no prefix."""
     name = f"{ARCTIC}|prefill|skewed"
-    _hold_serve(runs, layout, name)
+    recs = _hold_serve(runs, layout, name)
+    want = runs["one"][_layout_name(layout), name]["dropped"]
+    assert len(want) > 0 and min(want) > 0, want
+    for rec in recs:
+        peer = next(r for r in recs if r["coords"]["data"] ==
+                    rec["coords"]["data"] and r["coords"]["model"] == 0)
+        assert rec["dropped"] == peer["dropped"], rec["coords"]
+    firsts = [r for r in recs if r["coords"]["model"] == 0]
+    assert len(firsts) == layout[0]
+    assert [sum(d) for d in zip(*(r["dropped"] for r in firsts))] == want
     cfg = get_config(ARCTIC).reduced()
     X = cfg.moe.num_experts
     for e in runs["one"][_layout_name(layout), name]["routes"]:

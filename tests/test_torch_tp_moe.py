@@ -120,7 +120,7 @@ def _inputs(case: dict, seed: int) -> dict:
 
 def _one_device(params, case, x):
     """The one-device step's logits (each step), final caches, and the
-    routes of its MoE layers."""
+    routes of its MoE layers and the assignments each dropped."""
     b = steps.build_step(case["arch"], case["shape"], reduced=True)
     with _RouteSpy() as rs:
         if case["shape"] == "prefill_32k":
@@ -132,7 +132,7 @@ def _one_device(params, case, x):
                 lg, caches = b.fn(params, tok, caches)
                 logits.append(lg)
             out = {"logits": logits, "caches": caches}
-    out["routes"] = rs.routes
+    out["routes"], out["dropped"] = rs.routes, rs.dropped
     return out
 
 

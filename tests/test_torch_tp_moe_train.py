@@ -317,3 +317,39 @@ def test_skewed_router_drops_on_every_ranks_experts(runs, layout):
                     - moe_capacity(cfg.moe, e.shape[0])).clamp(min=0)
             assert all(int(over[r * X // M:(r + 1) * X // M].sum()) > 0
                        for r in range(M)), over
+
+
+class _OneRank:
+    """The collectives of a group of one rank: the sum is the input."""
+
+    @staticmethod
+    def all_reduce(x, op="sum"):
+        return x.clone()
+
+
+@pytest.mark.parametrize("widths", [(24, 8, 8), (40,)])
+def test_columns_under_autograd_sum_float32_partials(widths):
+    """``TensorParallel.columns`` under autograd (``layers._Columns``, a
+    group of one rank), the same code the card runs: the forward is each
+    ``x @ w`` bit for bit, each weight's gradient autograd's, and ``x``'s
+    gradient the products ``g @ w.T`` added (float32 here, as on the
+    card before the one rounding)."""
+    from repro_torch.models import layers
+
+    g = torch.Generator().manual_seed(len(widths))
+    x0 = torch.randn((2, 5, 16), generator=g)
+    ws0 = [torch.randn((16, n), generator=g) for n in widths]
+    cots = [torch.randn((2, 5, n), generator=g) for n in widths]
+    tp = layers.TensorParallel(_OneRank(), 1, 0)
+    x = x0.clone().requires_grad_()
+    ws = [w.clone().requires_grad_() for w in ws0]
+    outs = tp.columns(x, *ws)
+    for y, w in zip(outs, ws0):
+        assert torch.equal(y.detach(), x0 @ w)
+    got = torch.autograd.grad(outs, [x, *ws], cots)
+    want_x = sum(c @ w.t() for c, w in zip(cots, ws0))
+    torch.testing.assert_close(got[0], want_x, rtol=1e-6, atol=1e-6)
+    auto = torch.autograd.grad([x0 @ w for w in ws], ws, cots)
+    for a, b in zip(got[1:], auto):
+        assert torch.equal(a, b)
+    assert all(y.grad_fn is None for y in tp.columns(x0, *ws0))

@@ -503,15 +503,16 @@ def card_mind_train_case(out_dir: str) -> None:
 class _RouteSpy:
     """Records each ``moe_apply`` call of the transformer: its input (the
     tensor every model rank must hold alike), the top-k expert ids it
-    routes that input to, computed as ``moe_apply`` computes them, and the
+    routes that input to, computed as ``moe_apply`` computes them, the
     batch split it was given (``(size, index, rows)`` of its ``dp``, or
-    None)."""
+    None) and the assignments it dropped (``aux["dropped"]``: this rank's
+    tokens' assignments past the capacity, over every expert)."""
 
     def __init__(self):
         from repro_torch.models import transformer
 
         self.module, self.inputs, self.routes = transformer, [], []
-        self.splits = []
+        self.splits, self.dropped = [], []
         self._orig = transformer.moe_apply
 
     def __enter__(self):
@@ -525,7 +526,10 @@ class _RouteSpy:
             dp = kw.get("dp")
             self.splits.append(None if dp is None
                                else (dp.size, dp.index, dp.rows))
-            return self._orig(p, cfg, x, *a, **kw)
+            aux = {}
+            out = self._orig(p, cfg, x, *a, aux=aux, **kw)
+            self.dropped.append(int(aux["dropped"]))
+            return out
 
         self.module.moe_apply = spy
         return self
@@ -610,7 +614,7 @@ def _serve_case(mesh, case: dict, args: dict, params_dir: str,
     rec["gathers"], rec["weight_gathers"] = spy.calls, spy.of_weights
     rec["gathered_weights"] = spy.names
     rec["moe_inputs"], rec["routes"] = rs.inputs, rs.routes
-    rec["splits"] = rs.splits
+    rec["splits"], rec["dropped"] = rs.splits, rs.dropped
     return rec
 
 
