@@ -547,19 +547,20 @@ TP_TRAIN_MOE = ((2, 1), 32, (1, 4096))
 #: parameter to bf16 once a step); the LM's limit, 2 x lr a step plus two
 #: bf16 steps, read 1.0037 on one of DeepSeek-V3's (an H100)
 TP_TRAIN_MOE_MOVE = 1.001
-#: the MoE model's float32 moments against the control's: shares of
-#: their leaf's largest, as far as a float32 run of the same case sits
-#: from the bf16 control (chip_smoke.py --tp-train-witness, an H100 at
-#: 700 W): its largest m and v read 0.4201 (lm_head) and 0.4049 of their
-#: leaf's largest, and most leaves sit past TP_TRAIN_MOMENT_REL from it
-#: (MTP's logits are not normed, loss ~84: a bf16 step flips near-tied
-#: logits, and 0.46% of the positions take other experts), while the
-#: ranks sat 0.26-0.28 (m) and 0.21-0.29 (v) from the control and
-#: 0.41-0.44 and 0.28-0.38 from the float32 run: as far from it as the
-#: control.  The reduced config holds every moment within 1e-5 of one
-#: device in float32 (tests/test_torch_tp_moe_train.py, the card's
-#: test_moe_train_step_over_model_on_the_card)
-TP_TRAIN_MOE_MOMENT_REL = {"m": 0.43, "v": 0.41}
+#: the MoE model's float32 moments against the control's: the norm of a
+#: leaf's difference over the norm of the control's leaf.  Its largest
+#: element cannot be held: MTP's logits are not normed (loss ~84), so a
+#: bf16 step flips near-tied logits and 0.46% of the positions take other
+#: experts, and an element fed by such a position moves by its own size.
+#: A float32 run of the same case sat 0.4201 (m) and 0.4049 (v) of a
+#: leaf's largest from the bf16 control, the ranks 0.26-0.48 over runs
+#: (chip_smoke.py --tp-train-witness; an H100 at 700 W).  The norm sees a
+#: fault in the gradient of a piece whole: one scaled by s moves m by
+#: |s - 1| and v by |s^2 - 1|, so a gradient doubled reads 1 and 3, one
+#: rank's half of it 0.5 and 0.75.  The reduced config holds every moment
+#: within 1e-5 of one device in float32 (tests/test_torch_tp_moe_train.py,
+#: the card's test_moe_train_step_over_model_on_the_card)
+TP_TRAIN_MOE_MOMENT_REL = {"m": 0.25, "v": 0.5}
 #: the least share of a MoE model's positions whose tokens take the
 #: control's experts in every MoE layer, over ranks (tp_train's step 0,
 #: tp_serve's prefill and decode)
@@ -5005,9 +5006,22 @@ def _on_host(tree, dtype=None):
     return (x if dtype is None else x.to(dtype)).to("cpu")
 
 
+def moment_distance(got, want) -> tuple:
+    """``got``'s distance from ``want`` (float32, on one device) as two
+    shares of ``want``: the largest element's difference over its largest
+    element, and the difference's norm over its norm."""
+    import torch
+
+    d = got - want
+    norm = torch.linalg.vector_norm
+    return (float(d.abs().max()) / max(float(want.abs().max()), 1e-30),
+            float(norm(d)) / max(float(norm(want)), 1e-30))
+
+
 def lm_pieces_hold(b, params, state, control: dict, steps: int,
                    bf16_steps: int = 2, move: float = 1.0,
                    moment_rel: dict = TP_TRAIN_MOMENT_REL,
+                   moment_norm: bool = False,
                    leaves: dict | None = None) -> dict:
     """This rank's LM parameter and float32 moment pieces against the
     one-device control's (``control``: its whole params and AdamW state,
@@ -5015,9 +5029,11 @@ def lm_pieces_hold(b, params, state, control: dict, steps: int,
     move x lr`` a step (``move``: AdamW's largest step in units of lr)
     plus ``bf16_steps`` bf16 steps of its size (``param_worst_share``: the
     largest error over its limit), how many elements differ at all; each
-    moment off the control's by a share of its leaf's largest, over
-    ``moment_rel`` (each leaf's in ``leaves``, if given).  A ``control``
-    without ``params`` (a witness run's) holds the moments alone."""
+    moment off the control's by a share of its leaf's largest (of its
+    norm with ``moment_norm``), over ``moment_rel``; both shares of every
+    leaf in ``leaves``, if given, and each's largest over the leaves in
+    ``moment_shares``.  A ``control`` without ``params`` (a witness
+    run's) holds the moments alone."""
     from repro_torch.launch.steps import _piece, _zip_map
     from repro_torch.models.params import tree_leaves
 
@@ -5039,21 +5055,22 @@ def lm_pieces_hold(b, params, state, control: dict, steps: int,
         unequal += int((err > 0).sum())
         elements += err.numel()
         del g, w, err, lim
-    moments = {}
+    moments, shares = {}, {}
     for (name, got), (_, w) in zip(tree_leaves(state["mu"]),
                                    tree_leaves(want_s["mu"])):
-        w = w.to(got.device).float()
         leaf, key = name.rsplit(".", 1)
-        share = float((got.float() - w).abs().max()) / max(
-            float(w.abs().max()), 1e-30) / moment_rel[key]
+        both = moment_distance(got.float(), w.to(got.device).float())
+        share = both[moment_norm] / moment_rel[key]
         if leaves is not None:
-            leaves[name] = share
+            leaves[name] = both
+        for kind, x in zip(("largest", "norm"), both):
+            shares[f"{key}_of_{kind}"] = max(
+                shares.get(f"{key}_of_{kind}", 0.0), x)
         if share > moments.get(key, 0.0):
             moments[key], where[key] = share, leaf
-        del w
     return {"param_worst_share": worst, "params_unequal": unequal,
             "param_elements": elements, "moment_worst_share": moments,
-            "worst_leaves": where}
+            "moment_shares": shares, "worst_leaves": where}
 
 
 def whole_leaf_digests(b, params) -> dict:
@@ -5183,7 +5200,8 @@ def tp_train_rank(run_dir: str, device_type: str) -> None:
         ctrl = torch.load(path, mmap=True)
         hold = {} if not routes else {"bf16_steps": len(batches),
                                       "move": TP_TRAIN_MOE_MOVE,
-                                      "moment_rel": TP_TRAIN_MOE_MOMENT_REL}
+                                      "moment_rel": TP_TRAIN_MOE_MOMENT_REL,
+                                      "moment_norm": True}
         witness = routes and spec["moe"].get("witness")
         leaves = {} if witness else None
         out.update(lm_pieces_hold(b, params, state, ctrl, len(batches),
@@ -5367,7 +5385,7 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
                           "moe_params": "2 x TP_TRAIN_MOE_MOVE x lr a step "
                                         "+ a bf16 step a step",
                           "lm_moments_of_largest": TP_TRAIN_MOMENT_REL,
-                          "moe_moments_of_largest": TP_TRAIN_MOE_MOMENT_REL,
+                          "moe_moments_of_norm": TP_TRAIN_MOE_MOMENT_REL,
                           "mind_loss": TP_TRAIN_MIND_TOL,
                           "moe_positions_routed_alike": MOE_HELD_SHARE,
                           "moe_step0_loss_rel": TRAIN_MOE_LOSS_REL},
@@ -5525,9 +5543,9 @@ def tp_train_witness(device, cfg, batches, opt, run_dir: str) -> dict:
     them would not fit).  Writes its state as the control's
     (``moe_witness.pt``: its bf16 moments) and returns its losses,
     step times, peak device memory and each moment leaf's distance from
-    the control's (``moe_control.pt``), a share of the control's largest
-    over :data:`TP_TRAIN_MOMENT_REL`, as the ranks' are measured, printed
-    before the write."""
+    the control's (``moe_control.pt``), both shares of
+    :func:`moment_distance` as the ranks' are measured, printed before the
+    write."""
     from dataclasses import replace
 
     import torch
@@ -5581,19 +5599,16 @@ def tp_train_witness(device, cfg, batches, opt, run_dir: str) -> dict:
         device) if card else None
     t = time.perf_counter()
     ctrl = torch.load(os.path.join(run_dir, "moe_control.pt"), mmap=True)
-    leaves = {}
-    for name, got in tree_leaves(mu):
-        w = _leaf_state(ctrl["state"]["mu"], name).to(device).float()
-        key = name.rsplit(".", 1)[1]
-        leaves[name] = float((got.to(device) - w).abs().max()) / max(
-            float(w.abs().max()), 1e-30) / TP_TRAIN_MOMENT_REL[key]
-        del w
+    leaves = {name: moment_distance(got.to(device), _leaf_state(
+        ctrl["state"]["mu"], name).to(device).float())
+        for name, got in tree_leaves(mu)}
     rec["control_losses"] = ctrl["losses"]
     del ctrl
     rec["leaves"] = leaves
-    rec["moment_worst_share"] = {
-        k: max(v for n, v in leaves.items() if n.endswith("." + k))
-        for k in ("m", "v")}
+    rec["moment_shares"] = {
+        f"{k}_of_{kind}": max(v[i] for n, v in leaves.items()
+                              if n.endswith("." + k))
+        for k in ("m", "v") for i, kind in enumerate(("largest", "norm"))}
     rec["compare_s"] = time.perf_counter() - t
     emit({"phase": "tp_train_witness", **rec})
     t = time.perf_counter()
