@@ -447,6 +447,22 @@ TP_SERVE_BULK = 16_384
 #: call: each call joins a rank's 5.6 GB of expert pieces through the host
 #: (~20 s of gloo on one card), which dwarfs a first call's set-up
 TP_SERVE_MOE = {"deepseek-v3-671b": ((2, 1), (2, 2048), 4)}
+#: tp_serve's train case, after the serving cases in the same rank start:
+#: Qwen3-0.6B's train_4k at full width (d_model 1,024), 28 layers cut to
+#: TP_SERVE_TRAIN_LAYERS and 256 x 4,096 tokens to TP_SERVE_TRAIN_LM (a row
+#: a data rank, one microbatch), AdamW at TRAIN_LR, ZeRO-1 as the reference
+#: places it: TP_SERVE_TRAIN_STEPS["float32"] steps with float32 moments (a
+#: rank's embed slice of its model piece), then ["int8"] steps with int8
+#: moments forced (a rank's range of blocks) at eps TP_SERVE_TRAIN_EPS, as
+#: tests/test_torch_tp_train.py's EPS (the reference's codec at eps 1e-8
+#: turns a decoded v of 0 into a blow-up).  Each run is held to a
+#: one-device control at the same depth, batch and seed by tp_train's
+#: limits (TP_TRAIN_LOSS_REL, the parameters', TP_TRAIN_MOMENT_REL), and
+#: each rank's moment bytes to its placement's share exactly
+TP_SERVE_TRAIN_LAYERS = 2
+TP_SERVE_TRAIN_LM = (2, 4096)
+TP_SERVE_TRAIN_STEPS = {"float32": 3, "int8": 2}
+TP_SERVE_TRAIN_EPS = 1e-4
 #: the one-device control's retrieval keeps one more than the top 100, so
 #: that _retrieval_agrees can tell which neighbours are apart
 _TOP_K_HELD = 101
@@ -4311,8 +4327,9 @@ def tp_serve_rank(run_dir: str, device_type: str) -> None:
     (:func:`tp_model_rank`: this rank's rows of each batch, its pieces
     drawn leaf by leaf).  MIND: its rows over model, each cell's batch cut
     to this rank's, the step timed and its joined output held to the
-    control's.  The kernels' launches counted from 0 around each run, the
-    collectives timed.  Writes ``rank<r>.json``."""
+    control's.  Then the train case (:func:`tp_serve_train_rank`).  The
+    kernels' launches counted from 0 around each run, the collectives
+    timed.  Writes ``rank<r>.json``."""
     from dataclasses import replace
 
     import torch
@@ -4452,17 +4469,291 @@ def tp_serve_rank(run_dir: str, device_type: str) -> None:
         ebk.raise_bad_index(device)
         rec["mind_max_memory_allocated"] = torch.cuda.max_memory_allocated(
             device) if card else None
+        del params, local
+    if card:
+        free_card(device)
+    # ---- Qwen3-0.6B training: ZeRO-1 over data, Megatron over model
+    if spec.get("train"):
+        rec["train"] = tp_serve_train_rank(device, mesh, spec, run_dir,
+                                           collectives, sync)
     with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
 
 
+def tp_serve_train_build(spec: dict, kind: str, mesh=None) -> tuple:
+    """``(cfg, bundle, batches)`` of tp_serve's train case with ``kind``
+    ("float32" or "int8") moments on ``mesh`` (None: one device): the LM
+    cut to ``spec["train"]``'s layers, its train step on the cut ``lm``
+    (B, S) avals (one microbatch), one ``TokenSource`` batch a step (seed
+    0, host tensors)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenSource
+    from repro_torch.launch import steps
+
+    t = spec["train"]
+    cfg = get_config(t["arch"])
+    if spec["reduced"]:
+        cfg = cfg.reduced()
+    cfg = replace(cfg, n_layers=t["layers"])
+    q8 = kind == "int8"
+    opt = steps.default_opt(cfg, quantize_moments=q8, lr=t["lr"],
+                            **({"eps": t["eps"]} if q8 else {}))
+    B, S = t["lm"]
+    avals = {k: ((B, S), torch.int32) for k in ("tokens", "labels")}
+    b = steps._build_lm(cfg, "train_4k", "train", avals, mesh, opt, False)
+    tok = TokenSource(B, S, cfg.vocab, seed=0)
+    batches = [tuple(torch.as_tensor(tok(i)[k]) for k in ("tokens", "labels"))
+               for i in range(t["steps"][kind])]
+    return cfg, b, batches
+
+
+def local_state(b, device) -> dict:
+    """This rank's pieces of fresh AdamW state for ``b``'s parameters, as
+    ``b.in_shardings[1]`` places them (ZeRO-1): each leaf's moments made
+    whole and cut at once."""
+    import torch
+
+    from repro_torch.launch.steps import _piece, _zip_map
+    from repro_torch.optim import adamw_init
+
+    opt = b.static["opt"]
+
+    def one(spec, sh):
+        whole = adamw_init({"w": torch.empty(spec.shape, dtype=spec.dtype,
+                                             device=device)}, opt)["mu"]["w"]
+        return {k: _piece(v, sh[k]) for k, v in whole.items()}
+
+    return {"step": torch.zeros((), dtype=torch.int32, device=device),
+            "mu": _zip_map(one, b.static["pspecs"], b.in_shardings[1]["mu"])}
+
+
+def share_sizes(b) -> tuple:
+    """``(bytes, limits)`` of this rank's ZeRO-1 share of ``b``'s moments
+    (``in_shardings[1]``): the bytes of its pieces, and leaf name -> the
+    most elements a moment tensor of its share may hold in the update (its
+    float32 moments' piece, or its range of int8 blocks and one block's
+    padding)."""
+    from repro_torch.models.params import tree_leaves
+
+    sh = dict(tree_leaves(b.in_shardings[1]["mu"]))
+    nbytes, limits = 0, {}
+    for name, (shape, dtype) in tree_leaves(b.args[1]["mu"]):
+        leaf, key = name.rsplit(".", 1)
+        n = int(np.prod(shape)) // sh[name].frac
+        nbytes += n * dtype.itemsize
+        if key == "m":
+            limits[leaf] = n
+        elif key == "m_q":
+            limits[leaf] = n + shape[1]
+    return nbytes, limits
+
+
+@contextlib.contextmanager
+def recorded_moments(state):
+    """Leaf name -> the most elements of a moment tensor formed in
+    ``optim.adamw_update`` while the block runs (what ``q8_decode``
+    returns, what ``q8_encode`` is given, the float32 m and v it
+    updates), for the leaves of ``state``'s moments."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import optimizer as opt
+
+    leaf_of = {t.untyped_storage().data_ptr(): n.rsplit(".", 1)[0]
+               for n, t in tree_leaves(state["mu"])}
+    seen, now = {}, [None]
+    orig = {k: getattr(opt, k)
+            for k in ("_update_leaf", "q8_decode", "q8_encode")}
+
+    def note(*xs):
+        seen[now[0]] = max(seen.get(now[0], 0), *(x.numel() for x in xs))
+
+    def update_leaf(p, g, mu, *a, **kw):
+        now[0] = leaf_of.get(next(iter(mu.values())).untyped_storage()
+                             .data_ptr())
+        if "m" in mu:  # float32 moments: updated as they are
+            note(mu["m"], mu["v"])
+        return orig["_update_leaf"](p, g, mu, *a, **kw)
+
+    def decode(*a, **kw):
+        out = orig["q8_decode"](*a, **kw)
+        note(out)
+        return out
+
+    def encode(x, *a, **kw):
+        note(x)
+        return orig["q8_encode"](x, *a, **kw)
+
+    opt._update_leaf = update_leaf
+    opt.q8_decode, opt.q8_encode = decode, encode
+    try:
+        yield seen
+    finally:
+        for k, f in orig.items():
+            setattr(opt, k, f)
+
+
+def tp_serve_train_control(device, spec: dict, out_dir: str) -> dict:
+    """The one-device control of tp_serve's train case, each moment kind
+    in turn: the whole weights drawn from seed 0, fresh AdamW state, the
+    steps timed; the state saved as ``train_<kind>_control.pt`` (float32
+    moments in bf16, int8 ones as they are), freed before the next."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+
+    card = device.type == "cuda"
+    recs = {}
+    for kind in spec["train"]["steps"]:
+        cfg, b, batches = tp_serve_train_build(spec, kind)
+        params = tfm.lm_init(cfg, torch.Generator(device).manual_seed(0))
+        state = adamw_init(params, b.static["opt"])
+        if card:
+            torch.cuda.reset_peak_memory_stats(device)
+        rec = {"losses": [], "step_ms": []}
+        for tokens, labels in batches:
+            if card:
+                torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            params, state, loss = b.fn(params, state, tokens.to(device),
+                                       labels.to(device))
+            rec["losses"].append(float(loss))
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t))
+            check(np.isfinite(rec["losses"][-1]),
+                  f"tp_serve train control {kind}: loss {loss}")
+        rec.update(ms_per_step=float(np.mean(rec["step_ms"][1:])),
+                   max_memory_allocated=torch.cuda.max_memory_allocated(
+                       device) if card else None)
+        save_lm_state(params, state, rec["losses"],
+                      os.path.join(out_dir, f"train_{kind}_control.pt"),
+                      torch.bfloat16 if kind == "float32" else None)
+        recs[kind] = rec
+        del params, state
+        if card:
+            free_card(device)
+    return recs
+
+
+def tp_serve_train_rank(device, mesh, spec: dict, run_dir: str,
+                        collectives, sync) -> dict:
+    """tp_serve's train case on this rank, each moment kind in turn: its
+    pieces of the seeded weights drawn leaf by leaf and its ZeRO-1 share
+    of fresh AdamW state (:func:`local_state`), the steps through the mesh
+    step on its row of each batch, each timed with its collectives, the
+    moment tensors the update formed recorded (:func:`recorded_moments`);
+    then its pieces held to the control's (:func:`lm_pieces_hold`), and
+    its moment bytes and largest moment tensor beside its share
+    (:func:`share_sizes`)."""
+    import torch
+
+    from repro_torch.launch.steps import local_args, local_init
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import tree_leaves
+
+    card = device.type == "cuda"
+    out = {}
+    for kind in spec["train"]["steps"]:
+        cfg, b, batches = tp_serve_train_build(spec, kind, mesh)
+        t = time.perf_counter()
+        params = local_init(tfm.lm_param_specs(cfg), b.in_shardings[0],
+                            torch.Generator(device).manual_seed(0))
+        state = local_state(b, device)
+        sync()
+        share_bytes, limits = share_sizes(b)
+        r = {"init_s": time.perf_counter() - t, "share_bytes": share_bytes,
+             "moment_bytes": sum(x.numel() * x.element_size()
+                                 for _, x in tree_leaves(state["mu"])),
+             "losses": [], "step_ms": [], "collective_ms": [],
+             "collective_bytes": []}
+        if card:
+            free_card(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        largest = {}
+        for tokens, labels in batches:
+            tokens, labels = local_args(b, None, None, tokens.to(device),
+                                        labels.to(device))[2:]
+            collectives()
+            sync()
+            t = time.perf_counter()
+            with recorded_moments(state) as seen:
+                params, state, loss = b.fn(params, state, tokens, labels)
+            sync()
+            r["step_ms"].append(1e3 * (time.perf_counter() - t))
+            c = collectives()
+            r["collective_ms"].append(1e3 * c["s"])
+            r["collective_bytes"].append(c["bytes"])
+            r["losses"].append(float(loss))
+            for leaf, n in seen.items():
+                largest[leaf] = max(largest.get(leaf, 0), n)
+        steady = r["step_ms"][1:] or r["step_ms"]
+        worst = max(largest, key=lambda n: largest[n] / limits[n])
+        r.update(ms_per_step=float(np.mean(steady)),
+                 collective_share=float(np.sum(r["collective_ms"][1:]) /
+                                        np.sum(steady)),
+                 max_memory_allocated=torch.cuda.max_memory_allocated(device)
+                 if card else None,
+                 largest_moment={"leaf": worst, "elements": largest[worst],
+                                 "share_limit": limits[worst],
+                                 "bytes_float32": 4 * largest[worst]},
+                 leaves_updated=sorted(largest) == sorted(limits),
+                 over_share={n: [k, limits[n]] for n, k in largest.items()
+                             if k > limits[n]})
+        t = time.perf_counter()
+        ctrl = torch.load(os.path.join(run_dir, f"train_{kind}_control.pt"),
+                          mmap=True)
+        r.update(lm_pieces_hold(b, params, state, ctrl, len(batches)))
+        r.update(control_losses=ctrl["losses"],
+                 compare_s=time.perf_counter() - t)
+        del ctrl, params, state
+        if card:
+            free_card(device)
+        out[kind] = r
+    return out
+
+
+def check_tp_serve_train(ranks: list, one: dict) -> None:
+    """tp_serve's train case on every rank against the control: each
+    step's loss within :data:`TP_TRAIN_LOSS_REL`, the parameters and
+    moments within tp_train's limits, the moment bytes the placement's
+    share exactly, no moment tensor past the share and every leaf
+    updated."""
+    for rank, r in enumerate(ranks):
+        for kind, got in r["train"].items():
+            what = f"tp_serve rank {rank} train ({kind} moments)"
+            for i, (loss, want) in enumerate(zip(got["losses"],
+                                                 one[kind]["losses"])):
+                check(abs(loss - want) <= TP_TRAIN_LOSS_REL * abs(want),
+                      f"{what}: step {i + 1} loss {loss} against the "
+                      f"control's {want}")
+            check(got["param_worst_share"] <= 1.0, f"{what}: a parameter "
+                  f"off the control's by {got['param_worst_share']} x its "
+                  "limit")
+            for name, share in got["moment_worst_share"].items():
+                check(share <= 1.0, f"{what}: moment {name} off the "
+                      f"control's by {share} x its limit")
+            check(got["moment_bytes"] == got["share_bytes"],
+                  f"{what}: holds {got['moment_bytes']} bytes of moments, "
+                  f"its share is {got['share_bytes']}")
+            check(not got["over_share"] and got["leaves_updated"],
+                  f"{what}: moment tensors past the share "
+                  f"{got['over_share']}")
+
+
 def tp_serve_spec() -> dict:
     """The tp_serve phase at full width; its MoE models' part in lm_tp's
-    form (:data:`TP_SERVE_MOE`)."""
+    form (:data:`TP_SERVE_MOE`), its train case
+    (:data:`TP_SERVE_TRAIN_LAYERS`)."""
     return {"arch": "qwen3-0.6b", "reduced": False,
             "layers": TP_SERVE_LAYERS, "mesh": list(TP_SERVE_MESH),
             "T": LONG_T, "len0": TP_SERVE_LEN0, "steps": TP_SERVE_STEPS,
             "p99": 512, "bulk": TP_SERVE_BULK,
+            "train": {"arch": "qwen3-0.6b", "layers": TP_SERVE_TRAIN_LAYERS,
+                      "lm": list(TP_SERVE_TRAIN_LM),
+                      "steps": dict(TP_SERVE_TRAIN_STEPS), "lr": TRAIN_LR,
+                      "eps": TP_SERVE_TRAIN_EPS},
             "moe": {"reduced": False, "mesh": list(TP_SERVE_MESH),
                     "slots": LM_SLOTS, "T": TP_T, "len0": TP_LEN0,
                     "long": [LONG_T, TP_LONG_LEN0],
@@ -4486,8 +4777,9 @@ def phase_tp_serve(device, spec: dict | None = None) -> dict:
     models held as lm_tp holds them (:func:`check_tp`, at least
     :data:`MOE_HELD_SHARE` of the positions routed as the control's, each
     rank's rows of the batch), their dropped assignments counted
-    (:func:`moe_drops`).  Returns the kernels' launches summed over the
-    ranks."""
+    (:func:`moe_drops`); the train case, its control after the MoE
+    models', by :func:`check_tp_serve_train`.  Returns the kernels'
+    launches summed over the ranks."""
     import torch
 
     from repro_torch.launch.ranks import run_ranks
@@ -4513,6 +4805,10 @@ def phase_tp_serve(device, spec: dict | None = None) -> dict:
         out["reduced"]["moe"] = {
             arch: tp_reduced(*tp_model(arch, spec["moe"]), spec["moe"], m)
             for arch, m in spec["moe"]["models"].items()}
+    if spec.get("train"):
+        out["reduced"]["train"] = {
+            "train_4k (B, S)": [[256, 4096], spec["train"]["lm"]],
+            "train_4k layers": [28, spec["train"]["layers"]]}
     t = time.perf_counter()
     ref, one = {}, {}
     with torch.inference_mode():
@@ -4565,6 +4861,8 @@ def phase_tp_serve(device, spec: dict | None = None) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         if spec.get("moe"):
             one["moe"] = tp_control(device, spec["moe"], tmp)
+        if spec.get("train"):
+            one["train"] = tp_serve_train_control(device, spec, tmp)
         out["one_device"] = {**one, "wall_s": time.perf_counter() - t}
         torch.save(ref, os.path.join(tmp, "ref.pt"))
         with open(os.path.join(tmp, "spec.json"), "w") as f:
@@ -4602,6 +4900,8 @@ def phase_tp_serve(device, spec: dict | None = None) -> dict:
             # MLA's latent decode runs no kernel: no launch to add
             check_tp(spec["moe"], tmp, ranks, "tp_serve", MOE_HELD_SHARE)
             out["moe_drops"] = moe_drops(spec["moe"], tmp, ranks)
+        if spec.get("train"):
+            check_tp_serve_train(ranks, one["train"])
     out.update(ranks=ranks, launches=total)
     emit(out)
     return total
@@ -5023,9 +5323,11 @@ def lm_pieces_hold(b, params, state, control: dict, steps: int,
                    moment_rel: dict = TP_TRAIN_MOMENT_REL,
                    moment_norm: bool = False,
                    leaves: dict | None = None) -> dict:
-    """This rank's LM parameter and float32 moment pieces against the
-    one-device control's (``control``: its whole params and AdamW state,
-    memmapped), cut by ``b``'s placements: each parameter within ``2 x
+    """This rank's LM parameter and moment pieces against the one-device
+    control's (``control``: its whole params and AdamW state, memmapped),
+    cut by ``b``'s placements (int8 moments decoded block by block, the
+    rank's blocks against the same blocks of the control's): each
+    parameter within ``2 x
     move x lr`` a step (``move``: AdamW's largest step in units of lr)
     plus ``bf16_steps`` bf16 steps of its size (``param_worst_share``: the
     largest error over its limit), how many elements differ at all; each
@@ -5056,10 +5358,17 @@ def lm_pieces_hold(b, params, state, control: dict, steps: int,
         elements += err.numel()
         del g, w, err, lim
     moments, shares = {}, {}
-    for (name, got), (_, w) in zip(tree_leaves(state["mu"]),
-                                   tree_leaves(want_s["mu"])):
+    got_mu, want_mu = (dict(tree_leaves(t["mu"])) for t in (state, want_s))
+    for name, got in got_mu.items():
         leaf, key = name.rsplit(".", 1)
-        both = moment_distance(got.float(), w.to(got.device).float())
+        if key.endswith("_s"):
+            continue
+        w = want_mu[name].to(got.device).float()
+        if key.endswith("_q"):  # int8 blocks, each by its scale
+            key, scale = key[0], f"{leaf}.{key[0]}_s"
+            got = got.float() * got_mu[scale][:, None]
+            w = w * want_mu[scale].to(got.device).float()[:, None]
+        both = moment_distance(got.float(), w)
         share = both[moment_norm] / moment_rel[key]
         if leaves is not None:
             leaves[name] = both
@@ -5071,6 +5380,35 @@ def lm_pieces_hold(b, params, state, control: dict, steps: int,
     return {"param_worst_share": worst, "params_unequal": unequal,
             "param_elements": elements, "moment_worst_share": moments,
             "moment_shares": shares, "worst_leaves": where}
+
+
+def save_lm_state(params, state, losses, path, mu_dtype=None,
+                  background=None, **extra):
+    """An LM's state copied to the host (its moments in ``mu_dtype``, if
+    given), then written to ``path`` (under another name first); with
+    ``background`` (a dict) the writing runs in a thread, its seconds into
+    ``background["write_s"]``.  ``params`` None: the moments alone."""
+    import torch
+
+    tree = {"state": {"step": state["step"].cpu(),
+                      "mu": _on_host(state["mu"], mu_dtype)},
+            "losses": losses, **extra}
+    if params is not None:
+        tree["params"] = _on_host(params)
+
+    def write():
+        t = time.perf_counter()
+        torch.save(tree, path + ".part")
+        os.replace(path + ".part", path)
+        if background is not None:
+            background["write_s"] = time.perf_counter() - t
+
+    if background is None:
+        write()
+        return None
+    thread = threading.Thread(target=write)
+    thread.start()
+    return thread
 
 
 def whole_leaf_digests(b, params) -> dict:
@@ -5350,32 +5688,6 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
         return params, state, {"losses": losses, "step_ms": ms,
                                "ms_per_step": float(np.mean(ms[1:] or ms))}
 
-    def save_lm(params, state, losses, path, mu_dtype=None,
-                background=None, **extra):
-        """The state copied to the host, then written to ``path`` (under
-        another name first); with ``background`` (a dict) the writing
-        runs in a thread, its seconds into ``background["write_s"]``.
-        ``params`` None: the moments alone."""
-        tree = {"state": {"step": state["step"].cpu(),
-                          "mu": _on_host(state["mu"], mu_dtype)},
-                "losses": losses, **extra}
-        if params is not None:
-            tree["params"] = _on_host(params)
-
-        def write():
-            t = time.perf_counter()
-            torch.save(tree, path + ".part")
-            os.replace(path + ".part", path)
-            if background is not None:
-                background["write_s"] = time.perf_counter() - t
-
-        if background is None:
-            write()
-            return None
-        thread = threading.Thread(target=write)
-        thread.start()
-        return thread
-
     if card:
         free_card(device)
     lcfg, mcfg, lm_batches, mind_batches = tp_train_inputs(spec)
@@ -5418,8 +5730,8 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
         t0 = time.perf_counter()
         # the moments in bf16 (2.25 GB saved, not 3.75): a rounding of at
         # most 2^-9 of a value, against limits of 5% / 10% of the largest
-        save_lm(params, state, one["lm"]["losses"],
-                os.path.join(tmp, "lm_control.pt"), torch.bfloat16)
+        save_lm_state(params, state, one["lm"]["losses"],
+                      os.path.join(tmp, "lm_control.pt"), torch.bfloat16)
         one["lm"]["save_s"] = time.perf_counter() - t0
         del params, state
         if card:
@@ -5464,10 +5776,10 @@ def phase_tp_train(device, spec: dict | None = None) -> tuple:
             t0 = time.perf_counter()
             # a witness run keeps the moments alone: two whole states
             # beside each other would write ~55 GB to the disk
-            saving = save_lm(None if spec["moe"].get("witness") else params,
-                             state, one["moe"]["losses"],
-                             os.path.join(tmp, "moe_control.pt"),
-                             torch.bfloat16, one["moe"], routes=routes)
+            saving = save_lm_state(
+                None if spec["moe"].get("witness") else params, state,
+                one["moe"]["losses"], os.path.join(tmp, "moe_control.pt"),
+                torch.bfloat16, one["moe"], routes=routes)
             one["moe"]["host_copy_s"] = time.perf_counter() - t0
             del params, state, args
             if card:

@@ -23,12 +23,16 @@ default, git-ignored):
   chip's share is the total over the mesh's chips.  The core-graph
   superstep has no matmul: 0;
 * **collective bytes**, a model from the placements, where the reference
-  read its compiled HLO: the data-parallel gradient all-reduce of a train
-  step (2 x its float32 gradient bytes a chip x (k - 1) / k over k batch
-  shards, a ring), and the core-graph superstep's all-gather of the
-  ``n x 4 B`` core plus its 4 B frontier count.  Tensor-parallel
-  collectives (not ported) and the GNN's all-reduced edge sums are not
-  modelled;
+  read its compiled HLO: for an LM or MIND train step over k > 1 batch
+  shards, the data-parallel gradient all-reduce (2 x its float32
+  gradient bytes a chip x (k - 1) / k, a ring) and the all-gather that
+  rebuilds each parameter from the ranks' ZeRO-1 updates ((k - 1) / k of
+  the parameter's bytes a chip, whole over the batch axes: every leaf with
+  int8 moments, and with float32 moments every leaf replicated over the
+  batch axes whose moments are cut there); the core-graph superstep's
+  all-gather of the ``n x 4 B`` core plus its 4 B frontier count.
+  Tensor-parallel collectives, the experts' embed pieces joined for the
+  forward and the GNN's all-reduced edge sums are not modelled;
 * **roofline** against the H100 SXM data-sheet peaks at 700 W: 989 TFLOP/s
   dense bf16, 3.35 TB/s HBM, 450 GB/s NVLink each way.
 """
@@ -46,6 +50,7 @@ import torch
 
 from ..configs import ARCH_IDS, get_config
 from ..configs.shapes import SHAPES_BY_KIND, shape_names
+from ..models.params import tree_leaves
 from .mesh import make_production_mesh
 from .steps import _zip_map, build_step
 
@@ -191,12 +196,23 @@ def collective_bytes(bundle, mesh, cfg) -> dict:
         out["all-gather"] = float(cfg.n * 4)
         out["all-reduce"] = 4.0
     elif bundle.name == "train_step" and cfg.kind in ("lm", "recsys"):
-        k = mesh.axis_size(tuple(a for a in mesh.axis_names
-                                 if a != "model"))
-        grad = sum(prod(shape) * 4 / s.frac
-                   for (shape, _), s in _pairs(bundle.args[0],
-                                               bundle.in_shardings[0]))
+        ba = tuple(a for a in mesh.axis_names if a != "model")
+        k = mesh.axis_size(ba)
+        q8 = bundle.static["opt"].quantize_moments
+        m_sh = dict(tree_leaves(bundle.in_shardings[1]["mu"]))
+        grad = gathered = 0.0
+        for (name, (shape, dt)), (_, p) in zip(
+                tree_leaves(bundle.args[0]),
+                tree_leaves(bundle.in_shardings[0])):
+            grad += prod(shape) * 4 / p.frac
+            if q8 or m_sh[name + ".m"].frac > p.frac:
+                # the leaf whole over the batch axes, this chip's model piece
+                over_ba = prod(mesh.axis_size(p.dim_axes(d))
+                               for d in range(len(shape))
+                               if set(p.dim_axes(d)) <= set(ba))
+                gathered += prod(shape) * dt.itemsize / p.frac * over_ba
         out["all-reduce"] = 2.0 * grad * (k - 1) / k
+        out["all-gather"] = gathered * (k - 1) / k
     out["total"] = out["all-gather"] + out["all-reduce"]
     return out
 

@@ -45,22 +45,29 @@ host.  On any mesh:
 
 * LM and MIND train steps take each rank's batch slice, average the loss
   and the gradients over the batch axes' group before ``adamw_update``
-  (:func:`_train_ranks`); parameters and moments split over the batch
-  axes (ZeRO-1, experts) are gathered over those axes for the step and
-  cut again after it.  With more than one microbatch an LM rank's
-  microbatch ``i`` is its slice of the reference's microbatch ``i`` (the
-  int32 tokens and labels gathered over the batch axes, then cut), so a
-  MoE layer's drops come from the same tokens.  With a ``model`` axis of
-  M > 1 every weight split over ``model`` stays this rank's piece, never
-  gathered whole: the LMs' loss runs Megatron tensor parallelism with its
-  autograd-aware collectives and the vocab-parallel cross entropy
-  (``models.transformer.lm_loss(tp=)``: MoE experts, MLA's heads and MTP
-  included), MIND's rows its own (``models.recsys.mind_train_loss(tp=)``,
-  kernel #4 on a rank's row piece under autograd); the float32 moments
-  are the param's pieces, and the int8 moments, whose blocks run over the
-  whole parameter and are replicated over ``model``, are decoded whole,
-  cut, and joined whole again before they are encoded
-  (``optim.adamw_update``'s ``pieces``).
+  (:func:`_train_ranks`); only the parameters split over the batch axes
+  (the experts' embed pieces) are joined over them, for the forward.
+  AdamW then runs on each rank's ZeRO-1 share of every leaf, the moments
+  never joined (:func:`_shares`): float32 moments by their piece (the
+  embed slice over the batch axes), int8 moments by the rank's range of
+  blocks of the whole leaf's flattened elements, decoded and encoded
+  alone; each parameter replicated over the batch axes is rebuilt from
+  the ranks' updated elements by one all-gather over them.  The GNN train
+  step updates its int8 moments by block range the same way.  With more
+  than one microbatch an LM rank's microbatch ``i`` is its slice of the
+  reference's microbatch ``i`` (the int32 tokens and labels gathered over
+  the batch axes, then cut), so a MoE layer's drops come from the same
+  tokens.  With a ``model`` axis of M > 1 every weight split over
+  ``model`` stays this rank's piece, never gathered whole: the LMs' loss
+  runs Megatron tensor parallelism with its autograd-aware collectives
+  and the vocab-parallel cross entropy (``models.transformer.lm_loss(
+  tp=)``: MoE experts, MLA's heads and MTP included), MIND's rows its own
+  (``models.recsys.mind_train_loss(tp=)``, kernel #4 on a rank's row
+  piece under autograd); the float32 moments are the param's pieces, and
+  for the int8 moments, whose blocks run over the whole parameter and are
+  replicated over ``model``, each model rank updates the elements of its
+  block range in its piece and the model group all-gathers the range's
+  new m and v (1/D of the leaf) before every model rank encodes them.
 * A MoE layer on a batch cut over the batch axes counts the reference's
   global capacity (``models.moe``, a ``layers.BatchSplit``: the
   per-expert counts all-gathered over the batch axes, each rank's
@@ -112,6 +119,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, replace
+from math import prod
 from typing import Any, Callable
 
 import torch
@@ -125,7 +133,8 @@ from ..models import transformer as tfm
 from ..models.layers import BatchSplit, SequenceSplit, TensorParallel
 from ..models.params import (requires_grad, tree_init, tree_leaves,
                              tree_map, tree_num_params, tree_shardings)
-from ..optim import AdamWConfig, Piece, adamw_state_specs, adamw_update
+from ..optim import AdamWConfig, Share, adamw_state_specs, adamw_update
+from ..optim.optimizer import q8_state_specs
 from .mesh import Mesh, Sharding
 
 __all__ = ["StepBundle", "build_step", "default_opt", "value_and_grad",
@@ -236,12 +245,12 @@ def _zip_map(fn, tree, sh):
     return fn(tree, sh)
 
 
-def _split_dims(x, sh: Sharding, over):
-    """``(dim, axes, ranks)`` of each dimension of ``x`` that ``sh`` splits
-    over more than one rank (with ``over``, a tuple of axis names, only
-    those split over some of them alone)."""
+def _split_dims(shape, sh: Sharding, over) -> list:
+    """``(dim, axes, ranks)`` of each dimension of an array of ``shape``
+    that ``sh`` splits over more than one rank (with ``over``, a tuple of
+    axis names, only those split over some of them alone)."""
     out = []
-    for d in range(x.dim()):
+    for d in range(len(shape)):
         axes = sh.dim_axes(d)
         k = sh.mesh.axis_size(axes)
         if k > 1 and (over is None or set(axes) <= set(over)):
@@ -249,22 +258,36 @@ def _split_dims(x, sh: Sharding, over):
     return out
 
 
-def _piece(x, sh: Sharding, over=None):
-    """This rank's piece of a whole tensor ``x`` placed by ``sh`` (with
-    ``over``, cut only along the dimensions split over those axes); a
-    dimension that its ranks do not divide is refused, as the reference's
+def _cut_dims(shape, sh: Sharding, over) -> list:
+    """:func:`_split_dims` of a whole array of ``shape``, refusing a
+    dimension that its ranks do not divide, as the reference's
     ``NamedSharding`` refuses it."""
-    if not isinstance(x, torch.Tensor):
-        return x
-    dims = _split_dims(x, sh, over)
+    dims = _split_dims(shape, sh, over)
     for d, axes, k in dims:
-        if x.shape[d] % k:
+        if shape[d] % k:
             raise ValueError(
-                f"dimension {d} of a {tuple(x.shape)} tensor does not "
+                f"dimension {d} of a {tuple(shape)} tensor does not "
                 f"divide over the {k} ranks of {axes}")
+    return dims
+
+
+def _narrow(x, sh: Sharding, over=None):
+    """This rank's piece of ``x`` placed by ``sh``, a view (with ``over``,
+    cut only along the dimensions split over those axes)."""
+    for d, axes, k in _cut_dims(x.shape, sh, over):
         size = x.shape[d] // k
         x = x.narrow(d, sh.mesh.axis_index(axes) * size, size)
-    return x.clone() if dims else x
+    return x
+
+
+def _piece(x, sh: Sharding, over=None):
+    """This rank's piece of a whole tensor ``x`` placed by ``sh`` (with
+    ``over``, cut only along the dimensions split over those axes), a
+    copy where it is cut."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    y = _narrow(x, sh, over)
+    return x if y is x else y.clone()
 
 
 def _comm(mesh: Mesh, axes):
@@ -281,7 +304,7 @@ def _whole(x, sh: Sharding, over=None):
     dimensions split over those axes)."""
     if not isinstance(x, torch.Tensor):
         return x
-    for d, axes, _ in _split_dims(x, sh, over):
+    for d, axes, _ in _split_dims(x.shape, sh, over):
         x = torch.cat(_comm(sh.mesh, axes).all_gather(x), d)
     return x
 
@@ -390,48 +413,177 @@ def _model_tp(mesh) -> TensorParallel | None:
     return TensorParallel(_comm(mesh, "model"), M, mesh.axis_index("model"))
 
 
-def _model_pieces(pspecs, p_shard) -> dict:
-    """Leaf name -> ``optim.Piece`` of each parameter split over a
-    ``model`` axis wider than 1 (cut and joined along its model
-    dimensions)."""
-    sh_of = dict(tree_leaves(p_shard))
+def _padded(x, size: int):
+    """``x`` (1-D) zero-padded to ``size`` elements, for an all-gather of
+    lists of unequal lengths."""
+    return x if x.numel() == size else torch.cat(
+        [x, x.new_zeros(size - x.numel())])
+
+
+class _PieceShare(Share):
+    """A leaf's update on this rank's piece of its float32 moments
+    (``o_sh`` over the batch axes: under ``_zero1_rules`` the embed
+    slice, beside the experts' ``expert_embed`` pieces; a leaf with
+    neither is updated whole on every rank).  The parameter is rebuilt
+    from the ranks' updated slices by one all-gather over the batch axes,
+    unless it is itself split there, as the moments are: then the rank
+    keeps its updated piece."""
+
+    def __init__(self, ba, p_sh: Sharding, o_sh: Sharding, shape):
+        self.ba, self.o_sh = ba, o_sh
+        self.cut = bool(_cut_dims(shape, o_sh, ba))
+        self.kept = bool(_cut_dims(shape, p_sh, ba))
+
+    def take(self, x):
+        return _narrow(x, self.o_sh, self.ba)
+
+    def put(self, x, leaf):
+        if self.kept:
+            return x
+        return leaf.copy_(_whole(x, self.o_sh, self.ba) if self.cut else x)
+
+
+def _box(shape, sh: Sharding, r: int, M: int) -> list:
+    """``(start, size)`` of each dimension of model rank ``r``'s piece of a
+    leaf of ``shape`` placed by ``sh`` over a model axis of ``M``."""
+    return [(r * (n // M), n // M) if "model" in sh.dim_axes(d) else (0, n)
+            for d, n in enumerate(shape)]
+
+
+def _before(i: int, shape, box) -> int:
+    """How many elements of ``box`` lie before flat index ``i`` of a
+    row-major ``shape`` (a piece's elements, taken in the whole's order,
+    are in the piece's own row-major order: this is where flat index
+    ``i`` falls in it)."""
+    inner = prod(size for _, size in box)
+    if i >= prod(shape):
+        return inner
+    count, stride = 0, prod(shape)
+    for n, (start, size) in zip(shape, box):
+        inner //= size
+        stride //= n
+        c = i // stride % n
+        count += min(max(c - start, 0), size) * inner
+        if not start <= c < start + size:
+            break
+    return count
+
+
+def _positions(a: int, b: int, shape, box, device):
+    """The whole leaf's flat indices of elements ``[a, b)`` of ``box``, in
+    its row-major order."""
+    i = torch.arange(a, b, dtype=torch.int64, device=device)
+    pos, stride = torch.zeros_like(i), 1
+    for n, (start, size) in zip(reversed(shape), reversed(box)):
+        pos += (i % size + start) * stride
+        i = i.div_(size, rounding_mode="floor")
+        stride *= n
+    return pos
+
+
+class _BlockShare(Share):
+    """A leaf's update on this rank's int8 blocks: blocks ``[d * nb / D,
+    (d + 1) * nb / D)`` of the whole leaf's flattened elements for batch
+    rank ``d`` of ``D``, replicated over ``model``.  With the leaf split
+    over a model axis of ``M > 1`` each model rank updates the elements
+    of that range in its piece, and the model group all-gathers the new
+    float32 m and v of the range (1/D of the leaf) so that every model
+    rank encodes the same blocks.  The parameter is rebuilt by one
+    all-gather over the batch axes of the ranks' updated elements (a
+    piece's elements over the ranges, in order, are the piece's own);
+    a parameter split over the batch axes is cut again from it."""
+
+    def __init__(self, mesh, ba, p_sh: Sharding, shape):
+        self.mesh, self.ba, self.p_sh, self.shape = mesh, ba, p_sh, shape
+        D, d = mesh.axis_size(ba), mesh.axis_index(ba)
+        (blocks, width), _ = q8_state_specs(shape)[0]
+        if blocks % D:
+            raise ValueError(
+                f"the {blocks} int8 blocks of a {tuple(shape)} leaf do not "
+                f"divide over the {D} ranks of {ba}")
+        n, per = prod(shape), blocks // D * width
+        split = any("model" in p_sh.dim_axes(i) for i in range(len(shape)))
+        M = mesh.shape.get("model", 1) if split else 1
+        self.r = mesh.axis_index("model") if M > 1 else 0
+        self.boxes = [_box(shape, p_sh, r, M) for r in range(M)]
+        # cuts[e][r]: model rank r's elements [a, b) in batch rank e's range
+        self.cuts = [[(_before(e * per, shape, box),
+                       _before((e + 1) * per, shape, box))
+                      for box in self.boxes] for e in range(D)]
+        self.lo, self.d = d * per, d
+        self.span = max(0, min(n, self.lo + per) - self.lo)
+        self.a, self.b = self.cuts[d][self.r]
+        self.kept = bool(_cut_dims(shape, p_sh, ba))
+
+    def take(self, x):
+        return x.reshape(-1)[self.a:self.b]
+
+    def _at(self, r: int, device):
+        """Where model rank ``r``'s elements lie in this range's list."""
+        a, b = self.cuts[self.d][r]
+        return _positions(a, b, self.shape, self.boxes[r], device) - self.lo
+
+    def mine(self, x):
+        return x if len(self.boxes) == 1 else x[self._at(self.r, x.device)]
+
+    def join(self, x):
+        if len(self.boxes) == 1:
+            return x
+        counts = [b - a for a, b in self.cuts[self.d]]
+        lists = _comm(self.mesh, "model").all_gather(_padded(x, max(counts)))
+        out = x.new_empty(self.span)
+        for r, (got, c) in enumerate(zip(lists, counts)):
+            out[self._at(r, x.device)] = got[:c]
+        return out
+
+    def put(self, x, leaf):
+        counts = [cut[self.r][1] - cut[self.r][0] for cut in self.cuts]
+        if len(counts) > 1:
+            lists = _comm(self.mesh, self.ba).all_gather(
+                _padded(x, max(counts)))
+            x = torch.cat([got[:c] for got, c in zip(lists, counts)])
+        whole = x.view(leaf.shape)
+        if self.kept:
+            return _piece(whole, self.p_sh, self.ba)
+        return leaf.copy_(whole)
+
+
+def _shares(mesh, pspecs, p_shard, o_shard, opt: AdamWConfig) -> dict:
+    """Leaf name -> this rank's share of its AdamW update over the batch
+    axes of ``mesh`` (``optim.Share``): the piece of its float32 moments,
+    or its range of int8 blocks, as ``o_shard`` places them.  Raises where
+    the batch axes' ranks divide neither (the reference's
+    ``NamedSharding`` refuses it)."""
+    ba = _batch_axes(mesh)
+    p_of, o_of = dict(tree_leaves(p_shard)), dict(tree_leaves(o_shard["mu"]))
     out = {}
     for name, spec in tree_leaves(pspecs):
-        sh = sh_of[name]
-        if sh.mesh.shape.get("model", 1) > 1 and any(
-                "model" in sh.dim_axes(d) for d in range(len(sh.spec))):
-            out[name] = Piece(tuple(spec.shape),
-                              lambda x, sh=sh: _piece(x, sh, ("model",)),
-                              lambda x, sh=sh: _whole(x, sh, ("model",)))
+        shape = tuple(spec.shape)
+        out[name] = _BlockShare(mesh, ba, p_of[name], shape) \
+            if opt.quantize_moments else \
+            _PieceShare(ba, p_of[name], o_of[name + ".m"], shape)
     return out
 
 
 def _train_ranks(mesh, pspecs, p_shard, o_shard, opt: AdamWConfig,
                  grads_of: Callable) -> Callable:
-    """The train step over the ranks of ``mesh``: parameters and moments
-    gathered over the batch axes only (each stays this rank's ``model``
-    piece), ``grads_of(params, *batch) -> (loss, grads)`` on this rank's
-    batch slice, the loss and gradients averaged over the batch axes, the
-    AdamW update on the pieces (int8 moments through
-    :func:`_model_pieces`), and the results cut again over the batch
-    axes."""
+    """The train step over the ranks of ``mesh`` (ZeRO-1 as the reference
+    places it): the parameters split over the batch axes (the experts'
+    embed pieces) joined for the forward, every other leaf this rank's
+    ``model`` piece as it is; ``grads_of(params, *batch) -> (loss,
+    grads)`` on this rank's batch slice, the loss and gradients averaged
+    over the batch axes; then AdamW on this rank's share of each leaf
+    (:func:`_shares`), the moments never joined."""
     ba = _batch_axes(mesh)
 
-    def cut(tree, sh):
-        return _zip_map(lambda x, s: _piece(x, s, ba), tree, sh)
-
-    def join(tree, sh):
-        return _zip_map(lambda x, s: _whole(x, s, ba), tree, sh)
-
-    pieces = _model_pieces(pspecs, p_shard) if opt.quantize_moments else None
-
     def ranks(params, opt_state, *batch):
-        params, opt_state = join(params, p_shard), join(opt_state, o_shard)
+        shares = _shares(mesh, pspecs, p_shard, o_shard, opt)
+        params = _zip_map(lambda x, s: _whole(x, s, ba), params, p_shard)
         loss, grads = grads_of(params, *batch)
         _mean_over(mesh, ba, [loss, *grads])
         params, opt_state = adamw_update(params, grads, opt_state, opt,
-                                         pieces)
-        return cut(params, p_shard), cut(opt_state, o_shard), loss
+                                         shares)
+        return params, opt_state, loss
 
     return ranks
 
@@ -618,8 +770,12 @@ def _build_gnn(cfg: GNNConfig, shape_name, step_kind, avals, mesh, opt,
                for k in batch_avals}
 
     def ranks(params, opt_state, batch):
+        shares = _shares(mesh, pspecs, p_shard, o_shard, opt)
         with gnn_m.edges_split(mesh.get_group(_all_axes(mesh))):
-            return step(params, opt_state, batch)
+            loss, grads = value_and_grad(loss_fn, params, batch)
+        params, opt_state = adamw_update(params, grads, opt_state, opt,
+                                         shares)
+        return params, opt_state, loss
 
     return replace(bundle, fn=_on_mesh(mesh, step, ranks),
                    in_shardings=(p_shard, o_shard, b_shard),

@@ -12,7 +12,11 @@ The state is ``{"step": int32 scalar, "mu": tree}`` where ``mu`` mirrors
 the parameter tree as nested dicts, each leaf ``{"m", "v"}`` (float32) or
 ``{"m_q", "m_s", "v_q", "v_s"}`` (int8 blocks and float32 scales).
 :func:`adamw_update` writes the new parameters and moments into the
-given tensors (the reference donates both) and returns them.
+given tensors (the reference donates both) and returns them.  Over a
+mesh a rank updates only its share of each leaf, the part whose moments
+it holds (:class:`Share`; ``launch.steps`` makes them): AdamW is
+elementwise and the int8 blocks are independent of each other, so the
+share's numbers are the whole update's, bit for bit.
 
 ``compress_psum`` is the int8 all-reduce of data-parallel training over
 the process group of the active mesh's axis
@@ -21,13 +25,12 @@ the process group of the active mesh's axis
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple
 
 import torch
 
 from ..models.params import tree_leaves, tree_map
 
-__all__ = ["AdamWConfig", "Piece", "adamw_init", "adamw_update",
+__all__ = ["AdamWConfig", "Share", "adamw_init", "adamw_update",
            "adamw_state_specs", "q8_encode", "q8_decode", "q8_state_specs",
            "compress_psum"]
 
@@ -45,15 +48,39 @@ class AdamWConfig:
     quantize_moments: bool = False  # int8 m/v with per-block scales
 
 
-class Piece(NamedTuple):
-    """Where a parameter leaf is this rank's piece of a whole leaf (a
-    weight split over a mesh's ``model`` axis): ``shape`` the whole's,
-    ``cut(whole) -> piece`` and ``join(piece) -> whole`` (a collective:
-    every rank of the axis calls it, in the same order)."""
+class Share:
+    """The part of one leaf's update that a rank makes: the elements whose
+    moments it holds.  This one is the whole leaf (one device); a mesh's
+    shares (``launch.steps``) narrow it to a rank's ZeRO-1 piece.
 
-    shape: tuple
-    cut: Callable
-    join: Callable
+    * ``take(x)``: the share's elements of ``x``, the parameter as the
+      step's forward held it or its gradient: a tensor of the float32
+      moments' shape, or with int8 moments a flat list, the leaf's
+      elements in the rank's block range that lie in its ``model`` piece;
+    * ``span``: int8 moments: the leaf's elements in the rank's blocks
+      (the rest of them padding);
+    * ``mine(x)``: the rank's own elements of a list over the span;
+      ``join(x)``: the span's list from every ``model`` rank's own (a
+      collective: every rank of the axis calls it, in the same order);
+    * ``put(x, leaf)``: the parameter the rank keeps, from its updated
+      elements ``x`` (in the leaf's dtype) and the forward's ``leaf``
+      (written in place where the rank keeps that tensor)."""
+
+    def __init__(self, leaf, quantized: bool):
+        self.quantized = quantized
+        self.span = leaf.numel()
+
+    def take(self, x):
+        return x.reshape(-1) if self.quantized else x
+
+    def mine(self, x):
+        return x
+
+    def join(self, x):
+        return x
+
+    def put(self, x, leaf):
+        return leaf.copy_(x.view(leaf.shape))
 
 
 # ----------------------------------------------------- int8 moment codecs
@@ -66,13 +93,15 @@ def _q8_shapes(shape):
     return n, blocks
 
 
-def q8_encode(x):
+def q8_encode(x, blocks: int | None = None):
     """``(q, scale)``: int8 blocks ``(blocks, 128)`` and float32 scales
-    ``(blocks,)`` of ``x``, zero-padded to whole blocks.  One float32
-    temporary of ``x``'s size beside ``x`` (the quotient, rounded and
-    clamped in place): a whole leaf of DeepSeek-V3's embedding is 3.7
-    GB."""
-    n, blocks = _q8_shapes(x.shape)
+    ``(blocks,)`` of ``x``, zero-padded to whole blocks (``blocks``: a
+    rank's count of a leaf's blocks, ``x`` the elements they hold; by
+    default a whole leaf's, a multiple of 64).  One float32 temporary of
+    ``x``'s size beside ``x`` (the quotient, rounded and clamped in
+    place)."""
+    n, whole = _q8_shapes(x.shape)
+    blocks = whole if blocks is None else blocks
     flat = x.reshape(-1).to(F32)
     if blocks * _BLOCK != n:
         flat = torch.nn.functional.pad(flat, (0, blocks * _BLOCK - n))
@@ -116,21 +145,57 @@ def _leaf_state(mu, name: str) -> dict:
     return mu
 
 
+def _update_leaf(p, g, mu: dict, cfg: AdamWConfig, bc1, bc2,
+                 share: Share):
+    """One leaf's AdamW on ``share``: its moments ``mu`` written in place,
+    the parameter ``share.put`` returns.  The reference's expressions op
+    for op, each temporary freed or reused as soon as it is spent (a
+    whole leaf of DeepSeek-V3's embedding is 3.7 GB in float32)."""
+    q8 = cfg.quantize_moments
+
+    def moment(key):
+        return share.mine(q8_decode(mu[key + "_q"], mu[key + "_s"],
+                                    (share.span,))) if q8 else mu[key]
+
+    g = share.take(g).to(F32)
+    m = (moment("m") * cfg.b1).add_(g * (1 - cfg.b1))
+    gg = g * (1 - cfg.b2)
+    v = (moment("v") * cfg.b2).add_(gg.mul_(g))
+    del g, gg
+    den = (v / bc2).sqrt_().add_(cfg.eps)
+    upd = (m / bc1).div_(den)
+    del den
+    for key, x in (("m", m), ("v", v)):
+        if q8:
+            q, s = q8_encode(share.join(x), mu[key + "_q"].shape[0])
+            mu[key + "_q"].copy_(q)
+            mu[key + "_s"].copy_(s)
+            del q, s
+        else:
+            mu[key].copy_(x)
+    del m, v, x
+    pf = share.take(p).to(F32, copy=True)
+    upd.add_(pf * cfg.weight_decay).mul_(cfg.lr)
+    pf.sub_(upd)
+    del upd
+    return share.put(pf.to(p.dtype), p)
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: AdamWConfig,
-                 pieces: dict | None = None):
+                 shares: dict | None = None):
     """One AdamW step.  ``grads``: the gradients in ``tree_leaves(params)``
     order (a list), or a tree of the parameters' shape.  Writes the new
-    parameters (cast back to each leaf's dtype) and moments in place and
-    returns ``(params, state)``.
+    moments in place and returns ``(params, state)``.
 
-    ``pieces`` (leaf name -> :class:`Piece`) names the leaves that are a
-    rank's piece of a whole parameter.  Float32 moments are pieces like
-    their parameter; int8 moments cover the whole parameter, their blocks
-    of 128 running over its flattened elements across the pieces' seams.
-    So a piece's int8 moments are decoded whole and cut, updated on the
-    piece, and joined whole again before they are encoded: the blocks and
-    scales come out those of the one-device update of the whole."""
+    ``shares`` (leaf name -> :class:`Share`) names the leaves of which a
+    rank updates a part, the elements whose moments it holds over a
+    mesh's batch axes (ZeRO-1); every other leaf is its own whole share.
+    A share's moments are decoded, updated and encoded on the share alone,
+    never joined whole.  The new parameters are written into ``params``'
+    leaves, except where a share keeps a piece of a leaf that the step's
+    forward held joined: the returned tree then holds that piece in its
+    place (nested dicts)."""
     leaves = tree_leaves(params)
     if not isinstance(grads, (list, tuple)):
         grads = [t for _, t in tree_leaves(grads)]
@@ -140,44 +205,25 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
     t = step.to(F32)
     bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=F32, device=t.device), t)
     bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=F32, device=t.device), t)
+    out, same = {}, True
     for (name, p), g in zip(leaves, grads):
-        mu = _leaf_state(state["mu"], name)
-        g = g.to(F32)
-        piece = None if pieces is None else pieces.get(name)
-        if cfg.quantize_moments:
-            shape = p.shape if piece is None else piece.shape
-            m = q8_decode(mu["m_q"], mu["m_s"], shape)
-            v = q8_decode(mu["v_q"], mu["v_s"], shape)
-            if piece is not None:
-                m, v = piece.cut(m), piece.cut(v)
-        else:
-            m, v = mu["m"], mu["v"]
-        # the reference's expressions op for op, each temporary freed or
-        # reused as soon as it is spent (a leaf of DeepSeek-V3's embedding
-        # is 3.7 GB in float32)
-        m = (m * cfg.b1).add_(g * (1 - cfg.b1))
-        gg = g * (1 - cfg.b2)
-        v = (v * cfg.b2).add_(gg.mul_(g))
-        del g, gg
-        den = (v / bc2).sqrt_().add_(cfg.eps)
-        upd = (m / bc1).div_(den)
-        del den
-        if cfg.quantize_moments:
-            for key, x in (("m", m), ("v", v)):
-                q, s = q8_encode(x if piece is None else piece.join(x))
-                mu[key + "_q"].copy_(q)
-                mu[key + "_s"].copy_(s)
-                del q, s
-        else:
-            mu["m"].copy_(m)
-            mu["v"].copy_(v)
-        del m, v
-        pf = p.to(F32)
-        upd.add_(pf * cfg.weight_decay).mul_(cfg.lr)
-        p.copy_(pf.sub_(upd))
-        del upd, pf
+        share = (shares or {}).get(name) or Share(p, cfg.quantize_moments)
+        out[name] = _update_leaf(p, g, _leaf_state(state["mu"], name), cfg,
+                                 bc1, bc2, share)
+        same = same and out[name] is p
     state["step"].copy_(step)
-    return params, state
+    return (params if same else _nest(out)), state
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for name, x in flat.items():
+        *path, leaf = name.split(".")
+        d = tree
+        for part in path:
+            d = d.setdefault(part, {})
+        d[leaf] = x
+    return tree
 
 
 def adamw_state_specs(param_specs, cfg: AdamWConfig):

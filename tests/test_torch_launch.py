@@ -36,6 +36,7 @@ from repro_torch.models.params import (tree_init, tree_leaves,  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 
 from test_torch_gnn import cell_inputs  # noqa: E402
+from torch_pg_ranks import moment_faults  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TESTS = ROOT / "tests"
@@ -181,13 +182,15 @@ def test_accum_steps_keep_the_microbatch_shardable():
 
 
 # ------------------------------------------------ data-parallel train steps
+#: name -> (arch, cell, lr, int8 moments)
 TRAIN_CASES = {
-    "lm": ("qwen3-0.6b", "train_4k", 1e-3),
-    "mind": ("mind", "train_batch", 1e-3),
-    "gcn": ("gcn-cora", "full_graph_sm", 1e-3),
-    "sage": ("graphsage-reddit", "minibatch_lg", 1e-3),
-    "schnet": ("schnet", "molecule", 1e-3),
-    "egnn": ("egnn", "ogb_products", 1e-3),
+    "lm": ("qwen3-0.6b", "train_4k", 1e-3, False),
+    "mind": ("mind", "train_batch", 1e-3, False),
+    "gcn": ("gcn-cora", "full_graph_sm", 1e-3, False),
+    "sage": ("graphsage-reddit", "minibatch_lg", 1e-3, False),
+    "schnet": ("schnet", "molecule", 1e-3, False),
+    "egnn": ("egnn", "ogb_products", 1e-3, False),
+    "gcn_q8": ("gcn-cora", "full_graph_sm", 1e-3, True),
 }
 
 _REFERENCE_TRAIN = r"""
@@ -213,11 +216,12 @@ def nest(flat):
     return tree
 
 mesh = make_host_mesh(max_data=2)
-for name, (arch, shape, lr) in cases.items():
+for name, (arch, shape, lr, q8) in cases.items():
     z = np.load(f"{case_dir}/{name}.npz")
     params = nest({k[2:]: z[k] for k in z.files if k.startswith("p.")})
     batch = {k[2:]: jnp.asarray(z[k]) for k in z.files if k.startswith("b.")}
-    b = build_step(arch, shape, mesh, reduced=True, opt=AdamWConfig(lr=lr))
+    b = build_step(arch, shape, mesh, reduced=True,
+                   opt=AdamWConfig(lr=lr, quantize_moments=q8))
     state = adamw_init(params, b.static["opt"])
     fn = jax.jit(b.fn, in_shardings=b.in_shardings,
                  out_shardings=b.out_shardings)
@@ -273,8 +277,8 @@ def train_runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("train_ranks")
     ref = tmp_path_factory.mktemp("train_reference")
     one = {}
-    for name, (arch, shape, lr) in TRAIN_CASES.items():
-        opt = AdamWConfig(lr=lr)
+    for name, (arch, shape, lr, q8) in TRAIN_CASES.items():
+        opt = AdamWConfig(lr=lr, quantize_moments=q8)
         cfg, params, batch, flat = _train_inputs(name, arch, shape)
         np.savez(case_dir / f"{name}.npz",
                  **{f"p.{k}": v.numpy() for k, v in flat.items()},
@@ -321,7 +325,9 @@ def test_data_parallel_step_equals_one_device_and_the_reference(train_runs,
             1, abs(float(z["loss"])))
     # The moments carry the averaged gradient's scale, which the first
     # AdamW update (about lr * sign(g)) does not: each leaf is held
-    # relative to its largest moment.
+    # relative to its largest moment; int8 codes within one step (a
+    # moment within a rounding error of a code's boundary may round
+    # either way), their scales as float32 moments
     got_mu = dict(tree_leaves(got["state"]["mu"]))
     assert set(got_mu) == set(want_mu)
     with np.load(ref / f"{name}.npz") as z:
@@ -329,10 +335,24 @@ def test_data_parallel_step_equals_one_device_and_the_reference(train_runs,
             g = got_mu[k].float()
             w = w.float()
             r = torch.as_tensor(z["mu" + _key(k)]).float()
+            if got_mu[k].dtype == torch.int8:
+                assert float((g - w).abs().max()) <= 1, (name, k)
+                assert float((g - r).abs().max()) <= 1, (name, k)
+                continue
             scale = float(w.abs().max())
             assert float((g - w).abs().max()) <= 1e-5 * scale, (name, k)
             assert float((g - r).abs().max()) <= 1e-4 * scale, (name, k)
     assert any(float(w.abs().max()) > 0 for w in want_mu.values())
+
+
+@pytest.mark.parametrize("name", list(TRAIN_CASES))
+def test_data_parallel_step_joins_no_moment(train_runs, name):
+    """Each of the two ranks formed no moment tensor past its ZeRO-1 share
+    and all-gathered no moment (``torch_pg_ranks._MomentSpy``)."""
+    _, out, _ = train_runs
+    for r in range(2):
+        rec = torch.load(out / f"{name}_moments_{r}.pt")
+        assert not moment_faults(rec), (name, r, moment_faults(rec))
 
 
 def test_data_parallel_state_is_cut_by_its_placements(train_runs):
@@ -528,6 +548,36 @@ def test_dry_run_flops_match_an_analytic_count(arch, shape):
         want = 0.0
     got = rec["flops_total"]
     assert got == pytest.approx(want, rel=0.01, abs=1.0), (got, want)
+
+
+#: the LM rules' axes that split a leaf over ``model``
+_MODEL_AXES = ("heads", "kv_heads", "mlp", "vocab", "expert", "rows")
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-0.6b", "train_4k"),
+                                        ("mind", "train_batch")])
+def test_dry_run_collectives_match_an_analytic_count(arch, shape):
+    """A train step over the 16 data ranks of the (16, 16) mesh: the
+    gradient all-reduce, 2 x 15/16 of a chip's float32 gradient bytes,
+    and the ZeRO-1 all-gather of the updated parameters, 15/16 of a chip's
+    bytes of every leaf with an embed dimension (the dense LM's float32
+    moments are cut there, its parameters whole over data); MIND's
+    moments are placed as its parameters, so it gathers none."""
+    rec = dryrun.run_cell(arch, shape, make_production_mesh(), "single", 256,
+                          reduced=True)
+    assert rec["ok"]
+    specs = steps.build_step(arch, shape, reduced=True).static["pspecs"]
+    grad = gathered = 0.0
+    for _, sp in tree_leaves(specs):
+        n = np.prod(sp.shape) / (16 if set(sp.axes) & set(_MODEL_AXES)
+                                 else 1)
+        grad += 4 * n
+        if arch != "mind" and "embed" in sp.axes:
+            gathered += n * sp.dtype.itemsize
+    coll = rec["collective_bytes_per_chip"]
+    assert coll["all-reduce"] == pytest.approx(2 * grad * 15 / 16)
+    assert coll["all-gather"] == pytest.approx(gathered * 15 / 16)
+    assert (coll["all-gather"] > 0) == (arch != "mind")
 
 
 def test_dry_run_writes_every_cell_on_both_meshes(tmp_path):

@@ -52,7 +52,7 @@ from test_torch_tp_moe_train import (lm_batches, one_device,  # noqa: E402
                                      opt_kw, reference_env, reference_flat,
                                      save_case, skew)
 from test_torch_tp_train import _flat, _hold, draw_params  # noqa: E402
-from torch_pg_ranks import train_bundle  # noqa: E402
+from torch_pg_ranks import moment_faults, train_bundle  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TESTS = ROOT / "tests"
@@ -488,6 +488,17 @@ def test_train_over_data_ranks_equals_one_device_and_the_reference(
             what = f"{lname} {name} rank {r} step {i + 1}"
             _hold(got, one["after"][i], ONE_DEVICE_TOL, what)
             _hold(got, ref[i], TRAIN_REFERENCE_TOL, what + " vs the reference")
+
+
+@pytest.mark.parametrize("name", list(TRAIN_CASES))
+@pytest.mark.parametrize("layout", LAYOUTS, ids=_layout_name)
+def test_train_over_data_ranks_joins_no_moment(runs, layout, name):
+    """In each step every rank formed no moment tensor past its ZeRO-1
+    share (its float32 moments' piece) and all-gathered no moment
+    (``torch_pg_ranks._MomentSpy``)."""
+    for r, rec in enumerate(_records(runs, layout, name)):
+        assert not moment_faults(rec), (_layout_name(layout), name, r,
+                                        moment_faults(rec))
 
 
 @pytest.mark.parametrize("name", list(TRAIN_CASES))

@@ -23,11 +23,17 @@ of the reference's.
 The (1, 2) start saves Qwen3-0.6B's state whole after step 1; the (1, 4)
 and (2, 2) starts restore it onto their placements and take step 2, as
 one device does here, each held to the uninterrupted one-device run.
+Every rank's moment tensors stay within its ZeRO-1 share and none is
+all-gathered (``torch_pg_ranks._MomentSpy``).  The update on a rank's
+share alone runs over a (D, M) grid of rank threads in this process
+(``launch.steps._comm`` patched to the threads' all-gather), bit for bit
+the whole update's share.
 """
 import json
 import os
 import subprocess
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -41,9 +47,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
-from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.models.params import Spec, tree_leaves  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.train import checkpoint  # noqa: E402
+from torch_pg_ranks import moment_faults  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TESTS = ROOT / "tests"
@@ -393,6 +400,18 @@ def test_train_over_model_equals_one_device_and_the_reference(runs, layout,
 
 @pytest.mark.parametrize("name", list(CASES))
 @pytest.mark.parametrize("layout", LAYOUTS, ids=_layout_name)
+def test_train_over_ranks_joins_no_moment(runs, layout, name):
+    """In each step every rank formed no moment tensor past its ZeRO-1
+    share (its float32 moments' piece, or its range of int8 blocks and
+    one block's padding) and all-gathered no moment
+    (``torch_pg_ranks._MomentSpy``)."""
+    for r, rec in enumerate(_records(runs, layout, name)):
+        assert not moment_faults(rec), (_layout_name(layout), name, r,
+                                        moment_faults(rec))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("layout", LAYOUTS, ids=_layout_name)
 def test_pieces_stay_pieces_and_replicated_leaves_stay_equal(runs, layout,
                                                              name):
     """After each step each rank holds its pieces by the placements (the
@@ -551,50 +570,164 @@ def test_a_reference_checkpoint_restores_onto_placements(runs, layout):
 
 
 # ------------------------------------------------------ int8 moments
-@pytest.mark.parametrize("M", [2, 4])
-def test_int8_moments_of_pieces(M):
-    """``adamw_update`` of each of M column pieces of a parameter whose
-    int8 blocks run across the pieces' seams (96 columns a row, blocks of
-    128), over two steps from the same gradients: every piece's parameter
-    and the moments' codes and scales equal the whole parameter's update
-    bit for bit.  ``join`` stands in for the all-gather: the other pieces'
-    moments are the whole update's."""
-    from repro_torch.optim import Piece, adamw_update, q8_decode
+#: the update-on-a-share cases' leaves under the LM rules: ``w``'s int8
+#: blocks of 128 run across the model pieces' seams (96 columns a row) and
+#: its 6 blocks, padded to 64, all lie in batch rank 0's range; ``big``'s
+#: ranges end inside rows and its last is mostly padding (20,000 elements
+#: in 192 blocks); ``norm`` has only an embed dimension, ``bias`` none
+#: (its float32 moments are whole on every batch rank); ``experts`` is
+#: split over the batch axes as its moments are
+ZERO1_SPECS = {
+    "w": Spec((8, 96), torch.float32, ("embed", "heads")),
+    "big": Spec((200, 100), torch.bfloat16, ("embed", "heads")),
+    "norm": Spec((200,), torch.float32, ("embed",)),
+    "bias": Spec((100,), torch.float32, ("heads",)),
+    "experts": Spec((4, 8, 12), torch.bfloat16,
+                    ("expert", "expert_embed", None))}
 
-    rng = np.random.default_rng(M)
-    shape, n = (6, 96), 96 // M
-    opt = AdamWConfig(lr=LR, quantize_moments=True)
-    p0 = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
-    grads = [torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+
+class _Group:
+    """The slots and the barrier of one group of rank threads."""
+
+    def __init__(self, size: int):
+        self.barrier = threading.Barrier(size)
+        self.slots = [None] * size
+
+
+class _ThreadComm:
+    """``all_gather`` among rank threads (``steps._comm``'s stand-in)."""
+
+    def __init__(self, group: _Group, index: int):
+        self.group, self.index = group, index
+
+    def all_gather(self, x) -> list:
+        g = self.group
+        g.slots[self.index] = x.clone()
+        g.barrier.wait()
+        out = [s.clone() for s in g.slots]
+        g.barrier.wait()
+        return out
+
+
+class _Hub:
+    """The groups of the rank threads of one mesh layout: the ranks that
+    share every coordinate off ``axes`` form the group of ``axes``."""
+
+    def __init__(self):
+        self.lock, self.groups = threading.Lock(), {}
+
+    def abort(self) -> None:
+        """Break every group's barrier: a rank that raised frees the
+        others, which raise in turn."""
+        with self.lock:
+            for group in self.groups.values():
+                group.barrier.abort()
+
+    def comm(self, mesh, axes) -> _ThreadComm:
+        names = axes if isinstance(axes, tuple) else (axes,)
+
+        def others(r):
+            c = dict(zip(mesh.axis_names, np.unravel_index(r, mesh.dims)))
+            return tuple(int(c[a]) for a in mesh.axis_names if a not in names)
+
+        members = [r for r in range(mesh.size) if others(r) == others(
+            mesh.rank)]
+        key = (names, others(mesh.rank))
+        with self.lock:
+            group = self.groups.setdefault(key, _Group(len(members)))
+        return _ThreadComm(group, members.index(mesh.rank))
+
+
+def _zero1_case(quantize: bool, D: int, M: int) -> tuple:
+    """``(opt, whole params, whole state, two steps' gradients)`` of
+    :data:`ZERO1_SPECS`, drawn with numpy."""
+    rng = np.random.default_rng(10 * D + M + 100 * quantize)
+    opt = AdamWConfig(lr=LR, weight_decay=0.1, quantize_moments=quantize)
+    params = {n: torch.as_tensor(rng.normal(size=s.shape).astype(
+        np.float32)).to(s.dtype) for n, s in ZERO1_SPECS.items()}
+    grads = [{n: torch.as_tensor(rng.normal(size=p.shape).astype(
+        np.float32)).to(p.dtype) for n, p in params.items()}
              for _ in range(2)]
-    whole = {"w": p0.clone()}
-    state = adamw_init(whole, opt)
-    states = [adamw_init({"w": p0[:, r * n:(r + 1) * n].clone()}, opt)
-              for r in range(M)]
-    for r in range(M):
-        states[r]["mu"]["w"] = {k: v.clone() for k, v in
-                                state["mu"]["w"].items()}
-    pieces = [{"w": p0[:, r * n:(r + 1) * n].clone()} for r in range(M)]
-    for g in grads:
-        prev = {k: v.clone() for k, v in state["mu"]["w"].items()}
-        adamw_update(whole, [g], state, opt)
-        after = {key: q8_decode(state["mu"]["w"][key + "_q"],
-                                state["mu"]["w"][key + "_s"], shape)
-                 for key in ("m", "v")}
-        for r in range(M):
-            cols = slice(r * n, (r + 1) * n)
-            calls = iter(("m", "v"))
+    return opt, params, adamw_init(params, opt), grads
 
-            def join(x, cols=cols, calls=calls):
-                out = after[next(calls)].clone()
-                out[:, cols] = x
-                return out
 
-            st = states[r]
-            st["mu"]["w"] = {k: v.clone() for k, v in prev.items()}
-            adamw_update(pieces[r], [g[:, cols]], st, opt,
-                         {"w": Piece(shape, lambda x, c=cols: x[:, c],
-                                     join)})
-            assert torch.equal(pieces[r]["w"], whole["w"][:, cols]), r
-            for k, v in state["mu"]["w"].items():
-                assert torch.equal(st["mu"]["w"][k], v), (r, k)
+@pytest.mark.parametrize("quantize", [True, False], ids=["int8", "float32"])
+@pytest.mark.parametrize("M", [1, 2, 4])
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_int8_moments_of_pieces(monkeypatch, D, M, quantize):
+    """``adamw_update`` of each rank's ZeRO-1 share over a (D, M) mesh of
+    rank threads (``launch.steps._shares``: int8 moments by block range,
+    float32 ones by embed slice), over two steps from the same gradients:
+    every rank's parameter piece and its moments (int8 codes and scales,
+    or float32 m and v) equal the whole update's share bit for bit."""
+    from repro_torch.optim import adamw_update
+
+    opt, whole, state, grads = _zero1_case(quantize, D, M)
+    layout = (D, M)
+    meshes = [_RankMesh(layout, r) for r in range(D * M)]
+    rules = steps._lm_rules(meshes[0])
+    p_sh = steps.tree_shardings(ZERO1_SPECS, meshes[0], rules)
+    o_sh = steps._opt_shardings(ZERO1_SPECS, meshes[0],
+                                steps._zero1_rules(rules, meshes[0]), opt)
+    hub = _Hub()
+    monkeypatch.setattr(steps, "_comm", hub.comm)
+    # each rank's placements: the step's, on the mesh as the rank sees it
+    placed = [tuple(steps._zip_map(lambda s, _: steps.Sharding(mesh, s.spec),
+                                   t, t) for t in (p_sh, o_sh["mu"]))
+              for mesh in meshes]
+
+    def cut(tree, sh, over=None):
+        """A copy of ``tree``'s pieces placed by ``sh``."""
+        return steps._zip_map(lambda x, s: steps._piece(x, s, over).clone(),
+                              tree, sh)
+
+    rank_states = [{"step": state["step"].clone(),
+                    "mu": cut(state["mu"], placed[r][1])}
+                   for r in range(D * M)]
+    held = [{} for _ in range(D * M)]
+    for i in range(2):
+        before = {n: t.clone() for n, t in whole.items()}
+
+        def rank(r):
+            p_r, o_r = placed[r]
+            # the forward's leaves: the rank's own where it keeps them
+            # whole over the batch axes, the others joined over them
+            forward = cut(before, p_r, ("model",))
+            forward.update({n: t for n, t in held[r].items()
+                            if t.shape == forward[n].shape})
+            g = cut(grads[i], p_r, ("model",))
+            try:
+                shares = steps._shares(meshes[r], ZERO1_SPECS, p_r,
+                                       {"mu": o_r}, opt)
+                return adamw_update(forward, g, rank_states[r], opt,
+                                    shares)[0]
+            except BaseException:
+                hub.abort()
+                raise
+
+        with ThreadPoolExecutor(D * M) as pool:
+            outs = list(pool.map(rank, range(D * M)))
+        whole, state = adamw_update(whole, grads[i], state, opt)
+        for r, out in enumerate(outs):
+            want_p = cut(whole, placed[r][0])
+            want_mu = cut(state["mu"], placed[r][1])
+            for n, t in tree_leaves(out):
+                assert torch.equal(t, want_p[n]), (layout, r, i, n)
+            for (n, t), (_, w) in zip(tree_leaves(rank_states[r]["mu"]),
+                                      tree_leaves(want_mu)):
+                assert t.shape == w.shape and torch.equal(t, w), \
+                    (layout, r, i, n)
+            held[r] = dict(tree_leaves(out))
+
+
+def test_a_batch_axis_that_divides_no_block_range_raises():
+    """Three batch ranks against a leaf's 64 padded int8 blocks: the
+    share is refused, as the reference's ``NamedSharding`` refuses it."""
+    mesh = _RankMesh((3, 1), 0)
+    specs = {"w": ZERO1_SPECS["w"]}
+    opt = AdamWConfig(quantize_moments=True)
+    rules = steps._lm_rules(mesh)
+    p_sh = steps.tree_shardings(specs, mesh, rules)
+    o_sh = steps._opt_shardings(specs, mesh, rules, opt)
+    with pytest.raises(ValueError, match="do not divide over the 3 ranks"):
+        steps._shares(mesh, specs, p_sh, o_sh, opt)

@@ -113,7 +113,8 @@ def train_cases(case_dir: str, out_dir: str) -> None:
     """One data-parallel train step a case over the group: each case's
     global params, state and batch (``case.pt`` files written by the
     test) cut to this rank's pieces, the step run, its outputs joined
-    whole; rank 0 writes them."""
+    whole; rank 0 writes them, and every rank what :class:`_MomentSpy`
+    saw (``<case>_moments_<rank>.pt``)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import (build_step, gather_outputs,
                                           local_args)
@@ -123,11 +124,18 @@ def train_cases(case_dir: str, out_dir: str) -> None:
     mesh = make_host_mesh(max_data=None, device=CPU)
     with open(os.path.join(case_dir, "cases.json")) as f:
         cases = json.load(f)
-    for name, (arch, shape, lr) in cases.items():
+    for name, (arch, shape, lr, q8) in cases.items():
         b = build_step(arch, shape, mesh, reduced=True,
-                       opt=AdamWConfig(lr=lr))
-        args = torch.load(os.path.join(case_dir, f"{name}.pt"))
-        out = b.fn(*local_args(b, *args))
+                       opt=AdamWConfig(lr=lr, quantize_moments=q8))
+        args = local_args(b, *torch.load(os.path.join(case_dir,
+                                                      f"{name}.pt")))
+        with _MomentSpy(args[1]) as ms:
+            out = b.fn(*args)
+        torch.save({"moments": [{"largest": ms.largest,
+                                 "gathered": ms.gathered}],
+                    "moment_limits": moment_limits(b)},
+                   os.path.join(out_dir, f"{name}_moments_{dist.get_rank()}"
+                                ".pt"))
         params, state, loss = gather_outputs(b, out)
         if dist.get_rank() == 0:
             torch.save({"params": params, "state": state, "loss": loss},
@@ -197,6 +205,100 @@ class _GatherSpy:
 
     def __exit__(self, *exc):
         dist.all_gather = self._orig
+
+
+class _MomentSpy:
+    """Records, for each leaf of an AdamW state's ``mu``, the largest
+    moment tensor this rank forms in ``optim.adamw_update`` (elements of
+    what ``q8_decode`` returns, of what ``q8_encode`` is given, and of the
+    float32 m and v it updates: ``largest``) and the all-gathers whose
+    input is a moment's storage (``gathered``, the leaves by name)."""
+
+    def __init__(self, state):
+        from repro_torch.models.params import tree_leaves
+
+        self.leaf_of = {t.untyped_storage().data_ptr(): name.rsplit(".", 1)[0]
+                        for name, t in tree_leaves(state["mu"])}
+        self.largest, self.gathered, self.leaf = {}, [], None
+
+    def _seen(self, *xs) -> None:
+        n = max(x.numel() for x in xs)
+        self.largest[self.leaf] = max(self.largest.get(self.leaf, 0), n)
+
+    def __enter__(self):
+        from repro_torch.optim import optimizer as opt
+
+        self.module, self._orig = opt, {
+            k: getattr(opt, k) for k in ("_update_leaf", "q8_decode",
+                                         "q8_encode")}
+        self._gather = dist.all_gather
+        orig = self._orig
+
+        def update_leaf(p, g, mu, *a, **kw):
+            ptr = next(iter(mu.values())).untyped_storage().data_ptr()
+            self.leaf = self.leaf_of.get(ptr)
+            if "m" in mu:  # float32 moments: updated as they are
+                self._seen(mu["m"], mu["v"])
+            return orig["_update_leaf"](p, g, mu, *a, **kw)
+
+        def decode(*a, **kw):
+            out = orig["q8_decode"](*a, **kw)
+            self._seen(out)
+            return out
+
+        def encode(x, *a, **kw):
+            self._seen(x)
+            return orig["q8_encode"](x, *a, **kw)
+
+        def gather(out, x, *a, **kw):
+            name = self.leaf_of.get(x.untyped_storage().data_ptr())
+            if name is not None:
+                self.gathered.append(name)
+            return self._gather(out, x, *a, **kw)
+
+        opt._update_leaf = update_leaf
+        opt.q8_decode, opt.q8_encode = decode, encode
+        dist.all_gather = gather
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self._orig.items():
+            setattr(self.module, k, f)
+        dist.all_gather = self._gather
+
+
+def moment_limits(b) -> dict:
+    """Leaf name -> the most elements a moment tensor of this rank's
+    share may hold in ``b``'s step (its ZeRO-1 placement,
+    ``in_shardings[1]``): the float32 moments' piece, or the rank's range
+    of int8 blocks and one block's padding."""
+    from repro_torch.models.params import tree_leaves
+
+    sh = dict(tree_leaves(b.in_shardings[1]["mu"]))
+    out = {}
+    for name, (shape, _) in tree_leaves(b.args[1]["mu"]):
+        leaf, key = name.rsplit(".", 1)
+        if key == "m":
+            out[leaf] = int(np.prod(shape)) // sh[name].frac
+        elif key == "m_q":
+            out[leaf] = (shape[0] // sh[name].frac + 1) * shape[1]
+    return out
+
+
+def moment_faults(rec: dict) -> list:
+    """What a rank's record (:func:`_train_case`, or a ``train_cases``
+    moments file) shows of moments joined: a moment gathered, or a leaf
+    whose largest moment tensor passed its share (``moment_limits``)."""
+    faults, limits = [], rec["moment_limits"]
+    for i, seen in enumerate(rec["moments"]):
+        at = f"step {i + 1}"
+        faults += [f"{at}: {n} gathered" for n in seen["gathered"]]
+        if set(seen["largest"]) != set(limits):
+            faults.append(f"{at}: leaves seen {sorted(seen['largest'])}")
+        faults += [f"{at}: {n} formed {k} > {limits.get(n)}"
+                   for n, k in seen["largest"].items()
+                   if k > limits.get(n, -1)]
+    return faults
 
 
 def tp_cases(case_dir: str, params_dir: str, out_dir: str, data: str,
@@ -426,16 +528,20 @@ def _train_case(mesh, name: str, case: dict, z: dict, mode: str = "none",
     rank = dist.get_rank()
     b = train_bundle(case, mesh)
     rec = {"coords": mesh.coords(), "whole": [], "pieces": [],
-           "gathers": 0, "weight_gathers": 0, "routes": [], "splits": []}
+           "gathers": 0, "weight_gathers": 0, "routes": [], "splits": [],
+           "moments": [], "moment_limits": moment_limits(b)}
     for i, (before, batch) in enumerate(zip(z["states"], z["batches"])):
         params, state = local_args(b, *before)[:2]
         batch = local_args(b, None, None, *batch)[2:]
-        with _GatherSpy(_param_storages(params)) as spy, _RouteSpy() as rs:
+        with _GatherSpy(_param_storages(params)) as spy, _RouteSpy() as rs, \
+                _MomentSpy(state) as ms:
             params, state, loss = b.fn(params, state, *batch)
         rec["gathers"] += spy.calls
         rec["weight_gathers"] += spy.of_weights
         rec["routes"].append(rs.routes)
         rec["splits"].append(rs.splits)
+        rec["moments"].append({"largest": ms.largest,
+                               "gathered": ms.gathered})
         whole = _copied(gather_outputs(b, (params, state, loss)))
         rec["whole"].append(whole)
         rec["pieces"].append(_copied((params, state)))
