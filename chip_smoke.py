@@ -166,14 +166,19 @@ Phases, each printing one JSON line:
              in four pieces of 131,072 (one a rank: the sequence over
              every axis), three decode steps from len 131,070 across the
              first piece boundary; DeepSeek-V3 at full width with its 256
-             experts (its dense layer and one MoE layer of 61; the rows
-             over data, the capacity counted over both; experts and MLA's
-             heads over model, the experts' embed pieces joined over data
-             a group at a time), prefill_32k at 2 x 2,048 and four
-             decode_32k steps at 8 rows from len 20,000, held as lm_tp
-             holds them at MOE_HELD_SHARE of the positions, the
-             assignments each MoE call dropped (moe_apply's count, summed
-             over the data ranks) equal to the control's; then MIND at full
+             experts (its dense layer and one MoE layer of 61) and Arctic
+             with its 128 (one MoE layer of 35): the rows over data, the
+             capacity counted over both; experts and the attention heads
+             over model, the experts' embed pieces left cut over data
+             (each rank's partial products move activations; no weight
+             gathered, the bytes a MoE call moves recorded beside those
+             the join would move), prefill_32k at 2 x 2,048 and four
+             decode_32k steps at 8 rows from len 20,000 (Arctic's on
+             kernel #5 over each rank's cache piece), each after a warm
+             call, held as lm_tp holds them at MOE_HELD_SHARE of the
+             positions, the assignments each MoE call dropped
+             (moe_apply's count, summed over the data ranks) equal to the
+             control's; then MIND at full
              width with its item and profile rows over model: serve_p99
              (512 users), retrieval_cand (one user against 1,000,000
              items, top 100) and serve_bulk (262,144 users cut to
@@ -263,10 +268,13 @@ decode (``lm_tp_launches``, both ranks' Qwen3-0.6B steps;
 model; kernel #5 also timed at a rank's 16,384-position piece and its
 combine over two under ``lm_tp_pieces`` at Qwen3-0.6B's heads and
 ``tp_moe_pieces`` at Arctic's), on the tp_serve
-phase's ranks (``tp_serve_launches``: kernel #5 in long_500k's steps,
-kernel #4 in MIND's cells; kernel #5 also timed at one 131,072-position
-piece a rank and its combine over four under ``tp_serve_pieces``, kernel
-#4 at a model rank's row piece under ``tp_serve_local``), on Arctic's
+phase's ranks (``tp_serve_launches``: kernel #5 in long_500k's steps
+and in Arctic's decode steps over (2, 2), kernel #4 in MIND's cells;
+kernel #5 also timed at one 131,072-position piece a rank and its
+combine over four under ``tp_serve_pieces``, at Arctic's heads on a data
+rank's 4 rows in two 16,384-position pieces under
+``tp_serve_moe_pieces``, kernel #4 at a model rank's row piece under
+``tp_serve_local``), on Arctic's
 (``lm_moe_launches``), on MIND's train steps (``train_launches``;
 the bag's figures at the train shape under ``train_batch``), on the
 tp_train phase's ranks (``tp_train_launches``: kernel #4 in MIND's
@@ -438,15 +446,17 @@ TP_SERVE_STEPS = 3
 TP_SERVE_BULK = 16_384
 #: tp_serve's MoE models over the same mesh, each in lm_tp's form
 #: (TP_MODELS), ((n_layers, first_k_dense), serve_prefill (B, S), decode_32k
-#: steps): DeepSeek-V3 at full width with all 256 experts (128 a model rank,
-#: their embed dimension cut over data and joined a group at a time), its
-#: dense layer and one MoE layer of 61; prefill_32k cut to 2 x 2,048 (one
-#: row a data rank) at the published capacity factor, counted over both
-#: rows; decode_32k at LM_SLOTS rows (4 a data rank) from TP_LEN0 on the
-#: seeded cache of TP_T (its sequence over model).  The ranks make no warm
-#: call: each call joins a rank's 5.6 GB of expert pieces through the host
-#: (~20 s of gloo on one card), which dwarfs a first call's set-up
-TP_SERVE_MOE = {"deepseek-v3-671b": ((2, 1), (2, 2048), 4)}
+#: steps): DeepSeek-V3 at full width with all 256 experts (128 a model rank)
+#: at its dense layer and one MoE layer of 61, Arctic at full width with its
+#: 128 experts (64 a model rank, 6.7 GB of expert pieces a rank) at one MoE
+#: layer of 35; the experts' embed dimension stays cut over data, each rank's
+#: partial products moving activations (models.moe); prefill_32k cut to 2 x
+#: 2,048 (one row a data rank) at the published capacity factor, counted
+#: over both rows; decode_32k at LM_SLOTS rows (4 a data rank) from TP_LEN0
+#: on the seeded cache of TP_T (its sequence over model; kernel #5 on each
+#: rank's piece in Arctic's)
+TP_SERVE_MOE = {"deepseek-v3-671b": ((2, 1), (2, 2048), 4),
+                "arctic-480b": ((1, 0), (2, 2048), 4)}
 #: tp_serve's train case, after the serving cases in the same rank start:
 #: Qwen3-0.6B's train_4k at full width (d_model 1,024), 28 layers cut to
 #: TP_SERVE_TRAIN_LAYERS and 256 x 4,096 tokens to TP_SERVE_TRAIN_LM (a row
@@ -3348,11 +3358,13 @@ class _Routes(list):
     """Each ``moe_apply`` call's routes; ``dropped``, each call's count of
     its tokens' assignments past the capacity (``aux["dropped"]``, as the
     call counted them: over every expert, the ranks before it in the batch
-    order counted in)."""
+    order counted in); ``kept``, each call's (T, k) experts of its tokens'
+    assignments within the capacity (``aux["kept"]``), sorted, -1 for
+    each dropped one."""
 
     def __init__(self):
         super().__init__()
-        self.dropped = []
+        self.dropped, self.kept = [], []
 
 
 @contextlib.contextmanager
@@ -3370,10 +3382,12 @@ def recorded_routing():
     def recording(p, cfg, x, *args, **kw):
         probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
                               @ p["router"].float(), dim=-1)
-        seen.append(torch.topk(probs, cfg.moe.top_k).indices.sort(-1).values)
+        top = torch.topk(probs, cfg.moe.top_k).indices
+        seen.append(top.sort(-1).values)
         aux = {}
         out = inner(p, cfg, x, *args, aux=aux, **kw)
         seen.dropped.append(aux["dropped"])
+        seen.kept.append(torch.where(aux["kept"], top, -1).sort(-1).values)
         return out
 
     tfm.moe_apply = recording
@@ -3401,6 +3415,66 @@ def recorded_hidden():
         yield seen
     finally:
         tfm.lm_forward = inner
+
+
+@contextlib.contextmanager
+def recorded_traffic(params):
+    """Bytes through the port's collectives (``engine._Collectives``)
+    while a step runs: ``weight_bytes``, what a rank receives from the
+    all-gathers of tensors that share storage with a leaf of ``params`` (a
+    weight gathered as it is: serving gathers none), and ``moe``, for each
+    MoE call whose experts' embed pieces are cut over the batch axes
+    (``models.moe._expert_ffn``): the experts it computed, the
+    floating-point bytes this rank received from its all-gathers ((size -
+    1) x the input) and put into its all-reduces (the activations), and
+    the bytes the join of those experts' three pieces would bring."""
+    from repro_torch.core import engine
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_leaves
+
+    weights = {t.untyped_storage().data_ptr() for _, t in tree_leaves(params)}
+    seen, open_calls = {"weight_bytes": 0, "moe": []}, []
+    gather, reduce = engine._Collectives.all_gather, \
+        engine._Collectives.all_reduce
+    ffn = moe._expert_ffn
+
+    def all_gather(self, x, *a, **kw):
+        n = (self.size - 1) * x.numel() * x.element_size()
+        if x.untyped_storage().data_ptr() in weights:
+            seen["weight_bytes"] += n
+        if open_calls and x.is_floating_point():
+            open_calls[-1]["activation_bytes"] += n
+        return gather(self, x, *a, **kw)
+
+    def all_reduce(self, x, *a, **kw):
+        if open_calls and x.is_floating_point():
+            open_calls[-1]["activation_bytes"] += x.numel() * x.element_size()
+        return reduce(self, x, *a, **kw)
+
+    def expert_ffn(h, p, dp, used):
+        if dp is None or p["w_gate"].shape[1] == h.shape[-1]:
+            return ffn(h, p, dp, used)
+        n = int(used.sum())
+        one = sum(p[k][0].numel() * p[k][0].element_size()
+                  for k in ("w_gate", "w_up", "w_down"))
+        rec = {"experts_used": n, "activation_bytes": 0,
+               "join_bytes": (dp.size - 1) * n * one}
+        open_calls.append(rec)
+        try:
+            return ffn(h, p, dp, used)
+        finally:
+            open_calls.pop()
+            seen["moe"].append(rec)
+
+    engine._Collectives.all_gather = all_gather
+    engine._Collectives.all_reduce = all_reduce
+    moe._expert_ffn = expert_ffn
+    try:
+        yield seen
+    finally:
+        engine._Collectives.all_gather = gather
+        engine._Collectives.all_reduce = reduce
+        moe._expert_ffn = ffn
 
 
 def free_card(device) -> None:
@@ -3813,28 +3887,39 @@ def tp_reduced(base, cfg, spec: dict, model: dict) -> dict:
 
 def tp_hold(joined, want, routes, ref_routes, rows=slice(None)) -> dict:
     """Joined (B, S, V) logits against the control's ``want``, position by
-    position, on this rank's ``rows`` of the batch (``routes``: its MoE
-    layers' routes of their tokens): the largest |difference| over the
-    positions whose tokens took the control's experts in every MoE layer
-    (every position of a model without MoE; a rerouted token takes other
-    experts' output, so its logits are only counted), how many those are,
-    the last positions' argmax agreement, and the share of (token, MoE
-    layer) pairs routed as the control's (None without MoE)."""
+    position, on this rank's ``rows`` of the batch (``routes``, a
+    :class:`_Routes`: its MoE layers' routes of their tokens and the
+    experts each kept within the capacity; ``ref_routes`` the control's
+    ``(routes, kept)``): the largest |difference| over the positions whose
+    tokens took the control's experts and kept the same of them in every
+    MoE layer (every position of a model without MoE; a rerouted token
+    takes other experts' output, and one rerouted token moves the count
+    of its experts, so a token at an expert's capacity may be kept by one
+    and dropped by the other: such positions are only counted), how many
+    those are, how many took the control's experts (``routed``), the last
+    positions' argmax agreement, and the share of (token, MoE layer)
+    pairs routed as the control's (None without MoE)."""
     import torch
 
     joined, want = joined[rows], want[rows]
     B, S = joined.shape[:2]
     first = (rows.start or 0) * S
-    held = torch.ones((B, S), dtype=torch.bool)
+    routed = torch.ones((B, S), dtype=torch.bool)
+    kept = torch.ones((B, S), dtype=torch.bool)
     same = []
-    for got, ref in zip(routes, ref_routes):
+    for got, ref, got_kept, ref_kept in zip(routes, ref_routes[0],
+                                            routes.kept, ref_routes[1]):
         eq = (got.cpu() == ref[first:first + B * S]).all(-1)
-        held &= eq.reshape(B, S)
+        routed &= eq.reshape(B, S)
+        kept &= (got_kept.cpu() == ref_kept[first:first + B * S]).all(
+            -1).reshape(B, S)
         same.append(eq)
+    held = routed & kept
     want = want.to(joined.device).float()
     err = (joined.float() - want).abs().amax(-1)[held.to(joined.device)]
     return {"err": float(err.max()) if err.numel() else None,
-            "held": int(held.sum()), "positions": B * S,
+            "held": int(held.sum()), "routed": int(routed.sum()),
+            "positions": B * S,
             "argmax_equal": int((joined[:, -1].argmax(-1)
                                  == want[:, -1].argmax(-1)).sum()),
             "routes_alike": float(torch.cat(same).float().mean())
@@ -3885,7 +3970,7 @@ def tp_control(device, spec: dict, out_dir: str) -> dict:
                     caches = tp_cache(cfg, rows, T, P, range(P), device)
                     caches["len"] = torch.tensor(len0, dtype=torch.int32,
                                                  device=device)
-                ms, lg, rt, dr = [], [], [], []
+                ms, lg, rt, kp, dr = [], [], [], [], []
                 for tok in toks:
                     sync()
                     t = time.perf_counter()
@@ -3904,8 +3989,10 @@ def tp_control(device, spec: dict, out_dir: str) -> dict:
                           f"lm_tp {arch} control {cell} logits")
                     lg.append(logits.cpu())
                     rt.append([r.cpu() for r in routes])
+                    kp.append([r.cpu() for r in routes.kept])
                     dr.append([int(n) for n in routes.dropped])
-                ref[cell] = {"logits": lg, "routes": rt, "dropped": dr}
+                ref[cell] = {"logits": lg, "routes": rt, "kept": kp,
+                             "dropped": dr}
                 rec[f"{cell}_step_ms"] = ms
                 rec[f"{cell}_ms_per_step"] = float(np.mean(ms))
                 del caches, logits
@@ -3966,15 +4053,13 @@ def tp_model_rank(device, mesh, arch: str, spec: dict, run_dir: str,
             join = b if cell == "prefill" else dataclasses.replace(
                 b, out_shardings=b.out_shardings[0])
             c = {"rows": n, "tokens_a_step": toks[0].numel()}
-            warm_up = spec["models"][arch].get("warm", True)
             if cell == "prefill":
                 caches = None
-                if warm_up:
-                    b.fn(params, toks[0][:, :64])
+                b.fn(params, toks[0][:, :64])  # warm
             else:
                 axes = ("data", "model") if cell == "long" else "model"
                 index = mesh.axis_index(axes)
-                if cell == "decode" and warm_up:  # on a short cache
+                if cell == "decode":  # warm on a short cache
                     warm = tp_cache(cfg, n, 128 * P, P, [index], device)
                     warm["len"] = torch.tensor(5, dtype=torch.int32,
                                                device=device)
@@ -3991,12 +4076,13 @@ def tp_model_rank(device, mesh, arch: str, spec: dict, run_dir: str,
             collectives()
             fdk.reset_launch_counts()
             ms, holds, coll = [], [], {"s": 0.0, "calls": 0, "bytes": 0}
-            mine[cell], dropped = [], []
+            mine[cell], dropped, weight_bytes, moe_calls = [], [], 0, []
             for i, tok in enumerate(toks):
                 sync()
                 t = time.perf_counter()
                 with recorded_routing() as routes, \
-                        recorded_hidden() as hidden:
+                        recorded_hidden() as hidden, \
+                        recorded_traffic(params) as traffic:
                     if caches is None:
                         logits = b.fn(params, tok)
                     else:
@@ -4013,9 +4099,12 @@ def tp_model_rank(device, mesh, arch: str, spec: dict, run_dir: str,
                 check(bool(torch.isfinite(joined).all()),
                       f"lm_tp {arch} rank {mesh.rank} {cell} logits")
                 holds.append(tp_hold(joined, ref[cell]["logits"][i], routes,
-                                     ref[cell]["routes"][i], rows))
+                                     (ref[cell]["routes"][i],
+                                      ref[cell]["kept"][i]), rows))
                 mine[cell].append([r.cpu() for r in routes])
                 dropped.append([int(n) for n in routes.dropped])
+                weight_bytes += traffic["weight_bytes"]
+                moe_calls += traffic["moe"]
                 del joined
             alike = [h["routes_alike"] for h in holds
                      if h["routes_alike"] is not None]
@@ -4030,9 +4119,11 @@ def tp_model_rank(device, mesh, arch: str, spec: dict, run_dir: str,
                 max_abs_logit_err=[h["err"] for h in holds],
                 positions=sum(h["positions"] for h in holds),
                 positions_held=sum(h["held"] for h in holds),
+                positions_routed=sum(h["routed"] for h in holds),
                 argmax_equal=sum(h["argmax_equal"] for h in holds),
                 routing_agree_share=min(alike) if alike else None,
-                dropped=dropped, launches=dict(fdk.LAUNCHES))
+                dropped=dropped, launches=dict(fdk.LAUNCHES),
+                weight_bytes_gathered=weight_bytes, moe_calls=moe_calls)
             if caches is not None:
                 c["len_after"] = int(caches["len"])
             rec[cell] = c
@@ -4179,6 +4270,20 @@ def check_tp(spec: dict, run_dir: str, ranks: list, phase: str = "lm_tp",
                 check(worst <= LM_LOGITS_ATOL, f"{what}: {cell} logits "
                       f"differ from the control's by {worst} > "
                       f"{LM_LOGITS_ATOL}")
+                check(c["weight_bytes_gathered"] == 0, f"{what}: {cell} "
+                      f"gathered {c['weight_bytes_gathered']} weight bytes")
+                if cfg.moe is not None and spec["mesh"][0] > 1:
+                    # the pieces' partial products: every MoE call, each
+                    # moving less than the join of its experts would
+                    calls = c["moe_calls"]
+                    want = c["steps"] * (cfg.n_layers
+                                         - cfg.moe.first_k_dense)
+                    check(len(calls) == want, f"{what}: {cell} ran "
+                          f"{len(calls)} MoE calls on pieces, not {want}")
+                    for call in calls:
+                        check(call["activation_bytes"] < call["join_bytes"]
+                              or not call["experts_used"], f"{what}: "
+                              f"{cell} moved {call}")
                 if cfg.moe is not None:
                     check(c["routing_agree_share"] >= held_share,
                           f"{what}: {cell} routes "
@@ -4412,7 +4517,7 @@ def tp_serve_rank(run_dir: str, device_type: str) -> None:
         del params, caches, logits
         if card:
             free_card(device)
-    # ---- DeepSeek-V3: rows over data, experts and MLA's heads over model
+    # ---- the MoE models: rows over data, experts and heads over model
     if spec.get("moe"):
         rec["models"] = {arch: tp_model_rank(device, mesh, arch, spec["moe"],
                                              run_dir, collectives, sync)
@@ -4759,7 +4864,7 @@ def tp_serve_spec() -> dict:
                     "long": [LONG_T, TP_LONG_LEN0],
                     "models": {arch: {"depth": list(depth),
                                       "prefill": list(prefill), "steps": n,
-                                      "long_steps": 0, "warm": False}
+                                      "long_steps": 0}
                                for arch, (depth, prefill, n)
                                in TP_SERVE_MOE.items()}}}
 
@@ -4776,10 +4881,12 @@ def phase_tp_serve(device, spec: dict | None = None) -> dict:
     kernels once a layer a step and the bag in every MIND cell; the MoE
     models held as lm_tp holds them (:func:`check_tp`, at least
     :data:`MOE_HELD_SHARE` of the positions routed as the control's, each
-    rank's rows of the batch), their dropped assignments counted
-    (:func:`moe_drops`); the train case, its control after the MoE
-    models', by :func:`check_tp_serve_train`.  Returns the kernels'
-    launches summed over the ranks."""
+    rank's rows of the batch; no weight gathered, every MoE call on the
+    experts' embed pieces moving fewer bytes than their join; Arctic's
+    decode launching kernel #5 once a layer a step), their dropped
+    assignments counted (:func:`moe_drops`); the train case, its control
+    after the MoE models', by :func:`check_tp_serve_train`.  Returns the
+    kernels' launches summed over the ranks."""
     import torch
 
     from repro_torch.launch.ranks import run_ranks
@@ -4897,8 +5004,12 @@ def phase_tp_serve(device, spec: dict | None = None) -> dict:
                 total["embedding_bag"] = total.get("embedding_bag", 0) + n
             ranks.append(r)
         if spec.get("moe"):
-            # MLA's latent decode runs no kernel: no launch to add
-            check_tp(spec["moe"], tmp, ranks, "tp_serve", MOE_HELD_SHARE)
+            # Arctic's decode runs kernel #5 on each rank's cache piece
+            # (MLA's latent decode none)
+            _, moe = check_tp(spec["moe"], tmp, ranks, "tp_serve",
+                              MOE_HELD_SHARE)
+            for name, n in moe.items():
+                total[name] = total.get(name, 0) + n
             out["moe_drops"] = moe_drops(spec["moe"], tmp, ranks)
         if spec.get("train"):
             check_tp_serve_train(ranks, one["train"])
@@ -6582,6 +6693,10 @@ def decode_entries(device, launches) -> list:
     timed["tp_serve_pieces"], combine["tp_serve_pieces"] = piece_entries(
         device, 1, LONG_T, TP_SERVE_MESH[0] * TP_SERVE_MESH[1],
         TP_SERVE_LEN0, "tp_serve")
+    timed["tp_serve_moe_pieces"], combine["tp_serve_moe_pieces"] = \
+        piece_entries(device, LM_SLOTS // TP_SERVE_MESH[0], TP_T,
+                      TP_SERVE_MESH[1], TP_LEN0, "tp_serve arctic-480b",
+                      ARCTIC_HEADS)
     return [{
         "name": "flash_decode", "route": "cuda", "source": DECODE_SOURCE,
         "replaces": DECODE_REPLACES, "launches": launches["flash_decode"],

@@ -31,8 +31,9 @@ default, git-ignored):
   int8 moments, and with float32 moments every leaf replicated over the
   batch axes whose moments are cut there); the core-graph superstep's
   all-gather of the ``n x 4 B`` core plus its 4 B frontier count.
-  Tensor-parallel collectives, the experts' embed pieces joined for the
-  forward and the GNN's all-reduced edge sums are not modelled;
+  Tensor-parallel collectives, the experts' embed pieces joined for a
+  train step's forward, the activations a MoE layer moves on those pieces
+  while serving and the GNN's all-reduced edge sums are not modelled;
 * **roofline** against the H100 SXM data-sheet peaks at 700 W: 989 TFLOP/s
   dense bf16, 3.35 TB/s HBM, 450 GB/s NVLink each way.
 """

@@ -94,9 +94,10 @@ cache on model rank r, writes the token's k and v on the rank that holds
 ``len`` and merges the ranks' flash-decode partials (kernel #5 on each
 piece, its combine across the ranks).  The MoE configs
 hold experts ``[r * X / M, (r + 1) * X / M)`` on model rank r and route
-every token on every rank (``models.moe``, one all-reduce a layer); over
-D > 1 data ranks too, where a rank joins its experts' embed pieces over
-the batch axes a group of experts at a time; MLA
+every token on every rank (``models.moe``, one all-reduce a layer).  Over
+D > 1 data ranks, at any M, the experts' embed pieces stay cut over the
+batch axes: a rank computes the partial products of every data rank's
+tokens on its embed slice and moves activations, never weights; MLA
 (DeepSeek-V3) cuts ``wq_b``, ``wk_b``, ``wv_b`` and ``wo`` by heads and,
 decoding, merges every head's float32 partials over the ranks' latent
 cache pieces (``layers.decode_latent_split``).  The logits come out cut
@@ -683,8 +684,6 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
 
         def ranks(params, tokens):
             tp = _tp_of(cfg, mesh)
-            if tp is None:
-                params = _zip_map(_whole, params, p_shard)
             with torch.inference_mode():
                 return tfm.serve_prefill(params, cfg, tokens, tp,
                                          _batch_split(mesh))
@@ -723,10 +722,8 @@ def _build_lm(cfg: LMConfig, shape_name, step_kind, avals, mesh, opt,
         if long_ctx:  # the sequence over every rank, data-major
             seq = SequenceSplit(_comm(mesh, cache_t), mesh.axis_size(cache_t),
                                 mesh.axis_index(cache_t))
-        if tp is None:
-            params = _zip_map(_whole, params, p_shard)
         # long_500k's one row is whole on every rank: its MoE capacity is
-        # its own, the batch axes only join the experts' embed pieces
+        # its own, and the experts' partial products gather no tokens
         dp = _batch_split(mesh, rows=not long_ctx)
         with torch.inference_mode():
             return tfm.serve_decode(params, cfg, tokens, caches, tp, seq, dp)

@@ -132,11 +132,13 @@ class _RowPartial(torch.autograd.Function):
 
 
 def _mm_f32(a, b):
-    """``a @ b`` written in float32 from operands in their own dtype: on
-    the card ``torch.mm``'s ``out_dtype`` form (bf16 on the tensor cores),
-    on the CPU the float32 product."""
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
+    """``a @ b`` (matrices, or batches of them) written in float32 from
+    operands in their own dtype: on the card ``torch.mm``'s or
+    ``torch.bmm``'s ``out_dtype`` form (bf16 on the tensor cores), on the
+    CPU (and for float32 operands) the float32 product."""
+    if a.is_cuda and a.dtype != torch.float32:
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        return mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
 

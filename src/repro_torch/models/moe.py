@@ -31,25 +31,27 @@ one in the batch order (one all-gather of the ``(X,)`` counts, integers).
 A rank's buffer holds its own kept assignments, ``min(C, T)`` slots an
 expert.  ``long_500k``'s one row is whole on every rank (``rows`` false):
 its capacity is the rank's own.  Where the experts' embed dimension is cut
-over ``dp``'s ranks (``expert_embed``, serving), a group of experts at a
-time is joined over them before its products (:data:`JOIN_BYTES`): the
-experts that some rank's tokens reach, as the gathered counts tell every
-rank alike (a decode step's few tokens reach a fraction of them).
+over ``dp``'s ranks (``expert_embed``, serving), the weights stay where
+the placement puts them and activations move instead (:func:`_expert_ffn`):
+each rank takes every rank's buffer rows on its own embed slice, sums its
+float32 partial gate and up products with the other ranks' before the one
+rounding and the nonlinearity, computes its slice of the output columns
+and joins its own rows' columns from the others.  Only the experts that
+some rank's tokens reach move, as the gathered counts tell every rank
+alike.  Under autograd (training, whose step joins the pieces) that path
+raises.
 """
 from __future__ import annotations
 
 import torch
 
-from .layers import BatchSplit, TensorParallel, row_partial, swiglu, \
-    swiglu_hidden
+from .layers import BatchSplit, TensorParallel, _mm_f32, _tracked, \
+    row_partial, swiglu, swiglu_hidden
 from .params import Spec
 
 __all__ = ["moe_param_specs", "moe_capacity", "moe_apply"]
 
 F32 = torch.float32
-#: the experts' three matrices joined at a time over the batch axes where
-#: their embed dimension is cut over them: 12 of DeepSeek-V3's bf16 experts
-JOIN_BYTES = 1 << 30
 
 
 def moe_param_specs(cfg, L: int) -> dict:
@@ -83,31 +85,73 @@ def moe_capacity(m, T: int) -> int:
     return max(8, int(T * m.top_k / m.num_experts * m.capacity_factor))
 
 
-def _expert_ffn(h, p, dp: BatchSplit | None, used=None):
-    """This rank's experts' SwiGLU on their buffer h (Xl, C, E).  Weights
-    whose embed dimension is cut over ``dp``'s ranks are joined over them
-    for the experts of ``used`` (those with an assignment on some rank of
-    ``dp``: every other expert's buffer is empty everywhere, and no slot
-    reads its output), a group of experts at a time, so at most
-    :data:`JOIN_BYTES` of them are whole at once."""
+def _runs(idx: list) -> list:
+    """``idx`` (ascending) cut into runs of consecutive values: ``(a, b,
+    slice)``, the run ``idx[a:b]`` and the slice of those values."""
+    out, a = [], 0
+    for b in range(1, len(idx) + 1):
+        if b == len(idx) or idx[b] != idx[b - 1] + 1:
+            out.append((a, b, slice(idx[a], idx[b - 1] + 1)))
+            a = b
+    return out
+
+
+def _expert_ffn(h, p, dp: BatchSplit | None, used):
+    """This rank's experts' SwiGLU on their buffer h (Xl, C, E).
+
+    Where the experts' embed dimension is cut over ``dp``'s D ranks
+    (``w_gate`` / ``w_up`` (Xl, E/D, F), ``w_down`` (Xl, F, E/D), this
+    rank's slice ``[index * E/D, (index + 1) * E/D)``), only the experts of
+    ``used`` (those with an assignment on some rank of ``dp``: every other
+    expert's buffer is empty everywhere, and no slot reads its output) are
+    computed and moved, their rows of ``h`` first compacted:
+
+    1. with ``dp.rows`` every rank's rows are all-gathered (R = D blocks of
+       rows); without, the tokens are alike on every rank (R = 1);
+    2. the gate and up products of those rows on this rank's embed slice,
+       written in float32 (:func:`layers._mm_f32`), are summed over ``dp``
+       by one all-reduce and rounded once, then ``silu(g) * u``;
+    3. this rank's E/D columns of the down product for all R blocks (F is
+       whole: columns, not partial sums) are all-gathered, and the
+       columns of this rank's own block joined.
+
+    The weights never move.  Raises under autograd on such pieces
+    (ROADMAP item 8.4.2: the train step joins them first)."""
     wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
     E = h.shape[-1]
     if wg.shape[1] == E:
         return torch.bmm(torch.nn.functional.silu(torch.bmm(h, wg))
                          * torch.bmm(h, wu), wd)
-    F = wg.shape[-1]
-    group = max(1, JOIN_BYTES // (3 * E * F * wg.element_size()))
-    idx = used.nonzero()[:, 0].tolist()
+    if _tracked(h) or _tracked(wg):
+        raise NotImplementedError(
+            "MoE under autograd on expert pieces cut over the batch axes: "
+            "the partial products have no backward yet (ROADMAP item 8.4.2)")
     out = torch.zeros_like(h)
-    for a in range(0, len(idx), group):
-        sel = idx[a:a + group]
-        if sel == list(range(sel[0], sel[-1] + 1)):  # a run: no copies
-            sel = slice(sel[0], sel[-1] + 1)
-        g, u = (torch.cat(dp.comm.all_gather(w[sel]), dim=1) for w in (wg, wu))
-        d = torch.cat(dp.comm.all_gather(wd[sel]), dim=2)
-        out[sel] = torch.bmm(torch.nn.functional.silu(torch.bmm(h[sel], g))
-                             * torch.bmm(h[sel], u), d)
-        del g, u, d
+    idx = used.nonzero()[:, 0].tolist()
+    if not idx:
+        return out
+    runs = _runs(idx)
+    n = wg.shape[1]
+    lo = dp.index * n
+    hc = h[idx]                                                # (U, C, E)
+    U, C = hc.shape[:2]
+    blocks = dp.comm.all_gather(hc) if dp.rows else [hc]
+    x = torch.stack([b[..., lo:lo + n] for b in blocks], 1).reshape(U, -1, n)
+    del blocks
+    part = torch.empty((2, U, x.shape[1], wg.shape[-1]), dtype=F32,
+                       device=h.device)
+    for a, b, s in runs:
+        part[0, a:b] = _mm_f32(x[a:b], wg[s])
+        part[1, a:b] = _mm_f32(x[a:b], wu[s])
+    g, u = dp.comm.all_reduce(part).to(h.dtype)
+    del part
+    act = torch.nn.functional.silu(g) * u                      # (U, R*C, F)
+    cols = torch.empty((U, x.shape[1], n), dtype=h.dtype, device=h.device)
+    for a, b, s in runs:
+        torch.bmm(act[a:b], wd[s], out=cols[a:b])
+    own = dp.index if dp.rows else 0
+    cols = cols.reshape(U, -1, C, n)
+    out[idx] = torch.cat([c[:, own] for c in dp.comm.all_gather(cols)], -1)
     return out
 
 
@@ -120,7 +164,8 @@ def moe_apply(p, cfg, x, layer_idx=None, aux=None,
     over the ranks; with ``dp``, ``x`` is this rank's rows of a batch cut
     over the batch axes (module doc).  ``aux["dropped"]`` is the count
     of this rank's (token, expert) assignments past the capacity, over
-    every expert (an int64 tensor)."""
+    every expert (an int64 tensor), ``aux["kept"]`` (T, k) whether each
+    of them, in its token's top-k order, is within it."""
     m = cfg.moe
     B, S, E = x.shape
     T = B * S
@@ -151,6 +196,9 @@ def moe_apply(p, cfg, x, layer_idx=None, aux=None,
         keep = pos < C
     if aux is not None:  # this rank's tokens' assignments past C
         aux["dropped"] = (~keep).sum()
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        aux["kept"] = kept.reshape(T, k)
     tok = order // k
     if tp is not None:  # this rank's experts, numbered from 0
         Xl = p["w_gate"].shape[0]

@@ -1362,6 +1362,30 @@ def test_row_partial_under_autograd_is_the_float32_product(dev, shape):
     assert torch.equal(gh, wh) and torch.equal(gw, ww)
 
 
+@pytest.mark.parametrize("shape", [(4, 160, 7168, 2048), (3, 5, 64, 48)])
+def test_moe_partials_over_embed_slices_on_the_card(dev, shape):
+    """A MoE gate product whose experts' embed dimension is cut over two
+    data ranks (``layers._mm_f32`` on batches: ``torch.bmm``'s
+    ``out_dtype`` form of the bf16 operands): the float32 products of the
+    two embed slices, summed and rounded once to bf16, against the whole
+    bf16 product, within the bf16 tolerances the kernels are held to
+    (``SEGSUM_TOL``)."""
+    from repro_torch.models import layers
+
+    X, C, E, F = shape
+    g = torch.Generator(dev).manual_seed(E + C)
+    h = torch.randn((X, C, E), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((X, E, F), generator=g, device=dev) / E ** 0.5).to(
+        torch.bfloat16)
+    n = E // 2
+    parts = [layers._mm_f32(h[..., d * n:(d + 1) * n].contiguous(),
+                            w[:, d * n:(d + 1) * n].contiguous())
+             for d in range(2)]
+    assert all(p.dtype == torch.float32 for p in parts)
+    got = (parts[0] + parts[1]).to(torch.bfloat16)
+    _close(got, torch.bmm(h, w), SEGSUM_TOL["bfloat16"], str(shape))
+
+
 def test_moe_and_mla_decode_over_model_on_the_card(dev, tmp_path):
     """DeepSeek-V3's and Arctic's reduced configs in bf16, three decode_32k
     steps over a (1, 2) mesh of two gloo ranks sharing the card

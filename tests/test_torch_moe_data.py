@@ -31,6 +31,7 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -43,15 +44,19 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
-from repro_torch.models.moe import moe_capacity  # noqa: E402
+from repro_torch.models.layers import BatchSplit  # noqa: E402
+from repro_torch.models.moe import (moe_apply, moe_capacity,  # noqa: E402
+                                    moe_param_specs)
 from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
 from test_torch_tp import DECODE_STEPS, long_lengths, start_lengths  # noqa: E402
-from test_torch_tp_moe import (ARCTIC, DSV3, SKEWED, _inputs,  # noqa: E402
+from test_torch_tp_moe import (ARCTIC, DSV3, SKEW_FACTOR,  # noqa: E402
+                               SKEWED, SKEWED_EXPERTS, _inputs,
                                _one_device as serve_one_device, _params)
 from test_torch_tp_moe_train import (lm_batches, one_device,  # noqa: E402
                                      opt_kw, reference_env, reference_flat,
                                      save_case, skew)
-from test_torch_tp_train import _flat, _hold, draw_params  # noqa: E402
+from test_torch_tp_train import (_flat, _Group, _hold,  # noqa: E402
+                                 _ThreadComm, draw_params)
 from torch_pg_ranks import moment_faults, train_bundle  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -443,21 +448,231 @@ def test_skewed_prefill_drops_by_the_global_count(runs, layout):
         assert int(late.sum()) > 0, (n0, n1, C)
 
 
-def test_experts_embed_pieces_are_joined_a_group_at_a_time(runs):
-    """At (2, 2) serving gathers no weight piece but the experts' embed
-    pieces (``expert_embed`` over the data axis), of the experts that
-    some data rank's tokens reach: a prefill, whose tokens reach every
-    expert, joins their three matrices, one all-gather each a MoE layer
-    (the reduced experts make one group; a decode step's two tokens reach
-    at most four of Arctic's eight experts, and it joins theirs alone,
-    held by the decode cases' logits)."""
-    for name in serve_cases((2, 2)):
-        for rec in _records(runs, (2, 2), name):
-            names = rec["gathered_weights"]
-            assert set(names) <= {"layers.moe.w_gate", "layers.moe.w_up",
-                                  "layers.moe.w_down"}, name
-            if "prefill" in name:
-                assert len(names) == 3 * len(rec["routes"]), name
+@pytest.mark.parametrize("layout", LAYOUTS, ids=_layout_name)
+def test_serving_gathers_no_parameter(runs, layout):
+    """Serving leaves every weight piece where the placement puts it: no
+    all-gather of prefill, decode or long_500k takes a parameter's storage
+    (the experts' ``expert_embed`` pieces stay cut over the data axis;
+    ``torch_pg_ranks._GatherSpy``).  Fails with the pieces joined."""
+    for name in serve_cases(layout):
+        for r, rec in enumerate(_records(runs, layout, name)):
+            assert rec["weight_gathers"] == 0, (name, r)
+            assert rec["gathered_weights"] == [], (name, r)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=_layout_name)
+@pytest.mark.parametrize("arch", (DSV3, ARCTIC))
+def test_moe_layer_over_data_ranks_equals_one_device(runs, arch, layout):
+    """Each MoE call's output on each rank (its own rows; long_500k's row
+    whole) within 1e-5 of the one-device call's, in every serving case of
+    ``arch``.  Fails with the nonlinearity applied to a rank's float32
+    partial before the sum over the data axis, or with a rank's output
+    rows taken from another data rank's block of the gathered rows."""
+    D = layout[0]
+    lname = _layout_name(layout)
+    names = [n for n in serve_cases(layout) if n.startswith(arch)]
+    for name in names:
+        want = runs["one"][lname, name]["moe_out"]
+        for r, rec in enumerate(_records(runs, layout, name)):
+            assert len(rec["moe_outputs"]) == len(want) > 0, (name, r)
+            for i, (got, w) in enumerate(zip(rec["moe_outputs"], want)):
+                if "|long" not in name:
+                    w = _data_rows(w, layout, rec, w.shape[0] // D)
+                assert got.shape == w.shape, (name, r, i)
+                _close(got, w, ONE_DEVICE_TOL, f"{lname} {name} rank {r} "
+                       f"MoE call {i}")
+
+
+def dp_bytes(cfg, D: int, used: int, slots: int, rows: bool,
+             size: int) -> int:
+    """Bytes through the batch axes' collectives of one MoE call on a rank
+    whose experts' embed dimension is cut over its D data ranks (what an
+    all-gather brings from the other ranks; an all-reduce's input), for
+    ``used`` experts of the rank reached by some token and ``slots`` =
+    min(C, T) slots an expert: every data rank's buffer rows (with
+    ``rows``), the float32 gate and up partials of the R = D (or 1) blocks
+    of rows, and the E / D output columns of those blocks."""
+    E, F = cfg.d_model, cfg.moe.d_ff_expert
+    R = D if rows else 1
+    tokens = (D - 1) * used * slots * E * size if rows else 0
+    partials = 2 * R * used * slots * F * 4
+    columns = (D - 1) * used * R * slots * (E // D) * size
+    return tokens + partials + columns
+
+
+def join_bytes(cfg, D: int, used: int, size: int) -> int:
+    """Bytes a rank would bring from the other data ranks to join the
+    embed pieces of ``used`` experts' three matrices."""
+    return (D - 1) * used * 3 * (cfg.d_model // D) * cfg.moe.d_ff_expert * \
+        size
+
+
+def test_full_width_bytes_are_the_issue_count():
+    """:func:`dp_bytes` at DeepSeek-V3's full width over (2, 2), every
+    expert of a model rank used, at ``chip_smoke.py``'s prefill (2 x 2,048,
+    a row a data rank: C = 160): the buffer 293.6 MB, the partials 2 x
+    335.5 MB, the columns 293.6 MB, ~1.26 GB against the join's 5.64 GB."""
+    cfg = get_config(DSV3)
+    assert moe_capacity(cfg.moe, 2 * 2048) == 160
+    got = dp_bytes(cfg, 2, 128, 160, True, 2)
+    assert got == 293_601_280 + 2 * 335_544_320 + 293_601_280
+    assert join_bytes(cfg, 2, 128, 2) == 5_637_144_576 > 4 * got
+
+
+class _Threads(_ThreadComm):
+    """The collectives among rank threads: ``_ThreadComm``'s all-gather
+    and the sum of every thread's ``x``; ``moved`` counts the
+    floating-point bytes as :func:`dp_bytes` does."""
+
+    def __init__(self, group, index):
+        super().__init__(group, index)
+        self.moved = 0
+
+    def _count(self, x, times: int) -> None:
+        if x.is_floating_point():
+            self.moved += times * x.numel() * x.element_size()
+
+    def all_gather(self, x) -> list:
+        self._count(x, len(self.group.slots) - 1)
+        return super().all_gather(x)
+
+    def all_reduce(self, x, op: str = "sum"):
+        assert op == "sum"
+        self._count(x, 1)
+        out = super().all_gather(x)
+        for y in out[1:]:
+            out[0] += y
+        return out[0]
+
+
+def _moe_layer(arch: str, seed: int) -> tuple:
+    """``(cfg, one MoE layer's whole weights)`` of ``arch``'s reduced
+    config, drawn with numpy."""
+    cfg = get_config(arch).reduced()
+    return cfg, tree_map(lambda t: t[0], draw_params(
+        moe_param_specs(cfg, 1), seed))
+
+
+def _embed_piece(layer: dict, D: int, d: int) -> dict:
+    """``layer`` with its experts' embed dimension cut to rank ``d``'s
+    slice of D, as ``expert_embed`` places it."""
+    n = layer["w_gate"].shape[1] // D
+    return {**layer, "w_gate": layer["w_gate"][:, d * n:(d + 1) * n],
+            "w_up": layer["w_up"][:, d * n:(d + 1) * n],
+            "w_down": layer["w_down"][..., d * n:(d + 1) * n]}
+
+
+@pytest.mark.parametrize("tokens", [(8, 16), (1, 1)], ids=["rows", "one"])
+@pytest.mark.parametrize("rows", [True, False], ids=["cut", "whole"])
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("arch", (DSV3, ARCTIC))
+def test_cut_pieces_over_rank_threads(arch, D, rows, tokens):
+    """``moe_apply`` on D rank threads, each holding its embed slice of
+    every expert (D = 4 too, which the rank starts above leave out), its
+    batch rows cut over them or whole on each, Arctic's router skewed so
+    that its 128 tokens a rank drop assignments: the joined output within
+    1e-5 of one device's, its assignments kept at the capacity
+    (``aux["kept"]``) the one device's, and each rank's bytes
+    :func:`dp_bytes` of the shapes (an expert's slot count ``min(C, T)``,
+    C over the whole batch)."""
+    cfg, layer = _moe_layer(arch, 7 * D + rows)
+    if arch == ARCTIC:  # drops at the capacity (top-2 of 8 experts)
+        layer["router"][:, list(SKEWED_EXPERTS)] *= SKEW_FACTOR
+    b, S = tokens
+    B = b * D if rows else b
+    rng = np.random.default_rng(D)
+    x = torch.as_tensor(rng.normal(size=(B, S, cfg.d_model)).astype(
+        np.float32))
+    one = {}
+    with torch.inference_mode():
+        want = moe_apply(layer, cfg, x, aux=one)
+    group = _Group(D)
+    comms = [_Threads(group, d) for d in range(D)]
+    auxes = [{} for _ in range(D)]
+
+    def rank(d):
+        mine = x[d * b:(d + 1) * b] if rows else x
+        with torch.inference_mode():
+            return moe_apply(_embed_piece(layer, D, d), cfg, mine,
+                             aux=auxes[d],
+                             dp=BatchSplit(comms[d], D, d, rows))
+
+    with ThreadPoolExecutor(D) as pool:
+        outs = list(pool.map(rank, range(D)))
+    got = torch.cat(outs) if rows else outs[0]
+    _close(got, want, ONE_DEVICE_TOL, f"{arch} D={D}")
+    # each rank keeps the one device's assignments of its tokens
+    kept = torch.cat([a["kept"] for a in auxes]) if rows else \
+        auxes[0]["kept"]
+    assert bool(one["kept"].all()) == (arch != ARCTIC or b == 1)
+    assert torch.equal(kept, one["kept"])
+    assert [int(a["dropped"]) for a in auxes] == [
+        int((~a["kept"]).sum()) for a in auxes]
+    probs = torch.softmax(x.reshape(-1, cfg.d_model) @ layer["router"], -1)
+    used = torch.topk(probs, cfg.moe.top_k).indices.unique().numel()
+    slots = min(moe_capacity(cfg.moe, B * S), b * S)
+    for c in comms:
+        assert c.moved == dp_bytes(cfg, D, used, slots, rows, 4), \
+            (c.index, c.moved)
+
+
+def test_cut_pieces_under_autograd_raise():
+    """A MoE forward on expert pieces cut over the batch axes where
+    autograd records it raises, naming ROADMAP item 8.4.2, before any
+    collective: the partial products have no backward yet (a train step
+    joins the pieces first)."""
+    class Silent:
+        def all_gather(self, x):
+            raise AssertionError("a collective ran")
+
+        all_reduce = all_gather
+
+    cfg, layer = _moe_layer(ARCTIC, 3)
+    x = torch.zeros((1, 4, cfg.d_model), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="8.4.2"):
+        moe_apply(_embed_piece(layer, 2, 0), cfg, x,
+                  dp=BatchSplit(Silent(), 2, 0, rows=False))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=_layout_name)
+def test_activation_bytes_per_moe_layer(runs, layout):
+    """Each rank's floating-point bytes through the data axis's
+    collectives in each MoE call equal :func:`dp_bytes` of the shapes:
+    the experts of its model rank that some token of the call reaches
+    (the one device's routes), min(C, T) slots with C over the global
+    batch (long_500k: its one token, rows whole, nothing gathered).  In
+    the decode and long_500k cases they are below the join's bytes (the
+    reduced prefill's 32 rows a rank at d_model 64 move more than its
+    narrow weights; at full width see the test above).  Fails with an
+    expert no token reaches moved through a collective, or long_500k's
+    row gathered over the data axis as if it were cut."""
+    D, M = layout
+    cfg_of = {a: get_config(a).reduced() for a in (DSV3, ARCTIC)}
+    lname = _layout_name(layout)
+    for name, case in serve_cases(layout).items():
+        cfg = cfg_of[case["arch"]]
+        Xl = cfg.moe.num_experts // M
+        rows = "|long" not in name
+        one = runs["one"][lname, name]
+        recs = _records(runs, layout, name)
+        for r, rec in enumerate(recs):
+            m = rec["coords"]["model"]
+            group = tuple(q for q, o in enumerate(recs)
+                          if o["coords"]["model"] == m)
+            for i, (calls, routes) in enumerate(zip(rec["traffic"],
+                                                    one["routes"])):
+                T = routes.shape[0]
+                used = len({int(e) for e in routes.reshape(-1)
+                            if m * Xl <= int(e) < (m + 1) * Xl})
+                slots = min(moe_capacity(cfg.moe, T),
+                            T // D if rows else T)
+                got = sum(b for _, g, dtype, b in calls
+                          if g == group and "float" in dtype)
+                want = dp_bytes(cfg, D, used, slots, rows, 4)
+                what = f"{lname} {name} rank {r} MoE call {i}"
+                assert got == want, (what, got, want)
+                if "|prefill" not in name and used:
+                    assert got < join_bytes(cfg, D, used, 4), what
 
 
 # ----------------------------------------------------------- training

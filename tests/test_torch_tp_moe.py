@@ -120,7 +120,8 @@ def _inputs(case: dict, seed: int) -> dict:
 
 def _one_device(params, case, x):
     """The one-device step's logits (each step), final caches, and the
-    routes of its MoE layers and the assignments each dropped."""
+    routes of its MoE layers, the assignments each dropped and its
+    output."""
     b = steps.build_step(case["arch"], case["shape"], reduced=True)
     with _RouteSpy() as rs:
         if case["shape"] == "prefill_32k":
@@ -133,6 +134,7 @@ def _one_device(params, case, x):
                 logits.append(lg)
             out = {"logits": logits, "caches": caches}
     out["routes"], out["dropped"] = rs.routes, rs.dropped
+    out["moe_out"] = rs.outputs
     return out
 
 

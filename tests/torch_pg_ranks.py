@@ -606,19 +606,54 @@ def card_mind_train_case(out_dir: str) -> None:
                os.path.join(out_dir, f"card_mind_{dist.get_rank()}.pt"))
 
 
+class _Traffic:
+    """Records each ``all_gather`` and ``all_reduce`` call made while it is
+    entered: ``(op, the group's global ranks, dtype name, bytes)``, the
+    bytes those a rank receives from the others for an all-gather
+    (``(size - 1)`` times its input) and its input for an all-reduce."""
+
+    def __init__(self):
+        self.calls = []
+        self._orig = dist.all_gather, dist.all_reduce
+
+    def _group(self, kw) -> tuple:
+        return tuple(dist.get_process_group_ranks(kw["group"]))
+
+    def __enter__(self):
+        gather, reduce = self._orig
+
+        def all_gather(out, x, *a, **kw):
+            self.calls.append(("all_gather", self._group(kw), str(x.dtype),
+                               (len(out) - 1) * x.numel() * x.element_size()))
+            return gather(out, x, *a, **kw)
+
+        def all_reduce(x, *a, **kw):
+            self.calls.append(("all_reduce", self._group(kw), str(x.dtype),
+                               x.numel() * x.element_size()))
+            return reduce(x, *a, **kw)
+
+        dist.all_gather, dist.all_reduce = all_gather, all_reduce
+        return self
+
+    def __exit__(self, *exc):
+        dist.all_gather, dist.all_reduce = self._orig
+
+
 class _RouteSpy:
     """Records each ``moe_apply`` call of the transformer: its input (the
     tensor every model rank must hold alike), the top-k expert ids it
     routes that input to, computed as ``moe_apply`` computes them, the
     batch split it was given (``(size, index, rows)`` of its ``dp``, or
-    None) and the assignments it dropped (``aux["dropped"]``: this rank's
-    tokens' assignments past the capacity, over every expert)."""
+    None), the assignments it dropped (``aux["dropped"]``: this rank's
+    tokens' assignments past the capacity, over every expert), its output
+    and the collectives it made (:class:`_Traffic`'s records)."""
 
     def __init__(self):
         from repro_torch.models import transformer
 
         self.module, self.inputs, self.routes = transformer, [], []
-        self.splits, self.dropped = [], []
+        self.splits, self.dropped, self.outputs = [], [], []
+        self.traffic = []
         self._orig = transformer.moe_apply
 
     def __enter__(self):
@@ -633,8 +668,11 @@ class _RouteSpy:
             self.splits.append(None if dp is None
                                else (dp.size, dp.index, dp.rows))
             aux = {}
-            out = self._orig(p, cfg, x, *a, aux=aux, **kw)
+            with _Traffic() as traffic:
+                out = self._orig(p, cfg, x, *a, aux=aux, **kw)
             self.dropped.append(int(aux["dropped"]))
+            self.outputs.append(out.detach().clone())
+            self.traffic.append(traffic.calls)
             return out
 
         self.module.moe_apply = spy
@@ -721,6 +759,7 @@ def _serve_case(mesh, case: dict, args: dict, params_dir: str,
     rec["gathered_weights"] = spy.names
     rec["moe_inputs"], rec["routes"] = rs.inputs, rs.routes
     rec["splits"], rec["dropped"] = rs.splits, rs.dropped
+    rec["moe_outputs"], rec["traffic"] = rs.outputs, rs.traffic
     return rec
 
 
